@@ -16,6 +16,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from physicedit_torch.kernels.quant_matmul import W4Linear
+
 
 class Leaf(nn.Module):
     """Named 1-D parameters of a JAX leaf dict such as ``{"scale": [d]}``
@@ -67,20 +69,33 @@ def _tensor(arr, like: torch.Tensor) -> torch.Tensor:
 
 
 @torch.no_grad()
-def load_linear_(lin: nn.Linear, p: dict) -> None:
-    """Copy a JAX ``{"w": [in, out], "b": [out]}`` leaf into ``lin``.
+def load_linear_(lin: nn.Module, p: dict) -> None:
+    """Copy a JAX ``{"w": [in, out], "b": [out]}`` leaf into an ``nn.Linear``,
+    or a packed-int4 ``{"w4": [in/2, out], "w_scale": [out], "b"}`` leaf into
+    a :class:`W4Linear` (``w4``
+    transposed to the port's ``[out, in/2]``, the bytes unchanged).
 
-    The quantized leaves of the JAX package (``w_q`` for W8A8, ``w4`` for
-    packed int4) belong to the quantized lane, which is not ported yet."""
-    if "w_q" in p or "w4" in p:
+    The W8A8 leaves of the JAX package (``w_q``) belong to a lane that is
+    not ported yet."""
+    if "w_q" in p:
         raise NotImplementedError(
-            "quantized linear leaves (w_q / w4) are not ported; carry the "
-            "bf16 or fp32 weights instead")
-    w = np.asarray(p["w"], np.float32)
-    if w.shape != (lin.in_features, lin.out_features):
-        raise ValueError(f"linear leaf {w.shape} does not fit "
-                         f"[{lin.in_features}, {lin.out_features}]")
-    lin.weight.copy_(_tensor(w.T, lin.weight))
+            "W8A8 linear leaves (w_q) are not ported; carry the float or "
+            "packed-int4 weights instead")
+    if isinstance(lin, W4Linear) != ("w4" in p):
+        raise ValueError(f"a leaf with keys {sorted(p)} does not fit {type(lin).__name__}")
+    if "w4" in p:
+        w4 = np.asarray(p["w4"]).astype(np.int8)
+        if w4.shape != (lin.in_features // 2, lin.out_features):
+            raise ValueError(f"w4 leaf {w4.shape} does not fit "
+                             f"[{lin.in_features // 2}, {lin.out_features}]")
+        lin.w4.copy_(torch.from_numpy(np.ascontiguousarray(w4.T)))
+        lin.w_scale.copy_(torch.from_numpy(np.array(p["w_scale"], np.float32)))
+    else:
+        w = np.asarray(p["w"], np.float32)
+        if w.shape != (lin.in_features, lin.out_features):
+            raise ValueError(f"linear leaf {w.shape} does not fit "
+                             f"[{lin.in_features}, {lin.out_features}]")
+        lin.weight.copy_(_tensor(w.T, lin.weight))
     if lin.bias is not None:
         lin.bias.copy_(_tensor(p["b"], lin.bias))
     elif "b" in p:

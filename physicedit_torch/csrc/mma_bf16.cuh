@@ -10,9 +10,7 @@
 // the two products of attention.
 #pragma once
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "common.cuh"
 
 namespace physicedit {
 
@@ -148,7 +146,3 @@ __device__ __forceinline__ void store_rows(uint16_t* out, long off_g, long off_g
 }
 
 }  // namespace physicedit
-
-extern "C" const char* physicedit_cuda_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
-}

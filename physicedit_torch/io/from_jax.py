@@ -5,13 +5,18 @@ arrays or anything ``np.asarray`` accepts.  The port's modules name their
 children after the tree's keys, so one walk loads any model:
 
 - ``{"w": [in, out], "b"}`` -> ``nn.Linear`` (transposed to ``[out, in]``),
+- ``{"w4": [in/2, out], "w_scale", "b"}`` -> ``W4Linear`` (the packed int4
+  lane; it takes the ``nn.Linear``'s place),
 - ``{"w": HWIO, "b"}`` -> ``nn.Conv2d`` (to OIHW),
 - stacked layer trees (leaves ``[L, ...]`` under ``blocks`` / ``layers``)
   -> ``nn.ModuleList`` (unstacked),
 - any other array -> the parameter of that name.
 
-Every parameter of the module must be covered by the tree.  The configs are
-rebuilt from the JAX config dataclasses by field name.
+Every parameter and buffer of the module must be covered by the tree.  The
+text model takes the layout of its tree first: fused ``qkv`` / ``gate_up``
+projections and the int8 embedding table (``{"e8", "e_scale"}``) of the
+quantized lane.  The configs are rebuilt from the JAX config dataclasses by
+field name.
 """
 
 from __future__ import annotations
@@ -23,9 +28,11 @@ import torch
 from torch import nn
 
 from physicedit_torch.core.params import load_conv_, load_linear_, materialize
+from physicedit_torch.kernels.quant_matmul import W4Linear
 from physicedit_torch.models.adapters import DualAdapter
 from physicedit_torch.models.dit import DiT, DiTConfig
-from physicedit_torch.models.qwen_vl import QwenVLText, QwenVLTextConfig
+from physicedit_torch.models.qwen_vl import (Int8Embedding, QwenVLText, QwenVLTextConfig,
+                                             fuse_decode_projections)
 from physicedit_torch.models.qwen_vl_vision import QwenVLVision, QwenVLVisionConfig
 from physicedit_torch.models.vae import VAE, VAEConfig
 
@@ -53,14 +60,20 @@ def load_tree_(module: nn.Module, tree: dict) -> int:
             if len(subs) != len(target):
                 raise ValueError(f"{key}: {len(subs)} entries for {len(target)} modules")
             n += sum(load_tree_(m, t) for m, t in zip(target, subs))
-        elif isinstance(target, nn.Linear):
+        elif isinstance(target, (nn.Linear, W4Linear)):
+            if "w4" in val and isinstance(target, nn.Linear):
+                target = W4Linear(target.in_features, target.out_features,
+                                  bias=target.bias is not None, dtype=target.weight.dtype,
+                                  device=target.weight.device)
+                setattr(module, key, target)
             load_linear_(target, val)
-            n += 1 + (target.bias is not None)
+            n += 1 + isinstance(target, W4Linear) + (target.bias is not None)
         elif isinstance(target, nn.Conv2d):
             load_conv_(target, val)
             n += 2
-        elif isinstance(target, nn.Parameter):
-            arr = np.array(val, np.float32)
+        elif isinstance(target, torch.Tensor):      # a parameter or a buffer
+            arr = np.asarray(val)
+            arr = arr.astype(np.int8 if target.dtype == torch.int8 else np.float32)
             if arr.shape != tuple(target.shape):
                 raise ValueError(f"{key}: {arr.shape} != {tuple(target.shape)}")
             target.copy_(torch.from_numpy(arr).to(target.device, target.dtype))
@@ -70,13 +83,15 @@ def load_tree_(module: nn.Module, tree: dict) -> int:
     return n
 
 
-def _carry(module: nn.Module, tree: dict, device) -> nn.Module:
+def _carry(module: nn.Module, tree: dict, device, prepare=None) -> nn.Module:
     module = materialize(module, device)
+    if prepare is not None:
+        prepare(module)
     n = load_tree_(module, tree)
-    expected = sum(1 for _ in module.parameters())
+    expected = len(list(module.parameters())) + len(list(module.buffers()))
     if n != expected:
         raise ValueError(f"{type(module).__name__}: the tree set {n} of "
-                         f"{expected} parameters")
+                         f"{expected} parameters and buffers")
     return module.eval()
 
 
@@ -89,8 +104,23 @@ def vae_from_jax(params: dict, cfg, dtype=torch.float32, device="cpu") -> VAE:
 
 
 def text_from_jax(params: dict, cfg, dtype=torch.float32, device="cpu") -> QwenVLText:
+    layers = params["layers"]
+    first = layers[0] if isinstance(layers, (list, tuple)) else layers
+
+    def prepare(text):
+        # give the module the layout of the tree; the values are loaded next
+        if "qkv" in first or "gate_up" in first["mlp"]:
+            fuse_decode_projections(text)
+        if isinstance(params["embed"], dict):
+            dev = text.norm.scale.device
+            del text.embed
+            text.embed = Int8Embedding(
+                torch.empty(np.shape(params["embed"]["e8"]), dtype=torch.int8, device=dev),
+                torch.empty(np.shape(params["embed"]["e_scale"]), dtype=torch.bfloat16,
+                            device=dev))
+
     return _carry(QwenVLText(config_from_jax(cfg, QwenVLTextConfig), dtype),
-                  params, device)
+                  params, device, prepare)
 
 
 def vision_from_jax(params: dict, cfg, dtype=torch.float32,
@@ -123,4 +153,4 @@ def pipeline_from_jax(jpipe, device="cpu"):
         boi_token_id=jpipe.boi_token_id, eoi_token_id=jpipe.eoi_token_id,
         image_pad_id=jpipe.image_pad_id, vision_start_id=jpipe.vision_start_id,
         edit_drop_idx=jpipe.edit_drop_idx, rope_axes=tuple(jpipe.rope_axes),
-        txt_len_bucket=jpipe.txt_len_bucket)
+        txt_len_bucket=jpipe.txt_len_bucket, kv_int8=jpipe.kv_int8)

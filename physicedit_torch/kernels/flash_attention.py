@@ -69,14 +69,6 @@ def _mask_arg(key_mask: torch.Tensor | None, b: int, s: int, name: str):
     return key_mask.to(torch.uint8).contiguous()
 
 
-def _ptr(t: torch.Tensor | None) -> ctypes.c_void_p:
-    return ctypes.c_void_p(None if t is None else t.data_ptr())
-
-
-def _stream() -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
-
-
 # ---------------------------------------------------------------------------
 # K1: fixed-max joint attention (DiT)
 # ---------------------------------------------------------------------------
@@ -137,13 +129,11 @@ def fixedmax_attention(q, k, v, key_mask=None, clamp: bool = True,
     qs = _prescale(q).contiguous()
     out = torch.empty_like(q)
     l = torch.empty((b, n, sq), dtype=torch.float32, device=q.device) if return_l else None
-    lib = _build.load("fixedmax_attention")
-    fn = lib.fixedmax_attention_bf16
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    rc = fn(_ptr(qs), _ptr(k), _ptr(v), _ptr(mask), _ptr(out), _ptr(l),
-            b, n, sq, sk, int(bool(clamp)), _stream())
-    _build.check(lib, rc, "fixedmax_attention")
+    ptr = _build.ptr
+    _build.launch("fixedmax_attention", "fixedmax_attention_bf16",
+                  [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5,
+                  ptr(qs), ptr(k), ptr(v), ptr(mask), ptr(out), ptr(l),
+                  b, n, sq, sk, int(bool(clamp)))
     LAUNCHES["fixedmax_attention"] += 1
     return (out, l) if return_l else out
 
@@ -181,11 +171,9 @@ def gqa_causal_attention(q, k, v, key_mask):
                          f"group onto q {tuple(q.shape)}")
     mask = _mask_arg(key_mask, b, s, "gqa_causal_attention")
     out = torch.empty((b, s, n * HEAD_DIM), dtype=q.dtype, device=q.device)
-    lib = _build.load("gqa_causal_attention")
-    fn = lib.gqa_causal_attention_bf16
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    rc = fn(_ptr(q), _ptr(k), _ptr(v), _ptr(mask), _ptr(out), b, s, n, kv, _stream())
-    _build.check(lib, rc, "gqa_causal_attention")
+    ptr = _build.ptr
+    _build.launch("gqa_causal_attention", "gqa_causal_attention_bf16",
+                  [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4,
+                  ptr(q), ptr(k), ptr(v), ptr(mask), ptr(out), b, s, n, kv)
     LAUNCHES["gqa_causal_attention"] += 1
     return out

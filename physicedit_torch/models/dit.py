@@ -6,6 +6,12 @@ the host (``ops/rope.py``); text padding is a key-side mask, so the CFG
 positive and negative rows ride one batch.  The joint attention runs
 through kernel K1 (``kernels/flash_attention.fixedmax_attention``).
 
+With packed-int4 block weights (``PhysicEditPipeline.quantize_``) a block
+takes the fused path of the JAX package: K4 ``ln_mod_quant`` feeds the QKV
+and fc1 projections, K5 ``gelu_quant`` feeds fc2 and K6 ``transpose_quant``
+feeds the attention output projections, each straight into
+``w4a8_linear_q``.
+
 Module attribute names follow the JAX parameter tree, so ``io/from_jax.py``
 can carry weights across by name.
 """
@@ -21,6 +27,8 @@ from torch import nn
 
 from physicedit_torch.core.params import Leaf, linear
 from physicedit_torch.kernels.flash_attention import CLAMP, LOG2E, fixedmax_attention
+from physicedit_torch.kernels.fused_quant import gelu_quant, ln_mod_quant, transpose_quant
+from physicedit_torch.kernels.quant_matmul import W4Linear, w4a8_linear_q
 from physicedit_torch.ops.norms import approximate_gelu, layer_norm, rms_norm
 from physicedit_torch.ops.rope import apply_rope
 
@@ -59,8 +67,24 @@ def _modulate(x, shift, scale, eps):
     return layer_norm(x, eps=eps) * (1.0 + scale[:, None, :]) + shift[:, None, :]
 
 
-def _mlp(p: nn.ModuleDict, x):
-    return p["fc2"](approximate_gelu(p["fc1"](x)))
+def _mod_linear(lin, x, shift, scale, eps, fused: bool):
+    """``lin(modulate(x))``; on the fused path K4 makes the int8 input."""
+    if fused and isinstance(lin, W4Linear):
+        fq = ln_mod_quant(x, shift, scale, eps)
+        if fq is not None:
+            return w4a8_linear_q(lin, *fq, x.dtype)
+    return lin(_modulate(x, shift, scale, eps))
+
+
+def _mlp(p: nn.ModuleDict, x, shift, scale, eps, fused: bool):
+    """``fc2(gelu(fc1(modulate(x))))``; on the fused path K5 makes fc2's
+    int8 input."""
+    h = _mod_linear(p["fc1"], x, shift, scale, eps, fused)
+    if fused and isinstance(p["fc2"], W4Linear):
+        gq = gelu_quant(h)
+        if gq is not None:
+            return w4a8_linear_q(p["fc2"], *gq, x.dtype)
+    return p["fc2"](approximate_gelu(h))
 
 
 class DiTBlock(nn.Module):
@@ -99,12 +123,14 @@ class DiTBlock(nn.Module):
         s_t = text.shape[1]
         n, hd, eps = cfg.num_heads, cfg.head_dim, cfg.eps
         a = self.attn
+        # the JAX package's use_fq: packed block weights the kernels can tile
+        fq = isinstance(a["img_qkv"], W4Linear) and (a["img_qkv"].in_features // 2) % 128 == 0
 
         im_sh1, im_sc1, im_g1, im_sh2, im_sc2, im_g2 = self.img_mod(temb_silu).chunk(6, -1)
         tx_sh1, tx_sc1, tx_g1, tx_sh2, tx_sc2, tx_g2 = self.txt_mod(temb_silu).chunk(6, -1)
 
-        img_qkv = a["img_qkv"](_modulate(image, im_sh1, im_sc1, eps))
-        txt_qkv = a["txt_qkv"](_modulate(text, tx_sh1, tx_sc1, eps))
+        img_qkv = _mod_linear(a["img_qkv"], image, im_sh1, im_sc1, eps, fq)
+        txt_qkv = _mod_linear(a["txt_qkv"], text, tx_sh1, tx_sc1, eps, fq)
         iq, ik, iv = img_qkv.view(b, s_i, 3, n, hd).permute(2, 0, 3, 1, 4)
         tq, tk, tv = txt_qkv.view(b, s_t, 3, n, hd).permute(2, 0, 3, 1, 4)
 
@@ -122,20 +148,38 @@ class DiTBlock(nn.Module):
         v = torch.cat([tv, iv], dim=2)
         out = fixedmax_attention(q, k, v, key_mask=joint_key_mask, clamp=attn_clamp)
 
+        # K6: the heads-to-features transpose and the row quantize in one pass
         if slim_base:
-            img_o = a["to_out"](out.transpose(1, 2).reshape(b, slim_base, d))
+            if fq and isinstance(a["to_out"], W4Linear):
+                fq_attn = transpose_quant(out)
+                if fq_attn is None:
+                    # the JAX package has no unfused path here either
+                    raise ValueError(f"transpose_quant cannot tile the slim last block's "
+                                     f"{slim_base} rows")
+                img_o = w4a8_linear_q(a["to_out"], *fq_attn, image.dtype)
+            else:
+                img_o = a["to_out"](out.transpose(1, 2).reshape(b, slim_base, d))
             image = image[:, :slim_base] + im_g1[:, None, :] * img_o
-            image = image + im_g2[:, None, :] * _mlp(
-                self.img_mlp, _modulate(image, im_sh2, im_sc2, eps))
+            image = image + im_g2[:, None, :] * _mlp(self.img_mlp, image, im_sh2,
+                                                     im_sc2, eps, fq)
             return None, image
 
-        out = out.transpose(1, 2).reshape(b, s_t + s_i, d)
-        image = image + im_g1[:, None, :] * a["to_out"](out[:, s_t:])
-        text = text + tx_g1[:, None, :] * a["to_add_out"](out[:, :s_t])
-        image = image + im_g2[:, None, :] * _mlp(
-            self.img_mlp, _modulate(image, im_sh2, im_sc2, eps))
-        text = text + tx_g2[:, None, :] * _mlp(
-            self.txt_mlp, _modulate(text, tx_sh2, tx_sc2, eps))
+        fq_attn = None
+        if fq and isinstance(a["to_out"], W4Linear) and isinstance(a["to_add_out"], W4Linear):
+            fq_attn = transpose_quant(out)
+        if fq_attn is not None:
+            q_all, sc_all = fq_attn
+            img_o = w4a8_linear_q(a["to_out"], q_all[:, s_t:], sc_all[:, s_t:], image.dtype)
+            txt_o = w4a8_linear_q(a["to_add_out"], q_all[:, :s_t], sc_all[:, :s_t],
+                                  image.dtype)
+        else:
+            out = out.transpose(1, 2).reshape(b, s_t + s_i, d)
+            img_o = a["to_out"](out[:, s_t:])
+            txt_o = a["to_add_out"](out[:, :s_t])
+        image = image + im_g1[:, None, :] * img_o
+        text = text + tx_g1[:, None, :] * txt_o
+        image = image + im_g2[:, None, :] * _mlp(self.img_mlp, image, im_sh2, im_sc2, eps, fq)
+        text = text + tx_g2[:, None, :] * _mlp(self.txt_mlp, text, tx_sh2, tx_sc2, eps, fq)
         return text, image
 
 

@@ -11,7 +11,11 @@ package's own (``pipeline/prompt.py``, ``pipeline/vl_host.py``,
 ``sampling/flow_match.py``), imported rather than copied.
 
 Each call leaves its stage times, on the host clock around work that ends in
-a device synchronise, in ``self.timings`` (milliseconds).
+a device synchronise, in ``self.timings`` (milliseconds), beside the token
+counts that set the stages' shapes.
+
+:meth:`PhysicEditPipeline.quantize_` turns a loaded pipeline into the JAX
+package's ``quantize="int4"`` serving lane, in place.
 """
 
 from __future__ import annotations
@@ -22,9 +26,11 @@ import time
 import numpy as np
 import torch
 
+from physicedit_torch.kernels.quant_matmul import DIT_OUTER_KEYS, quantize_module_int4
 from physicedit_torch.models import vae as m_vae
 from physicedit_torch.models.dit import DiT, attn_clamp_needed
-from physicedit_torch.models.qwen_vl import QwenVLText
+from physicedit_torch.models.qwen_vl import (QwenVLText, fuse_decode_projections,
+                                             quantize_embedding_int8)
 from physicedit_torch.models.qwen_vl_vision import QwenVLVision
 from physicedit_torch.ops import rope as m_rope
 from physicedit_torch.ops.patchify import patchify
@@ -44,7 +50,8 @@ class PhysicEditPipeline:
                  eoi_token_id=None, image_pad_id: int = IMAGE_PAD_ID,
                  vision_start_id: int = VISION_START_ID,
                  edit_drop_idx: int = P.EDIT_DROP_IDX,
-                 rope_axes: tuple = m_rope.AXES_DIM, txt_len_bucket: int = 64):
+                 rope_axes: tuple = m_rope.AXES_DIM, txt_len_bucket: int = 64,
+                 kv_int8: bool = False):
         self.dit, self.vae, self.text, self.vision = dit, vae, text, vision
         self.adapter = adapter
         self.tokenizer = tokenizer
@@ -55,17 +62,41 @@ class PhysicEditPipeline:
         self.edit_drop_idx = edit_drop_idx
         self.rope_axes = rope_axes
         self.txt_len_bucket = txt_len_bucket
+        self.kv_int8 = kv_int8          # int8 reasoner KV cache (the W4 lane's)
         self.t_min, self.t_max = fm.adapter_t_range()
         # load-time decision (models/dit.attn_clamp_needed)
         self.attn_clamp = attn_clamp_needed(dit)
         self.timings: dict = {}
 
     def to(self, device) -> "PhysicEditPipeline":
-        """Move every model to ``device``, keeping the working dtype."""
+        """Move every model to ``device``.  Nothing is cast: the models are
+        built in the working dtype, and the quantized lane's int8 weights
+        and fp32 scales keep theirs."""
         self.device = torch.device(device)
         for m in (self.dit, self.vae, self.text, self.vision, self.adapter):
             if m is not None:
-                m.to(device=self.device, dtype=self.dtype)
+                m.to(device=self.device)
+        return self
+
+    @torch.no_grad()
+    def quantize_(self, mode: str = "int4") -> "PhysicEditPipeline":
+        """The body of the JAX package's ``from_pretrained(quantize=...)``
+        branch, applied in place, one layer at a time.
+
+        ``"int4"`` / ``"w4"``: the DiT blocks packed int4 (the outer leaves
+        ``DIT_OUTER_KEYS`` stay in the working dtype); the VL text model
+        packed int4 with fused qkv / gate_up projections and an int8 token
+        table, and the reasoner's KV cache int8; the ViT packed int4.  The
+        adapter and the VAE stay as they are.  ``"int8"`` (W8A8) is not
+        ported."""
+        if mode == "int8":
+            raise NotImplementedError("quantize='int8' (W8A8, ops/quant.py) is not ported")
+        if mode not in ("int4", "w4"):
+            raise ValueError(f"unknown quantize mode: {mode!r}")
+        quantize_module_int4(self.dit, skip_top=DIT_OUTER_KEYS)
+        quantize_embedding_int8(fuse_decode_projections(quantize_module_int4(self.text)))
+        self.kv_int8 = True
+        quantize_module_int4(self.vision)
         return self
 
     @contextlib.contextmanager
@@ -232,17 +263,17 @@ class PhysicEditPipeline:
             pos_p[:, i, s_pad - s:] = pos
             attn_mask[i, s_pad - s:] = True
             start_rope[i] = int(pos.max()) + 1
-        logits, kparts, vparts = [], [], []
+        logits, parts = [], []
         with self._timed("reasoner_prefill"):
             for r in range(b):
-                lg, (kc, vc), _ = self.text.prefill(
+                lg, cache, _ = self.text.prefill(
                     self._tensor(embeds_p[r:r + 1]),
                     self._tensor(pos_p[:, r:r + 1], torch.long),
-                    self._tensor(attn_mask[r:r + 1], torch.bool), max_total)
+                    self._tensor(attn_mask[r:r + 1], torch.bool), max_total,
+                    kv_int8=self.kv_int8)
                 logits.append(lg)
-                kparts.append(kc)
-                vparts.append(vc)
-        caches = (torch.cat(kparts, dim=1), torch.cat(vparts, dim=1))
+                parts.append(cache)
+        caches = tuple(torch.cat([p[i] for p in parts], dim=1) for i in range(len(parts[0])))
         first = torch.cat(logits).argmax(-1)
         key_mask = self._tensor(np.concatenate(
             [attn_mask, np.zeros((b, max_total - s_pad), bool)], axis=1), torch.bool)

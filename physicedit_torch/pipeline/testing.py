@@ -129,7 +129,12 @@ def random_pipeline(dims: PipelineDims, device="cpu", dtype=torch.float32,
 
 
 def build_random_pipeline(size: str = "tiny", device="cpu",
-                          generator: torch.Generator | None = None) -> PhysicEditPipeline:
-    """``"tiny"`` in fp32 or ``"full"`` in bf16, with random weights."""
+                          generator: torch.Generator | None = None,
+                          quantize: str | None = None) -> PhysicEditPipeline:
+    """``"tiny"`` in fp32 or ``"full"`` in bf16, with random weights; with
+    ``quantize`` ("int4") built in the working dtype and then quantized in
+    place (``PhysicEditPipeline.quantize_``), so the peak stays near the
+    float pipeline's size."""
     dtype = torch.bfloat16 if size == "full" else torch.float32
-    return random_pipeline(SIZES[size], device, dtype, generator)
+    pipe = random_pipeline(SIZES[size], device, dtype, generator)
+    return pipe if quantize is None else pipe.quantize_(quantize)

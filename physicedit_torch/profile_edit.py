@@ -1,8 +1,9 @@
 """Where the device time of the full-width edit goes, by ``torch.profiler``.
 
-    python -m physicedit_torch.profile_edit > profile.txt
+    python -m physicedit_torch.profile_edit [--quantize int4] > profile.txt
 
-Builds the full-width pipeline (random bf16 weights, one GPU) and profiles
+Builds the full-width pipeline (random bf16 weights, one GPU; with
+``--quantize int4`` then quantized in place to the W4 lane) and profiles
 the two stages that dominate an edit:
 
   * one DiT forward at the CFG shape of a 1024x1024 edit (B=2, base + edit
@@ -109,6 +110,9 @@ def profile_dit_step(pipe, txt_len: int, grid: tuple[int, int] = (64, 64),
             "wall_ms": wall, "wall_ms_profiled": wall_prof, "device_busy_ms": busy,
             "device_busy_share_of_profiled_wall": busy / wall_prof,
             "k1_device_ms": _device_ms(prof, "fixedmax_kernel"),
+            "k3_device_ms": _device_ms(prof, "w4a8_"),
+            "k4_k6_device_ms": sum(_device_ms(prof, f"{n}_kernel") for n in
+                                   ("ln_mod_quant", "gelu_quant", "transpose_quant")),
             "kernels": len(_device_events(prof))}, _table(prof, rows)
 
 
@@ -116,7 +120,8 @@ def profile_dit_step(pipe, txt_len: int, grid: tuple[int, int] = (64, 64),
 def profile_decode(pipe, prompt_len: int = 512, tokens: int = 20, profiled: int = 5,
                    generator: torch.Generator | None = None, rows: int = 12):
     """Reasoner greedy decode, B=1, after a ``prompt_len`` prefill of random
-    embeddings.  Returns (summary dict, profiler table)."""
+    embeddings (with the pipeline's KV cache: int8 on the W4 lane).
+    Returns (summary dict, profiler table)."""
     text, dev = pipe.text, pipe.device
     cfg = text.cfg
     emb = (torch.randn(1, prompt_len, cfg.hidden_size, device=dev, generator=generator)
@@ -124,7 +129,8 @@ def profile_decode(pipe, prompt_len: int = 512, tokens: int = 20, profiled: int 
     pos = torch.arange(prompt_len, device=dev)[None, None].expand(3, 1, prompt_len)
     am = torch.ones(1, prompt_len, dtype=torch.bool, device=dev)
     logits, caches, _ = text.prefill(emb, pos.contiguous(), am,
-                                     prompt_len + tokens + profiled + 3)
+                                     prompt_len + tokens + profiled + 3,
+                                     kv_int8=pipe.kv_int8)
     first = logits.argmax(-1)
     start = torch.full((1,), prompt_len, device=dev, dtype=torch.long)
 
@@ -142,11 +148,16 @@ def profile_decode(pipe, prompt_len: int = 512, tokens: int = 20, profiled: int 
             "kernels_per_token": len(_device_events(prof)) / psteps}, _table(prof, rows)
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
     import subprocess
 
     from physicedit_torch.pipeline.testing import build_random_pipeline
 
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--quantize", choices=["int4"], default=None,
+                    help="profile the W4 lane (PhysicEditPipeline.quantize_)")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_edit: needs an NVIDIA GPU")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -155,7 +166,7 @@ def main() -> int:
                          capture_output=True, text=True, timeout=60).stdout.strip())
     dev = torch.device("cuda")
     gen = torch.Generator(dev).manual_seed(0)
-    pipe = build_random_pipeline("full", device=dev, generator=gen)
+    pipe = build_random_pipeline("full", device=dev, generator=gen, quantize=args.quantize)
     runs = [lambda: profile_dit_step(pipe, 256, generator=gen),
             lambda: profile_dit_step(pipe, 1280, generator=gen),
             lambda: profile_decode(pipe, generator=gen)]

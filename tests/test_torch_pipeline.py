@@ -111,7 +111,8 @@ def test_profile_edit_runs_on_tiny_pipeline():
 
 
 def test_port_runs_without_jax():
-    """The tiny slice end to end in a fresh process loads no JAX."""
+    """The tiny slice end to end, in the float lane and after quantize_,
+    in a fresh process loads no JAX."""
     code = textwrap.dedent("""
         import sys
         import numpy as np
@@ -124,6 +125,11 @@ def test_port_runs_without_jax():
         out = pipe("make the ball fall", edit_image=edit, height=64, width=64, seed=1,
                    num_inference_steps=2, edit_image_auto_resize=False)
         assert out.size == (64, 64), out.size
+        print(pipe.reason_physical_batch(["tilt"], [edit], max_new_tokens=4)[0][:20])
+        pipe.quantize_("int4")
+        out = pipe("make the ball fall", edit_image=edit, height=64, width=64, seed=1,
+                   num_inference_steps=2, edit_image_auto_resize=False)
+        assert out.size == (64, 64) and pipe.kv_int8, out.size
         print(pipe.reason_physical_batch(["tilt"], [edit], max_new_tokens=4)[0][:20])
         assert "jax" not in sys.modules, "the port imported jax"
         print("NO_JAX_OK")

@@ -23,16 +23,33 @@ Phases, each printed as one JSON line, any failure exits non-zero:
   9. the W4 serving lane at full width: an edit with the reasoner off in
      bf16, ``quantize_("int4")`` in place, the same edit on the W4 pipeline
      (image rel-L2 against bf16), then an edit with the reasoner on and the
-     int8 KV cache, with exact K1-K6 launch counts and the decode profile.
+     int8 KV cache, with exact K1-K6 launch counts and the decode profile;
+ 10. a small head_dim-128 training step on the card against the same
+     weights and batch on the CPU (loss and gradients), in bf16 and with the
+     frozen DiT packed int4, and a few steps at lr 1e-3 whose loss must drop;
+ 11. training at full width on a freshly built pipeline (DINOv2-B/14 too),
+     one 480x832 synthetic video sample per step: the bf16 lane (LoRA r128
+     over the bf16 DiT, bf16 Adam moments) and then the W4 lane (the DiT
+     packed int4 in place, fp32 moments), three steps each, with exact K1,
+     K8, K3 and K9 launch counts per step, finite gradients, every leaf
+     moving by step two, memory, times and a profiled step;
+ 12. K8 (the attention backward) and K9 (the W4 input gradient) against
+     their plain versions at the training shapes, with times, bounds and
+     PyTorch's own attention backward beside K8; K1's out and l there
+     against its plain version; K3 against its exact plain version at the
+     W4 training lane's forward shapes.
 The line before the last lists each kernel with its launches on its main
-path, its error against the plain version and both times; the last line is
-the run's result.  There is no CPU path: without a CUDA device it exits 2.
+path, its error against the plain version, its time, the plain version's,
+its bound and the one PyTorch call that computes the same function; the
+last line is the run's result.  There is no CPU path: without a CUDA device
+it exits 2.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import subprocess
 import sys
@@ -41,15 +58,35 @@ import time
 ATOL = RTOL = 2e-2   # bf16 kernel against its plain version (fp32 softmax)
 PIPE_REL_L2 = 0.05   # small pipeline, bf16 on the card vs bf16 on the CPU
 W4_REL_L2 = 0.05     # full-width W4 edit against the same edit in bf16
-KERNEL_SOURCES = ("fixedmax_attention", "gqa_causal_attention", "w4a8_matmul", "fused_quant")
+KERNEL_SOURCES = ("fixedmax_attention", "gqa_causal_attention", "w4a8_matmul", "fused_quant",
+                  "fixedmax_attention_bwd", "w4_bwd_dx")
+# small training step, bf16 card vs bf16 CPU through 2 blocks, about 10x the
+# readings on an H100 (loss 4.6e-5, all gradients 5.1e-5, worst leaf 2.8e-3)
+TRAIN_LOSS_REL = 5e-4  # the loss
+TRAIN_GRAD_REL = 5e-4  # all gradients together (rel-L2)
+TRAIN_LEAF_REL = 2e-2  # and each gradient leaf on its own (rel-L2)
+K8_REL = 2e-2          # K8 / K9 against their plain versions: max |err| / max |ref|
+K8_REL_L2 = 1e-2       # and rel-L2; where the clamp binds only rel-L2 applies: a logit
+                       # within rounding of the clamp is clamped on one side only,
+                       # which zeroes or keeps its whole dS entry
+# The card's datasheet peaks (H100 SXM, dense): the bound of a kernel is the
+# larger of its operations over the peak rate and its bytes over the memory rate
+PEAK_BF16 = 989e12
+PEAK_INT8 = 1979e12
+PEAK_FP32 = 67e12       # outside the tensor cores
+PEAK_BYTES = 3.35e12
 SEED = 0             # of the random weights and inputs
 # K1 clamp cases scale the RMS-normed q and k by this, so that a logit
 # (exp2 units) has a spread of ~90 and many pass fa.CLAMP: the clamp binds
 CLAMP_QK_SCALE = 8.0
 
 
+START = time.perf_counter()
+
+
 def emit(obj: dict) -> None:
-    print(json.dumps(obj), flush=True)
+    """One JSON line, with the seconds since the script started."""
+    print(json.dumps({**obj, "t": round(time.perf_counter() - START, 1)}), flush=True)
 
 
 def fail(msg: str) -> None:
@@ -70,7 +107,24 @@ KERNEL_ROWS = [
      "physicedit_tpu/kernels/fused_quant.py:67", None),
     ("transpose_quant", "physicedit_torch/csrc/fused_quant.cu",
      "physicedit_tpu/kernels/fused_quant.py:119", None),
+    ("fixedmax_attention_bwd", "physicedit_torch/csrc/fixedmax_attention_bwd.cu",
+     "physicedit_tpu/kernels/flash_attention.py:330", None),
+    ("w4_bwd_dx", "physicedit_torch/csrc/w4_bwd_dx.cu",
+     "physicedit_tpu/kernels/quant_matmul.py:227", None),
 ]
+
+
+def bound(ops: float, nbytes: float, peak: float) -> dict:
+    """The least time the card could take: the larger of ops / peak and
+    bytes / memory rate (each input read once, each output written once)."""
+    t_ops, t_bytes = ops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
+    return {"bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def rel_l2(got, want) -> float:
+    got, want = got.double(), want.double()
+    return ((got - want).norm() / want.norm().clamp_min(1e-30)).item()
 
 
 def _counter_modules():
@@ -115,43 +169,17 @@ def bf16_ulps(got, want):
                                                             e - 8)).max().item()
 
 
-def k3_phase(report: dict, gen, time_ms) -> None:
-    """K3 against its exact plain version at the W4 lane's shapes: decode
-    (M = 1), DiT modulation (M = 2), DiT text stream (M = 512), VL prefill
-    (M = 1536), the ViT (784 patches, 196 merged) and a ragged M.  The int32
-    accumulators must be equal and the bf16 outputs within one ulp.  Weights
-    rotate over enough copies to exceed the 50 MB L2, as a decode finds them
-    cold.  Then the DiT image-stream shapes (M = 16384) beside the route
-    the JAX package takes there, timed only: unpack to int8, torch._int_mm
-    and the fp32 epilogue."""
+def k3_check(report: dict, gen, time_ms, cases, phase: str = "k3") -> None:
+    """K3 against its exact plain version at each (name, M, K, N, bias) of
+    ``cases``: the int32 accumulators must be equal and the bf16 outputs
+    within one ulp.  Timed with weights rotating over enough copies to
+    exceed the 50 MB L2, as a decode finds them cold."""
     import torch
 
     from physicedit_torch.kernels import quant_matmul as qm
 
-    dev = torch.device("cuda")
-    cases = [  # name, M, K, N, bias
-        ("decode_qkv", 1, 3584, 4608, True), ("decode_o", 1, 3584, 3584, False),
-        ("decode_gate_up", 1, 3584, 37888, False), ("decode_down", 1, 18944, 3584, False),
-        ("decode_lm_head", 1, 3584, 152064, False), ("dit_mod", 2, 3072, 18432, True),
-        ("dit_text_qkv", 512, 3072, 9216, True), ("dit_text_out", 512, 3072, 3072, True),
-        ("dit_text_fc1", 512, 3072, 12288, True), ("dit_text_fc2", 512, 12288, 3072, True),
-        ("prefill_qkv", 1536, 3584, 4608, True), ("prefill_o", 1536, 3584, 3584, False),
-        ("prefill_gate_up", 1536, 3584, 37888, False),
-        ("prefill_down", 1536, 18944, 3584, False),
-        ("vit_qkv", 784, 1280, 3840, True), ("vit_proj", 784, 1280, 1280, True),
-        ("vit_merger_fc1", 196, 5120, 5120, True), ("vit_merger_fc2", 196, 5120, 3584, True),
-        ("ragged_m1000", 1000, 3584, 4608, True)]
-
-    def operands(m, k, n, bias):
-        xq = torch.randint(-127, 128, (m, k), device=dev, dtype=torch.int8, generator=gen)
-        w4 = torch.randint(-128, 128, (n, k // 2), device=dev, dtype=torch.int8, generator=gen)
-        xs = torch.rand(m, 1, device=dev, generator=gen) * 1e-2 + 1e-3
-        ws = torch.rand(n, device=dev, generator=gen) * 1e-2 + 1e-3
-        b = torch.randn(n, device=dev, generator=gen).bfloat16() if bias else None
-        return xq, w4, xs, ws, b
-
     for name, m, k, n, bias in cases:
-        xq, w4, xs, ws, b = operands(m, k, n, bias)
+        xq, w4, xs, ws, b = k3_operands(gen, m, k, n, bias)
         out, acc = qm.w4a8_matmul(xq, w4, xs, ws, b, return_acc=True)
         ref, acc_ref = qm.w4a8_matmul_reference(xq, w4, xs, ws, b, return_acc=True)
         torch.cuda.synchronize()
@@ -167,17 +195,19 @@ def k3_phase(report: dict, gen, time_ms) -> None:
         ms = time_ms(run, 20)
         dev_ms = device_ms(run, 20, "w4a8_")
         plain_ms = time_ms(lambda: qm.w4a8_matmul_reference(xq, w4, xs, ws, b), 3)
-        row = {"phase": "k3", "case": name, "shape": [m, k, n], "bias": bias,
+        row = {"phase": phase, "case": name, "shape": [m, k, n], "bias": bias,
                "regime": "gemv" if m <= 16 else "tiled", "acc_equal": acc_equal,
                "max_bf16_ulps": ulps, "max_abs_err": (out.float() - ref.float()).abs().max().item(),
                "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
                "weight_copies": len(copies)}
+        row.update(bound(2 * m * n * k, n * k // 2 + m * k + 4 * m + 4 * n + 2 * m * n
+                         + (2 * n if bias else 0), PEAK_INT8))
         t = dev_ms or ms
         if m <= 16:
             row["gb_per_s_device"] = (n * k // 2 + m * k + 2 * m * n + 4 * n) / t / 1e6
         else:
             row["tops_device"] = 2 * m * n * k / t / 1e9
-        report[f"k3_{name}"] = row
+        report[f"{phase}_{name}"] = row
         report.setdefault("w4a8_matmul_err", []).append(row["max_abs_err"])
         emit(row)
         if not acc_equal or ulps > 1.0:
@@ -185,15 +215,58 @@ def k3_phase(report: dict, gen, time_ms) -> None:
         del xq, w4, xs, ws, b, out, acc, ref, acc_ref, copies
     torch.cuda.empty_cache()
 
+
+def k3_operands(gen, m, k, n, bias):
+    """Random int8 activations, packed int4 weights ([N, K/2]), scales and bias."""
+    import torch
+
+    dev = gen.device
+    xq = torch.randint(-127, 128, (m, k), device=dev, dtype=torch.int8, generator=gen)
+    w4 = torch.randint(-128, 128, (n, k // 2), device=dev, dtype=torch.int8, generator=gen)
+    xs = torch.rand(m, 1, device=dev, generator=gen) * 1e-2 + 1e-3
+    ws = torch.rand(n, device=dev, generator=gen) * 1e-2 + 1e-3
+    b = torch.randn(n, device=dev, generator=gen).bfloat16() if bias else None
+    return xq, w4, xs, ws, b
+
+
+# the W4 DiT's packed linears per stream: name, K, N
+DIT_LINEARS = [("qkv", 3072, 9216), ("out", 3072, 3072), ("fc1", 3072, 12288),
+               ("fc2", 12288, 3072)]
+
+
+def k3_phase(report: dict, gen, time_ms) -> None:
+    """K3 against its exact plain version at the W4 serving lane's shapes:
+    decode (M = 1), DiT modulation (M = 2), DiT text stream (M = 512), VL
+    prefill (M = 1536), the ViT (784 patches, 196 merged) and a ragged M
+    (``k3_check``).  Then the DiT image-stream shapes (M = 16384) beside the
+    route the JAX package takes there, timed only: unpack to int8,
+    torch._int_mm and the fp32 epilogue."""
+    import torch
+
+    from physicedit_torch.kernels import quant_matmul as qm
+
+    cases = [  # name, M, K, N, bias
+        ("decode_qkv", 1, 3584, 4608, True), ("decode_o", 1, 3584, 3584, False),
+        ("decode_gate_up", 1, 3584, 37888, False), ("decode_down", 1, 18944, 3584, False),
+        ("decode_lm_head", 1, 3584, 152064, False), ("dit_mod", 2, 3072, 18432, True),
+        ("dit_text_qkv", 512, 3072, 9216, True), ("dit_text_out", 512, 3072, 3072, True),
+        ("dit_text_fc1", 512, 3072, 12288, True), ("dit_text_fc2", 512, 12288, 3072, True),
+        ("prefill_qkv", 1536, 3584, 4608, True), ("prefill_o", 1536, 3584, 3584, False),
+        ("prefill_gate_up", 1536, 3584, 37888, False),
+        ("prefill_down", 1536, 18944, 3584, False),
+        ("vit_qkv", 784, 1280, 3840, True), ("vit_proj", 784, 1280, 1280, True),
+        ("vit_merger_fc1", 196, 5120, 5120, True), ("vit_merger_fc2", 196, 5120, 3584, True),
+        ("ragged_m1000", 1000, 3584, 4608, True)]
+    k3_check(report, gen, time_ms, cases)
+
     # the DiT image stream at 1024^2: M = 2 x 8192
     def int_mm_route(xq, w4, xs, ws, b):
         acc = torch._int_mm(xq, qm._unpack_w4_int8(w4).T)
         return qm._epilogue(acc, xs, ws, b, torch.bfloat16), acc
 
     m = 16384
-    for name, k, n in (("qkv", 3072, 9216), ("out", 3072, 3072), ("fc1", 3072, 12288),
-                       ("fc2", 12288, 3072)):
-        xq, w4, xs, ws, b = operands(m, k, n, True)
+    for name, k, n in DIT_LINEARS:
+        xq, w4, xs, ws, b = k3_operands(gen, m, k, n, True)
         out, acc = qm.w4a8_matmul(xq, w4, xs, ws, b, return_acc=True)
         route, acc_route = int_mm_route(xq, w4, xs, ws, b)
         torch.cuda.synchronize()
@@ -261,7 +334,10 @@ def fused_quant_phase(report: dict, gen, time_ms) -> None:
             row["device_ms"] = device_ms(run, 20, f"{name}_kernel")
             row["plain_ms"] = time_ms(plain, 3)
             nbytes = x.numel() * 2 + q.numel() + s.numel() * 4
+            if name == "ln_mod_quant":
+                nbytes += (sh.numel() + sc.numel()) * 2
             row["gb_per_s_device"] = nbytes / (row["device_ms"] or row["ms"]) / 1e6
+            row.update(bound(8 * x.numel(), nbytes, PEAK_FP32))
             report[name] = row
         report.setdefault(f"{name}_err", []).append(max_code_diff)
         emit(row)
@@ -296,12 +372,303 @@ def w4_launch_counts(tm: dict, steps: int, n_blocks: int, n_layers: int,
             "transpose_quant": steps * n_blocks}
 
 
+def k8_phase(report: dict, gen, time_ms, joint: int) -> None:
+    """K8 against its plain version at B = 1, N = 24, on q', l and out from
+    K1: at the training slice's joint length and at 8448, text keys masked,
+    and a case whose logits pass the clamp.  K1's out and l there (the
+    prescaled entry the training step calls, ``return_l``) are first held
+    against K1's plain version, as in phase 3.  The slice's case is timed
+    beside the plain version and beside PyTorch's own attention backward
+    (``scaled_dot_product_attention`` with the same boolean key mask)."""
+    import torch
+    import torch.nn.functional as F
+
+    from physicedit_torch.kernels import flash_attention as fa
+
+    dev = gen.device
+
+    def randn(*shape):
+        return torch.randn(*shape, device=dev, generator=gen)
+
+    def rms(x):
+        return x * torch.rsqrt(x.pow(2).mean(-1, keepdim=True))
+
+    cases = [(f"joint_{joint}", joint, 1.0), ("joint_8448", 8448, 1.0),
+             (f"joint_{joint}_clamp", joint, CLAMP_QK_SCALE)]
+    for name, s, scale in cases:
+        q = fa._prescale((rms(randn(1, 24, s, 128)) * scale).bfloat16()).contiguous()
+        k = (rms(randn(1, 24, s, 128)) * scale).bfloat16()
+        v = randn(1, 24, s, 128).bfloat16()
+        go = randn(1, 24, s, 128).bfloat16()
+        mask = torch.ones(1, s, dtype=torch.bool, device=dev)
+        mask[0, 100:256] = False                 # padded text keys
+        clamped = (q[0, 0].float() @ k[0, 0].float().T > fa.CLAMP).float().mean().item()
+        if scale != 1.0 and clamped == 0.0:
+            fail(f"K8 {name}: no logit reaches the clamp")
+        out, l = fa._fixedmax_prescaled(q, k, v, mask, True, return_l=True)
+        out_ref, l_ref = fa._fixedmax_prescaled_reference(q, k, v, mask, True)
+        k1_err = (out.float() - out_ref.float()).abs()
+        k1_bad = int((k1_err > ATOL + RTOL * out_ref.float().abs()).sum().item())
+        k1 = {"phase": "k1_training", "case": name, "shape": [1, 24, s, s],
+              "max_abs_err": k1_err.max().item(), "n_out_of_tol": k1_bad,
+              "l_max_rel_err": ((l - l_ref).abs() / l_ref).max().item(), "atol": ATOL,
+              "rtol": RTOL}
+        emit(k1)
+        report["fixedmax_attention_err"].append(k1["max_abs_err"])
+        if k1_bad or k1["l_max_rel_err"] > 1e-3:
+            fail(f"K1 {name} (prescaled, return_l) disagrees with its plain version")
+        del out_ref, l_ref, k1_err
+        got = fa.fixedmax_attention_bwd(q, k, v, mask, go, out, l, True)
+        want = fa.fixedmax_attention_bwd_reference(q, k, v, mask, go, out, l, True)
+        torch.cuda.synchronize()
+        row = {"phase": "k8", "case": name, "shape": [1, 24, s, s], "clamped_logit_share":
+               clamped, "finite": all(bool(torch.isfinite(x).all()) for x in got)}
+        errs = []
+        for gname, x, y in zip(("dq", "dk", "dv"), got, want):
+            err = (x.float() - y.float()).abs().max().item()
+            rel = err / max(y.float().abs().max().item(), 1e-30)
+            row[f"{gname}_max_abs_err"], row[f"{gname}_rel_max_err"] = err, rel
+            row[f"{gname}_rel_l2"] = rel_l2(x, y)
+            errs.append(err)
+        ok = row["finite"] and all(row[f"{g}_rel_l2"] <= K8_REL_L2 for g in ("dq", "dk", "dv"))
+        if scale == 1.0:
+            ok = ok and all(row[f"{g}_rel_max_err"] <= K8_REL for g in ("dq", "dk", "dv"))
+            report.setdefault("fixedmax_attention_bwd_err", []).extend(errs)
+        if name == f"joint_{joint}":
+            row["ms"] = time_ms(lambda: fa.fixedmax_attention_bwd(q, k, v, mask, go, out, l),
+                                10)
+            row["plain_ms"] = time_ms(
+                lambda: fa.fixedmax_attention_bwd_reference(q, k, v, mask, go, out, l), 2)
+            ql, kl, vl = (x.detach().clone().requires_grad_(True) for x in (q, k, v))
+            lib_out = F.scaled_dot_product_attention(ql, kl, vl, attn_mask=mask[:, None, None, :])
+            row["library_ms"] = time_ms(
+                lambda: torch.autograd.grad(lib_out, (ql, kl, vl), go, retain_graph=True), 10)
+            row["tflops"] = 10 * 24 * s * s * 128 / row["ms"] / 1e9
+            row.update(bound(10 * 24 * s * s * 128,
+                             2 * (q.numel() + k.numel() + v.numel() + go.numel() + out.numel()
+                                  + 3 * q.numel()) + 4 * l.numel() + s, PEAK_BF16))
+            report["fixedmax_attention_bwd"] = dict(row)
+            del ql, kl, vl, lib_out
+        emit(row)
+        if not ok:
+            fail(f"K8 {name} disagrees with its plain version")
+        del q, k, v, go, out, l, got, want
+        torch.cuda.empty_cache()
+
+
+def k9_phase(report: dict, gen, time_ms, m_image: int, m_text: int) -> None:
+    """K9 against its plain version at the W4 DiT's backward shapes: the
+    image stream (M = base + edit image tokens) and the text stream (M = the
+    bucketed text length) through qkv, out, fc1 and fc2, and the modulation
+    3072 -> 18432 at M = 1; all timed with their bounds."""
+    import torch
+
+    from physicedit_torch.kernels import quant_matmul as qm
+
+    dev = gen.device
+    cases = ([(f"image_{n}", m_image, k, o) for n, k, o in DIT_LINEARS]
+             + [(f"text_{n}", m_text, k, o) for n, k, o in DIT_LINEARS]
+             + [("mod", 1, 3072, 18432)])
+    for name, m, k, n in cases:
+        go = torch.randn(m, n, device=dev, generator=gen).bfloat16()
+        w4 = torch.randint(-128, 128, (n, k // 2), device=dev, dtype=torch.int8, generator=gen)
+        ws = torch.rand(n, device=dev, generator=gen) * 1e-2 + 1e-3
+        got = qm.w4_bwd_dx(go, w4, ws)
+        want = qm.w4_bwd_dx_reference(go, w4, ws)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        row = {"phase": "k9", "case": name, "shape": [m, n, k], "max_abs_err": err,
+               "rel_max_err": err / max(want.float().abs().max().item(), 1e-30),
+               "rel_l2": rel_l2(got, want),
+               "ms": time_ms(lambda: qm.w4_bwd_dx(go, w4, ws), 20),
+               "plain_ms": time_ms(lambda: qm.w4_bwd_dx_reference(go, w4, ws), 3)}
+        row.update(bound(2 * m * n * k, 2 * m * n + n * k // 2 + 4 * n + 2 * m * k, PEAK_BF16))
+        row["tflops"] = 2 * m * n * k / row["ms"] / 1e9
+        if name == "image_fc1":
+            report["w4_bwd_dx"] = dict(row)
+        report.setdefault("w4_bwd_dx_err", []).append(err)
+        emit(row)
+        if not bool(torch.isfinite(got).all()) or row["rel_max_err"] > K8_REL:
+            fail(f"K9 {name} disagrees with its plain version")
+        del go, w4, ws, got, want
+    torch.cuda.empty_cache()
+
+
+def _loss_and_grads(trainable, dit, batch, t_min, t_max):
+    from physicedit_torch.train.loss import physic_training_loss
+
+    for p in trainable.parameters():
+        p.grad = None
+    loss, _ = physic_training_loss(trainable, dit, batch, t_min, t_max, use_remat=True)
+    loss.backward()
+    return loss.item(), {n: p.grad.detach().float().cpu().clone()
+                         for n, p in trainable.named_parameters()}
+
+
+def small_training_phase(small, gen, dev) -> None:
+    """The training step of a small head_dim-128 model on the card (K1, K8,
+    and K3 and K9 when packed) against the same weights and batch on the
+    CPU (plain versions), in bf16 and with the DiT packed int4: the loss
+    within TRAIN_LOSS_REL, all gradients together within TRAIN_GRAD_REL and
+    each leaf within TRAIN_LEAF_REL (rel-L2).  Compared after one step, so that LoRA's B is no longer 0 and
+    every factor has a gradient.  Then five more steps at lr 1e-3 on the
+    batch: the loss must drop."""
+    import copy
+    import dataclasses
+
+    import torch
+
+    from physicedit_torch.models.dinov2 import DinoV2Config
+    from physicedit_torch.pipeline.testing import random_pipeline
+    from physicedit_torch.profile_train import SyntheticVideo
+    from physicedit_torch.train.trainer import TrainConfig, Trainer
+
+    dims = dataclasses.replace(small, dinov2=DinoV2Config(hidden_size=64, num_layers=1,
+                                                          num_heads=2), dino_pos_grid=20)
+    data = SyntheticVideo(n=1, width=128, height=128, frames=2, seed=SEED + 7)
+    for quantize in ("none", "w4"):
+        pipe = random_pipeline(dims, dev, torch.bfloat16, gen)
+        trainer = Trainer(pipe, data, TrainConfig(learning_rate=1e-3, lora_rank=8,
+                                                  txt_len_bucket=64, quantize_frozen=quantize),
+                          device=dev)
+        batch = trainer.preprocess(data[0])
+        first = trainer.step(batch)["loss"]
+        reset_counts()
+        loss_c, grads_c = _loss_and_grads(trainer.trainable, pipe.dit, batch, trainer.t_min,
+                                          trainer.t_max)
+        launches = counts()
+        loss_h, grads_h = _loss_and_grads(copy.deepcopy(trainer.trainable).cpu(),
+                                          copy.deepcopy(pipe.dit).cpu(),
+                                          {k: v.cpu() for k, v in batch.items()},
+                                          trainer.t_min, trainer.t_max)
+        flat_c = torch.cat([g.reshape(-1) for g in grads_c.values()])
+        flat_h = torch.cat([g.reshape(-1) for g in grads_h.values()])
+        per_leaf = {n: rel_l2(grads_c[n], grads_h[n]) for n in grads_c}
+        worst = max(per_leaf, key=per_leaf.get)
+        losses = [first, loss_c] + [trainer.step(batch)["loss"] for _ in range(5)]
+        row = {"phase": "small_train_vs_cpu", "quantize_frozen": quantize,
+               "loss_card": loss_c, "loss_cpu": loss_h,
+               "loss_rel": abs(loss_c - loss_h) / abs(loss_h), "loss_limit": TRAIN_LOSS_REL,
+               "grads_rel_l2": rel_l2(flat_c, flat_h), "grads_limit": TRAIN_GRAD_REL,
+               "worst_leaf": worst, "worst_leaf_rel_l2": per_leaf[worst],
+               "leaf_limit": TRAIN_LEAF_REL,
+               "launches": launches, "losses_lr_1e-3": losses}
+        emit(row)
+        used = ["fixedmax_attention", "fixedmax_attention_bwd"] + (
+            ["w4a8_matmul", "w4_bwd_dx"] if quantize == "w4" else [])
+        if not (row["loss_rel"] <= TRAIN_LOSS_REL and row["grads_rel_l2"] <= TRAIN_GRAD_REL
+                and per_leaf[worst] <= TRAIN_LEAF_REL):
+            fail(f"the small training step ({quantize}) on the card disagrees with the CPU")
+        if min(launches[k] for k in used) == 0:
+            fail(f"the small training step ({quantize}) skipped a kernel: {launches}")
+        if not losses[-1] < losses[0]:
+            fail(f"the small training loss ({quantize}) did not drop: {losses}")
+        del pipe, trainer
+    torch.cuda.empty_cache()
+
+
+def train_lane(pipe, data, cfg, dev, n_blocks: int) -> dict:
+    """One full-width training lane: a Trainer over ``pipe``, one preprocessed
+    sample per step, three steps, each with exact launch counts, finite
+    gradients and (from step two) every leaf moving; then a profiled step.
+    Returns the lane's summary."""
+    import gc
+
+    import torch
+
+    from physicedit_torch.profile_train import profile_train_step
+    from physicedit_torch.train.trainer import ZERO_GRAD_PARAMS, Trainer
+
+    quantized = cfg.quantize_frozen == "w4"
+    lane = "w4" if quantized else "bf16"
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer = Trainer(pipe, data, cfg, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()     # from here: the steps' peak
+    sizes = trainer.trainable_counts()
+    batches, pre_ms = [], []
+    for i in range(len(data)):
+        t0 = time.perf_counter()
+        batches.append(trainer.preprocess(data[i]))
+        torch.cuda.synchronize()
+        pre_ms.append((time.perf_counter() - t0) * 1e3)
+    joint = int(batches[0]["prompt_emb"].shape[1] + 2 * batches[0]["edit_tokens"].shape[1])
+    emit({"phase": f"train_{lane}_init", "init_s": init_s, "init_peak_gb": init_peak_gb,
+          "trainable_params": sizes,
+          "trainable_total": sum(sizes.values()), "preprocess_ms": pre_ms,
+          "joint_tokens": joint, "text_tokens": int(batches[0]["prompt_emb"].shape[1]),
+          "image_tokens": int(batches[0]["edit_tokens"].shape[1]),
+          "resident_gb": torch.cuda.memory_allocated() / 1e9,
+          "optimizer_state_dtype": cfg.optimizer_state_dtype,
+          "quantize_frozen": cfg.quantize_frozen})
+    want = train_launch_counts(n_blocks, quantized)
+    steps = []
+    for i, batch in enumerate(batches):
+        before = counts()
+        m = trainer.step(batch)
+        after = counts()
+        launched = {k: after[k] - before[k] for k in want}
+        grads = {n: p.grad for n, p in trainer.trainable.named_parameters()}
+        finite = all(bool(torch.isfinite(g).all()) for g in grads.values())
+        still = [n for n, g in grads.items()
+                 if (g.abs().max().item() > 0) == (n in ZERO_GRAD_PARAMS)]
+        row = {"phase": f"train_{lane}_step", "step": i + 1, "loss": m["loss"],
+               "mse": m["mse"], "special_token_loss": m["special_token_loss"],
+               "seconds": m["seconds"], "launches": launched, "launches_expected": want,
+               "grads_finite": finite, "leaves_not_moving": still,
+               "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        emit(row)
+        steps.append(row)
+        if launched != want:
+            fail(f"{lane} training step {i + 1}: launches {launched} differ from {want}")
+        if not (finite and math.isfinite(m["loss"]) and math.isfinite(m["mse"])):
+            fail(f"{lane} training step {i + 1}: a loss or gradient is not finite")
+        if i >= 1 and still:
+            fail(f"{lane} training step {i + 1}: leaves with no gradient: {still[:5]}")
+    summary, table = profile_train_step(trainer, batches[-1])
+    emit({"phase": f"train_{lane}_profile", **summary})
+    print(table, file=sys.stderr, flush=True)
+    out = {"lane": lane, "joint_tokens": joint,
+           "text_tokens": int(batches[0]["prompt_emb"].shape[1]),
+           "image_tokens": int(batches[0]["edit_tokens"].shape[1]),
+           "s_per_step": [r["seconds"] for r in steps], "preprocess_ms": pre_ms,
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9, "init_peak_gb": init_peak_gb,
+           "resident_gb_after": torch.cuda.memory_allocated() / 1e9,
+           "losses": [r["loss"] for r in steps], "profile": summary}
+    emit({"phase": f"train_{lane}", **out})
+    del trainer, batches, grads
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_launch_counts(n_blocks: int, quantized: bool) -> dict:
+    """The launches of K1, K8, K3 and K9 that one training step's structure
+    implies (LoRA on, remat on, batch 1).  Each block runs its forward twice
+    (once in the forward pass, once recomputed in the backward): K1 twice,
+    and in the W4 lane K3 for its ten packed linears (both modulations, both
+    QKV, both output projections, both fc1 and both fc2) twice.  Its backward
+    runs K8 once and, in the W4 lane, K9 for the eight packed linears whose
+    input carries a gradient (the modulations' input, the timestep
+    embedding, does not), but for three in the last block: its text-stream
+    output is unused, so to_add_out, fc1 and fc2 of that stream get no
+    gradient."""
+    return {"fixedmax_attention": 2 * n_blocks, "fixedmax_attention_bwd": n_blocks,
+            "w4a8_matmul": 20 * n_blocks if quantized else 0,
+            "w4_bwd_dx": 8 * n_blocks - 3 if quantized else 0}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=4, help="denoise steps per edit")
     args = ap.parse_args()
 
     import torch
+    import torch.nn.functional as F
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this run needs one GPU", file=sys.stderr)
@@ -399,7 +766,13 @@ def main() -> int:
             row["ms"] = time_ms(lambda: fa.fixedmax_attention(q, k, v, mask, clamp), 10)
             row["plain_ms"] = time_ms(
                 lambda: fa.fixedmax_attention_reference(q, k, v, mask, clamp), 3)
+            mask4 = mask[:, None, None, :]
+            row["library_ms"] = time_ms(
+                lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask4), 10)
             row["tflops"] = 4 * b * n * sq * sk * 128 / row["ms"] / 1e9
+            row.update(bound(4 * b * n * sq * sk * 128,
+                             2 * (q.numel() + k.numel() + v.numel() + out.numel()) + b * sk,
+                             PEAK_BF16))
             report["fixedmax_attention"] = dict(row)
         report.setdefault("fixedmax_attention_err", []).append(max_err)
         emit(row)
@@ -434,7 +807,15 @@ def main() -> int:
         if name == "prefill_1536":
             row["ms"] = time_ms(lambda: fa.gqa_causal_attention(q, k, v, mask), 20)
             row["plain_ms"] = time_ms(lambda: fa.gqa_causal_attention_reference(q, k, v, mask), 5)
+            qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+            row["library_ms"] = time_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True), 20)
             row["tflops"] = 2 * b * 28 * s * s * 128 / row["ms"] / 1e9
+            # causal: each query row reads the keys up to its own position
+            row.update(bound(4 * b * 28 * (s * (s + 1) // 2) * 128,
+                             2 * (q.numel() + k.numel() + v.numel() + out.numel()) + b * s,
+                             PEAK_BF16))
+            del qt, kt, vt
             report["gqa_causal_attention"] = dict(row)
         report.setdefault("gqa_causal_attention_err", []).append(max_err)
         emit(row)
@@ -484,7 +865,8 @@ def main() -> int:
         launches = counts()
         want = np.asarray(pipe.to("cpu")("tilt the cup", **kw), np.float32)
         rel = float(np.linalg.norm(got - want) / np.linalg.norm(want - want.mean()))
-        used = launches if quantize else {k: launches[k] for k in fa.LAUNCHES}
+        used = {k: launches[k] for k in ("fixedmax_attention", "gqa_causal_attention") + (
+            ("w4a8_matmul", "ln_mod_quant", "gelu_quant", "transpose_quant") if quantize else ())}
         emit({"phase": "small_pipeline_vs_cpu", "quantize": quantize, "rel_l2": rel,
               "limit": PIPE_REL_L2, "max_abs_levels": float(np.abs(got - want).max()),
               "launches": launches})
@@ -492,6 +874,9 @@ def main() -> int:
             fail(f"the small pipeline (quantize={quantize}) on the card disagrees with the "
                  "CPU run or skipped a kernel")
         del pipe
+
+    # 10. a small training step: kernels on the card against plain versions on the CPU
+    small_training_phase(small, gen, dev)
 
     # 8. the full-width slice
     t0 = time.perf_counter()
@@ -573,8 +958,9 @@ def main() -> int:
     reset_counts()
     _, row = edit(w, h, seed, True)
     launches = counts()
-    want = w4_launch_counts(pipe.timings, args.steps, n_blocks, n_layers,
-                            pipe.vision.cfg.depth)
+    want = {**w4_launch_counts(pipe.timings, args.steps, n_blocks, n_layers,
+                               pipe.vision.cfg.depth),
+            "fixedmax_attention_bwd": 0, "w4_bwd_dx": 0}     # an edit runs no backward
     emit({"phase": "w4_edit", **row, "kv_int8": pipe.kv_int8, "launches": launches,
           "launches_expected": want})
     if launches != want:
@@ -588,13 +974,69 @@ def main() -> int:
     emit({"phase": "w4_decode_profile", "kv_int8": pipe.kv_int8, **decode})
     print(table, file=sys.stderr, flush=True)
 
+    # 11. training at full width, on a freshly built pipeline
+    import gc
+
+    from physicedit_torch.profile_train import SyntheticVideo
+    from physicedit_torch.train.trainer import TrainConfig
+
+    del pipe
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    pipe = build_random_pipeline("full", device=dev, generator=gen)
+    torch.cuda.synchronize()
+    emit({"phase": "train_full_init", "seconds": time.perf_counter() - t0,
+          "resident_gb": torch.cuda.memory_allocated() / 1e9,
+          "dinov2": [pipe.dinov2.cfg.hidden_size, pipe.dinov2.cfg.num_layers,
+                     pipe.dinov2.cfg.num_heads]})
+    data = SyntheticVideo(n=3, width=832, height=480, frames=3, seed=SEED + 11)
+    reset_counts()
+    lanes = [train_lane(pipe, data, TrainConfig(lora_rank=128,
+                                                optimizer_state_dtype="bfloat16"),
+                        dev, n_blocks),
+             train_lane(pipe, data, TrainConfig(lora_rank=128, quantize_frozen="w4"), dev,
+                        n_blocks)]
+    train_launches = counts()
+    # the W4 lane packed the DiT in place: the pipeline still serves edits
+    out = pipe(prompt, edit_image=image(512, 512), height=512, width=512, seed=SEED + 5,
+               num_inference_steps=2, have_text_reasoning=False)
+    arr = np.asarray(out, np.float32)
+    emit({"phase": "edit_after_w4_training", "size": list(out.size), "image_std": float(arr.std())})
+    if out.size != (512, 512) or not np.isfinite(arr).all() or arr.std() == 0.0:
+        fail("the pipeline packed by the W4 training lane does not edit")
+    joint, text_tokens, image_tokens = (lanes[0][k] for k in ("joint_tokens", "text_tokens",
+                                                              "image_tokens"))
+    del pipe, out
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 12. K8 and K9 at the training shapes, and K3 at the W4 lane's forward
+    # shapes (the image and text streams, and the modulations at M = 1)
+    k8_phase(report, gen, time_ms, joint)
+    k9_phase(report, gen, time_ms, 2 * image_tokens, text_tokens)
+    k3_check(report, gen, time_ms,
+             [(f"image_{n}", 2 * image_tokens, k, o, True) for n, k, o in DIT_LINEARS]
+             + [(f"text_{n}", text_tokens, k, o, True) for n, k, o in DIT_LINEARS]
+             + [("mod", 1, 3072, 18432, True)], phase="k3_training")
+
+    # each kernel's launches on its own path: K1 and K2 in the bf16 edits,
+    # K3-K6 in the W4 edit, K8 and K9 in the training lanes
+    path_launches = {**w4_launches,
+                     **{k: main_launches[k] for k in ("fixedmax_attention",
+                                                      "gqa_causal_attention")},
+                     **{k: train_launches[k] for k in ("fixedmax_attention_bwd", "w4_bwd_dx")}}
+    if min(path_launches[name] for name, *_ in KERNEL_ROWS) == 0:
+        fail(f"a kernel was not launched on its path: {path_launches}")
     kernels = []
     for name, src, replaces, ms_case in KERNEL_ROWS:
-        launches = main_launches[name] if name in main_launches else w4_launches[name]
+        launches = path_launches[name]
         timing = report[ms_case] if ms_case else report[name]
         kernels.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
                         "launches": launches, "max_abs_err": max(report[f"{name}_err"]),
-                        "ms": timing["ms"], "plain_ms": timing["plain_ms"]})
+                        "ms": timing["ms"], "plain_ms": timing["plain_ms"],
+                        "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"],
+                        "library_ms": timing.get("library_ms")})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -48,8 +48,8 @@ def init_random_(module: nn.Module, generator: torch.Generator) -> nn.Module:
     """Torch-default init, the distribution of ``core/params.py::linear_init``
     in the JAX package: weights and biases uniform in +-1/sqrt(fan_in) for
     every ``nn.Linear`` and ``nn.Conv2d``, and every :class:`Leaf` gain set
-    to one.  Parameters that are neither (embedding tables) are left to the
-    caller."""
+    to one (a LayerNorm's ``bias`` to zero).  Parameters that are neither
+    (embedding tables) are left to the caller."""
     for m in module.modules():
         if isinstance(m, (nn.Linear, nn.Conv2d)):
             fan_in = m.weight[0].numel()
@@ -58,9 +58,18 @@ def init_random_(module: nn.Module, generator: torch.Generator) -> nn.Module:
             if m.bias is not None:
                 m.bias.uniform_(-bound, bound, generator=generator)
         elif isinstance(m, Leaf):
-            for p in m.parameters(recurse=False):
-                p.fill_(1.0)
+            for name, p in m.named_parameters(recurse=False):
+                p.fill_(0.0 if name == "bias" else 1.0)
     return module
+
+
+def linear_promoted(lin: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+    """``x @ W^T + b`` in the promoted dtype of x and the layer, as
+    ``jnp.matmul`` promotes a bf16 activation against fp32 weights (an
+    ``nn.Linear`` would raise on the mixed dtypes)."""
+    dt = torch.promote_types(x.dtype, lin.weight.dtype)
+    return nn.functional.linear(x.to(dt), lin.weight.to(dt),
+                                None if lin.bias is None else lin.bias.to(dt))
 
 
 def _tensor(arr, like: torch.Tensor) -> torch.Tensor:

@@ -17,6 +17,10 @@ text model takes the layout of its tree first: fused ``qkv`` / ``gate_up``
 projections and the int8 embedding table (``{"e8", "e_scale"}``) of the
 quantized lane.  The configs are rebuilt from the JAX config dataclasses by
 field name.
+
+The training surface comes across the same way (the LoRA tree, the
+adapters, DINOv2), and :func:`to_jax_tree` walks back: a module's
+parameters, or their gradients, as a JAX-layout tree, for the tests.
 """
 
 from __future__ import annotations
@@ -29,7 +33,9 @@ from torch import nn
 
 from physicedit_torch.core.params import load_conv_, load_linear_, materialize
 from physicedit_torch.kernels.quant_matmul import W4Linear
+from physicedit_torch.lora import DiTLoRA
 from physicedit_torch.models.adapters import DualAdapter
+from physicedit_torch.models.dinov2 import DinoV2, DinoV2Config
 from physicedit_torch.models.dit import DiT, DiTConfig
 from physicedit_torch.models.qwen_vl import (Int8Embedding, QwenVLText, QwenVLTextConfig,
                                              fuse_decode_projections)
@@ -95,15 +101,15 @@ def _carry(module: nn.Module, tree: dict, device, prepare=None) -> nn.Module:
     return module.eval()
 
 
-def dit_from_jax(params: dict, cfg, dtype=torch.float32, device="cpu") -> DiT:
+def dit_from_jax(params: dict, cfg, dtype=torch.float32, device="cuda") -> DiT:
     return _carry(DiT(config_from_jax(cfg, DiTConfig), dtype), params, device)
 
 
-def vae_from_jax(params: dict, cfg, dtype=torch.float32, device="cpu") -> VAE:
+def vae_from_jax(params: dict, cfg, dtype=torch.float32, device="cuda") -> VAE:
     return _carry(VAE(config_from_jax(cfg, VAEConfig), dtype), params, device)
 
 
-def text_from_jax(params: dict, cfg, dtype=torch.float32, device="cpu") -> QwenVLText:
+def text_from_jax(params: dict, cfg, dtype=torch.float32, device="cuda") -> QwenVLText:
     layers = params["layers"]
     first = layers[0] if isinstance(layers, (list, tuple)) else layers
 
@@ -124,31 +130,83 @@ def text_from_jax(params: dict, cfg, dtype=torch.float32, device="cpu") -> QwenV
 
 
 def vision_from_jax(params: dict, cfg, dtype=torch.float32,
-                    device="cpu") -> QwenVLVision:
+                    device="cuda") -> QwenVLVision:
     return _carry(QwenVLVision(config_from_jax(cfg, QwenVLVisionConfig), dtype),
                   params, device)
 
 
 def dual_adapter_from_jax(params: dict, dtype=torch.float32,
-                          device="cpu") -> DualAdapter:
+                          device="cuda") -> DualAdapter:
     fc1 = np.asarray(params["head_dino"]["fc1"]["w"])
     fc2 = np.asarray(params["head_dino"]["fc2"]["w"])
     return _carry(DualAdapter(fc1.shape[0], fc2.shape[1], dtype), params, device)
 
 
-def pipeline_from_jax(jpipe, device="cpu"):
+def dinov2_from_jax(params: dict, cfg, dtype=torch.float32, device="cuda") -> DinoV2:
+    n0 = np.shape(params["pos_emb"])[1] - 1
+    grid = int(round(float(np.sqrt(n0))))
+    return _carry(DinoV2(config_from_jax(cfg, DinoV2Config), grid, dtype), params, device)
+
+
+def lora_from_jax(tree: dict, cfg, dtype=torch.float32, device="cuda") -> DiTLoRA:
+    """A JAX ``init_dit_lora`` tree -> ``DiTLoRA`` (trainable)."""
+    rank = np.shape(tree["to_out"]["A"])[-1]
+    return _carry(DiTLoRA(config_from_jax(cfg, DiTConfig), rank, dtype), tree,
+                  device).requires_grad_(True)
+
+
+def trainable_from_jax(trainable: dict, dit_cfg, dtype=torch.float32, device="cuda"):
+    """A JAX ``{"lora", "adapters"}`` trainable tree -> the port's
+    ``train.trainer.Trainable`` (all parameters trainable)."""
+    from physicedit_torch.train.trainer import Trainable, TrainingAdapters
+
+    ad = trainable["adapters"]
+    adapters = _carry(TrainingAdapters(np.shape(ad["visual_thinking_adapter"]["head_dino"]
+                                                ["fc2"]["w"])[1],
+                                       np.shape(ad["dino_time_embed"])[1],
+                                       np.shape(ad["vae_time_embed"])[1], dtype), ad, device)
+    return Trainable(lora_from_jax(trainable["lora"], dit_cfg, dtype, device),
+                     adapters).requires_grad_(True)
+
+
+def to_jax_tree(module: nn.Module, grads: bool = False) -> dict:
+    """The inverse walk of :func:`load_tree_` for float modules: ``nn.Linear``
+    -> ``{"w": [in, out], "b"}``, ``nn.ModuleList`` -> a list, a parameter ->
+    its array; NumPy fp32.  ``grads`` takes each parameter's ``.grad``
+    instead (zeros where it has none)."""
+    def val(p):
+        t = p.grad if grads else p
+        return np.zeros(p.shape, np.float32) if t is None else t.detach().float().cpu().numpy()
+
+    if isinstance(module, nn.Linear):
+        out = {"w": val(module.weight).T}
+        if module.bias is not None:
+            out["b"] = val(module.bias)
+        return out
+    if isinstance(module, nn.ModuleList):
+        return [to_jax_tree(m, grads) for m in module]
+    tree = {name: val(p) for name, p in module.named_parameters(recurse=False)}
+    for name, child in module.named_children():
+        tree[name] = to_jax_tree(child, grads)
+    return tree
+
+
+def pipeline_from_jax(jpipe, device="cuda"):
     """The port's pipeline with the weights, configs, tokenizer and token ids
-    of a JAX ``PhysicEditPipeline`` (single-image edit path only)."""
+    of a JAX ``PhysicEditPipeline`` (single-image edit path, and the DINOv2
+    of training when the JAX pipeline has one)."""
     from physicedit_torch.pipeline.edit_pipeline import PhysicEditPipeline
 
     dtype = getattr(torch, np.dtype(jpipe.dtype).name)
     adapter = jpipe.adapters.get("visual_thinking_adapter")
+    dino = getattr(jpipe, "dinov2_params", None)
     return PhysicEditPipeline(
         dit=dit_from_jax(jpipe.dit_params, jpipe.dit_cfg, dtype, device),
         vae=vae_from_jax(jpipe.vae_params, jpipe.vae_cfg, dtype, device),
         text=text_from_jax(jpipe.text_params, jpipe.text_cfg, dtype, device),
         vision=vision_from_jax(jpipe.vision_params, jpipe.vision_cfg, dtype, device),
         adapter=None if adapter is None else dual_adapter_from_jax(adapter, dtype, device),
+        dinov2=None if dino is None else dinov2_from_jax(dino, jpipe.dinov2_cfg, dtype, device),
         tokenizer=jpipe.tokenizer, dtype=dtype, device=device,
         boi_token_id=jpipe.boi_token_id, eoi_token_id=jpipe.eoi_token_id,
         image_pad_id=jpipe.image_pad_id, vision_start_id=jpipe.vision_start_id,

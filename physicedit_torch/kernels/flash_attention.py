@@ -1,8 +1,12 @@
-"""The two attention kernels of the main path and their plain versions.
+"""The attention kernels and their plain versions.
 
 K1 :func:`fixedmax_attention` (``csrc/fixedmax_attention.cu``) is the DiT
 joint attention; it replaces ``physicedit_tpu/kernels/flash_attention.py::
-_fixedmax_kernel_lse`` (entered through ``flash_attention_bnsd``).  K2
+_fixedmax_kernel_lse`` (entered through ``flash_attention_bnsd``).  Under
+autograd it is a ``torch.autograd.Function`` (the JAX package's
+``_fixedmax_diff``) whose backward is K8 :func:`fixedmax_attention_bwd`
+(``csrc/fixedmax_attention_bwd.cu``), which replaces ``_fm_bwd_dq_kernel``
+and ``_fm_bwd_dkv_kernel`` (launched from ``_fm_bwd``).  K2
 :func:`gqa_causal_attention` (``csrc/gqa_causal_attention.cu``) is the
 Qwen2.5-VL prefill and prompt-encode attention; it replaces
 ``_gqa_causal_kernel`` (entered through ``gqa_causal_flash``).  Each source
@@ -32,7 +36,10 @@ LOG2E = 1.4426950408889634
 CLAMP = 100.0
 HEAD_DIM = 128
 
-LAUNCHES = {"fixedmax_attention": 0, "gqa_causal_attention": 0}
+LN2 = 1.0 / LOG2E   # d sig / d q' = k * ln 2 for the prescaled q' (and likewise for k)
+
+LAUNCHES = {"fixedmax_attention": 0, "fixedmax_attention_bwd": 0,
+            "gqa_causal_attention": 0}
 
 
 def reset_launch_counts() -> None:
@@ -73,6 +80,39 @@ def _mask_arg(key_mask: torch.Tensor | None, b: int, s: int, name: str):
 # K1: fixed-max joint attention (DiT)
 # ---------------------------------------------------------------------------
 
+def _key_bias(key_mask):
+    """[B, S_k] bool -> additive [B, 1, 1, S_k] fp32 (0 live, -1e30 masked)."""
+    return torch.where(key_mask, 0.0, NEG_INF).float()[:, None, None, :]
+
+
+def _head_groups(n: int, sq: int, sk: int):
+    """Head slices that keep an fp32 [S_q, S_k] score block near 1 GB."""
+    step = max(1, (1 << 28) // max(1, sq * sk))
+    return [slice(h0, min(n, h0 + step)) for h0 in range(0, n, step)]
+
+
+def _fixedmax_prescaled_reference(qs, k, v, key_mask, clamp):
+    """Plain K1 on the prescaled q' = q * log2(e) / sqrt(d): (out, l)."""
+    b, n, sq, _ = qs.shape
+    sk = k.shape[2]
+    key_bias = None if key_mask is None else _key_bias(key_mask)
+    out = torch.empty_like(qs)
+    l_all = torch.empty((b, n, sq), dtype=torch.float32, device=qs.device)
+    for bi in range(b):
+        for hs in _head_groups(n, sq, sk):
+            s = torch.matmul(qs[bi, hs].float(), k[bi, hs].float().transpose(-1, -2))
+            if key_bias is not None:
+                s = s + key_bias[bi]
+            if clamp:
+                s = s.clamp(max=CLAMP)
+            p = torch.exp2(s)
+            l = p.sum(-1)
+            acc = torch.matmul(p.to(v.dtype).float(), v[bi, hs].float())
+            out[bi, hs] = (acc / l.clamp(min=1e-30)[..., None]).to(qs.dtype)
+            l_all[bi, hs] = l
+    return out, l_all
+
+
 def fixedmax_attention_reference(q, k, v, key_mask=None, clamp: bool = True,
                                  return_l: bool = False):
     """Plain version of K1 with the kernel's numerics.
@@ -83,29 +123,54 @@ def fixedmax_attention_reference(q, k, v, key_mask=None, clamp: bool = True,
     Heads are taken in groups so the fp32 score matrix stays near 1 GB.
     Returns out, or (out, l [B, N, S_q] fp32) with ``return_l``.
     """
-    b, n, sq, d = q.shape
+    out, l = _fixedmax_prescaled_reference(_prescale(q), k, v, key_mask, clamp)
+    return (out, l) if return_l else out
+
+
+def _fixedmax_prescaled(qs, k, v, key_mask, clamp: bool, return_l: bool):
+    """K1 on the prescaled q': the plain version for CPU tensors, the kernel
+    for CUDA tensors.  Returns (out, l or None)."""
+    if qs.device.type == "cpu":
+        out, l = _fixedmax_prescaled_reference(qs, k, v, key_mask, clamp)
+        return out, (l if return_l else None)
+    _check_cuda("fixedmax_attention", {"q": qs, "k": k, "v": v})
+    b, n, sq, _ = qs.shape
     sk = k.shape[2]
-    qs = _prescale(q)
-    key_bias = None
-    if key_mask is not None:
-        key_bias = torch.where(key_mask, 0.0, NEG_INF).float()[:, None, None, :]
-    out = torch.empty_like(q)
-    l_all = torch.empty((b, n, sq), dtype=torch.float32, device=q.device)
-    step = max(1, (1 << 28) // max(1, sq * sk))
-    for bi in range(b):
-        for h0 in range(0, n, step):
-            hs = slice(h0, min(n, h0 + step))
-            s = torch.matmul(qs[bi, hs].float(), k[bi, hs].float().transpose(-1, -2))
-            if key_bias is not None:
-                s = s + key_bias[bi]
-            if clamp:
-                s = s.clamp(max=CLAMP)
-            p = torch.exp2(s)
-            l = p.sum(-1)
-            acc = torch.matmul(p.to(v.dtype).float(), v[bi, hs].float())
-            out[bi, hs] = (acc / l.clamp(min=1e-30)[..., None]).to(q.dtype)
-            l_all[bi, hs] = l
-    return (out, l_all) if return_l else out
+    if k.shape != (b, n, sk, HEAD_DIM) or v.shape != k.shape:
+        raise ValueError(f"fixedmax_attention: k/v {tuple(k.shape)}/{tuple(v.shape)} "
+                         f"do not match q {tuple(qs.shape)}")
+    mask = _mask_arg(key_mask, b, sk, "fixedmax_attention")
+    out = torch.empty_like(qs)
+    l = torch.empty((b, n, sq), dtype=torch.float32, device=qs.device) if return_l else None
+    ptr = _build.ptr
+    _build.launch("fixedmax_attention", "fixedmax_attention_bf16",
+                  [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5,
+                  ptr(qs), ptr(k), ptr(v), ptr(mask), ptr(out), ptr(l),
+                  b, n, sq, sk, int(bool(clamp)))
+    LAUNCHES["fixedmax_attention"] += 1
+    return out, l
+
+
+class _FixedMaxAttention(torch.autograd.Function):
+    """Differentiable K1 on the prescaled q' (the JAX package's
+    ``_fixedmax_diff`` with ``prescaled=True``).  The backward is K8; it
+    returns the gradient with respect to q', and autograd's multiply by the
+    prescale gives the one with respect to q.  The key mask takes no
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, qs, k, v, key_mask, clamp):
+        out, l = _fixedmax_prescaled(qs, k, v, key_mask, clamp, return_l=True)
+        ctx.save_for_backward(qs, k, v, out, l)
+        ctx.key_mask, ctx.clamp = key_mask, clamp
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        qs, k, v, out, l = ctx.saved_tensors
+        dq, dk, dv = fixedmax_attention_bwd(qs, k, v, ctx.key_mask, g.contiguous(), out, l,
+                                            ctx.clamp)
+        return dq, dk, dv, None, None
 
 
 def fixedmax_attention(q, k, v, key_mask=None, clamp: bool = True,
@@ -115,27 +180,90 @@ def fixedmax_attention(q, k, v, key_mask=None, clamp: bool = True,
     No running max: the DiT RMS-norms q and k, so the logits are bounded
     (``models/dit.attn_clamp_needed`` decides ``clamp`` at load).  S_q may be
     shorter than S_k (the slim last block).  Masked keys contribute nothing;
-    a row whose keys are all masked returns 0.
+    a row whose keys are all masked returns 0.  With grad enabled and q, k or
+    v requiring grad, the call is differentiable through K8.
     """
-    if q.device.type == "cpu":
-        return fixedmax_attention_reference(q, k, v, key_mask, clamp, return_l)
-    _check_cuda("fixedmax_attention", {"q": q, "k": k, "v": v})
-    b, n, sq, _ = q.shape
-    sk = k.shape[2]
-    if k.shape != (b, n, sk, HEAD_DIM) or v.shape != k.shape:
-        raise ValueError(f"fixedmax_attention: k/v {tuple(k.shape)}/{tuple(v.shape)} "
-                         f"do not match q {tuple(q.shape)}")
-    mask = _mask_arg(key_mask, b, sk, "fixedmax_attention")
-    qs = _prescale(q).contiguous()
-    out = torch.empty_like(q)
-    l = torch.empty((b, n, sq), dtype=torch.float32, device=q.device) if return_l else None
-    ptr = _build.ptr
-    _build.launch("fixedmax_attention", "fixedmax_attention_bf16",
-                  [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5,
-                  ptr(qs), ptr(k), ptr(v), ptr(mask), ptr(out), ptr(l),
-                  b, n, sq, sk, int(bool(clamp)))
-    LAUNCHES["fixedmax_attention"] += 1
+    qs = _prescale(q)
+    if q.device.type != "cpu":
+        qs = qs.contiguous()
+    if not return_l and torch.is_grad_enabled() and (
+            q.requires_grad or k.requires_grad or v.requires_grad):
+        return _FixedMaxAttention.apply(qs, k, v, key_mask, clamp)
+    out, l = _fixedmax_prescaled(qs, k, v, key_mask, clamp, return_l)
     return (out, l) if return_l else out
+
+
+# ---------------------------------------------------------------------------
+# K8: the fixed-max attention backward
+# ---------------------------------------------------------------------------
+
+def attention_bwd_rowdot(g: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+    """D = rowsum(g * out) in fp32, [B, N, S_q] (the JAX wrapper's ``dd``)."""
+    return (g.float() * out.float()).sum(-1)
+
+
+def fixedmax_attention_bwd_reference(qs, k, v, key_mask, g, out, l, clamp: bool = True):
+    """Plain version of K8, with the kernel's numerics (``_fm_bwd`` with
+    ``prescaled=True``): P = exp2(min(q' k^T + key_bias, CLAMP)) /
+    max(l, 1e-30) recomputed in fp32, dS = P * (g v^T - D), zero where the
+    clamp bound, dq' = bf16(dS) . k * ln2, dk = bf16(dS)^T . q' * ln2,
+    dv = bf16(P)^T . g, fp32 sums, each cast to its input's dtype."""
+    b, n, sq, _ = qs.shape
+    sk = k.shape[2]
+    key_bias = None if key_mask is None else _key_bias(key_mask)
+    dd = attention_bwd_rowdot(g, out)
+    dq, dk, dv = torch.empty_like(qs), torch.empty_like(k), torch.empty_like(v)
+    for bi in range(b):
+        for hs in _head_groups(n, sq, sk):
+            qf, kf = qs[bi, hs].float(), k[bi, hs].float()
+            sig = torch.matmul(qf, kf.transpose(-1, -2))
+            if key_bias is not None:
+                sig = sig + key_bias[bi]
+            p = torch.exp2(sig.clamp(max=CLAMP) if clamp else sig)
+            p = p * (1.0 / l[bi, hs].clamp(min=1e-30))[..., None]
+            dp = torch.matmul(g[bi, hs].float(), v[bi, hs].float().transpose(-1, -2))
+            ds = p * (dp - dd[bi, hs][..., None])
+            if clamp:
+                ds = torch.where(sig < CLAMP, ds, 0.0)
+            ds_lo = ds.to(k.dtype).float()
+            dq[bi, hs] = (torch.matmul(ds_lo, kf) * LN2).to(qs.dtype)
+            dk[bi, hs] = (torch.matmul(ds_lo.transpose(-1, -2), qf) * LN2).to(k.dtype)
+            dv[bi, hs] = torch.matmul(p.to(g.dtype).float().transpose(-1, -2),
+                                      g[bi, hs].float()).to(v.dtype)
+    return dq, dk, dv
+
+
+def fixedmax_attention_bwd(qs, k, v, key_mask, g, out, l, clamp: bool = True):
+    """K8: the gradients (dq', dk, dv) of K1 on the prescaled q', given the
+    output gradient g, K1's output and its row sums l.
+
+    The plain version for CPU tensors; for CUDA tensors the kernel: bf16
+    q'/k/v/g/out [B, N, S, 128] (S_q may be shorter than S_k), fp32 l; D is
+    formed here in fp32 and the kernel's dq and dk/dv passes read it.
+    """
+    if qs.device.type == "cpu":
+        return fixedmax_attention_bwd_reference(qs, k, v, key_mask, g, out, l, clamp)
+    _check_cuda("fixedmax_attention_bwd", {"q": qs, "k": k, "v": v, "g": g, "out": out})
+    b, n, sq, _ = qs.shape
+    sk = k.shape[2]
+    if (k.shape != (b, n, sk, HEAD_DIM) or v.shape != k.shape or g.shape != qs.shape
+            or out.shape != qs.shape):
+        raise ValueError(f"fixedmax_attention_bwd: shapes q {tuple(qs.shape)} k "
+                         f"{tuple(k.shape)} v {tuple(v.shape)} g {tuple(g.shape)} "
+                         f"out {tuple(out.shape)} do not fit")
+    if l.dtype != torch.float32 or l.shape != (b, n, sq) or not l.is_contiguous():
+        raise ValueError(f"fixedmax_attention_bwd: l must be contiguous fp32 "
+                         f"[{b}, {n}, {sq}], got {l.dtype} {tuple(l.shape)}")
+    mask = _mask_arg(key_mask, b, sk, "fixedmax_attention_bwd")
+    dd = attention_bwd_rowdot(g, out)
+    dq, dk, dv = torch.empty_like(qs), torch.empty_like(k), torch.empty_like(v)
+    ptr = _build.ptr
+    _build.launch("fixedmax_attention_bwd", "fixedmax_attention_bwd_bf16",
+                  [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5,
+                  ptr(qs), ptr(k), ptr(v), ptr(mask), ptr(g), ptr(l), ptr(dd),
+                  ptr(dq), ptr(dk), ptr(dv), b, n, sq, sk, int(bool(clamp)))
+    LAUNCHES["fixedmax_attention_bwd"] += 1
+    return dq, dk, dv
 
 
 # ---------------------------------------------------------------------------

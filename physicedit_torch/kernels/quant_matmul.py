@@ -23,9 +23,17 @@ the large ``nn.Linear`` layers of a model for it in place.  Its forward is
   epilogue over a whole DiT step, though not at every shape
   (``chip_smoke.py`` times both); the int32 accumulators are the same.
 
-The K3 wrapper takes its plain PyTorch version (:func:`w4a8_matmul_reference`)
-for a tensor on the CPU.  For a CUDA tensor it launches the kernel or raises;
-``LAUNCHES`` counts the launches.
+:func:`w4a8_linear` is differentiable in x, straight through the
+activation quantizer, with a zero weight cotangent (the JAX package's
+``custom_vjp``): its backward is K9 :func:`w4_bwd_dx` (``csrc/w4_bwd_dx.cu``),
+which replaces ``_w4_bwd_dx_kernel``, or the dense fp32 fallback where
+``K/2 % 128`` or ``N % 128``.  That is what lets LoRA train over a frozen
+packed-int4 DiT.
+
+The K3 and K9 wrappers take their plain PyTorch versions
+(:func:`w4a8_matmul_reference`, :func:`w4_bwd_dx_reference`) for a tensor on
+the CPU.  For a CUDA tensor they launch the kernel or raise; ``LAUNCHES``
+counts the launches.
 """
 
 from __future__ import annotations
@@ -43,7 +51,7 @@ from physicedit_torch.kernels import _build
 DIT_OUTER_KEYS = ("img_in", "txt_in", "time_embed", "norm_out", "proj_out",
                   "txt_norm")
 
-LAUNCHES = {"w4a8_matmul": 0}
+LAUNCHES = {"w4a8_matmul": 0, "w4_bwd_dx": 0}
 
 
 def reset_launch_counts() -> None:
@@ -170,6 +178,46 @@ def w4a8_matmul(xq, w4, xs, w_scale, bias=None, out_dtype=torch.bfloat16,
 
 
 # ---------------------------------------------------------------------------
+# K9: the input gradient
+# ---------------------------------------------------------------------------
+
+def w4_bwd_dx_reference(g, w4, w_scale):
+    """Plain version of K9: ``dx = bf16(g * w_scale) . unpack(w4)`` with fp32
+    sums, in g's dtype (``_w4_bwd_dx`` of the JAX package: g2 is rounded to
+    bf16 after the multiply whatever g's dtype)."""
+    g2 = (g.float() * w_scale.float()[None, :]).to(torch.bfloat16).float()
+    return (g2 @ _unpack_w4_int8(w4).float()).to(g.dtype)
+
+
+def w4_bwd_dx(g, w4, w_scale):
+    """K9: ``dx [M, K] = bf16(g * w_scale) [M, N] . unpack(w4)`` for w4 int8
+    ``[N, K/2]`` and w_scale fp32 ``[N]``.  On the card: g bf16, dx bf16,
+    ``K/2 % 128 == 0`` and ``N % 128 == 0``."""
+    if g.device.type == "cpu":
+        return w4_bwd_dx_reference(g, w4, w_scale)
+    m, n = g.shape
+    n_w, k2 = w4.shape
+    if g.dtype != torch.bfloat16 or w4.dtype != torch.int8 or n_w != n:
+        raise ValueError(f"w4_bwd_dx: g {g.dtype} {tuple(g.shape)} and w4 {w4.dtype} "
+                         f"{tuple(w4.shape)} do not fit bf16 [M, N] x int8 [N, K/2]")
+    if k2 % 128 or n % 128:
+        raise ValueError(f"w4_bwd_dx: K/2 = {k2} and N = {n} must be multiples of 128")
+    for name, t, dt in (("g", g, torch.bfloat16), ("w4", w4, torch.int8),
+                        ("w_scale", w_scale, torch.float32)):
+        if not t.is_cuda or t.dtype != dt or not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"w4_bwd_dx: {name} must be a contiguous, 16-byte aligned "
+                             f"CUDA {dt} tensor")
+    if w_scale.shape != (n,):
+        raise ValueError(f"w4_bwd_dx: w_scale {tuple(w_scale.shape)} is not [{n}]")
+    dx = torch.empty((m, 2 * k2), dtype=torch.bfloat16, device=g.device)
+    ptr = _build.ptr
+    _build.launch("w4_bwd_dx", "w4_bwd_dx_bf16", [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3,
+                  ptr(g), ptr(w4), ptr(w_scale), ptr(dx), m, n, 2 * k2)
+    LAUNCHES["w4_bwd_dx"] += 1
+    return dx
+
+
+# ---------------------------------------------------------------------------
 # The linear layer and its dispatch
 # ---------------------------------------------------------------------------
 
@@ -209,12 +257,44 @@ class W4Linear(nn.Module):
                 f"bias={self.bias is not None}")
 
 
+def _kernel_sized(lin: W4Linear) -> bool:
+    return (lin.in_features // 2) % 128 == 0 and lin.out_features % 128 == 0
+
+
+class _W4A8Linear(torch.autograd.Function):
+    """``w4a8_linear`` differentiable in x: dx is K9 on kernel-sized layers,
+    else the dense ``g . dequant(w4)`` in fp32; the weights take none."""
+
+    @staticmethod
+    def forward(ctx, x, lin):
+        ctx.lin = lin
+        return _w4a8_linear_impl(lin, x)
+
+    @staticmethod
+    def backward(ctx, g):
+        lin = ctx.lin
+        *lead, n = g.shape
+        g2 = g.reshape(-1, n)
+        if _kernel_sized(lin):
+            dx = w4_bwd_dx(g2.contiguous(), lin.w4, lin.w_scale)
+        else:
+            dx = g2.float() @ _dequant_w4(lin.w4, lin.w_scale)
+        return dx.reshape(*lead, lin.in_features).to(g.dtype), None
+
+
 def w4a8_linear(lin: W4Linear, x: torch.Tensor) -> torch.Tensor:
     """``y = dequant(int8(x) . unpack(w4)) + b`` in x's dtype, over any
-    leading dims (``_w4a8_linear_impl`` of the JAX package)."""
+    leading dims (``w4a8_linear`` of the JAX package); differentiable in x
+    when x requires grad."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _W4A8Linear.apply(x, lin)
+    return _w4a8_linear_impl(lin, x)
+
+
+def _w4a8_linear_impl(lin: W4Linear, x: torch.Tensor) -> torch.Tensor:
     *lead, k = x.shape
     x2 = x.reshape(-1, k)
-    if (lin.in_features // 2) % 128 or lin.out_features % 128:
+    if not _kernel_sized(lin):
         # below the kernel's tile: the JAX package's dense fp32 fallback
         out = x2.float() @ _dequant_w4(lin.w4, lin.w_scale).T
         if lin.bias is not None:
@@ -229,7 +309,7 @@ def w4a8_linear_q(lin: W4Linear, xq: torch.Tensor, xs: torch.Tensor,
     """W4A8 linear on activations already quantized (by
     ``kernels/fused_quant.py``): xq int8 ``[..., K]``, xs fp32 ``[..., 1]``."""
     *lead, k = xq.shape
-    if k != lin.in_features or (k // 2) % 128 or lin.out_features % 128:
+    if k != lin.in_features or not _kernel_sized(lin):
         raise ValueError(f"w4a8_linear_q: x {tuple(xq.shape)} does not fit a kernel-sized "
                          f"[{lin.in_features} -> {lin.out_features}] layer")
     return _w4a8_from_q(lin, xq.reshape(-1, k), xs.reshape(-1, 1), lead, out_dtype)

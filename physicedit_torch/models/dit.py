@@ -12,6 +12,14 @@ and fc1 projections, K5 ``gelu_quant`` feeds fc2 and K6 ``transpose_quant``
 feeds the attention output projections, each straight into
 ``w4a8_linear_q``.
 
+Training passes the trainable LoRA factors (``lora.DiTLoRA``) through
+``DiT.forward(lora=...)``: deltas on the modulations, the fused QKV
+projections, both attention output projections and both fc2 (fc1 has
+none), as the JAX package places them.  With LoRA a block takes the
+unfused path and the slim last block is off; ``use_remat`` recomputes each
+block in the backward (``torch.utils.checkpoint``, the JAX package's
+``jax.checkpoint`` per block).
+
 Module attribute names follow the JAX parameter tree, so ``io/from_jax.py``
 can carry weights across by name.
 """
@@ -24,11 +32,13 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from physicedit_torch.core.params import Leaf, linear
 from physicedit_torch.kernels.flash_attention import CLAMP, LOG2E, fixedmax_attention
 from physicedit_torch.kernels.fused_quant import gelu_quant, ln_mod_quant, transpose_quant
 from physicedit_torch.kernels.quant_matmul import W4Linear, w4a8_linear_q
+from physicedit_torch.lora import lora_delta, lora_delta_fused
 from physicedit_torch.ops.norms import approximate_gelu, layer_norm, rms_norm
 from physicedit_torch.ops.rope import apply_rope
 
@@ -67,24 +77,43 @@ def _modulate(x, shift, scale, eps):
     return layer_norm(x, eps=eps) * (1.0 + scale[:, None, :]) + shift[:, None, :]
 
 
-def _mod_linear(lin, x, shift, scale, eps, fused: bool):
-    """``lin(modulate(x))``; on the fused path K4 makes the int8 input."""
+def _no_lora(y, x):
+    return y
+
+
+def _with_lora(leaf, fused: bool = False):
+    """``y + delta(x)`` in y's dtype for one layer's factors, or no delta."""
+    if leaf is None:
+        return _no_lora
+
+    def add(y, x):
+        delta = lora_delta_fused(leaf, x) if fused else lora_delta(leaf, x)
+        return y + delta.to(y.dtype)
+
+    return add
+
+
+def _mod_linear(lin, x, shift, scale, eps, fused: bool, add_lora=_no_lora):
+    """``lin(modulate(x))`` plus its LoRA delta; on the fused path K4 makes
+    the int8 input."""
     if fused and isinstance(lin, W4Linear):
         fq = ln_mod_quant(x, shift, scale, eps)
         if fq is not None:
             return w4a8_linear_q(lin, *fq, x.dtype)
-    return lin(_modulate(x, shift, scale, eps))
+    xn = _modulate(x, shift, scale, eps)
+    return add_lora(lin(xn), xn)
 
 
-def _mlp(p: nn.ModuleDict, x, shift, scale, eps, fused: bool):
-    """``fc2(gelu(fc1(modulate(x))))``; on the fused path K5 makes fc2's
-    int8 input."""
+def _mlp(p: nn.ModuleDict, x, shift, scale, eps, fused: bool, add_lora=_no_lora):
+    """``fc2(gelu(fc1(modulate(x))))`` with fc2's LoRA delta; on the fused
+    path K5 makes fc2's int8 input."""
     h = _mod_linear(p["fc1"], x, shift, scale, eps, fused)
     if fused and isinstance(p["fc2"], W4Linear):
         gq = gelu_quant(h)
         if gq is not None:
             return w4a8_linear_q(p["fc2"], *gq, x.dtype)
-    return p["fc2"](approximate_gelu(h))
+    h = approximate_gelu(h)
+    return add_lora(p["fc2"](h), h)
 
 
 class DiTBlock(nn.Module):
@@ -110,27 +139,36 @@ class DiTBlock(nn.Module):
                                       "fc2": linear(cfg.mlp_dim, d, dtype=dtype)})
 
     def forward(self, image, text, temb_silu, img_cos, img_sin, txt_cos, txt_sin,
-                joint_key_mask, slim_base: int = 0, attn_clamp: bool = True):
+                joint_key_mask, slim_base: int = 0, attn_clamp: bool = True, lora=None):
         """One dual-stream block; returns (text, image).
 
         ``slim_base > 0`` runs it as the last block: only the first
         ``slim_base`` image rows are queried and carried on (the denoise loop
         keeps only those), the text stream and edit-image rows skip their
         projections and MLPs, and the return is (None, image[:, :slim_base]).
+        ``lora`` is this layer's factors (an entry of ``DiTLoRA.layers()``)
+        or None.
         """
         cfg = self.cfg
         b, s_i, d = image.shape
         s_t = text.shape[1]
         n, hd, eps = cfg.num_heads, cfg.head_dim, cfg.eps
         a = self.attn
-        # the JAX package's use_fq: packed block weights the kernels can tile
-        fq = isinstance(a["img_qkv"], W4Linear) and (a["img_qkv"].in_features // 2) % 128 == 0
+        lora = lora or {}
+        # the JAX package's use_fq: packed block weights the kernels can tile,
+        # and no LoRA
+        fq = (not lora and isinstance(a["img_qkv"], W4Linear)
+              and (a["img_qkv"].in_features // 2) % 128 == 0)
 
-        im_sh1, im_sc1, im_g1, im_sh2, im_sc2, im_g2 = self.img_mod(temb_silu).chunk(6, -1)
-        tx_sh1, tx_sc1, tx_g1, tx_sh2, tx_sc2, tx_g2 = self.txt_mod(temb_silu).chunk(6, -1)
+        img_mod = _with_lora(lora.get("img_mod"))(self.img_mod(temb_silu), temb_silu)
+        txt_mod = _with_lora(lora.get("txt_mod"))(self.txt_mod(temb_silu), temb_silu)
+        im_sh1, im_sc1, im_g1, im_sh2, im_sc2, im_g2 = img_mod.chunk(6, -1)
+        tx_sh1, tx_sc1, tx_g1, tx_sh2, tx_sc2, tx_g2 = txt_mod.chunk(6, -1)
 
-        img_qkv = _mod_linear(a["img_qkv"], image, im_sh1, im_sc1, eps, fq)
-        txt_qkv = _mod_linear(a["txt_qkv"], text, tx_sh1, tx_sc1, eps, fq)
+        img_qkv = _mod_linear(a["img_qkv"], image, im_sh1, im_sc1, eps, fq,
+                              _with_lora(lora.get("img_qkv"), fused=True))
+        txt_qkv = _mod_linear(a["txt_qkv"], text, tx_sh1, tx_sc1, eps, fq,
+                              _with_lora(lora.get("txt_qkv"), fused=True))
         iq, ik, iv = img_qkv.view(b, s_i, 3, n, hd).permute(2, 0, 3, 1, 4)
         tq, tk, tv = txt_qkv.view(b, s_t, 3, n, hd).permute(2, 0, 3, 1, 4)
 
@@ -158,10 +196,11 @@ class DiTBlock(nn.Module):
                                      f"{slim_base} rows")
                 img_o = w4a8_linear_q(a["to_out"], *fq_attn, image.dtype)
             else:
-                img_o = a["to_out"](out.transpose(1, 2).reshape(b, slim_base, d))
+                out2 = out.transpose(1, 2).reshape(b, slim_base, d)
+                img_o = _with_lora(lora.get("to_out"))(a["to_out"](out2), out2)
             image = image[:, :slim_base] + im_g1[:, None, :] * img_o
-            image = image + im_g2[:, None, :] * _mlp(self.img_mlp, image, im_sh2,
-                                                     im_sc2, eps, fq)
+            image = image + im_g2[:, None, :] * _mlp(self.img_mlp, image, im_sh2, im_sc2,
+                                                     eps, fq, _with_lora(lora.get("img_mlp_fc2")))
             return None, image
 
         fq_attn = None
@@ -174,12 +213,15 @@ class DiTBlock(nn.Module):
                                   image.dtype)
         else:
             out = out.transpose(1, 2).reshape(b, s_t + s_i, d)
-            img_o = a["to_out"](out[:, s_t:])
-            txt_o = a["to_add_out"](out[:, :s_t])
+            img_attn, txt_attn = out[:, s_t:], out[:, :s_t]
+            img_o = _with_lora(lora.get("to_out"))(a["to_out"](img_attn), img_attn)
+            txt_o = _with_lora(lora.get("to_add_out"))(a["to_add_out"](txt_attn), txt_attn)
         image = image + im_g1[:, None, :] * img_o
         text = text + tx_g1[:, None, :] * txt_o
-        image = image + im_g2[:, None, :] * _mlp(self.img_mlp, image, im_sh2, im_sc2, eps, fq)
-        text = text + tx_g2[:, None, :] * _mlp(self.txt_mlp, text, tx_sh2, tx_sc2, eps, fq)
+        image = image + im_g2[:, None, :] * _mlp(self.img_mlp, image, im_sh2, im_sc2, eps, fq,
+                                                 _with_lora(lora.get("img_mlp_fc2")))
+        text = text + tx_g2[:, None, :] * _mlp(self.txt_mlp, text, tx_sh2, tx_sc2, eps, fq,
+                                               _with_lora(lora.get("txt_mlp_fc2")))
         return text, image
 
 
@@ -201,11 +243,13 @@ class DiT(nn.Module):
 
     def forward(self, img_tokens, txt_tokens, timestep, img_cos, img_sin,
                 txt_cos, txt_sin, txt_key_mask=None, slim_last: int = 0,
-                attn_clamp: bool = True):
+                attn_clamp: bool = True, lora=None, use_remat: bool = False):
         """img_tokens [B, S_i, 64] (base image first, then edit tokens);
         txt_tokens [B, S_t, txt_in_dim]; timestep [B] in [0, 1];
         txt_key_mask [B, S_t] bool.  Returns [B, S_i, 64], or
-        [B, slim_last, 64] when the last block runs slim."""
+        [B, slim_last, 64] when the last block runs slim (never with
+        ``lora``, a ``DiTLoRA``).  ``use_remat`` recomputes each block in the
+        backward instead of keeping its activations."""
         cfg = self.cfg
         s_i = img_tokens.shape[1]
         image = self.img_in(img_tokens)
@@ -220,11 +264,17 @@ class DiT(nn.Module):
             joint_key_mask = F.pad(txt_key_mask.bool(), (0, s_i), value=True)
 
         last = len(self.blocks) - 1
+        slim_last = 0 if lora is not None else slim_last
+        layer_lora = [None] * len(self.blocks) if lora is None else lora.layers()
+        remat = use_remat and torch.is_grad_enabled()
         for i, block in enumerate(self.blocks):
-            text, image = block(image, text, temb_silu, img_cos, img_sin,
-                                txt_cos, txt_sin, joint_key_mask,
-                                slim_base=slim_last if i == last else 0,
-                                attn_clamp=attn_clamp)
+            def run(image, text, block=block, i=i):
+                return block(image, text, temb_silu, img_cos, img_sin, txt_cos, txt_sin,
+                             joint_key_mask, slim_base=slim_last if i == last else 0,
+                             attn_clamp=attn_clamp, lora=layer_lora[i])
+
+            text, image = (checkpoint(run, image, text, use_reentrant=False) if remat
+                           else run(image, text))
 
         scale, shift = self.norm_out["linear"](temb_silu).chunk(2, -1)
         image = layer_norm(image, eps=1e-6) * (1.0 + scale[:, None, :]) + shift[:, None, :]

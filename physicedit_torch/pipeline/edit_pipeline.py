@@ -6,9 +6,9 @@ Stages: VAE-encode the edit image; run the vision tower once and share its
 features; the Qwen2.5-VL reasoner writes the physical-transition text
 (prefill + greedy decode); encode the CFG positive and negative prompts with
 the 64 special tokens; denoise over the DiT with the per-step special-token
-rewrite; VAE-decode.  Host-side string and geometry work is the JAX
-package's own (``pipeline/prompt.py``, ``pipeline/vl_host.py``,
-``sampling/flow_match.py``), imported rather than copied.
+rewrite; VAE-decode.  Host-side string and geometry work lives in this
+package's copies of the JAX package's ``pipeline/prompt.py``,
+``pipeline/vl_host.py`` and ``sampling/flow_match.py``.
 
 Each call leaves its stage times, on the host clock around work that ends in
 a device synchronise, in ``self.timings`` (milliseconds), beside the token
@@ -34,10 +34,10 @@ from physicedit_torch.models.qwen_vl import (QwenVLText, fuse_decode_projections
 from physicedit_torch.models.qwen_vl_vision import QwenVLVision
 from physicedit_torch.ops import rope as m_rope
 from physicedit_torch.ops.patchify import patchify
+from physicedit_torch.pipeline import prompt as P
+from physicedit_torch.pipeline import vl_host
+from physicedit_torch.sampling import flow_match as fm
 from physicedit_torch.sampling.denoise import denoise
-from physicedit_tpu.pipeline import prompt as P
-from physicedit_tpu.pipeline import vl_host
-from physicedit_tpu.sampling import flow_match as fm
 
 IMAGE_PAD_ID = 151655
 VISION_START_ID = 151652
@@ -45,7 +45,7 @@ VISION_START_ID = 151652
 
 class PhysicEditPipeline:
     def __init__(self, dit: DiT, vae: m_vae.VAE, text: QwenVLText,
-                 vision: QwenVLVision, adapter=None, tokenizer=None,
+                 vision: QwenVLVision, adapter=None, tokenizer=None, dinov2=None,
                  dtype=torch.bfloat16, device="cuda", boi_token_id=None,
                  eoi_token_id=None, image_pad_id: int = IMAGE_PAD_ID,
                  vision_start_id: int = VISION_START_ID,
@@ -54,6 +54,7 @@ class PhysicEditPipeline:
                  kv_int8: bool = False):
         self.dit, self.vae, self.text, self.vision = dit, vae, text, vision
         self.adapter = adapter
+        self.dinov2 = dinov2            # the training prior's DINOv2 (train/)
         self.tokenizer = tokenizer
         self.dtype = dtype
         self.device = torch.device(device)
@@ -73,7 +74,7 @@ class PhysicEditPipeline:
         built in the working dtype, and the quantized lane's int8 weights
         and fp32 scales keep theirs."""
         self.device = torch.device(device)
-        for m in (self.dit, self.vae, self.text, self.vision, self.adapter):
+        for m in (self.dit, self.vae, self.text, self.vision, self.adapter, self.dinov2):
             if m is not None:
                 m.to(device=self.device)
         return self
@@ -231,6 +232,11 @@ class PhysicEditPipeline:
         with self._timed("prompt_encode"):
             out = self._vl_hidden_batch(rows)
         return [self._edit_hidden_post(ids, hidden) for ids, hidden in out]
+
+    def encode_prompt_edit(self, prompt: str, edit_image):
+        """One edit-path prompt encode: (prompt_emb [S, D], special
+        positions [64] or None)."""
+        return self.encode_prompt_edit_batch([prompt], [edit_image])[0]
 
     def _reasoner_inputs(self, prompt: str, edit_image, feats=None, grid=None):
         text = P.reasoner_chat_text(P.REASONER_SYSTEM_PROMPT, [

@@ -4,7 +4,8 @@ smoke run; no checkpoint or tokenizer files are needed.
 ``build_random_pipeline("tiny", ...)`` has the dims of the JAX package's
 ``build_tiny_pipeline``; ``"full"`` is Qwen-Image-Edit-2509 at full width
 (60-block DiT, 28-layer Qwen2.5-VL-7B text model, 32-block ViT, the Qwen
-VAE and a dual adapter at 3584 in and out).  At full size the weights are
+VAE, a dual adapter at 3584 in and out, and the training prior's
+DINOv2-B/14 with registers and its 37 x 37 position table).  At full size the weights are
 drawn in the working dtype directly on the device from a generator on that
 device: an fp32 init on the host would need about 112 GB of RAM.
 """
@@ -19,6 +20,8 @@ import torch
 
 from physicedit_torch.core.params import init_random_, materialize
 from physicedit_torch.models.adapters import DualAdapter
+from physicedit_torch.models.dinov2 import (DINOV2_BASE, DINOV2_BASE_POS_GRID, DinoV2,
+                                            DinoV2Config, init_dinov2_)
 from physicedit_torch.models.dit import QWEN_IMAGE_CONFIG, DiT, DiTConfig
 from physicedit_torch.models.qwen_vl import (QWEN25_VL_7B_TEXT, TINY_TEXT, QwenVLText,
                                              QwenVLTextConfig)
@@ -79,6 +82,8 @@ class PipelineDims:
     adapter_dim: int
     rope_axes: tuple
     edit_drop_idx: int
+    dinov2: DinoV2Config | None = None   # the training prior's encoder, if any
+    dino_pos_grid: int = DINOV2_BASE_POS_GRID
 
 
 SIZES = {
@@ -90,20 +95,22 @@ SIZES = {
                                   intermediate_size=64, window_size=56,
                                   fullatt_block_indexes=(1,), out_hidden_size=64),
         vae=VAEConfig(base_dim=8), adapter_dim=64, rope_axes=(8, 12, 12),
-        edit_drop_idx=2),
+        edit_drop_idx=2, dinov2=DinoV2Config(hidden_size=32, num_layers=1, num_heads=2),
+        dino_pos_grid=20),
     "full": PipelineDims(
         dit=QWEN_IMAGE_CONFIG, text=QWEN25_VL_7B_TEXT, vision=QWEN25_VL_VISION,
         vae=QWEN_VAE_CONFIG, adapter_dim=3584, rope_axes=(16, 56, 56),
-        edit_drop_idx=64),
+        edit_drop_idx=64, dinov2=DINOV2_BASE),
 }
 
 
 @torch.no_grad()
-def random_pipeline(dims: PipelineDims, device="cpu", dtype=torch.float32,
+def random_pipeline(dims: PipelineDims, device="cuda", dtype=torch.float32,
                     generator: torch.Generator | None = None) -> PhysicEditPipeline:
     """A pipeline of the given dims with torch-default random weights (the
     distribution of the JAX package's ``linear_init``; token embeddings
-    N(0, 0.02^2)), every model built in ``dtype`` on ``device``."""
+    N(0, 0.02^2); DINOv2 as ``init_dinov2_``), every model built in ``dtype``
+    on ``device``."""
     device = torch.device(device)
     if generator is None:
         generator = torch.Generator(device).manual_seed(0)
@@ -115,7 +122,7 @@ def random_pipeline(dims: PipelineDims, device="cpu", dtype=torch.float32,
     init_random_(text, generator)
     text.embed.normal_(0.0, 0.02, generator=generator)
     tok = FakeTokenizer()
-    return PhysicEditPipeline(
+    pipe = PhysicEditPipeline(
         dit=make(DiT(dims.dit, dtype)), vae=make(VAE(dims.vae, dtype)),
         text=text.eval(), vision=make(QwenVLVision(dims.vision, dtype)),
         adapter=make(DualAdapter(dims.adapter_dim, dims.adapter_dim, dtype)),
@@ -126,9 +133,13 @@ def random_pipeline(dims: PipelineDims, device="cpu", dtype=torch.float32,
         vision_start_id=tok.specials["<|vision_start|>"],
         edit_drop_idx=dims.edit_drop_idx,
         rope_axes=dims.rope_axes)
+    if dims.dinov2 is not None:     # drawn last: the other models' weights stay as they were
+        pipe.dinov2 = init_dinov2_(materialize(DinoV2(dims.dinov2, dims.dino_pos_grid, dtype),
+                                               device), generator).eval()
+    return pipe
 
 
-def build_random_pipeline(size: str = "tiny", device="cpu",
+def build_random_pipeline(size: str = "tiny", device="cuda",
                           generator: torch.Generator | None = None,
                           quantize: str | None = None) -> PhysicEditPipeline:
     """``"tiny"`` in fp32 or ``"full"`` in bf16, with random weights; with

@@ -1,4 +1,4 @@
-"""Port kernels K1-K6 on an NVIDIA GPU against their plain versions.
+"""Port kernels K1-K6, K8 and K9 on an NVIDIA GPU against their plain versions.
 
 Every test here needs a card and nvcc and skips without one.  The file
 imports no JAX, so it also runs where JAX is not installed:
@@ -162,3 +162,78 @@ def test_fused_quant_rounds_half_to_even_on_cuda(cuda):
     assert qs[0, 0, 0].item() == 1.0
     q_ref, _ = tfq.transpose_quant_reference(heads.bfloat16())
     assert torch.equal(q, q_ref)
+
+
+def _rms(x, scale=1.0):
+    return (scale * x / x.pow(2).mean(-1, keepdim=True).sqrt()).bfloat16()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["masked_ragged", "clamp_binds", "sq_ne_sk", "fully_masked"])
+def test_fixedmax_bwd_kernel_matches_plain_on_cuda(cuda, case):
+    """K8 against its plain version on the same q', l, out and g: bf16
+    outputs within BF16_TOL of their scale (fp32 sums in another order, dS
+    rounded to bf16 on both sides)."""
+    b, n, sq, sk, scale, clamp, spans = {
+        "masked_ragged": (2, 3, 300, 300, 1.0, True, [(250, 300), (10, 90)]),
+        "clamp_binds": (1, 2, 200, 200, 8.0, True, [(150, 200)]),
+        "sq_ne_sk": (1, 2, 130, 333, 1.0, False, [(300, 333)]),
+        "fully_masked": (2, 1, 100, 100, 1.0, True, [(0, 0), (0, 100)]),
+    }[case]
+    g = torch.Generator(cuda).manual_seed(len(case))
+    q = tfa._prescale(_rms(torch.randn(b, n, sq, 128, device=cuda, generator=g), scale))
+    k = _rms(torch.randn(b, n, sk, 128, device=cuda, generator=g), scale)
+    v = torch.randn(b, n, sk, 128, device=cuda, generator=g).bfloat16()
+    go = torch.randn(b, n, sq, 128, device=cuda, generator=g).bfloat16()
+    mask = torch.ones(b, sk, dtype=torch.bool, device=cuda)
+    for row, (lo, hi) in enumerate(spans):
+        mask[row, lo:hi] = False
+    out, l = tfa._fixedmax_prescaled(q, k, v, mask, clamp, return_l=True)
+    before = tfa.LAUNCHES["fixedmax_attention_bwd"]
+    got = tfa.fixedmax_attention_bwd(q, k, v, mask, go, out, l, clamp)
+    want = tfa.fixedmax_attention_bwd_reference(q, k, v, mask, go, out, l, clamp)
+    assert tfa.LAUNCHES["fixedmax_attention_bwd"] == before + 1
+    for x, y in zip(got, want):
+        assert torch.isfinite(x).all()
+        tol = BF16_TOL * max(1.0, y.float().abs().max().item())
+        torch.testing.assert_close(x.float(), y.float(), rtol=BF16_TOL, atol=tol)
+    if case == "fully_masked":
+        assert all(torch.equal(x[1], torch.zeros_like(x[1])) for x in got)
+
+
+@pytest.mark.cuda
+def test_fixedmax_autograd_runs_k1_and_k8_on_cuda(cuda):
+    g = torch.Generator(cuda).manual_seed(7)
+    q, k = (_rms(torch.randn(1, 2, 200, 128, device=cuda, generator=g)).requires_grad_(True)
+            for _ in range(2))
+    v = torch.randn(1, 2, 200, 128, device=cuda, generator=g).bfloat16().requires_grad_(True)
+    mask = torch.ones(1, 200, dtype=torch.bool, device=cuda)
+    before = dict(tfa.LAUNCHES)
+    tfa.fixedmax_attention(q, k, v, mask).float().square().sum().backward()
+    assert tfa.LAUNCHES["fixedmax_attention"] == before["fixedmax_attention"] + 1
+    assert tfa.LAUNCHES["fixedmax_attention_bwd"] == before["fixedmax_attention_bwd"] + 1
+    assert all(torch.isfinite(t.grad).all() for t in (q, k, v))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(1, 3072, 18432), (37, 512, 384), (300, 768, 256)])
+def test_w4_bwd_kernel_matches_plain_on_cuda(cuda, m, k, n):
+    """K9 against its plain version: g2 = bf16(g * w_scale) identically, fp32
+    sums in another order, bf16 dx."""
+    g = torch.Generator(cuda).manual_seed(m)
+    go = torch.randn(m, n, device=cuda, generator=g).bfloat16()
+    w4 = torch.randint(-128, 128, (n, k // 2), device=cuda, dtype=torch.int8, generator=g)
+    ws = torch.rand(n, device=cuda, generator=g) * 0.01 + 1e-3
+    before = tqm.LAUNCHES["w4_bwd_dx"]
+    got = tqm.w4_bwd_dx(go, w4, ws)
+    want = tqm.w4_bwd_dx_reference(go, w4, ws)
+    assert tqm.LAUNCHES["w4_bwd_dx"] == before + 1
+    torch.testing.assert_close(got.float(), want.float(), rtol=1e-2, atol=1e-2 * want.float().abs().max().item())
+
+
+@pytest.mark.cuda
+def test_w4_bwd_kernel_rejects_untileable_layers(cuda):
+    with pytest.raises(ValueError, match="multiples of 128"):
+        tqm.w4_bwd_dx(torch.zeros(4, 128, device=cuda, dtype=torch.bfloat16),
+                      torch.zeros(128, 100, device=cuda, dtype=torch.int8),
+                      torch.ones(128, device=cuda))

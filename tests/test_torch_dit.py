@@ -84,7 +84,7 @@ def test_dit_forward_matches_jax(slim):
     want = j_dit.dit_forward(params, cfg, jnp.asarray(img), jnp.asarray(txt), jnp.asarray(t),
                              *map(jnp.asarray, ropes), txt_key_mask=jnp.asarray(mask),
                              attn_impl="xla", slim_last=slim)
-    model = dit_from_jax(params, cfg)
+    model = dit_from_jax(params, cfg, device="cpu")
     with torch.no_grad():
         got = model(*_t(img, txt, t), *_t(*ropes), txt_key_mask=torch.from_numpy(mask),
                     slim_last=slim, attn_clamp=True)
@@ -96,10 +96,10 @@ def test_attn_clamp_needed_matches_jax():
     cfg = j_dit.DiTConfig(num_layers=2, dim=64, num_heads=2, head_dim=32,
                           txt_in_dim=48, patch_dim=64, time_dim=32)
     params = _np_tree(j_dit.init_dit_params(jax.random.PRNGKey(0), cfg))
-    assert t_dit.attn_clamp_needed(dit_from_jax(params, cfg)) is False
+    assert t_dit.attn_clamp_needed(dit_from_jax(params, cfg, device="cpu")) is False
     params["blocks"]["attn"]["norm_q"]["scale"] = params["blocks"]["attn"]["norm_q"]["scale"] * 100.0
     assert j_dit.attn_clamp_needed(params) is True
-    assert t_dit.attn_clamp_needed(dit_from_jax(params, cfg)) is True
+    assert t_dit.attn_clamp_needed(dit_from_jax(params, cfg, device="cpu")) is True
 
 
 def test_dual_adapter_forward_matches_jax():
@@ -110,7 +110,7 @@ def test_dual_adapter_forward_matches_jax():
     t_min, t_max = fm.adapter_t_range()
     want = j_ad.dual_adapter_forward(params, jnp.asarray(x), jnp.asarray(t), t_min, t_max)
     with torch.no_grad():
-        got = t_ad.dual_adapter_forward(dual_adapter_from_jax(params), *_t(x, t), t_min, t_max)
+        got = t_ad.dual_adapter_forward(dual_adapter_from_jax(params, device="cpu"), *_t(x, t), t_min, t_max)
     for a, b in zip(got, want):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-5, rtol=1e-5)
 
@@ -150,10 +150,10 @@ def test_denoise_matches_jax(case):
                      special_idx=jnp.asarray(special) if with_adapter else None,
                      t_min=t_min, t_max=t_max, attn_clamp=clamp,
                      cfg_truncate_after=trunc)
-    got = t_denoise(dit_from_jax(params, cfg), *_t(latents, extra, prompt, mask),
+    got = t_denoise(dit_from_jax(params, cfg, device="cpu"), *_t(latents, extra, prompt, mask),
                     *_t(*ropes), *_t(sched.sigmas, sched.sigmas_next, sched.timesteps),
                     cfg_scale, latent_hw=(8, 8),
-                    adapter=dual_adapter_from_jax(adapter) if with_adapter else None,
+                    adapter=dual_adapter_from_jax(adapter, device="cpu") if with_adapter else None,
                     special_idx=torch.from_numpy(special).long() if with_adapter else None,
                     t_min=t_min, t_max=t_max, attn_clamp=clamp, cfg_truncate_after=trunc)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=TOL, rtol=TOL)

@@ -41,7 +41,7 @@ def _random_vae(tree, seed=0):
 def pipes():
     jpipe = build_tiny_pipeline()
     jpipe.vae_params = _random_vae(jpipe.vae_params)
-    return jpipe, pipeline_from_jax(jpipe)
+    return jpipe, pipeline_from_jax(jpipe, device="cpu")
 
 
 def _edit(seed):
@@ -102,7 +102,7 @@ def test_profile_edit_runs_on_tiny_pipeline():
     from physicedit_torch.pipeline.testing import build_random_pipeline
     from physicedit_torch.profile_edit import profile_decode, profile_dit_step
 
-    pipe = build_random_pipeline("tiny", generator=torch.Generator().manual_seed(0))
+    pipe = build_random_pipeline("tiny", generator=torch.Generator().manual_seed(0), device="cpu")
     dit, table = profile_dit_step(pipe, txt_len=8, grid=(4, 4))
     assert dit["joint_tokens"] == 2 * 16 + 8 and dit["wall_ms"] > 0
     assert dit["device_busy_ms"] == 0.0 and "aten::" in table
@@ -110,9 +110,36 @@ def test_profile_edit_runs_on_tiny_pipeline():
     assert 0 <= dec["tokens"] <= 3 and dec["ms_per_token"] >= 0
 
 
+FORBIDDEN_IMPORTS = ("jax", "jaxlib", "optax", "flax", "physicedit_tpu")
+
+
+def test_port_sources_import_no_jax():
+    """Every module of the port, and chip_smoke.py, parsed: no import of JAX,
+    its libraries or the JAX package, at any depth of the code."""
+    import ast
+    import glob
+
+    files = sorted(glob.glob(os.path.join(REPO, "physicedit_torch", "**", "*.py"),
+                             recursive=True)) + [os.path.join(REPO, "chip_smoke.py")]
+    assert len(files) > 30
+    bad = []
+    for path in files:
+        for node in ast.walk(ast.parse(open(path).read(), path)):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""]
+            else:
+                continue
+            bad += [(os.path.relpath(path, REPO), n) for n in names
+                    if n.split(".")[0] in FORBIDDEN_IMPORTS]
+    assert not bad, bad
+
+
 def test_port_runs_without_jax():
-    """The tiny slice end to end, in the float lane and after quantize_,
-    in a fresh process loads no JAX."""
+    """The tiny slice end to end, in the float lane and after quantize_, and
+    a tiny training step, in a fresh process load neither JAX nor the JAX
+    package."""
     code = textwrap.dedent("""
         import sys
         import numpy as np
@@ -120,18 +147,24 @@ def test_port_runs_without_jax():
         from PIL import Image
         torch.set_num_threads(2)
         from physicedit_torch.pipeline.testing import build_random_pipeline
-        pipe = build_random_pipeline("tiny")
+        from physicedit_torch.train.trainer import TrainConfig, Trainer
+        pipe = build_random_pipeline("tiny", device="cpu")
         edit = Image.fromarray(np.random.default_rng(0).integers(0, 255, (64, 64, 3), dtype=np.uint8))
         out = pipe("make the ball fall", edit_image=edit, height=64, width=64, seed=1,
                    num_inference_steps=2, edit_image_auto_resize=False)
         assert out.size == (64, 64), out.size
         print(pipe.reason_physical_batch(["tilt"], [edit], max_new_tokens=4)[0][:20])
+        trainer = Trainer(pipe, [], TrainConfig(lora_rank=2, txt_len_bucket=64), device="cpu")
+        batch = trainer.preprocess({"image": edit, "edit_image": edit,
+                                    "middle_key_frames": [edit, edit], "prompt": "fall"})
+        print(trainer.step(batch))
         pipe.quantize_("int4")
         out = pipe("make the ball fall", edit_image=edit, height=64, width=64, seed=1,
                    num_inference_steps=2, edit_image_auto_resize=False)
         assert out.size == (64, 64) and pipe.kv_int8, out.size
         print(pipe.reason_physical_batch(["tilt"], [edit], max_new_tokens=4)[0][:20])
         assert "jax" not in sys.modules, "the port imported jax"
+        assert "physicedit_tpu" not in sys.modules, "the port imported the JAX package"
         print("NO_JAX_OK")
     """)
     env = {k: v for k, v in os.environ.items() if k not in ("JAX_PLATFORMS", "XLA_FLAGS")}

@@ -248,9 +248,9 @@ def test_quantize_module_int4_matches_quantize_tree_int4(w4_dit_params):
     bit, as quantize_tree_int4 with skip_top=DIT_OUTER_KEYS (carried into
     the port by io/from_jax.py), and leaves the outer layers float."""
     params, qparams = w4_dit_params
-    got = tqm.quantize_module_int4(dit_from_jax(params, W4_DIT),
+    got = tqm.quantize_module_int4(dit_from_jax(params, W4_DIT, device="cpu"),
                                    skip_top=tqm.DIT_OUTER_KEYS)
-    want = dit_from_jax(qparams, W4_DIT)
+    want = dit_from_jax(qparams, W4_DIT, device="cpu")
     kinds = {n: type(m).__name__ for n, m in got.named_modules()}
     assert kinds == {n: type(m).__name__ for n, m in want.named_modules()}
     assert kinds["blocks.0.attn.img_qkv"] == "W4Linear" and kinds["img_in"] == "Linear"
@@ -297,7 +297,7 @@ def test_w4_dit_forward_matches_jax(case, w4_dit_params, monkeypatch):
             return _real(*a)
 
         monkeypatch.setattr(tfq, f"_{name}", spy)
-    model = dit_from_jax(qparams, W4_DIT)
+    model = dit_from_jax(qparams, W4_DIT, device="cpu")
     with torch.no_grad():
         got = model(*map(torch.from_numpy, (img, txt, t)), *map(torch.from_numpy, ropes),
                     txt_key_mask=torch.from_numpy(mask), slim_last=slim)
@@ -322,7 +322,7 @@ def test_w4_dit_slim_block_that_does_not_tile_fails_as_in_jax(w4_dit_params):
         j_dit.dit_forward(qparams, W4_DIT, jnp.asarray(img), jnp.asarray(txt), jnp.asarray(t),
                           *map(jnp.asarray, ropes), txt_key_mask=jnp.asarray(mask),
                           attn_impl="xla", slim_last=4)
-    model = dit_from_jax(qparams, W4_DIT)
+    model = dit_from_jax(qparams, W4_DIT, device="cpu")
     with torch.no_grad(), pytest.raises(ValueError, match="cannot tile the slim last block"):
         model(*map(torch.from_numpy, (img, txt, t)), *map(torch.from_numpy, ropes),
               txt_key_mask=torch.from_numpy(mask), slim_last=4)
@@ -358,8 +358,8 @@ def test_fuse_decode_projections_bitwise(w4_text, packed):
     leaves bit for bit, float and packed alike."""
     params, _ = w4_text
     src = jqm.quantize_tree_int4(params) if packed else params
-    want = text_from_jax(_np_tree(j_text.fuse_decode_projections(src)), W4_TEXT)
-    got = text_from_jax(params, W4_TEXT)
+    want = text_from_jax(_np_tree(j_text.fuse_decode_projections(src)), W4_TEXT, device="cpu")
+    got = text_from_jax(params, W4_TEXT, device="cpu")
     if packed:
         tqm.quantize_module_int4(got)
     t_text.fuse_decode_projections(got)
@@ -369,7 +369,7 @@ def test_fuse_decode_projections_bitwise(w4_text, packed):
 
 def test_int8_embedding_matches_jax(w4_text):
     params, qparams = w4_text
-    text = t_text.quantize_embedding_int8(text_from_jax(params, W4_TEXT))
+    text = t_text.quantize_embedding_int8(text_from_jax(params, W4_TEXT, device="cpu"))
     np.testing.assert_array_equal(text.embed.e8.numpy(), np.asarray(qparams["embed"]["e8"]))
     np.testing.assert_array_equal(text.embed.e_scale.float().numpy(),
                                   np.asarray(qparams["embed"]["e_scale"], np.float32))
@@ -399,7 +399,7 @@ def test_kv_int8_prefill_and_greedy_decode_match_jax(w4_text):
     max_total, new = 40, 12
     lw, cw, _ = j_text.prefill(qparams, W4_TEXT, jnp.asarray(emb), jnp.asarray(pos),
                                jnp.asarray(mask), max_total, kv_int8=True)
-    model = text_from_jax(qparams, W4_TEXT)
+    model = text_from_jax(qparams, W4_TEXT, device="cpu")
     lg, cg, _ = model.prefill(*map(torch.from_numpy, (emb, pos, mask)), max_total,
                               kv_int8=True)
     assert len(cg) == len(cw) == 4
@@ -443,8 +443,8 @@ def test_w4_vision_features_match_jax():
     img = Image.fromarray(np.random.default_rng(8).integers(0, 255, (84, 56, 3), dtype=np.uint8))
     flat, grids = vl_host.images_to_patches([img])
     want = j_vis.run_vision(qparams, cfg, jnp.asarray(flat), grids)
-    model = tqm.quantize_module_int4(vision_from_jax(params, cfg), skip_top=("patch_embed",))
-    _same_state(model, vision_from_jax(qparams, cfg))
+    model = tqm.quantize_module_int4(vision_from_jax(params, cfg, device="cpu"), skip_top=("patch_embed",))
+    _same_state(model, vision_from_jax(qparams, cfg, device="cpu"))
     assert type(model.blocks[0].qkv).__name__ == "W4Linear"
     got = model(torch.from_numpy(flat), grids)
     assert got.shape == want.shape
@@ -511,7 +511,7 @@ def _jax_quantize_int4(pipe):
 @pytest.fixture(scope="module")
 def w4_pipes():
     jpipe = _jax_pipeline()
-    return _jax_quantize_int4(jpipe), pipeline_from_jax(jpipe).quantize_("int4")
+    return _jax_quantize_int4(jpipe), pipeline_from_jax(jpipe, device="cpu").quantize_("int4")
 
 
 def test_pipeline_from_jax_carries_the_w4_lane_bitwise(w4_pipes):
@@ -519,7 +519,7 @@ def test_pipeline_from_jax_carries_the_w4_lane_bitwise(w4_pipes):
     projections, int8 table, kv_int8) carries into the port with the bytes
     the port's quantize_ makes from the float weights."""
     jq, tpipe = w4_pipes
-    carried = pipeline_from_jax(jq)
+    carried = pipeline_from_jax(jq, device="cpu")
     assert carried.kv_int8 and tpipe.kv_int8
     for name in ("dit", "text", "vision"):
         _same_state(getattr(carried, name), getattr(tpipe, name))
@@ -574,7 +574,7 @@ def test_to_keeps_quantized_buffers():
 
 
 def test_quantize_modes():
-    pipe = build_random_pipeline("tiny")
+    pipe = build_random_pipeline("tiny", device="cpu")
     with pytest.raises(NotImplementedError, match="W8A8"):
         pipe.quantize_("int8")
     with pytest.raises(ValueError, match="unknown quantize mode"):

@@ -40,7 +40,7 @@ def random_vae_params(seed=0):
 @pytest.fixture(scope="module")
 def vaes():
     params = random_vae_params()
-    return params, vae_from_jax(params, CFG)
+    return params, vae_from_jax(params, CFG, device="cpu")
 
 
 @pytest.mark.parametrize("hw", [(32, 32), (48, 64)])

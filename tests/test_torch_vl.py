@@ -29,7 +29,7 @@ def _np_tree(tree):
 def text_models():
     cfg = j_text.TINY_TEXT
     params = _np_tree(_rand_text_params(jax.random.PRNGKey(0), cfg))
-    return cfg, params, text_from_jax(params, cfg)
+    return cfg, params, text_from_jax(params, cfg, device="cpu")
 
 
 @pytest.fixture(scope="module")
@@ -53,7 +53,7 @@ def test_vision_features_match_jax(patches):
     cfg = j_vis.TINY_VISION
     params = _np_tree(_rand_vision_params(jax.random.PRNGKey(1), cfg))
     want = j_vis.run_vision(params, cfg, jnp.asarray(flat), grids)
-    got = vision_from_jax(params, cfg)(torch.from_numpy(flat), grids)
+    got = vision_from_jax(params, cfg, device="cpu")(torch.from_numpy(flat), grids)
     assert got.shape == want.shape
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=TOL, rtol=TOL)
 

@@ -7,23 +7,29 @@ Phases, each printed as one JSON line, any failure exits non-zero:
   1. the card (nvidia-smi name and power limit) and the TF32 settings;
   2. build the kernel sources of ``physicedit_torch/csrc``, one nvcc each,
      all at once;
-  3. K1 (DiT fixed-max attention) against its plain version at the main
-     path's shapes, before any weights are allocated;
+  3. K1 (DiT fixed-max attention) and K7 (the same with a 2-D entity bias)
+     against their plain versions at the main path's shapes, before any
+     weights are allocated;
   4. K2 (VL causal GQA attention) against its plain version;
   5. K3 (W4A8 matmul) against its exact plain version at the W4 lane's
      shapes, and at the DiT image-stream shapes beside an unpack to int8
      and torch._int_mm (the JAX package's route at M >= 8192);
   6. K4-K6 (fused activation quantize) against their plain versions;
   7. a small head_dim-128 pipeline on the card (kernels) against the same
-     weights on the CPU (plain versions), in bf16 and then quantized int4;
+     weights on the CPU (plain versions), in bf16 and then quantized int4,
+     each with a plain edit and an EliGen edit (K7, with K3-K6 in int4);
   8. the full-width pipeline (Qwen-Image-Edit-2509 widths, random bf16
      weights): three edits through ``PhysicEditPipeline.__call__`` with the
      reasoner on and CFG 4, with stage times, kernel launch counts and
-     peak memory;
-  9. the W4 serving lane at full width: an edit with the reasoner off in
-     bf16, ``quantize_("int4")`` in place, the same edit on the W4 pipeline
-     (image rel-L2 against bf16), then an edit with the reasoner on and the
-     int8 KV cache, with exact K1-K6 launch counts and the decode profile;
+     peak memory; then two EliGen edits at 1024^2 (two entities, CFG 4,
+     reasoner off; full CFG and ``cfg_truncate_step``) with exact K7 / K1 /
+     K2 launch counts; then batched serving: ``edit_batch`` of two edits
+     against the single edits, ``edit_batch_mixed`` over two sizes, and the
+     reasoner's decode at N = 1 and N = 2 rows;
+  9. the W4 serving lane at full width: ``quantize_("int4")`` in place, the
+     serving phase's first single edit on the W4 pipeline (image rel-L2
+     against bf16), then an edit with the reasoner on and the int8 KV
+     cache, with exact K1-K6 launch counts and the decode profile;
  10. a small head_dim-128 training step on the card against the same
      weights and batch on the CPU (loss and gradients), in bf16 and with the
      frozen DiT packed int4, and a few steps at lr 1e-3 whose loss must drop;
@@ -56,10 +62,15 @@ import sys
 import time
 
 ATOL = RTOL = 2e-2   # bf16 kernel against its plain version (fp32 softmax)
+# K1 and K7 also against these: the elementwise rule alone lets through an
+# error of a third of a typical output (~1.5e-2 at the DiT's shapes).  About
+# 4-8x the H100 readings (max |err| 4.9e-4-9.8e-4)
+ATTN_MAX_ABS = 4e-3
+ATTN_REL_L2 = 5e-3
 PIPE_REL_L2 = 0.05   # small pipeline, bf16 on the card vs bf16 on the CPU
 W4_REL_L2 = 0.05     # full-width W4 edit against the same edit in bf16
 KERNEL_SOURCES = ("fixedmax_attention", "gqa_causal_attention", "w4a8_matmul", "fused_quant",
-                  "fixedmax_attention_bwd", "w4_bwd_dx")
+                  "fixedmax_attention_bwd", "w4_bwd_dx", "fixedmax_attention_bias")
 # small training step, bf16 card vs bf16 CPU through 2 blocks, about 10x the
 # readings on an H100 (loss 4.6e-5, all gradients 5.1e-5, worst leaf 2.8e-3)
 TRAIN_LOSS_REL = 5e-4  # the loss
@@ -111,6 +122,8 @@ KERNEL_ROWS = [
      "physicedit_tpu/kernels/flash_attention.py:330", None),
     ("w4_bwd_dx", "physicedit_torch/csrc/w4_bwd_dx.cu",
      "physicedit_tpu/kernels/quant_matmul.py:227", None),
+    ("fixedmax_attention_bias", "physicedit_torch/csrc/fixedmax_attention_bias.cu",
+     "physicedit_tpu/kernels/flash_attention.py:111", None),
 ]
 
 
@@ -410,12 +423,14 @@ def k8_phase(report: dict, gen, time_ms, joint: int) -> None:
         k1_err = (out.float() - out_ref.float()).abs()
         k1_bad = int((k1_err > ATOL + RTOL * out_ref.float().abs()).sum().item())
         k1 = {"phase": "k1_training", "case": name, "shape": [1, 24, s, s],
-              "max_abs_err": k1_err.max().item(), "n_out_of_tol": k1_bad,
+              "max_abs_err": k1_err.max().item(), "rel_l2": rel_l2(out, out_ref),
+              "n_out_of_tol": k1_bad,
               "l_max_rel_err": ((l - l_ref).abs() / l_ref).max().item(), "atol": ATOL,
-              "rtol": RTOL}
+              "rtol": RTOL, "max_abs_limit": ATTN_MAX_ABS, "rel_l2_limit": ATTN_REL_L2}
         emit(k1)
         report["fixedmax_attention_err"].append(k1["max_abs_err"])
-        if k1_bad or k1["l_max_rel_err"] > 1e-3:
+        if (k1_bad or k1["l_max_rel_err"] > 1e-3 or k1["max_abs_err"] > ATTN_MAX_ABS
+                or k1["rel_l2"] > ATTN_REL_L2):
             fail(f"K1 {name} (prescaled, return_l) disagrees with its plain version")
         del out_ref, l_ref, k1_err
         got = fa.fixedmax_attention_bwd(q, k, v, mask, go, out, l, True)
@@ -662,6 +677,240 @@ def train_launch_counts(n_blocks: int, quantized: bool) -> dict:
             "w4_bwd_dx": 8 * n_blocks - 3 if quantized else 0}
 
 
+def entity_masks(w: int, h: int) -> list:
+    """Two entity masks of an EliGen request: a left block and the
+    bottom-right quadrant."""
+    import numpy as np
+    from PIL import Image
+
+    a = np.zeros((h, w), np.uint8)
+    a[h // 8:h // 2, w // 16:w // 2] = 255
+    b = np.zeros((h, w), np.uint8)
+    b[h // 2:, w // 2:] = 255
+    return [Image.fromarray(a), Image.fromarray(b)]
+
+
+# long enough that the text-to-image drop of 34 template tokens leaves words
+ENTITY_PROMPTS = [
+    "a tall glass of water standing on the left edge of the wooden kitchen table "
+    "in soft morning light",
+    "a ceramic plate with a slice of lemon cake resting in the lower right corner "
+    "of the same table",
+]
+
+
+def k7_phase(report: dict, gen, time_ms, compare) -> None:
+    """K7 against its plain version: (a) the full-width EliGen call, B = 2,
+    N = 24, joint 256 + 2 x 4096, with the bias build_entity_bias makes for
+    two entities (on both CFG rows) and a text key mask; (b) the slim last
+    block, its 4096 base-image query rows reading their bias rows as a
+    strided view; (c) a ragged S with a query row whose keys are all blocked
+    (exactly 0); (d) q and k x CLAMP_QK_SCALE, where the clamp binds.  Case
+    (a) is timed beside the plain version and beside PyTorch's attention
+    with the bias as a float mask broadcast over the heads."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from physicedit_torch.kernels import flash_attention as fa
+    from physicedit_torch.pipeline.eligen import build_entity_bias, downsample_entity_mask
+
+    dev = gen.device
+
+    def randn(*shape):
+        return torch.randn(*shape, device=dev, generator=gen)
+
+    def rms(x):
+        return x * torch.rsqrt(x.pow(2).mean(-1, keepdim=True))
+
+    s_t, base = 256, 4096
+    masks = [downsample_entity_mask(m, 128, 128) for m in entity_masks(1024, 1024)]
+    t0 = time.perf_counter()
+    rows = [build_entity_bias(masks, lens, 2 * base, base)
+            for lens in ([40, 56, 160], [64, 64, 128])]
+    bias_nat = torch.from_numpy(np.stack(rows)).to(dev)
+    host_ms = (time.perf_counter() - t0) * 1e3
+    bias = fa.bias_log2(bias_nat)
+    s = s_t + 2 * base
+    cases = [  # name, B, S_q, S_k, q/k scale, bias (exp2 units), text keys masked in row 1
+        ("eligen_joint_8448", 2, s, s, 1.0, bias, (220, 256)),
+        ("slim_4096x8448_view", 2, base, s, 1.0, bias[:, s_t:s_t + base], (220, 256)),
+        ("ragged_2303_blocked_row", 1, 2303, 2303, 1.0, None, (2000, 2303)),
+        ("clamp_2303", 1, 2303, 2303, CLAMP_QK_SCALE, None, (2000, 2303)),
+    ]
+    for name, b, sq, sk, scale, bias_c, (m0, m1) in cases:
+        if bias_c is None:          # a random entity-style bias of this shape
+            bias_c = fa.bias_log2(torch.where(torch.rand(b, sq, sk, device=dev, generator=gen)
+                                              < 0.3, -1e30, 0.0))
+            bias_c[:, :, 0] = 0.0
+        blocked = 17 if name.startswith("ragged") else None
+        if blocked is not None:
+            bias_c[:, blocked] = -1e30 * fa.LOG2E
+        q = (rms(randn(b, 24, sq, 128)) * scale).bfloat16()
+        k = (rms(randn(b, 24, sk, 128)) * scale).bfloat16()
+        v = randn(b, 24, sk, 128).bfloat16()
+        mask = torch.ones(b, sk, dtype=torch.bool, device=dev)
+        mask[b - 1, m0:m1] = False
+        logits = q[0, 0].float() @ k[0, 0].float().T * (fa.LOG2E / 128 ** 0.5) + bias_c[0]
+        clamped = (logits > fa.CLAMP).float().mean().item()
+        del logits
+        if scale != 1.0 and clamped == 0.0:
+            fail(f"K7 {name}: no logit reaches the clamp")
+        out = fa.fixedmax_attention_bias(q, k, v, bias_c, mask)
+        ref = fa.fixedmax_attention_bias_reference(q, k, v, bias_c, mask)
+        torch.cuda.synchronize()
+        max_err, mean_err, n_bad = compare(out, ref)
+        rel = rel_l2(out, ref)
+        row = {"phase": "k7", "case": name, "shape": [b, 24, sq, sk], "qk_scale": scale,
+               "bias_strides": list(bias_c.stride()), "clamped_logit_share": clamped,
+               "max_abs_err": max_err, "mean_abs_err": mean_err, "rel_l2": rel,
+               "n_out_of_tol": n_bad, "atol": ATOL, "rtol": RTOL,
+               "max_abs_limit": ATTN_MAX_ABS, "rel_l2_limit": ATTN_REL_L2}
+        if blocked is not None:
+            row["blocked_row_max_abs"] = out[:, :, blocked].abs().max().item()
+        if name == "eligen_joint_8448":
+            row["bias_blocked_share"] = (bias_nat < 0).float().mean().item()
+            row["bias_build_host_ms"] = host_ms
+            row["ms"] = time_ms(lambda: fa.fixedmax_attention_bias(q, k, v, bias_c, mask), 10)
+            row["plain_ms"] = time_ms(
+                lambda: fa.fixedmax_attention_bias_reference(q, k, v, bias_c, mask), 2)
+            # the same function in one PyTorch call: the bias in natural units
+            # with the key mask folded in, as a float mask over the heads
+            lib_mask = bias_nat.masked_fill(~mask[:, None, :], -1e30)[:, None].bfloat16()
+            row["library_ms"] = time_ms(
+                lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=lib_mask), 10)
+            del lib_mask
+            row["tflops"] = 4 * b * 24 * sq * sk * 128 / row["ms"] / 1e9
+            row.update(bound(4 * b * 24 * sq * sk * 128,
+                             2 * (q.numel() + k.numel() + v.numel() + out.numel())
+                             + 4 * bias_c.numel() + b * sk, PEAK_BF16))
+            report["fixedmax_attention_bias"] = dict(row)
+        report.setdefault("fixedmax_attention_bias_err", []).append(max_err)
+        emit(row)
+        if (n_bad or max_err > ATTN_MAX_ABS or rel > ATTN_REL_L2
+                or (blocked is not None and row["blocked_row_max_abs"] != 0.0)):
+            fail(f"K7 {name} disagrees with its plain version")
+        del q, k, v, out, ref, bias_c
+    del bias, bias_nat
+    torch.cuda.empty_cache()
+
+
+def eligen_phase(pipe, image, steps: int, n_blocks: int, n_layers: int) -> dict:
+    """Two full-width EliGen edits at 1024^2 (two entity prompts and masks,
+    CFG 4 with the entities on the negative row too, reasoner off): full CFG,
+    then ``cfg_truncate_step = steps // 2``.  Each must launch K7 once per
+    block and step and K1 never, and K2 once per layer for the prompt encode
+    and the entity encode (one chunk each).  Returns the launches of the
+    full-CFG edit."""
+    import numpy as np
+    import torch
+
+    k2_want = n_layers * (1 + -(-len(ENTITY_PROMPTS) // 4))
+    first = None
+    for trunc in (None, steps // 2):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        out = pipe("make the glass fall off the table and shatter", edit_image=image,
+                   cfg_scale=4.0, cfg_truncate_step=trunc, height=1024, width=1024,
+                   seed=SEED + 6, num_inference_steps=steps, have_text_reasoning=False,
+                   eligen_entity_prompts=ENTITY_PROMPTS,
+                   eligen_entity_masks=entity_masks(1024, 1024), eligen_enable_on_negative=True)
+        torch.cuda.synchronize()
+        total = (time.perf_counter() - t0) * 1e3
+        launches = counts()
+        arr = np.asarray(out, np.float32)
+        tm = pipe.timings
+        row = {"phase": "eligen_edit", "size": [1024, 1024], "steps": steps,
+               "cfg_truncate_step": trunc, "joint_tokens": tm["joint_tokens"],
+               "total_ms": total, "eligen_bias_ms": tm["eligen_bias"],
+               "prompt_encode_ms": tm["prompt_encode"], "denoise_ms": tm["denoise"],
+               "denoise_ms_per_step": tm["denoise"] / steps,
+               "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "image_std": float(arr.std()), "launches": launches,
+               "k7_expected": steps * n_blocks, "k2_expected": k2_want}
+        emit(row)
+        if (launches["fixedmax_attention_bias"] != steps * n_blocks
+                or launches["fixedmax_attention"] != 0
+                or launches["gqa_causal_attention"] != k2_want):
+            fail(f"EliGen launch counts {launches} differ from K7 {steps * n_blocks}, K1 0, "
+                 f"K2 {k2_want}")
+        if out.size != (1024, 1024) or not np.isfinite(arr).all() or arr.std() == 0.0:
+            fail("the EliGen image is not finite, is constant or has the wrong size")
+        first = first or launches
+    return first
+
+
+def serving_phase(pipe, images: dict, steps: int, n_blocks: int, edit):
+    """Batched serving at full width, reasoner off: the two single edits,
+    then ``edit_batch`` of both (one denoise at B = 4: K1 once per block and
+    step), each image within PIPE_REL_L2 of its single edit; then
+    ``edit_batch_mixed`` over 1024^2 and 768x512 (sizes and order); then the
+    reasoner's decode of 100 tokens at N = 1 and N = 2 rows.  ``edit`` runs a
+    single edit with the smoke's prompt.  Returns the first single edit's
+    image, the bf16 reference of the W4 lane."""
+    import numpy as np
+    import torch
+
+    prompts = ["make the glass fall off the table and shatter",
+               "melt the ice cube on the warm stove top"]
+    ims = [images[(1024, 1024)], images[(1024, 1024, "b")]]
+    seeds = [SEED + 4, SEED + 7]
+    singles = []
+    for p, im, seed in zip(prompts, ims, seeds):
+        arr, row = edit(1024, 1024, seed, False, prompt=p, image=im)
+        emit({"phase": "serving_single_edit_bf16", **row})
+        singles.append(arr)
+    reset_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    outs = pipe.edit_batch(prompts, ims, height=1024, width=1024, seeds=seeds,
+                           num_inference_steps=steps, have_text_reasoning=False)
+    torch.cuda.synchronize()
+    total = (time.perf_counter() - t0) * 1e3
+    launches = counts()
+    rels = [float(np.linalg.norm(np.asarray(o, np.float32) - s) / np.linalg.norm(s - s.mean()))
+            for o, s in zip(outs, singles)]
+    tm = pipe.timings
+    emit({"phase": "edit_batch", "n": 2, "size": [1024, 1024], "steps": steps,
+          "total_ms": total, "denoise_ms_per_step": tm["denoise"] / steps,
+          "vae_decode_ms": tm["vae_decode"], "prompt_encode_ms": tm["prompt_encode"],
+          "rel_l2_vs_single": rels, "limit": PIPE_REL_L2, "launches": launches,
+          "k1_expected": steps * n_blocks,
+          "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9})
+    if launches["fixedmax_attention"] != steps * n_blocks or launches["fixedmax_attention_bias"]:
+        fail(f"edit_batch launches {launches}: K1 must run {steps * n_blocks} times, K7 never")
+    if max(rels) > PIPE_REL_L2:
+        fail(f"edit_batch images are {rels} rel-L2 from the single edits")
+
+    mixed_ims = [images[(1024, 1024)], images[(768, 512)]]
+    t0 = time.perf_counter()
+    outs = pipe.edit_batch_mixed(prompts, mixed_ims, seeds=seeds, num_inference_steps=steps,
+                                 have_text_reasoning=False)
+    torch.cuda.synchronize()
+    sizes = [o.size for o in outs]
+    emit({"phase": "edit_batch_mixed", "sizes": [list(x) for x in sizes],
+          "total_ms": (time.perf_counter() - t0) * 1e3})
+    if sizes != [im.size for im in mixed_ims] or not all(
+            np.asarray(o, np.float32).std() > 0 for o in outs):
+        fail(f"edit_batch_mixed returned sizes {sizes} (or a constant image)")
+
+    for n in (1, 2):
+        pipe.timings = {}
+        t0 = time.perf_counter()
+        pipe.reason_physical_batch(prompts[:n], ims[:n], max_new_tokens=100)
+        torch.cuda.synchronize()
+        tm = pipe.timings
+        emit({"phase": "reasoner_batch", "rows": n, "decode_steps": tm["decode_tokens"],
+              "prefill_ms": tm["reasoner_prefill"], "decode_ms": tm["reasoner_decode"],
+              "ms_per_decode_step": tm["reasoner_decode"] / max(1, tm["decode_tokens"]),
+              "ms_per_row_token": tm["reasoner_decode"] / max(1, n * tm["decode_tokens"]),
+              "total_ms": (time.perf_counter() - t0) * 1e3})
+    return singles[0]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=4, help="denoise steps per edit")
@@ -757,11 +1006,13 @@ def main() -> int:
         ref, l_ref = fa.fixedmax_attention_reference(q, k, v, mask, clamp, return_l=True)
         torch.cuda.synchronize()
         max_err, mean_err, n_bad = compare(out, ref)
+        rel = rel_l2(out, ref)
         l_rel = ((l - l_ref).abs() / l_ref).max().item()
         row = {"phase": "k1", "case": name, "shape": [b, n, sq, sk], "clamp": clamp,
                "qk_scale": scale, "clamped_logit_share": clamped,
-               "max_abs_err": max_err, "mean_abs_err": mean_err, "n_out_of_tol": n_bad,
-               "l_max_rel_err": l_rel, "atol": ATOL, "rtol": RTOL}
+               "max_abs_err": max_err, "mean_abs_err": mean_err, "rel_l2": rel,
+               "n_out_of_tol": n_bad, "l_max_rel_err": l_rel, "atol": ATOL, "rtol": RTOL,
+               "max_abs_limit": ATTN_MAX_ABS, "rel_l2_limit": ATTN_REL_L2}
         if name == "joint_8448_noclamp":
             row["ms"] = time_ms(lambda: fa.fixedmax_attention(q, k, v, mask, clamp), 10)
             row["plain_ms"] = time_ms(
@@ -776,7 +1027,7 @@ def main() -> int:
             report["fixedmax_attention"] = dict(row)
         report.setdefault("fixedmax_attention_err", []).append(max_err)
         emit(row)
-        if n_bad or l_rel > 1e-3:
+        if n_bad or l_rel > 1e-3 or max_err > ATTN_MAX_ABS or rel > ATTN_REL_L2:
             fail(f"K1 {name} disagrees with its plain version")
         del q, k, v, out, ref, l, l_ref
     q = randn(1, 2, 200, 128).bfloat16()
@@ -786,6 +1037,9 @@ def main() -> int:
     if out.abs().max().item() != 0.0:
         fail("K1 fully masked rows are not exactly 0")
     torch.cuda.empty_cache()
+
+    # 3b. K7 at the EliGen path's shapes
+    k7_phase(report, gen, time_ms, compare)
 
     # 4. K2 at the reasoner prefill / prompt-encode shapes
     for name, b, s, pads in [("prefill_1536", 1, 1536, (0,)),
@@ -853,26 +1107,39 @@ def main() -> int:
                                   intermediate_size=128, fullatt_block_indexes=(1,),
                                   out_hidden_size=256),
         vae=VAEConfig(base_dim=16), adapter_dim=256, rope_axes=(16, 56, 56),
-        edit_drop_idx=2)
+        edit_drop_idx=2, t2i_drop_idx=2)
+    small_edit = image(128, 128)
+    edits = {  # name: (kwargs, the kernels the edit must launch on the card)
+        "edit": (dict(edit_image=small_edit), ("fixedmax_attention", "gqa_causal_attention")),
+        "eligen": (dict(edit_image=small_edit, eligen_entity_prompts=["a cup", "a plate"],
+                        eligen_entity_masks=entity_masks(128, 128),
+                        eligen_enable_on_negative=True),
+                   ("fixedmax_attention_bias", "gqa_causal_attention")),
+    }
     for quantize in (None, "int4"):
         pipe = random_pipeline(small, dev, torch.bfloat16, gen)
         if quantize:
             pipe.quantize_(quantize)
-        kw = dict(edit_image=image(128, 128), height=128, width=128, seed=11,
-                  num_inference_steps=2, have_text_reasoning=False)
-        reset_counts()
-        got = np.asarray(pipe("tilt the cup", **kw), np.float32)
-        launches = counts()
-        want = np.asarray(pipe.to("cpu")("tilt the cup", **kw), np.float32)
-        rel = float(np.linalg.norm(got - want) / np.linalg.norm(want - want.mean()))
-        used = {k: launches[k] for k in ("fixedmax_attention", "gqa_causal_attention") + (
-            ("w4a8_matmul", "ln_mod_quant", "gelu_quant", "transpose_quant") if quantize else ())}
-        emit({"phase": "small_pipeline_vs_cpu", "quantize": quantize, "rel_l2": rel,
-              "limit": PIPE_REL_L2, "max_abs_levels": float(np.abs(got - want).max()),
-              "launches": launches})
-        if not rel <= PIPE_REL_L2 or min(used.values()) == 0:
-            fail(f"the small pipeline (quantize={quantize}) on the card disagrees with the "
-                 "CPU run or skipped a kernel")
+        common = dict(height=128, width=128, seed=11, num_inference_steps=2,
+                      have_text_reasoning=False)
+        got, launches = {}, {}
+        for name, (kw, _) in edits.items():
+            reset_counts()
+            got[name] = np.asarray(pipe("tilt the cup", **kw, **common), np.float32)
+            launches[name] = counts()
+        pipe.to("cpu")
+        for name, (kw, used) in edits.items():
+            want = np.asarray(pipe("tilt the cup", **kw, **common), np.float32)
+            rel = float(np.linalg.norm(got[name] - want) / np.linalg.norm(want - want.mean()))
+            used = used + (("w4a8_matmul", "ln_mod_quant", "gelu_quant", "transpose_quant")
+                           if quantize else ())
+            emit({"phase": "small_pipeline_vs_cpu", "quantize": quantize, "path": name,
+                  "rel_l2": rel, "limit": PIPE_REL_L2,
+                  "max_abs_levels": float(np.abs(got[name] - want).max()),
+                  "launches": launches[name]})
+            if not rel <= PIPE_REL_L2 or min(launches[name][k] for k in used) == 0:
+                fail(f"the small pipeline's {name} (quantize={quantize}) on the card disagrees "
+                     "with the CPU run or skipped a kernel")
         del pipe
 
     # 10. a small training step: kernels on the card against plain versions on the CPU
@@ -891,11 +1158,13 @@ def main() -> int:
     requests = [(1024, 1024, SEED + 1), (768, 512, SEED + 2),
                 (1024, 1024, SEED + 3)]
     edit_images = {(w, h): image(w, h) for w, h, _ in requests}
+    edit_images[(1024, 1024, "b")] = image(1024, 1024)
 
-    def edit(w, h, seed, reasoning):
+    def edit(w, h, seed, reasoning, prompt=prompt, image=None):
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        out = pipe(prompt, negative_prompt="", edit_image=edit_images[(w, h)],
+        out = pipe(prompt, negative_prompt="",
+                   edit_image=edit_images[(w, h)] if image is None else image,
                    cfg_scale=4.0, height=h, width=w, seed=seed,
                    num_inference_steps=args.steps, have_text_reasoning=reasoning)
         torch.cuda.synchronize()
@@ -937,10 +1206,14 @@ def main() -> int:
                  f"{args.steps * n_blocks} / {k2_want}")
     main_launches = {name: fa.LAUNCHES[name] for name in fa.LAUNCHES}
 
-    # 9. the W4 serving lane at full width
+    # 8b. EliGen at full width (K7); 8c. batched serving
+    eligen_launches = eligen_phase(pipe, edit_images[(1024, 1024)], args.steps, n_blocks,
+                                   n_layers)
+    bf16_img = serving_phase(pipe, edit_images, args.steps, n_blocks, edit)
+
+    # 9. the W4 serving lane at full width, against the serving phase's first
+    # single edit (1024^2, SEED + 4, reasoner off)
     w, h, seed = 1024, 1024, SEED + 4
-    bf16_img, row = edit(w, h, seed, False)
-    emit({"phase": "w4_reference_edit_bf16", **row})
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     pipe.quantize_("int4")
@@ -960,7 +1233,8 @@ def main() -> int:
     launches = counts()
     want = {**w4_launch_counts(pipe.timings, args.steps, n_blocks, n_layers,
                                pipe.vision.cfg.depth),
-            "fixedmax_attention_bwd": 0, "w4_bwd_dx": 0}     # an edit runs no backward
+            "fixedmax_attention_bwd": 0, "w4_bwd_dx": 0,     # an edit runs no backward
+            "fixedmax_attention_bias": 0}                     # nor an entity bias
     emit({"phase": "w4_edit", **row, "kv_int8": pipe.kv_int8, "launches": launches,
           "launches_expected": want})
     if launches != want:
@@ -1021,11 +1295,13 @@ def main() -> int:
              + [("mod", 1, 3072, 18432, True)], phase="k3_training")
 
     # each kernel's launches on its own path: K1 and K2 in the bf16 edits,
-    # K3-K6 in the W4 edit, K8 and K9 in the training lanes
+    # K3-K6 in the W4 edit, K8 and K9 in the training lanes, K7 in the
+    # full-CFG EliGen edit
     path_launches = {**w4_launches,
                      **{k: main_launches[k] for k in ("fixedmax_attention",
                                                       "gqa_causal_attention")},
-                     **{k: train_launches[k] for k in ("fixedmax_attention_bwd", "w4_bwd_dx")}}
+                     **{k: train_launches[k] for k in ("fixedmax_attention_bwd", "w4_bwd_dx")},
+                     "fixedmax_attention_bias": eligen_launches["fixedmax_attention_bias"]}
     if min(path_launches[name] for name, *_ in KERNEL_ROWS) == 0:
         fail(f"a kernel was not launched on its path: {path_launches}")
     kernels = []

@@ -35,6 +35,7 @@ from physicedit_torch.core.params import load_conv_, load_linear_, materialize
 from physicedit_torch.kernels.quant_matmul import W4Linear
 from physicedit_torch.lora import DiTLoRA
 from physicedit_torch.models.adapters import DualAdapter
+from physicedit_torch.models.controlnet import BlockwiseControlNet
 from physicedit_torch.models.dinov2 import DinoV2, DinoV2Config
 from physicedit_torch.models.dit import DiT, DiTConfig
 from physicedit_torch.models.qwen_vl import (Int8Embedding, QwenVLText, QwenVLTextConfig,
@@ -142,6 +143,14 @@ def dual_adapter_from_jax(params: dict, dtype=torch.float32,
     return _carry(DualAdapter(fc1.shape[0], fc2.shape[1], dtype), params, device)
 
 
+def controlnet_from_jax(params: dict, dtype=torch.float32,
+                        device="cuda") -> BlockwiseControlNet:
+    """A JAX ``init_controlnet_params`` / ``controlnet_from_torch`` tree."""
+    in_dim, dim = np.shape(params["img_in"]["w"])
+    layers = np.shape(params["blocks"]["input_proj"]["w"])[0]
+    return _carry(BlockwiseControlNet(layers, in_dim, 0, dim, dtype), params, device)
+
+
 def dinov2_from_jax(params: dict, cfg, dtype=torch.float32, device="cuda") -> DinoV2:
     n0 = np.shape(params["pos_emb"])[1] - 1
     grid = int(round(float(np.sqrt(n0))))
@@ -193,13 +202,14 @@ def to_jax_tree(module: nn.Module, grads: bool = False) -> dict:
 
 def pipeline_from_jax(jpipe, device="cuda"):
     """The port's pipeline with the weights, configs, tokenizer and token ids
-    of a JAX ``PhysicEditPipeline`` (single-image edit path, and the DINOv2
-    of training when the JAX pipeline has one)."""
+    of a JAX ``PhysicEditPipeline``, and its blockwise ControlNet and the
+    DINOv2 of training when the JAX pipeline has them."""
     from physicedit_torch.pipeline.edit_pipeline import PhysicEditPipeline
 
     dtype = getattr(torch, np.dtype(jpipe.dtype).name)
     adapter = jpipe.adapters.get("visual_thinking_adapter")
     dino = getattr(jpipe, "dinov2_params", None)
+    cn = jpipe.controlnet_params
     return PhysicEditPipeline(
         dit=dit_from_jax(jpipe.dit_params, jpipe.dit_cfg, dtype, device),
         vae=vae_from_jax(jpipe.vae_params, jpipe.vae_cfg, dtype, device),
@@ -210,5 +220,7 @@ def pipeline_from_jax(jpipe, device="cuda"):
         tokenizer=jpipe.tokenizer, dtype=dtype, device=device,
         boi_token_id=jpipe.boi_token_id, eoi_token_id=jpipe.eoi_token_id,
         image_pad_id=jpipe.image_pad_id, vision_start_id=jpipe.vision_start_id,
-        edit_drop_idx=jpipe.edit_drop_idx, rope_axes=tuple(jpipe.rope_axes),
-        txt_len_bucket=jpipe.txt_len_bucket, kv_int8=jpipe.kv_int8)
+        edit_drop_idx=jpipe.edit_drop_idx, t2i_drop_idx=jpipe.t2i_drop_idx,
+        rope_axes=tuple(jpipe.rope_axes), txt_len_bucket=jpipe.txt_len_bucket,
+        kv_int8=jpipe.kv_int8,
+        controlnet=None if cn is None else controlnet_from_jax(cn, dtype, device))

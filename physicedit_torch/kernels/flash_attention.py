@@ -6,12 +6,15 @@ _fixedmax_kernel_lse`` (entered through ``flash_attention_bnsd``).  Under
 autograd it is a ``torch.autograd.Function`` (the JAX package's
 ``_fixedmax_diff``) whose backward is K8 :func:`fixedmax_attention_bwd`
 (``csrc/fixedmax_attention_bwd.cu``), which replaces ``_fm_bwd_dq_kernel``
-and ``_fm_bwd_dkv_kernel`` (launched from ``_fm_bwd``).  K2
-:func:`gqa_causal_attention` (``csrc/gqa_causal_attention.cu``) is the
-Qwen2.5-VL prefill and prompt-encode attention; it replaces
-``_gqa_causal_kernel`` (entered through ``gqa_causal_flash``).  Each source
-file says what bounds its kernel on the H100 and what the design does about
-it.
+and ``_fm_bwd_dkv_kernel`` (launched from ``_fm_bwd``).  K7
+:func:`fixedmax_attention_bias` (``csrc/fixedmax_attention_bias.cu``) is
+the DiT joint attention with a head-shared 2-D bias, the EliGen entity
+masks; it replaces ``_fixedmax_kernel_bias2d`` (entered through
+``flash_attention_bnsd(bias=...)``).  K2 :func:`gqa_causal_attention`
+(``csrc/gqa_causal_attention.cu``) is the Qwen2.5-VL prefill and
+prompt-encode attention; it replaces ``_gqa_causal_kernel`` (entered through
+``gqa_causal_flash``).  Each source file says what bounds its kernel on the
+H100 and what the design does about it.
 
 Each wrapper takes its plain PyTorch version (``*_reference``) for a tensor
 that lies on the CPU.  For a CUDA tensor it launches the kernel, or raises
@@ -39,7 +42,7 @@ HEAD_DIM = 128
 LN2 = 1.0 / LOG2E   # d sig / d q' = k * ln 2 for the prescaled q' (and likewise for k)
 
 LAUNCHES = {"fixedmax_attention": 0, "fixedmax_attention_bwd": 0,
-            "gqa_causal_attention": 0}
+            "fixedmax_attention_bias": 0, "gqa_causal_attention": 0}
 
 
 def reset_launch_counts() -> None:
@@ -264,6 +267,88 @@ def fixedmax_attention_bwd(qs, k, v, key_mask, g, out, l, clamp: bool = True):
                   ptr(dq), ptr(dk), ptr(dv), b, n, sq, sk, int(bool(clamp)))
     LAUNCHES["fixedmax_attention_bwd"] += 1
     return dq, dk, dv
+
+
+# ---------------------------------------------------------------------------
+# K7: fixed-max joint attention with a head-shared 2-D bias (EliGen)
+# ---------------------------------------------------------------------------
+
+def bias_log2(attn_bias: torch.Tensor) -> torch.Tensor:
+    """An additive attention bias in exp2 units, the form K7 takes: fp32
+    ``attn_bias * log2(e)``, the multiply ``flash_attention_bnsd`` makes
+    before each call (the pipeline makes it once per edit)."""
+    return attn_bias.float() * LOG2E
+
+
+def fixedmax_attention_bias_reference(q, k, v, bias, key_mask=None):
+    """Plain version of K7 with the kernel's numerics (the JAX package's
+    ``_fixedmax_kernel_bias2d``).
+
+    q: [B, N, S_q, D]; k/v: [B, N, S_k, D]; bias: [B, S_q, S_k] fp32 in exp2
+    units (:func:`bias_log2`), shared by the heads; key_mask:
+    [B, S_k] bool.  s = fp32(q k^T) * (log2(e) / sqrt(d)) + bias + key_bias,
+    p = exp2(min(s, CLAMP)) (the clamp is always on), fp32 row sum l,
+    out = (p in v's dtype . v) / max(l, 1e-30) in q's dtype.
+    """
+    b, n, sq, d = q.shape
+    sk = k.shape[2]
+    scale = LOG2E / math.sqrt(d)
+    key_bias = None if key_mask is None else _key_bias(key_mask)
+    out = torch.empty_like(q)
+    for bi in range(b):
+        for hs in _head_groups(n, sq, sk):
+            s = torch.matmul(q[bi, hs].float(), k[bi, hs].float().transpose(-1, -2)).mul_(scale)
+            s.add_(bias[bi])
+            if key_bias is not None:
+                s.add_(key_bias[bi])
+            p = torch.exp2(s.clamp_(max=CLAMP))
+            l = p.sum(-1)
+            acc = torch.matmul(p.to(v.dtype).float(), v[bi, hs].float())
+            out[bi, hs] = (acc / l.clamp(min=1e-30)[..., None]).to(q.dtype)
+    return out
+
+
+def fixedmax_attention_bias(q, k, v, bias, key_mask=None):
+    """K7: fixed-max attention with a head-shared additive bias,
+    [B, N, S_q, D] x [B, N, S_k, D] -> [B, N, S_q, D].
+
+    ``bias`` is fp32 [B, S_q, S_k] in exp2 units (:func:`bias_log2`); its
+    last dim must be contiguous, and its rows may be a view with any row pitch
+    and batch stride (the slim last block reads ``bias[:, s_t:s_t + base]``).
+    q is scaled in fp32 inside the kernel and the clamp is always on, as the
+    JAX package routes a biased call whatever its ``clamp``.  S_q <= S_k.  A
+    row whose keys are all blocked returns 0.  Forward only: a call that
+    needs a gradient raises, as the JAX package has no VJP for it.
+    """
+    if bias is None:
+        raise ValueError("fixedmax_attention_bias needs a bias (without one, use "
+                         "fixedmax_attention)")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v, bias)):
+        raise RuntimeError("fixedmax_attention_bias is forward only (the JAX package's "
+                           "biased fixed-max kernel has no VJP)")
+    if q.device.type == "cpu":
+        return fixedmax_attention_bias_reference(q, k, v, bias, key_mask)
+    _check_cuda("fixedmax_attention_bias", {"q": q, "k": k, "v": v})
+    b, n, sq, _ = q.shape
+    sk = k.shape[2]
+    if k.shape != (b, n, sk, HEAD_DIM) or v.shape != k.shape or sq > sk:
+        raise ValueError(f"fixedmax_attention_bias: k/v {tuple(k.shape)}/{tuple(v.shape)} "
+                         f"do not match q {tuple(q.shape)} (S_q <= S_k)")
+    if (not bias.is_cuda or bias.dtype != torch.float32 or bias.shape != (b, sq, sk)
+            or bias.stride(-1) != 1):
+        raise ValueError(f"fixedmax_attention_bias: bias must be fp32 [{b}, {sq}, {sk}] "
+                         f"on the card with a contiguous last dim, got {bias.dtype} "
+                         f"{tuple(bias.shape)} strides {bias.stride()} on {bias.device}")
+    mask = _mask_arg(key_mask, b, sk, "fixedmax_attention_bias")
+    out = torch.empty_like(q)
+    ptr = _build.ptr
+    _build.launch("fixedmax_attention_bias", "fixedmax_attention_bias_bf16",
+                  [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 2 + [ctypes.c_void_p] * 2
+                  + [ctypes.c_int] * 4 + [ctypes.c_float],
+                  ptr(q), ptr(k), ptr(v), ptr(bias), bias.stride(0), bias.stride(1), ptr(mask), ptr(out),
+                  b, n, sq, sk, LOG2E / math.sqrt(HEAD_DIM))
+    LAUNCHES["fixedmax_attention_bias"] += 1
+    return out
 
 
 # ---------------------------------------------------------------------------

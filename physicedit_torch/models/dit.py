@@ -4,7 +4,13 @@
 are fused ([dim, 3 * dim], as in the JAX package); RoPE tables come from
 the host (``ops/rope.py``); text padding is a key-side mask, so the CFG
 positive and negative rows ride one batch.  The joint attention runs
-through kernel K1 (``kernels/flash_attention.fixedmax_attention``).
+through kernel K1 (``kernels/flash_attention.fixedmax_attention``), or,
+when an EliGen entity bias is given, through kernel K7
+(``fixedmax_attention_bias``) in every block, the slim last block included.
+
+A blockwise ControlNet (``models/controlnet.py``) adds its residual to the
+base image rows after each block; the slim last block is off then, as it is
+with LoRA.
 
 With packed-int4 block weights (``PhysicEditPipeline.quantize_``) a block
 takes the fused path of the JAX package: K4 ``ln_mod_quant`` feeds the QKV
@@ -35,7 +41,8 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from physicedit_torch.core.params import Leaf, linear
-from physicedit_torch.kernels.flash_attention import CLAMP, LOG2E, fixedmax_attention
+from physicedit_torch.kernels.flash_attention import (CLAMP, LOG2E, fixedmax_attention,
+                                                      fixedmax_attention_bias)
 from physicedit_torch.kernels.fused_quant import gelu_quant, ln_mod_quant, transpose_quant
 from physicedit_torch.kernels.quant_matmul import W4Linear, w4a8_linear_q
 from physicedit_torch.lora import lora_delta, lora_delta_fused
@@ -139,7 +146,8 @@ class DiTBlock(nn.Module):
                                       "fc2": linear(cfg.mlp_dim, d, dtype=dtype)})
 
     def forward(self, image, text, temb_silu, img_cos, img_sin, txt_cos, txt_sin,
-                joint_key_mask, slim_base: int = 0, attn_clamp: bool = True, lora=None):
+                joint_key_mask, slim_base: int = 0, attn_clamp: bool = True, lora=None,
+                attn_bias_log2=None):
         """One dual-stream block; returns (text, image).
 
         ``slim_base > 0`` runs it as the last block: only the first
@@ -147,7 +155,9 @@ class DiTBlock(nn.Module):
         keeps only those), the text stream and edit-image rows skip their
         projections and MLPs, and the return is (None, image[:, :slim_base]).
         ``lora`` is this layer's factors (an entry of ``DiTLoRA.layers()``)
-        or None.
+        or None.  ``attn_bias_log2`` is the joint [B, S, S] entity bias in
+        exp2 units: the attention then runs through K7, the slim block's
+        reading the rows of its queries as a view.
         """
         cfg = self.cfg
         b, s_i, d = image.shape
@@ -184,7 +194,11 @@ class DiTBlock(nn.Module):
             q = torch.cat([tq, iq], dim=2)
         k = torch.cat([tk, ik], dim=2)
         v = torch.cat([tv, iv], dim=2)
-        out = fixedmax_attention(q, k, v, key_mask=joint_key_mask, clamp=attn_clamp)
+        if attn_bias_log2 is None:
+            out = fixedmax_attention(q, k, v, key_mask=joint_key_mask, clamp=attn_clamp)
+        else:
+            rows = attn_bias_log2[:, s_t:s_t + slim_base] if slim_base else attn_bias_log2
+            out = fixedmax_attention_bias(q, k, v, rows, key_mask=joint_key_mask)
 
         # K6: the heads-to-features transpose and the row quantize in one pass
         if slim_base:
@@ -243,13 +257,19 @@ class DiT(nn.Module):
 
     def forward(self, img_tokens, txt_tokens, timestep, img_cos, img_sin,
                 txt_cos, txt_sin, txt_key_mask=None, slim_last: int = 0,
-                attn_clamp: bool = True, lora=None, use_remat: bool = False):
+                attn_clamp: bool = True, lora=None, use_remat: bool = False,
+                attn_bias_log2=None, control=None):
         """img_tokens [B, S_i, 64] (base image first, then edit tokens);
         txt_tokens [B, S_t, txt_in_dim]; timestep [B] in [0, 1];
+        txt_cos/txt_sin [S_t, 64], or [B, 1, S_t, 64] for a table per row;
         txt_key_mask [B, S_t] bool.  Returns [B, S_i, 64], or
         [B, slim_last, 64] when the last block runs slim (never with
-        ``lora``, a ``DiTLoRA``).  ``use_remat`` recomputes each block in the
-        backward instead of keeping its activations."""
+        ``lora``, a ``DiTLoRA``, nor with ``control``).  ``use_remat``
+        recomputes each block in the backward instead of keeping its
+        activations.  ``attn_bias_log2``: the EliGen entity bias [B, S_t +
+        S_i, S_t + S_i] in exp2 units (``kernels.flash_attention.bias_log2``
+        of the 0 / -1e30 bias, made once per edit).  ``control``: a
+        ``models.controlnet.Control`` at this step."""
         cfg = self.cfg
         s_i = img_tokens.shape[1]
         image = self.img_in(img_tokens)
@@ -264,14 +284,18 @@ class DiT(nn.Module):
             joint_key_mask = F.pad(txt_key_mask.bool(), (0, s_i), value=True)
 
         last = len(self.blocks) - 1
-        slim_last = 0 if lora is not None else slim_last
+        slim_last = 0 if lora is not None or control is not None else slim_last
         layer_lora = [None] * len(self.blocks) if lora is None else lora.layers()
         remat = use_remat and torch.is_grad_enabled()
         for i, block in enumerate(self.blocks):
             def run(image, text, block=block, i=i):
-                return block(image, text, temb_silu, img_cos, img_sin, txt_cos, txt_sin,
-                             joint_key_mask, slim_base=slim_last if i == last else 0,
-                             attn_clamp=attn_clamp, lora=layer_lora[i])
+                text, image = block(image, text, temb_silu, img_cos, img_sin, txt_cos, txt_sin,
+                                    joint_key_mask, slim_base=slim_last if i == last else 0,
+                                    attn_clamp=attn_clamp, lora=layer_lora[i],
+                                    attn_bias_log2=attn_bias_log2)
+                if control is not None:
+                    image = control.add_residual(i, image)
+                return text, image
 
             text, image = (checkpoint(run, image, text, use_reentrant=False) if remat
                            else run(image, text))

@@ -92,9 +92,17 @@ def text_rope_tables(txt_len: int, max_vid_index: int,
         _axis_angles(np.arange(max_vid_index, max_vid_index + txt_len), axes_dim))
 
 
+def max_vid_index_of(img_shapes: list, scale_rope: bool = True) -> int:
+    """The first text position past the images (where each EliGen prompt
+    segment's text table starts)."""
+    return max((max(h // 2, w // 2) if scale_rope else max(h, w)) for _, h, w in img_shapes)
+
+
 def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
     """Rotate adjacent pairs (x[2i], x[2i+1]) of the last dim in fp32 and
-    return the input dtype.  x: [..., S, D]; cos/sin: [S, D // 2]."""
+    return the input dtype.  x: [B, N, S, D]; cos/sin: [S, D // 2], or
+    [B, 1, S, D // 2] for a table per batch row (EliGen's per-CFG-row text
+    tables), broadcast over the heads."""
     xf = x.float().unflatten(-1, (-1, 2))
     x0, x1 = xf[..., 0], xf[..., 1]
     out = torch.stack([x0 * cos - x1 * sin, x1 * cos + x0 * sin], dim=-1)

@@ -1,14 +1,21 @@
 """The PhysicEdit edit pipeline on PyTorch
 (``physicedit_tpu/pipeline/edit_pipeline.py``): image + instruction ->
-edited image, through the single-image edit path.
+edited image.
 
-Stages: VAE-encode the edit image; run the vision tower once and share its
-features; the Qwen2.5-VL reasoner writes the physical-transition text
-(prefill + greedy decode); encode the CFG positive and negative prompts with
-the 64 special tokens; denoise over the DiT with the per-step special-token
-rewrite; VAE-decode.  Host-side string and geometry work lives in this
-package's copies of the JAX package's ``pipeline/prompt.py``,
-``pipeline/vl_host.py`` and ``sampling/flow_match.py``.
+Stages of the single-image edit: VAE-encode the edit image; run the vision
+tower once and share its features; the Qwen2.5-VL reasoner writes the
+physical-transition text (prefill + greedy decode); encode the CFG positive
+and negative prompts with the 64 special tokens; denoise over the DiT with
+the per-step special-token rewrite; VAE-decode.  ``__call__`` takes every
+option of the JAX package's: text-to-image, multi-image edits, a context
+image, ``input_image`` with an inpaint mask, EliGen entity control (prompt
+segments and an attention bias built on the host, consumed by kernel K7)
+and the blockwise ControlNet.  ``edit_batch`` and ``edit_batch_mixed`` serve
+N edits with one conditioning batch (vision tower once per item, one
+reasoner decode, one prompt encode).  Host-side string and geometry work
+lives in this package's copies of the JAX package's ``pipeline/prompt.py``,
+``pipeline/vl_host.py``, ``pipeline/eligen.py`` and
+``sampling/flow_match.py``.
 
 Each call leaves its stage times, on the host clock around work that ends in
 a device synchronise, in ``self.timings`` (milliseconds), beside the token
@@ -26,14 +33,18 @@ import time
 import numpy as np
 import torch
 
+from physicedit_torch.kernels.flash_attention import LOG2E
 from physicedit_torch.kernels.quant_matmul import DIT_OUTER_KEYS, quantize_module_int4
 from physicedit_torch.models import vae as m_vae
+from physicedit_torch.models.controlnet import (Control, controlnet_step_scales,
+                                                process_conditioning)
 from physicedit_torch.models.dit import DiT, attn_clamp_needed
 from physicedit_torch.models.qwen_vl import (QwenVLText, fuse_decode_projections,
                                              quantize_embedding_int8)
 from physicedit_torch.models.qwen_vl_vision import QwenVLVision
 from physicedit_torch.ops import rope as m_rope
 from physicedit_torch.ops.patchify import patchify
+from physicedit_torch.pipeline import eligen as EL
 from physicedit_torch.pipeline import prompt as P
 from physicedit_torch.pipeline import vl_host
 from physicedit_torch.sampling import flow_match as fm
@@ -49,18 +60,19 @@ class PhysicEditPipeline:
                  dtype=torch.bfloat16, device="cuda", boi_token_id=None,
                  eoi_token_id=None, image_pad_id: int = IMAGE_PAD_ID,
                  vision_start_id: int = VISION_START_ID,
-                 edit_drop_idx: int = P.EDIT_DROP_IDX,
+                 edit_drop_idx: int = P.EDIT_DROP_IDX, t2i_drop_idx: int = P.T2I_DROP_IDX,
                  rope_axes: tuple = m_rope.AXES_DIM, txt_len_bucket: int = 64,
-                 kv_int8: bool = False):
+                 kv_int8: bool = False, controlnet=None):
         self.dit, self.vae, self.text, self.vision = dit, vae, text, vision
         self.adapter = adapter
         self.dinov2 = dinov2            # the training prior's DINOv2 (train/)
+        self.controlnet = controlnet    # models/controlnet.BlockwiseControlNet or None
         self.tokenizer = tokenizer
         self.dtype = dtype
         self.device = torch.device(device)
         self.boi_token_id, self.eoi_token_id = boi_token_id, eoi_token_id
         self.image_pad_id, self.vision_start_id = image_pad_id, vision_start_id
-        self.edit_drop_idx = edit_drop_idx
+        self.edit_drop_idx, self.t2i_drop_idx = edit_drop_idx, t2i_drop_idx
         self.rope_axes = rope_axes
         self.txt_len_bucket = txt_len_bucket
         self.kv_int8 = kv_int8          # int8 reasoner KV cache (the W4 lane's)
@@ -74,7 +86,8 @@ class PhysicEditPipeline:
         built in the working dtype, and the quantized lane's int8 weights
         and fp32 scales keep theirs."""
         self.device = torch.device(device)
-        for m in (self.dit, self.vae, self.text, self.vision, self.adapter, self.dinov2):
+        for m in (self.dit, self.vae, self.text, self.vision, self.adapter, self.dinov2,
+                  self.controlnet):
             if m is not None:
                 m.to(device=self.device)
         return self
@@ -133,17 +146,21 @@ class PhysicEditPipeline:
         with self._timed("vae_encode"):
             return m_vae.encode(self.vae, self._tensor(arr[None]))
 
-    def decode_image(self, latents: torch.Tensor):
+    def decode_images(self, latents: torch.Tensor) -> list:
+        """Latents [N, h, w, 16] -> N PIL images, in one VAE decode."""
         from PIL import Image
 
         with self._timed("vae_decode"):
-            img = m_vae.decode(self.vae, latents.to(self.dtype))
-            arr = img[0].float().cpu().numpy()
+            arr = m_vae.decode(self.vae, latents.to(self.dtype)).float().cpu().numpy()
         if not np.isfinite(arr).all():
             raise FloatingPointError(
                 "VAE decode produced non-finite pixels - upstream latents are "
                 "NaN/Inf (check the schedule and model outputs)")
-        return Image.fromarray(np.clip((arr + 1.0) * 127.5, 0, 255).astype(np.uint8))
+        arr = np.clip((arr + 1.0) * 127.5, 0, 255).astype(np.uint8)
+        return [Image.fromarray(a) for a in arr]
+
+    def decode_image(self, latents: torch.Tensor):
+        return self.decode_images(latents[:1])[0]
 
     def edit_image_auto_resize(self, image):
         """~1024-square, /32 resize."""
@@ -238,6 +255,24 @@ class PhysicEditPipeline:
         positions [64] or None)."""
         return self.encode_prompt_edit_batch([prompt], [edit_image])[0]
 
+    def encode_prompt_batch(self, prompts: list) -> list:
+        """Text-to-image prompt encodes (no image, ``t2i_drop_idx``) in one
+        batched VL forward; EliGen encodes its entity prompts so.  Returns
+        [prompt_emb [S_i, D], ...]."""
+        rows = [(P.T2I_TEMPLATE.format(p), [], None, None) for p in prompts]
+        with self._timed("prompt_encode"):
+            out = self._vl_hidden_batch(rows)
+        return [hidden[self.t2i_drop_idx:] for _, hidden in out]
+
+    def encode_prompt_edit_multi(self, prompt: str, edit_images: list, feats=None, grids=None):
+        """Multi-image edit prompt ("Picture i:" per image, no special
+        tokens): (prompt_emb [S, D], None).  ``feats`` / ``grids`` reuse the
+        images' vision features."""
+        rows = [(P.multi_edit_prompt_text(prompt, len(edit_images)), edit_images, feats, grids)]
+        with self._timed("prompt_encode"):
+            (_, hidden), = self._vl_hidden_batch(rows)
+        return hidden[self.edit_drop_idx:], None
+
     def _reasoner_inputs(self, prompt: str, edit_image, feats=None, grid=None):
         text = P.reasoner_chat_text(P.REASONER_SYSTEM_PROMPT, [
             ("text", "Edit Instruction:"), ("text", prompt),
@@ -323,32 +358,27 @@ class PhysicEditPipeline:
                  tiled: bool = False, tile_size: int = 128, tile_stride: int = 64,
                  rand_device: str = "cpu", enable_fp8_attention: bool = False,
                  progress_bar_cmd=None, is_train: bool = False):
-        """One single-image physics-aware edit; returns a PIL image.
+        """One edit (or, with no ``edit_image``, one text-to-image
+        generation); returns a PIL image.
 
-        The signature is the JAX package's.  tiled / tile_size / tile_stride
-        / enable_fp8_attention / progress_bar_cmd are accepted and ignored
-        as there; the options of other paths raise NotImplementedError.
+        The signature and the paths are the JAX package's: a list of edit
+        images is a multi-image edit; ``context_image`` adds in-context
+        tokens at the output size; ``input_image`` starts from its noised
+        latents, and with ``inpaint_mask`` (optionally blurred) repaints only
+        the mask; ``eligen_entity_prompts`` / ``eligen_entity_masks`` prepend
+        entity prompt segments with a spatial attention bias (K7);
+        ``blockwise_controlnet_image`` drives ``self.controlnet``.  tiled /
+        tile_size / tile_stride / enable_fp8_attention / progress_bar_cmd are
+        accepted and ignored as there; ``is_train`` and a ``rand_device``
+        other than "cpu" raise, as there.
         """
         del tiled, tile_size, tile_stride, enable_fp8_attention, progress_bar_cmd
-        del eligen_enable_on_negative, blockwise_controlnet_scale, \
-            blockwise_controlnet_start, blockwise_controlnet_end, \
-            inpaint_blur_size, inpaint_blur_sigma
         if rand_device != "cpu":
             raise ValueError("rand_device='cpu' is the only supported mode (the "
                              "reference default)")
-        unported = {"is_train": is_train or None, "input_image": input_image,
-                    "inpaint_mask": inpaint_mask, "context_image": context_image,
-                    "eligen_entity_prompts": eligen_entity_prompts or None,
-                    "eligen_entity_masks": eligen_entity_masks or None,
-                    "blockwise_controlnet_image": blockwise_controlnet_image}
-        for name, val in unported.items():
-            if val is not None:
-                raise NotImplementedError(f"{name}: only the single-image edit "
-                                          "path is ported")
-        if edit_image is None or isinstance(edit_image, (list, tuple)):
-            raise NotImplementedError("edit_image: only the single-image edit "
-                                      "path is ported (no text-to-image, no "
-                                      "multi-image edits)")
+        if is_train:
+            raise NotImplementedError("training preprocessing lives in "
+                                      "train.Trainer.preprocess")
         self.timings = {}
         height, width = (height + 15) // 16 * 16, (width + 15) // 16 * 16
         lat_h, lat_w = height // 8, width // 8
@@ -358,47 +388,299 @@ class PhysicEditPipeline:
             dynamic_shift_len=(height // 16) * (width // 16),
             exponential_shift_mu=exponential_shift_mu)
         latents = self.generate_noise((1, lat_h, lat_w, 16), seed)
+        input_latents = inpaint_lat = None
+        if input_image is not None:
+            input_latents = self.encode_image(input_image.resize((width, height)))
+            sigma0 = torch.tensor(sched.sigmas[0], dtype=torch.float32)
+            latents = fm.add_noise(input_latents.float(), latents.float(), sigma0).to(self.dtype)
+            if inpaint_mask is not None:
+                # latent-resolution soft mask: the mean over RGB, optionally blurred
+                m = inpaint_mask.convert("RGB").resize((lat_w, lat_h))
+                arr = np.asarray(m, np.float32).mean(-1) / 255.0
+                if inpaint_blur_size is not None and inpaint_blur_sigma is not None:
+                    arr = _gaussian_blur(arr, inpaint_blur_size, inpaint_blur_sigma)
+                inpaint_lat = self._tensor(arr[None, :, :, None], torch.float32)
 
-        resized = self.edit_image_auto_resize(edit_image) if edit_image_auto_resize \
-            else edit_image
-        lat = self.encode_image(resized)
-        img_shapes = [(1, lat_h // 2, lat_w // 2), (1, lat.shape[1] // 2, lat.shape[2] // 2)]
-        extra_tokens = patchify(lat)
+        multi_edit = isinstance(edit_image, (list, tuple))
+        edit_images = list(edit_image) if multi_edit else (
+            [edit_image] if edit_image is not None else [])
+        img_shapes = [(1, lat_h // 2, lat_w // 2)]
+        token_parts = []
+        if context_image is not None:         # in-context image at the output size
+            lat = self.encode_image(context_image.resize((width, height)))
+            img_shapes.append((1, lat.shape[1] // 2, lat.shape[2] // 2))
+            token_parts.append(patchify(lat))
+        for im in edit_images:
+            lat = self.encode_image(self.edit_image_auto_resize(im) if edit_image_auto_resize
+                                    else im)
+            img_shapes.append((1, lat.shape[1] // 2, lat.shape[2] // 2))
+            token_parts.append(patchify(lat))
+        extra_tokens = torch.cat(token_parts, dim=1) if token_parts else None
 
-        # vision features once, shared by the reasoner and both CFG rows
-        vl_feats, vl_grids = self._vision_features([vl_host.resize_vl_image(edit_image)])
+        # vision features once per edit image, shared by the reasoner and the prompts
+        vl_feats = vl_grids = None
+        if edit_images:
+            vl_feats, vl_grids = self._vision_features(
+                [vl_host.resize_vl_image(im) for im in edit_images])
         physical_txt = ""
-        if have_text_reasoning:
+        if have_text_reasoning and edit_images:
             physical_txt = self.reason_physical_batch(
-                [prompt], [edit_image], vl_feats=vl_feats, vl_grids=vl_grids)[0]
+                [prompt], edit_images[:1], vl_feats=vl_feats[:1], vl_grids=vl_grids[:1])[0]
 
-        (emb_p, special_p), (emb_n, special_n) = self.encode_prompt_edit_batch(
-            [prompt + physical_txt, negative_prompt], [edit_image] * 2,
-            feats_list=vl_feats * 2, grids=vl_grids * 2)
+        if multi_edit:
+            emb_p, special_p = self.encode_prompt_edit_multi(prompt + physical_txt, edit_images,
+                                                             vl_feats, vl_grids)
+            emb_n, special_n = self.encode_prompt_edit_multi(negative_prompt, edit_images,
+                                                             vl_feats, vl_grids)
+        elif edit_images:
+            (emb_p, special_p), (emb_n, special_n) = self.encode_prompt_edit_batch(
+                [prompt + physical_txt, negative_prompt], edit_images * 2,
+                feats_list=vl_feats * 2, grids=vl_grids * 2)
+        else:
+            (emb_p, emb_n), special_p, special_n = self.encode_prompt_batch(
+                [prompt + physical_txt, negative_prompt]), None, None
 
         use_cfg = cfg_scale != 1.0
+        eligen = bool(eligen_entity_prompts and eligen_entity_masks)
+        seq_lens_p = seq_lens_n = txt_tables = None
+        if eligen:
+            # entity prompt segments before the prompt, in one batched encode
+            entity_embs = self.encode_prompt_batch(eligen_entity_prompts)
+            ent_lens = [e.shape[0] for e in entity_embs]
+            seq_lens_p = ent_lens + [emb_p.shape[0]]
+            emb_p = np.concatenate(entity_embs + [emb_p], axis=0)
+            if special_p is not None:
+                special_p = special_p + sum(ent_lens)
+            if use_cfg and eligen_enable_on_negative:
+                seq_lens_n = [emb_n.shape[0]] * (len(ent_lens) + 1)
+                emb_n = np.concatenate([emb_n] * (len(ent_lens) + 1), axis=0)
+                if special_n is not None:
+                    special_n = special_n + sum(seq_lens_n[:-1])
+            # text rope per segment and per CFG row (the negative row plain
+            # unless it has the entity segments too)
+            mvi = m_rope.max_vid_index_of(img_shapes)
+            txt_tables = [_segment_tables(seq_lens_p, mvi, self.rope_axes)]
+            if use_cfg:
+                txt_tables.append(_segment_tables(seq_lens_n or [emb_n.shape[0]], mvi,
+                                                  self.rope_axes))
+
         embs = [emb_p, emb_n] if use_cfg else [emb_p]
         specials = [special_p, special_n] if use_cfg else [special_p]
         prompt_emb, txt_mask = vl_host.bucket_pad_text(embs, self.txt_len_bucket)
-        s_t = txt_mask.shape[1]
+        b, s_t = txt_mask.shape
+
+        attn_bias_log2 = None
+        if eligen:
+            # built on the host once per edit, re-seated into the bucketed
+            # text layout, put in K7's exp2 units (the fp32 multiply of
+            # bias_log2), copied to the card once
+            with self._timed("eligen_bias"):
+                masks = [EL.downsample_entity_mask(m, lat_h, lat_w) for m in eligen_entity_masks]
+                base_tokens = (lat_h // 2) * (lat_w // 2)
+                img_tok = base_tokens + (0 if extra_tokens is None else extra_tokens.shape[1])
+                rows = np.zeros((b, s_t + img_tok, s_t + img_tok), np.float32)
+                for row, lens in enumerate([seq_lens_p, seq_lens_n][:b]):
+                    if lens is not None:
+                        _place(rows[row], EL.build_entity_bias(masks, lens, img_tok, base_tokens),
+                               sum(lens), s_t)
+                rows *= np.float32(LOG2E)
+                attn_bias_log2 = self._tensor(rows, torch.float32)
+                del rows
+
+        control = None
+        if blockwise_controlnet_image is not None and self.controlnet is not None:
+            cond_lat = self.encode_image(blockwise_controlnet_image.resize((width, height)))
+            cond = process_conditioning(self.controlnet, patchify(cond_lat).to(self.dtype))
+            control = Control(self.controlnet, cond.expand(b, -1, -1), self._tensor(
+                controlnet_step_scales(num_inference_steps, blockwise_controlnet_start,
+                                       blockwise_controlnet_end, blockwise_controlnet_scale),
+                torch.float32))
+
+        ropes = list(m_rope.build_rope_tables(img_shapes, s_t,
+                                              edit_rope_interpolation=edit_rope_interpolation,
+                                              axes_dim=self.rope_axes))
+        if txt_tables is not None:
+            # [B, 1, s_t, 64]: each CFG row its own text table, over the heads
+            padded = [_pad_table(tc, ts, s_t) for tc, ts in txt_tables]
+            ropes[2:] = [np.stack([p[i] for p in padded])[:, None] for i in (0, 1)]
+        self.timings["joint_tokens"] = s_t + sum(f * h * w for f, h, w in img_shapes)
+        self.timings["steps"] = num_inference_steps
+        latents = self._run_denoise(
+            latents, extra_tokens, prompt_emb, txt_mask, specials, ropes, sched, cfg_scale,
+            (lat_h, lat_w), cfg_truncate_step, attn_bias_log2=attn_bias_log2,
+            inpaint_mask=inpaint_lat, input_latents=input_latents, control=control)
+        return self.decode_image(latents)
+
+    def _run_denoise(self, latents, extra_tokens, prompt_emb, txt_mask, specials, ropes, sched,
+                     cfg_scale, latent_hw, cfg_truncate_step, **options):
+        """The denoise of ``__call__`` and the serving paths, timed:
+        host-side prompts, masks, specials and tables to the device, the
+        special-token rewrite when the adapter and every row's special
+        positions are there."""
         special_idx = None
         if self.adapter is not None and all(s is not None for s in specials):
             special_idx = self._tensor(np.stack(specials), torch.long)
-        ropes = m_rope.build_rope_tables(img_shapes, s_t,
-                                         edit_rope_interpolation=edit_rope_interpolation,
-                                         axes_dim=self.rope_axes)
-        self.timings["joint_tokens"] = s_t + sum(f * h * w for f, h, w in img_shapes)
-        self.timings["steps"] = num_inference_steps
-
         with self._timed("denoise"):
-            latents = denoise(
+            return denoise(
                 self.dit, latents, extra_tokens, self._tensor(prompt_emb),
                 self._tensor(txt_mask, torch.bool),
                 *(self._tensor(r, torch.float32) for r in ropes),
                 self._tensor(sched.sigmas, torch.float32),
                 self._tensor(sched.sigmas_next, torch.float32),
                 self._tensor(sched.timesteps, torch.float32), float(cfg_scale),
-                latent_hw=(lat_h, lat_w), adapter=self.adapter,
-                special_idx=special_idx, t_min=self.t_min, t_max=self.t_max,
-                attn_clamp=self.attn_clamp, cfg_truncate_after=cfg_truncate_step)
-        return self.decode_image(latents)
+                latent_hw=latent_hw, adapter=self.adapter, special_idx=special_idx,
+                t_min=self.t_min, t_max=self.t_max, attn_clamp=self.attn_clamp,
+                cfg_truncate_after=cfg_truncate_step, **options)
+
+    # ------------------------------------------------------------------
+    # Batched serving
+    # ------------------------------------------------------------------
+
+    def _serving_conditioning(self, prompts: list, edit_images: list, negative_prompt: str,
+                              use_cfg: bool, have_text_reasoning: bool):
+        """The conditioning of N edits, shared by ``edit_batch`` and
+        ``edit_batch_mixed``; every stage runs at a shape that does not
+        depend on the output size.  The vision tower runs once per item, the
+        reasoner once over all items (one prefill per row, one decode), the
+        2N prompt encodes (positives, then negatives) in one batched VL
+        forward.  Returns (prompt_emb [2N or N, S_t, D], txt_mask, per-row
+        special positions)."""
+        n = len(prompts)
+        feats, grids = self._vision_features([vl_host.resize_vl_image(im) for im in edit_images])
+        physical = [""] * n
+        if have_text_reasoning:
+            physical = self.reason_physical_batch(prompts, edit_images, vl_feats=feats,
+                                                  vl_grids=grids)
+        all_prompts = [p + t for p, t in zip(prompts, physical)]
+        all_images = list(edit_images)
+        if use_cfg:
+            all_prompts += [negative_prompt] * n
+            all_images += list(edit_images)
+            feats, grids = feats + feats, grids + grids
+        enc = self.encode_prompt_edit_batch(all_prompts, all_images, feats_list=feats,
+                                            grids=grids)
+        prompt_emb, txt_mask = vl_host.bucket_pad_text([e for e, _ in enc], self.txt_len_bucket)
+        return prompt_emb, txt_mask, [sp for _, sp in enc]
+
+    def edit_batch(self, prompts: list, edit_images: list, negative_prompt: str = "",
+                   cfg_scale: float = 4.0, cfg_truncate_step: int | None = None,
+                   height: int = 1024, width: int = 1024, seeds: list | None = None,
+                   num_inference_steps: int = 40, have_text_reasoning: bool = True,
+                   edit_image_auto_resize: bool = False) -> list:
+        """Edit N same-resolution images in one denoise: the CFG batch
+        carries N positives and N negatives (2N DiT rows).  Item i uses
+        ``seeds[i]`` (default i) for its noise.  Returns N PIL images."""
+        n = len(prompts)
+        if n < 1 or len(edit_images) != n:
+            raise ValueError(f"edit_batch: {n} prompts for {len(edit_images)} images")
+        self.timings = {}
+        height, width = (height + 15) // 16 * 16, (width + 15) // 16 * 16
+        lat_h, lat_w = height // 8, width // 8
+        seeds = list(range(n)) if seeds is None else list(seeds)
+        sched = fm.build_schedule(num_inference_steps, fm.QWEN_IMAGE_CONFIG,
+                                  dynamic_shift_len=(height // 16) * (width // 16))
+        noise = torch.cat([self.generate_noise((1, lat_h, lat_w, 16), s) for s in seeds])
+        lats = [self.encode_image(self.edit_image_auto_resize(im) if edit_image_auto_resize
+                                  else im) for im in edit_images]
+        shapes = {tuple(lat.shape[1:3]) for lat in lats}
+        if len(shapes) != 1:
+            raise ValueError(f"edit_batch requires one resolution bucket, got {shapes}")
+        (eh, ew), = shapes
+        prompt_emb, txt_mask, specials = self._serving_conditioning(
+            prompts, edit_images, negative_prompt, cfg_scale != 1.0, have_text_reasoning)
+        ropes = m_rope.build_rope_tables([(1, lat_h // 2, lat_w // 2), (1, eh // 2, ew // 2)],
+                                         txt_mask.shape[1], axes_dim=self.rope_axes)
+        latents = self._run_denoise(noise, torch.cat([patchify(lat) for lat in lats]),
+                                    prompt_emb, txt_mask, specials, ropes, sched, cfg_scale,
+                                    (lat_h, lat_w), cfg_truncate_step)
+        return self.decode_images(latents)
+
+    def edit_batch_mixed(self, prompts: list, edit_images: list, negative_prompt: str = "",
+                         cfg_scale: float = 4.0, cfg_truncate_step: int | None = None,
+                         heights: list | None = None, widths: list | None = None,
+                         seeds: list | None = None, num_inference_steps: int = 40,
+                         have_text_reasoning: bool = True,
+                         edit_image_auto_resize: bool = False) -> list:
+        """Edit N images of mixed resolutions with one conditioning batch:
+        only the denoise depends on the output size, so the items are then
+        grouped by (output latent, edit latent) shape and each group
+        denoises at its own size.  ``heights[i]`` / ``widths[i]`` default to
+        image i's size; item i uses ``seeds[i]`` (default i).  Returns N PIL
+        images in input order."""
+        n = len(prompts)
+        if n < 1 or len(edit_images) != n:
+            raise ValueError(f"edit_batch_mixed: {n} prompts for {len(edit_images)} images")
+        self.timings = {}
+        if edit_image_auto_resize:
+            edit_images = [self.edit_image_auto_resize(im) for im in edit_images]
+        heights = [im.size[1] for im in edit_images] if heights is None else list(heights)
+        widths = [im.size[0] for im in edit_images] if widths is None else list(widths)
+        if len(heights) != n or len(widths) != n:
+            raise ValueError("edit_batch_mixed: one height and one width per item")
+        heights = [(h + 15) // 16 * 16 for h in heights]
+        widths = [(w + 15) // 16 * 16 for w in widths]
+        seeds = list(range(n)) if seeds is None else list(seeds)
+        use_cfg = cfg_scale != 1.0
+        lats = [self.encode_image(im) for im in edit_images]
+        prompt_emb, txt_mask, specials = self._serving_conditioning(
+            prompts, edit_images, negative_prompt, use_cfg, have_text_reasoning)
+
+        groups: dict = {}
+        for i, lat in enumerate(lats):
+            groups.setdefault((heights[i] // 8, widths[i] // 8, *lat.shape[1:3]), []).append(i)
+        results: list = [None] * n
+        for (lat_h, lat_w, eh, ew), idxs in groups.items():
+            sched = fm.build_schedule(num_inference_steps, fm.QWEN_IMAGE_CONFIG,
+                                      dynamic_shift_len=(lat_h // 2) * (lat_w // 2))
+            noise = torch.cat([self.generate_noise((1, lat_h, lat_w, 16), seeds[i])
+                               for i in idxs])
+            rows = idxs + [n + i for i in idxs] if use_cfg else idxs
+            ropes = m_rope.build_rope_tables([(1, lat_h // 2, lat_w // 2), (1, eh // 2, ew // 2)],
+                                             txt_mask.shape[1], axes_dim=self.rope_axes)
+            latents = self._run_denoise(
+                noise, torch.cat([patchify(lats[i]) for i in idxs]), prompt_emb[rows],
+                txt_mask[rows], [specials[i] for i in rows], ropes, sched, cfg_scale,
+                (lat_h, lat_w), cfg_truncate_step)
+            for img, i in zip(self.decode_images(latents), idxs):
+                results[i] = img
+        return results
+
+
+def _segment_tables(seq_lens: list, max_vid_index: int, axes: tuple):
+    """Text cos/sin tables [sum(seq_lens), 64] whose positions restart at
+    ``max_vid_index`` in every prompt segment."""
+    tables = [m_rope.text_rope_tables(n, max_vid_index, axes) for n in seq_lens]
+    return (np.concatenate([c for c, _ in tables]), np.concatenate([s for _, s in tables]))
+
+
+def _pad_table(tc, ts, s_t: int):
+    """A text table padded (cos 1, sin 0: masked positions) or cut to s_t rows."""
+    pad = max(0, s_t - tc.shape[0])
+    tc = np.concatenate([tc, np.ones((pad, tc.shape[1]), np.float32)])
+    ts = np.concatenate([ts, np.zeros((pad, ts.shape[1]), np.float32)])
+    return tc[:s_t], ts[:s_t]
+
+
+def _place(out: np.ndarray, bias: np.ndarray, txt_len: int, s_t: int) -> None:
+    """Seat an unpadded [txt + img, txt + img] bias into ``out``, the joint
+    layout whose text axis is padded to s_t (the padded keys are masked)."""
+    out[:txt_len, :txt_len] = bias[:txt_len, :txt_len]
+    out[:txt_len, s_t:] = bias[:txt_len, txt_len:]
+    out[s_t:, :txt_len] = bias[txt_len:, :txt_len]
+    out[s_t:, s_t:] = bias[txt_len:, txt_len:]
+
+
+def _gaussian_blur(arr: np.ndarray, blur_size: int, sigma: float) -> np.ndarray:
+    """Separable Gaussian blur with kernel size 2 * blur_size + 1 and
+    reflected edges (torchvision's GaussianBlur), in float64."""
+    k = 2 * blur_size + 1
+    x = np.arange(k) - blur_size
+    g = np.exp(-0.5 * (x / sigma) ** 2)
+    g /= g.sum()
+    pad = blur_size
+    padded = np.pad(arr, ((pad, pad), (0, 0)), mode="reflect")
+    arr = np.stack([np.convolve(padded[:, j], g, mode="valid")
+                    for j in range(arr.shape[1])], axis=1)
+    padded = np.pad(arr, ((0, 0), (pad, pad)), mode="reflect")
+    return np.stack([np.convolve(padded[i, :], g, mode="valid")
+                     for i in range(arr.shape[0])], axis=0)

@@ -20,6 +20,7 @@ import torch
 
 from physicedit_torch.core.params import init_random_, materialize
 from physicedit_torch.models.adapters import DualAdapter
+from physicedit_torch.models.controlnet import BlockwiseControlNet
 from physicedit_torch.models.dinov2 import (DINOV2_BASE, DINOV2_BASE_POS_GRID, DinoV2,
                                             DinoV2Config, init_dinov2_)
 from physicedit_torch.models.dit import QWEN_IMAGE_CONFIG, DiT, DiTConfig
@@ -28,6 +29,7 @@ from physicedit_torch.models.qwen_vl import (QWEN25_VL_7B_TEXT, TINY_TEXT, QwenV
 from physicedit_torch.models.qwen_vl_vision import (QWEN25_VL_VISION, QwenVLVision,
                                                     QwenVLVisionConfig)
 from physicedit_torch.models.vae import QWEN_VAE_CONFIG, VAE, VAEConfig
+from physicedit_torch.pipeline import prompt as P
 from physicedit_torch.pipeline.edit_pipeline import PhysicEditPipeline
 
 
@@ -84,6 +86,7 @@ class PipelineDims:
     edit_drop_idx: int
     dinov2: DinoV2Config | None = None   # the training prior's encoder, if any
     dino_pos_grid: int = DINOV2_BASE_POS_GRID
+    t2i_drop_idx: int = P.T2I_DROP_IDX
 
 
 SIZES = {
@@ -96,7 +99,7 @@ SIZES = {
                                   fullatt_block_indexes=(1,), out_hidden_size=64),
         vae=VAEConfig(base_dim=8), adapter_dim=64, rope_axes=(8, 12, 12),
         edit_drop_idx=2, dinov2=DinoV2Config(hidden_size=32, num_layers=1, num_heads=2),
-        dino_pos_grid=20),
+        dino_pos_grid=20, t2i_drop_idx=2),
     "full": PipelineDims(
         dit=QWEN_IMAGE_CONFIG, text=QWEN25_VL_7B_TEXT, vision=QWEN25_VL_VISION,
         vae=QWEN_VAE_CONFIG, adapter_dim=3584, rope_axes=(16, 56, 56),
@@ -131,7 +134,7 @@ def random_pipeline(dims: PipelineDims, device="cuda", dtype=torch.float32,
         eoi_token_id=tok.specials["<end_of_img>"],
         image_pad_id=tok.specials["<|image_pad|>"],
         vision_start_id=tok.specials["<|vision_start|>"],
-        edit_drop_idx=dims.edit_drop_idx,
+        edit_drop_idx=dims.edit_drop_idx, t2i_drop_idx=dims.t2i_drop_idx,
         rope_axes=dims.rope_axes)
     if dims.dinov2 is not None:     # drawn last: the other models' weights stay as they were
         pipe.dinov2 = init_dinov2_(materialize(DinoV2(dims.dinov2, dims.dino_pos_grid, dtype),
@@ -149,3 +152,16 @@ def build_random_pipeline(size: str = "tiny", device="cuda",
     dtype = torch.bfloat16 if size == "full" else torch.float32
     pipe = random_pipeline(SIZES[size], device, dtype, generator)
     return pipe if quantize is None else pipe.quantize_(quantize)
+
+
+@torch.no_grad()
+def random_controlnet(cfg: DiTConfig, device="cuda", dtype=torch.float32,
+                      generator: torch.Generator | None = None) -> BlockwiseControlNet:
+    """A blockwise ControlNet for a DiT of ``cfg`` with torch-default random
+    weights, its output projections included (the reference zero-inits
+    them, which would make the residual vanish)."""
+    device = torch.device(device)
+    if generator is None:
+        generator = torch.Generator(device).manual_seed(0)
+    cn = BlockwiseControlNet(cfg.num_layers, cfg.patch_dim, 0, cfg.dim, dtype)
+    return init_random_(materialize(cn, device), generator).eval()

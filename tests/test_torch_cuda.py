@@ -1,4 +1,4 @@
-"""Port kernels K1-K6, K8 and K9 on an NVIDIA GPU against their plain versions.
+"""Port kernels K1-K9 on an NVIDIA GPU against their plain versions.
 
 Every test here needs a card and nvcc and skips without one.  The file
 imports no JAX, so it also runs where JAX is not installed:
@@ -22,6 +22,7 @@ def cuda():
 
 
 BF16_TOL = 2e-2  # bf16 kernel output against the plain version (fp32 softmax)
+K7_REL_L2 = 5e-3  # and K7's rel-L2 over the whole output
 
 
 @pytest.mark.cuda
@@ -237,3 +238,86 @@ def test_w4_bwd_kernel_rejects_untileable_layers(cuda):
         tqm.w4_bwd_dx(torch.zeros(4, 128, device=cuda, dtype=torch.bfloat16),
                       torch.zeros(128, 100, device=cuda, dtype=torch.int8),
                       torch.ones(128, device=cuda))
+
+
+def _rel_l2(got, want):
+    got, want = got.double(), want.double()
+    return ((got - want).norm() / want.norm()).item()
+
+
+def _k7_inputs(g, b, n, sq, sk, scale=1.0, blocked_rows=()):
+    """bf16 q/k/v (RMS-normed q and k, times ``scale``), an fp32 entity-style
+    bias in exp2 units and a key mask."""
+    q = _rms(torch.randn(b, n, sq, 128, device=g.device, generator=g), scale)
+    k = _rms(torch.randn(b, n, sk, 128, device=g.device, generator=g), scale)
+    v = torch.randn(b, n, sk, 128, device=g.device, generator=g).bfloat16()
+    blocked = torch.rand(b, sq, sk, device=g.device, generator=g) < 0.3
+    bias = torch.where(blocked, -1e30, 0.5 * torch.randn(b, sq, sk, device=g.device, generator=g))
+    bias[:, :, 0] = 0.0
+    bias[:, list(blocked_rows)] = -1e30
+    mask = torch.ones(b, sk, dtype=torch.bool, device=g.device)
+    mask[-1, sk - sk // 5:] = False
+    return q, k, v, tfa.bias_log2(bias), mask
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["joint", "ragged_blocked_row", "clamp_binds"])
+def test_fixedmax_bias_kernel_matches_plain_on_cuda(cuda, case):
+    """K7 against its plain version: an entity bias over a joint sequence, a
+    ragged S with a query row whose keys are all blocked (exactly 0), logits
+    past the clamp.  Beside the elementwise check, rel-L2 within
+    K7_REL_L2 (as chip_smoke.py gates it)."""
+    b, n, sq, sk, scale, rows = {
+        "joint": (2, 3, 320, 320, 1.0, ()),
+        "ragged_blocked_row": (1, 2, 237, 237, 1.0, (5, 236)),
+        "clamp_binds": (1, 2, 200, 200, 8.0, ()),
+    }[case]
+    g = torch.Generator(cuda).manual_seed(len(case))
+    q, k, v, bias, mask = _k7_inputs(g, b, n, sq, sk, scale, rows)
+    if case == "clamp_binds":
+        logits = q.float() @ k.float().transpose(-1, -2) * (tfa.LOG2E / 128 ** 0.5)
+        assert (logits > tfa.CLAMP).any()
+    before = tfa.LAUNCHES["fixedmax_attention_bias"]
+    out = tfa.fixedmax_attention_bias(q, k, v, bias, mask)
+    ref = tfa.fixedmax_attention_bias_reference(q, k, v, bias, mask)
+    assert tfa.LAUNCHES["fixedmax_attention_bias"] == before + 1
+    assert torch.isfinite(out).all()
+    torch.testing.assert_close(out.float(), ref.float(), rtol=BF16_TOL, atol=BF16_TOL)
+    assert _rel_l2(out, ref) <= K7_REL_L2
+    for r in rows:
+        assert torch.equal(out[:, :, r], torch.zeros_like(out[:, :, r]))
+
+
+@pytest.mark.cuda
+def test_fixedmax_bias_kernel_reads_a_strided_slim_view_on_cuda(cuda):
+    """The slim last block's queries (the base-image rows s_t .. s_t + base)
+    read their bias rows as a view of the joint bias with its row pitch and
+    batch stride: the same result as a contiguous copy."""
+    g = torch.Generator(cuda).manual_seed(11)
+    s_t, base, s = 40, 96, 232
+    q, k, v, bias, mask = _k7_inputs(g, 2, 2, s, s)
+    qs = q[:, :, s_t:s_t + base].contiguous()
+    view = bias[:, s_t:s_t + base]
+    assert not view.is_contiguous()
+    out = tfa.fixedmax_attention_bias(qs, k, v, view, mask)
+    torch.testing.assert_close(out, tfa.fixedmax_attention_bias(qs, k, v, view.contiguous(), mask),
+                               rtol=0, atol=0)
+    ref = tfa.fixedmax_attention_bias_reference(qs, k, v, view, mask)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=BF16_TOL, atol=BF16_TOL)
+    assert _rel_l2(out, ref) <= K7_REL_L2
+
+
+@pytest.mark.cuda
+def test_fixedmax_bias_kernel_raises_on_unsupported_inputs(cuda):
+    x = torch.zeros(1, 1, 64, 128, device=cuda)                        # fp32
+    bias = torch.zeros(1, 64, 64, device=cuda)
+    with pytest.raises(ValueError, match="bf16"):
+        tfa.fixedmax_attention_bias(x, x, x, bias)
+    y = torch.zeros(1, 1, 64, 64, device=cuda, dtype=torch.bfloat16)  # head_dim 64
+    with pytest.raises(ValueError, match="head_dim"):
+        tfa.fixedmax_attention_bias(y, y, y, bias)
+    z = torch.zeros(1, 1, 64, 128, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="fp32"):
+        tfa.fixedmax_attention_bias(z, z, z, bias.bfloat16())
+    with pytest.raises(RuntimeError, match="forward only"):
+        tfa.fixedmax_attention_bias(z.clone().requires_grad_(True), z, z, bias)

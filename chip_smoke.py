@@ -70,7 +70,8 @@ ATTN_REL_L2 = 5e-3
 PIPE_REL_L2 = 0.05   # small pipeline, bf16 on the card vs bf16 on the CPU
 W4_REL_L2 = 0.05     # full-width W4 edit against the same edit in bf16
 KERNEL_SOURCES = ("fixedmax_attention", "gqa_causal_attention", "w4a8_matmul", "fused_quant",
-                  "fixedmax_attention_bwd", "w4_bwd_dx", "fixedmax_attention_bias")
+                  "fixedmax_attention_bwd", "w4_bwd_dx", "fixedmax_attention_bias",
+                  "online_attention")
 # small training step, bf16 card vs bf16 CPU through 2 blocks, about 10x the
 # readings on an H100 (loss 4.6e-5, all gradients 5.1e-5, worst leaf 2.8e-3)
 TRAIN_LOSS_REL = 5e-4  # the loss
@@ -124,6 +125,14 @@ KERNEL_ROWS = [
      "physicedit_tpu/kernels/quant_matmul.py:227", None),
     ("fixedmax_attention_bias", "physicedit_torch/csrc/fixedmax_attention_bias.cu",
      "physicedit_tpu/kernels/flash_attention.py:111", None),
+    ("online_attention", "physicedit_torch/csrc/online_attention.cu",
+     "physicedit_tpu/kernels/flash_attention.py:464", None),
+    ("online_attention_bias", "physicedit_torch/csrc/online_attention.cu",
+     "physicedit_tpu/kernels/flash_attention.py:536", None),
+    # K1': its row's times are the JAX package's default form (q scaled in the
+    # kernel, the clamp on), K7's kernel; the prescaled form runs K1's
+    ("fixedmax_bnsd", "physicedit_torch/csrc/fixedmax_attention_bias.cu",
+     "physicedit_tpu/kernels/flash_attention.py:78", None),
 ]
 
 
@@ -795,6 +804,413 @@ def k7_phase(report: dict, gen, time_ms, compare) -> None:
     torch.cuda.empty_cache()
 
 
+def _attention_row(phase, name, shape, out, ref, compare, live=None) -> dict:
+    """The error of a kernel against its plain version, on the live rows
+    where ``live`` ([B, N, S_q] bool) is given."""
+    max_err, mean_err, n_bad = compare(out, ref, None if live is None
+                                       else live[..., None].expand_as(out))
+    sel = (lambda x: x) if live is None else (lambda x: x[live])
+    return {"phase": phase, "case": name, "shape": shape, "max_abs_err": max_err,
+            "mean_abs_err": mean_err, "rel_l2": rel_l2(sel(out), sel(ref)),
+            "n_out_of_tol": n_bad, "atol": ATOL, "rtol": RTOL,
+            "max_abs_limit": ATTN_MAX_ABS, "rel_l2_limit": ATTN_REL_L2}
+
+
+def _attention_ok(row) -> bool:
+    return (not row["n_out_of_tol"] and row["max_abs_err"] <= ATTN_MAX_ABS
+            and row["rel_l2"] <= ATTN_REL_L2)
+
+
+def k10_phase(report: dict, gen, time_ms, compare) -> dict:
+    """K10 (online-softmax attention) at the DiT's shape, B = 2, N = 24,
+    S = 8448, the last 64 keys masked.  Its path is the public API:
+    ``ops.attention.attention(impl="kernels", variant="online")`` on BSND
+    inputs, driven once with the counts at 0.  Then K10 against its plain
+    version, timed beside it, beside PyTorch's attention with the boolean
+    mask and beside the bound; and the unbounded-logit case (q and k x
+    CLAMP_QK_SCALE, so that the fixed-max clamp binds): K10 against its plain
+    version and against an fp32 SDPA, with K1's distance from that SDPA
+    beside it.  Returns the path's launches."""
+    import torch
+    import torch.nn.functional as F
+
+    from physicedit_torch.kernels import flash_attention as fa
+    from physicedit_torch.ops.attention import attention
+
+    dev = gen.device
+    b, n, s = 2, 24, 8448
+    mask = torch.ones(b, s, dtype=torch.bool, device=dev)
+    mask[:, -64:] = False
+    launches = None
+    for name, scale in (("joint_8448", 1.0), ("unbounded_logits_8448", CLAMP_QK_SCALE)):
+        q, k = (_rms(torch.randn(b, n, s, 128, device=dev, generator=gen)) * scale
+                for _ in range(2))
+        q, k = q.bfloat16(), k.bfloat16()
+        # With unbounded logits each row's softmax is nearly one-hot, so the
+        # output is nearly one row of v: at |v| in [2, 4) one bf16 step is
+        # 0.0156, past the 4e-3 gate.  v / 8 (exact, a power of two) keeps
+        # the outputs where one step is 2e-3 and scales every error by 1/8.
+        v = (torch.randn(b, n, s, 128, device=dev, generator=gen) / scale).bfloat16()
+        if launches is None:
+            reset_counts()
+            out = attention(*(x.transpose(1, 2) for x in (q, k, v)), key_mask=mask,
+                            impl="kernels", variant="online").transpose(1, 2)
+            torch.cuda.synchronize()
+            launches = counts()
+        else:
+            out = fa.online_attention(q, k, v, mask)
+        ref = fa.online_attention_reference(q, k, v, mask)
+        torch.cuda.synchronize()
+        row = _attention_row("k10", name, [b, n, s, s], out, ref, compare)
+        row["qk_scale"] = scale
+        ok = _attention_ok(row)
+        if scale == 1.0:
+            row["ms"] = time_ms(lambda: fa.online_attention(q, k, v, mask), 10)
+            row["plain_ms"] = time_ms(lambda: fa.online_attention_reference(q, k, v, mask), 2)
+            mask4 = mask[:, None, None, :]
+            row["library_ms"] = time_ms(
+                lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask4), 10)
+            row["tflops"] = 4 * b * n * s * s * 128 / row["ms"] / 1e9
+            row.update(bound(4 * b * n * s * s * 128,
+                             2 * (q.numel() + k.numel() + v.numel() + out.numel()) + b * s,
+                             PEAK_BF16))
+            row["launches"] = launches
+            report["online_attention"] = dict(row)
+        else:
+            logits = q[0, 0].float() @ k[0, 0].float().T * (fa.LOG2E / 128 ** 0.5)
+            row["clamped_logit_share"] = (logits > fa.CLAMP).float().mean().item()
+            row["v_scale"], row["max_abs_ref"] = 1.0 / scale, ref.abs().max().item()
+            del logits
+            sdpa = F.scaled_dot_product_attention(q.float(), k.float(), v.float(),
+                                                  attn_mask=mask[:, None, None, :])
+            fixed = fa.fixedmax_attention(q, k, v, mask, clamp=True)
+            row["rel_l2_vs_fp32_sdpa"] = rel_l2(out, sdpa)
+            row["k1_rel_l2_vs_fp32_sdpa"] = rel_l2(fixed, sdpa)
+            row["rel_l2_vs_fp32_sdpa_limit"] = ATTN_REL_L2
+            del sdpa, fixed
+            ok = (ok and row["clamped_logit_share"] > 0.0
+                  and row["rel_l2_vs_fp32_sdpa"] <= ATTN_REL_L2)
+        report.setdefault("online_attention_err", []).append(row["max_abs_err"])
+        emit(row)
+        if not ok:
+            fail(f"K10 {name} disagrees with its plain version or the fp32 softmax")
+        del q, k, v, out, ref
+    torch.cuda.empty_cache()
+    return launches
+
+
+def k10b_phase(report: dict, gen, time_ms, compare) -> dict:
+    """K10b (K10 with a head-shared bias in natural-log units), its path
+    ``flash_attention_bnsd(bias=, variant="online")`` driven once with the
+    counts at 0: (a) the full-width EliGen call, B = 2, N = 24, joint 256 +
+    2 x 4096, with the two-entity bias ``build_entity_bias`` makes and a text
+    key mask, timed beside its plain version, beside PyTorch's attention with
+    the bias as a bf16 float mask and beside the bound; (b) the slim block's
+    4096 query rows reading their bias rows as a strided view, bit for bit
+    against the same call on a contiguous copy; (c) a ragged S with a query
+    row whose keys are all blocked (the live rows gated; that row exactly 0).
+    Returns the path's launches."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from physicedit_torch.kernels import flash_attention as fa
+    from physicedit_torch.pipeline.eligen import build_entity_bias, downsample_entity_mask
+
+    dev = gen.device
+    s_t, base = 256, 4096
+    s = s_t + 2 * base
+    masks = [downsample_entity_mask(m, 128, 128) for m in entity_masks(1024, 1024)]
+    bias = torch.from_numpy(np.stack([build_entity_bias(masks, lens, 2 * base, base)
+                                      for lens in ([40, 56, 160], [64, 64, 128])])).to(dev)
+
+    def qkv(b, sq, sk):
+        q = _rms(torch.randn(b, 24, sq, 128, device=dev, generator=gen)).bfloat16()
+        k = _rms(torch.randn(b, 24, sk, 128, device=dev, generator=gen)).bfloat16()
+        return q, k, torch.randn(b, 24, sk, 128, device=dev, generator=gen).bfloat16()
+
+    # (a) the EliGen joint call: the path, then the check and the times
+    q, k, v = qkv(2, s, s)
+    mask = torch.ones(2, s, dtype=torch.bool, device=dev)
+    mask[1, 220:256] = False
+    reset_counts()
+    out = fa.flash_attention_bnsd(q, k, v, mask, bias=bias, variant="online")
+    torch.cuda.synchronize()
+    launches = counts()
+    ref = fa.online_attention_reference(q, k, v, mask, bias)
+    row = _attention_row("k10b", "eligen_joint_8448", [2, 24, s, s], out, ref, compare)
+    row["bias_blocked_share"] = (bias < 0).float().mean().item()
+    row["ms"] = time_ms(lambda: fa.online_attention(q, k, v, mask, bias), 10)
+    row["plain_ms"] = time_ms(lambda: fa.online_attention_reference(q, k, v, mask, bias), 2)
+    lib_mask = bias.masked_fill(~mask[:, None, :], -1e30)[:, None].bfloat16()
+    row["library_ms"] = time_ms(
+        lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=lib_mask), 10)
+    del lib_mask
+    row["tflops"] = 4 * 2 * 24 * s * s * 128 / row["ms"] / 1e9
+    row.update(bound(4 * 2 * 24 * s * s * 128,
+                     2 * (q.numel() + k.numel() + v.numel() + out.numel()) + 4 * bias.numel()
+                     + 2 * s, PEAK_BF16))
+    row["launches"] = launches
+    report["online_attention_bias"] = dict(row)
+    rows = [row]
+
+    # (b) the slim block's rows as a view of the joint bias
+    qs = q[:, :, s_t:s_t + base].contiguous()
+    view = bias[:, s_t:s_t + base]
+    out_v = fa.online_attention(qs, k, v, mask, view)
+    out_c = fa.online_attention(qs, k, v, mask, view.contiguous())
+    ref = fa.online_attention_reference(qs, k, v, mask, view)
+    row = _attention_row("k10b", "slim_4096x8448_view", [2, 24, base, s], out_v, ref, compare)
+    row["bias_strides"] = list(view.stride())
+    row["view_equals_copy"] = bool(torch.equal(out_v, out_c))
+    rows.append(row)
+    del q, k, v, qs, out, out_v, out_c, ref, view
+
+    # (c) a ragged S with a fully blocked query row
+    sr, blocked = 2303, 17
+    q, k, v = qkv(1, sr, sr)
+    mask = torch.ones(1, sr, dtype=torch.bool, device=dev)
+    mask[0, 2000:] = False
+    bias_r = torch.where(torch.rand(1, sr, sr, device=dev, generator=gen) < 0.3, -1e30, 0.0)
+    bias_r[:, :, 0] = 0.0
+    bias_r[:, blocked] = -1e30
+    out = fa.online_attention(q, k, v, mask, bias_r)
+    ref = fa.online_attention_reference(q, k, v, mask, bias_r)
+    live = torch.ones(1, 24, sr, dtype=torch.bool, device=dev)
+    live[:, :, blocked] = False
+    row = _attention_row("k10b", "ragged_2303_blocked_row", [1, 24, sr, sr], out, ref,
+                         compare, live)
+    row["blocked_row_max_abs"] = out[:, :, blocked].abs().max().item()
+    rows.append(row)
+    del q, k, v, out, ref, bias_r, bias
+    for row in rows:
+        report.setdefault("online_attention_bias_err", []).append(row["max_abs_err"])
+        emit(row)
+        if (not _attention_ok(row) or row.get("view_equals_copy") is False
+                or row.get("blocked_row_max_abs", 0.0) != 0.0):
+            fail(f"K10b {row['case']} disagrees with its plain version")
+    torch.cuda.empty_cache()
+    return launches
+
+
+def k1prime_phase(report: dict, gen, time_ms, compare) -> dict:
+    """K1' (``fixedmax_bnsd``: fixed-max attention without the row sums) at
+    B = 2, N = 24, S = 8448, text keys masked in one row, in both forms:
+    q prescaled (K1's kernel) and q scaled in fp32 in the kernel (K7's
+    kernel without its bias), each with the clamp on and off; the path (the
+    JAX package's default form, scaled with the clamp on) driven once with
+    the counts at 0.  Each form timed beside its plain version; the clamp
+    also where it binds (q and k x CLAMP_QK_SCALE).  Returns the path's
+    launches."""
+    import torch
+    import torch.nn.functional as F
+
+    from physicedit_torch.kernels import flash_attention as fa
+
+    dev = gen.device
+    b, n, s = 2, 24, 8448
+    mask = torch.ones(b, s, dtype=torch.bool, device=dev)
+    mask[1, 60:256] = False
+    launches = None
+    cases = [(pre, clamp, 1.0) for pre in (False, True) for clamp in (True, False)]
+    cases += [(False, True, CLAMP_QK_SCALE), (True, True, CLAMP_QK_SCALE)]
+    for prescaled, clamp, scale in cases:
+        q, k = (_rms(torch.randn(b, n, s, 128, device=dev, generator=gen)) * scale
+                for _ in range(2))
+        q, k = q.bfloat16(), k.bfloat16()
+        v = torch.randn(b, n, s, 128, device=dev, generator=gen).bfloat16()
+        if prescaled:
+            q = fa._prescale(q).contiguous()
+        if launches is None:
+            reset_counts()
+            out = fa.fixedmax_bnsd(q, k, v, mask, clamp=clamp, prescaled=prescaled)
+            torch.cuda.synchronize()
+            launches = counts()
+        else:
+            out = fa.fixedmax_bnsd(q, k, v, mask, clamp=clamp, prescaled=prescaled)
+        ref = fa.fixedmax_bnsd_reference(q, k, v, mask, clamp=clamp, prescaled=prescaled)
+        torch.cuda.synchronize()
+        name = f"{'prescaled' if prescaled else 'scaled'}_{'clamp' if clamp else 'noclamp'}"
+        if scale != 1.0:
+            name += "_binds"
+        row = _attention_row("k1prime", name, [b, n, s, s], out, ref, compare)
+        row.update({"prescaled": prescaled, "clamp": clamp, "qk_scale": scale})
+        ok = _attention_ok(row) if scale == 1.0 else row["rel_l2"] <= ATTN_REL_L2
+        if scale == 1.0:
+            row["ms"] = time_ms(lambda: fa.fixedmax_bnsd(q, k, v, mask, clamp=clamp,
+                                                         prescaled=prescaled), 10)
+            row["plain_ms"] = time_ms(lambda: fa.fixedmax_bnsd_reference(
+                q, k, v, mask, clamp=clamp, prescaled=prescaled), 2)
+            report.setdefault("fixedmax_bnsd_err", []).append(row["max_abs_err"])
+            if not prescaled and clamp:     # the JAX package's default form
+                mask4 = mask[:, None, None, :]
+                row["library_ms"] = time_ms(
+                    lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask4), 10)
+                row.update(bound(4 * b * n * s * s * 128,
+                                 2 * (q.numel() + k.numel() + v.numel() + out.numel()) + b * s,
+                                 PEAK_BF16))
+                row["launches"] = launches
+                report["fixedmax_bnsd"] = dict(row)
+        emit(row)
+        if not ok:
+            fail(f"K1' {name} disagrees with its plain version")
+        del q, k, v, out, ref
+    torch.cuda.empty_cache()
+    return launches
+
+
+# the load phase's depth cut (full widths): DiT blocks, VL text layers, ViT blocks
+LOAD_DEPTH = (6, 4, 8)
+LOAD_REL_L2 = 1e-3       # the CLI's image against the direct call's, same weights
+
+
+def load_phase(gen, steps: int, image) -> dict:
+    """Checkpoint loading at full width, the depth cut to LOAD_DEPTH (about
+    10 GB): a random bf16 pipeline written by
+    ``tools/make_synthetic_checkpoint`` into a temporary directory (with a
+    rank-128 finetuned export from ``save_checkpoint``), read back by
+    ``from_pretrained`` (every parameter bit for bit), then
+    ``cli.validate.main`` with the fake tokenizer, the kernels, ``steps``
+    steps and the reasoner off: its PNG against the direct ``__call__`` on
+    the in-memory pipeline; again with ``--lora_path`` against the in-memory
+    pipeline's live LoRA; again with ``--quantize int4`` against the bf16
+    call.  Rates in GB/s of tensor data; the directory is removed at the end.
+    Returns the CLI run's launches."""
+    import dataclasses
+    import gc
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from physicedit_torch.cli import validate as cli
+    from physicedit_torch.pipeline.edit_pipeline import PhysicEditPipeline
+    from physicedit_torch.pipeline.testing import SIZES, FakeTokenizer, random_pipeline
+    from physicedit_torch.tools import make_synthetic_checkpoint as synth
+
+    n_dit, n_text, n_vit = LOAD_DEPTH
+    full = SIZES["full"]
+    dims = dataclasses.replace(
+        full, dinov2=None, dit=dataclasses.replace(full.dit, num_layers=n_dit),
+        text=dataclasses.replace(full.text, num_layers=n_text),
+        vision=dataclasses.replace(full.vision, depth=n_vit, fullatt_block_indexes=tuple(
+            i for i in full.vision.fullatt_block_indexes if i < n_vit)))
+    dev = gen.device
+    pipe = random_pipeline(dims, dev, torch.bfloat16, gen)
+    trainable = synth.random_trainable(pipe, 128, 768, gen)
+    base = tempfile.mkdtemp(prefix="physicedit_load_")
+    try:
+        torch.cuda.synchronize()
+        info = synth.write_tree(pipe, base, trainable)
+        row = {"phase": "load", "depth_cut": {"dit_blocks": n_dit, "text_layers": n_text,
+                                              "vit_blocks": n_vit},
+               "tree_gb": info["bytes"] / 1e9, "write_s": info["seconds"],
+               "write_gb_per_s": info["bytes"] / 1e9 / info["seconds"],
+               "disk_free_gb": shutil.disk_usage(base).free / 1e9}
+        paths = cli.find_model_files(base)
+        read_bytes = sum(os.path.getsize(f) for p in paths
+                         for f in (p if isinstance(p, list) else [p]))
+        before = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        loaded = PhysicEditPipeline.from_pretrained(paths, device=dev)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        row.update({"read_s": seconds, "read_gb": read_bytes / 1e9,
+                    "read_gb_per_s": read_bytes / 1e9 / seconds,
+                    "resident_gb_after_load": (torch.cuda.memory_allocated() - before) / 1e9,
+                    "attn_impl": loaded.attn_impl})
+        mismatched = [f"{name}.{k}" for name in ("dit", "vae", "text", "vision")
+                      for k, v in getattr(pipe, name).state_dict().items()
+                      if not torch.equal(getattr(loaded, name).state_dict()[k], v)]
+        row["params_compared"] = sum(len(getattr(pipe, n).state_dict())
+                                     for n in ("dit", "vae", "text", "vision"))
+        row["params_not_bitwise_equal"] = mismatched[:5]
+        del loaded
+        gc.collect()
+        torch.cuda.empty_cache()
+        emit(row)
+        if mismatched:
+            fail(f"from_pretrained differs from the written pipeline in {mismatched[:5]}")
+
+        def fake_tokenizer(self, path):
+            tok = FakeTokenizer()
+            self.tokenizer = tok
+            self.boi_token_id = tok.specials["<begin_of_img>"]
+            self.eoi_token_id = tok.specials["<end_of_img>"]
+            # the template's prefix lengths go with the tokenizer
+            self.edit_drop_idx, self.t2i_drop_idx = pipe.edit_drop_idx, pipe.t2i_drop_idx
+
+        real_load_tokenizer = PhysicEditPipeline.load_tokenizer
+        PhysicEditPipeline.load_tokenizer = fake_tokenizer
+        in_path = os.path.join(base, "in.png")
+        image.save(in_path)
+        resized = cli.resize_image(image)
+
+        def direct():
+            return np.asarray(pipe("make the glass fall off the table", edit_image=resized,
+                                   seed=SEED + 9, num_inference_steps=steps, cfg_scale=4.0,
+                                   height=resized.size[1], width=resized.size[0],
+                                   have_text_reasoning=False), np.float32)
+
+        # the base tree carries no adapter (the finetuned export does)
+        adapter, pipe.adapter = pipe.adapter, None
+        plain = direct()
+        pipe.adapter = adapter
+        runs = {"cli": [], "cli_lora": ["--lora_path", info["paths"]["finetuned"]],
+                "cli_int4": ["--quantize", "int4"]}
+        launches = None
+        for name, extra in runs.items():
+            want = plain
+            if name == "cli_lora":      # the export's LoRA live, and its dual adapter
+                pipe.dit_lora = trainable.lora
+                want = direct()
+                pipe.dit_lora = None
+            out_path = os.path.join(base, f"{name}.png")
+            reset_counts()
+            t0 = time.perf_counter()
+            loaded = cli.main(["--prompt", "make the glass fall off the table", "--image_path",
+                               in_path, "--save_path", out_path, "--base_model_path", base,
+                               "--seed", str(SEED + 9), "--num_inference_steps", str(steps),
+                               "--no_text_reasoning", "--attn_impl", "kernels", "--device",
+                               str(dev), *extra])
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            run_launches = counts()
+            got = np.asarray(Image.open(out_path), np.float32)
+            rel = float(np.linalg.norm(got - want) / np.linalg.norm(want - want.mean()))
+            limit = {"cli": LOAD_REL_L2, "cli_lora": PIPE_REL_L2, "cli_int4": W4_REL_L2}[name]
+            emit({"phase": "load_" + name, "seconds": seconds, "size": list(got.shape),
+                  "rel_l2": rel, "limit": limit, "equal": bool(np.array_equal(got, want)),
+                  "adapters": sorted(loaded.adapters), "launches": run_launches})
+            del loaded
+            gc.collect()
+            torch.cuda.empty_cache()
+            if got.shape != want.shape or not rel <= limit:
+                fail(f"load {name}: the CLI's image is {rel:.2e} rel-L2 from the in-memory "
+                     f"pipeline's (limit {limit})")
+            kernels = ("fixedmax_attention", "gqa_causal_attention") + (
+                ("w4a8_matmul",) if name == "cli_int4" else ())
+            if min(run_launches[k] for k in kernels) == 0:
+                fail(f"load {name}: the CLI's edit launched no {kernels}: {run_launches}")
+            launches = launches or run_launches
+        PhysicEditPipeline.load_tokenizer = real_load_tokenizer
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+    del pipe, trainable
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _rms(x):
+    """The DiT RMS-norms q and k before attention."""
+    import torch
+
+    return x * torch.rsqrt(x.pow(2).mean(-1, keepdim=True))
+
+
 def eligen_phase(pipe, image, steps: int, n_blocks: int, n_layers: int) -> dict:
     """Two full-width EliGen edits at 1024^2 (two entity prompts and masks,
     CFG 4 with the entities on the negative row too, reasoner off): full CFG,
@@ -1040,6 +1456,12 @@ def main() -> int:
 
     # 3b. K7 at the EliGen path's shapes
     k7_phase(report, gen, time_ms, compare)
+    # 3c. K10, K10b and K1' through the attention API at the DiT's shapes
+    attention_launches = {
+        "online_attention": k10_phase(report, gen, time_ms, compare)["online_attention"],
+        "online_attention_bias":
+            k10b_phase(report, gen, time_ms, compare)["online_attention_bias"],
+        "fixedmax_bnsd": k1prime_phase(report, gen, time_ms, compare)["fixedmax_bnsd"]}
 
     # 4. K2 at the reasoner prefill / prompt-encode shapes
     for name, b, s, pads in [("prefill_1536", 1, 1536, (0,)),
@@ -1145,6 +1567,9 @@ def main() -> int:
     # 10. a small training step: kernels on the card against plain versions on the CPU
     small_training_phase(small, gen, dev)
 
+    # 7b. checkpoint loading at full width (depth cut): write, from_pretrained, the CLI
+    load_phase(gen, args.steps, image(1024, 1024))
+
     # 8. the full-width slice
     t0 = time.perf_counter()
     pipe = build_random_pipeline("full", device=dev, generator=gen)
@@ -1234,7 +1659,9 @@ def main() -> int:
     want = {**w4_launch_counts(pipe.timings, args.steps, n_blocks, n_layers,
                                pipe.vision.cfg.depth),
             "fixedmax_attention_bwd": 0, "w4_bwd_dx": 0,     # an edit runs no backward
-            "fixedmax_attention_bias": 0}                     # nor an entity bias
+            "fixedmax_attention_bias": 0,                     # nor an entity bias,
+            "online_attention": 0, "online_attention_bias": 0,  # nor K10 / K10b / K1'
+            "fixedmax_bnsd": 0}
     emit({"phase": "w4_edit", **row, "kv_int8": pipe.kv_int8, "launches": launches,
           "launches_expected": want})
     if launches != want:
@@ -1301,7 +1728,8 @@ def main() -> int:
                      **{k: main_launches[k] for k in ("fixedmax_attention",
                                                       "gqa_causal_attention")},
                      **{k: train_launches[k] for k in ("fixedmax_attention_bwd", "w4_bwd_dx")},
-                     "fixedmax_attention_bias": eligen_launches["fixedmax_attention_bias"]}
+                     "fixedmax_attention_bias": eligen_launches["fixedmax_attention_bias"],
+                     **attention_launches}
     if min(path_launches[name] for name, *_ in KERNEL_ROWS) == 0:
         fail(f"a kernel was not launched on its path: {path_launches}")
     kernels = []

@@ -30,14 +30,21 @@
 // kept apart (no FMA contraction of the scale and the bias add), as the
 // plain version rounds them.  Not done yet: TMA, wgmma, a multi-stage copy
 // pipeline.
+//
+// K1' (physicedit_tpu/kernels/flash_attention.py::_fixedmax_kernel with
+// prescaled=False, called through _fixedmax_bnsd) is this kernel with two
+// compile-time switches: no bias (kHasBias = false: s = fp32(q k^T) * scale
+// alone, no bias loads) and the clamp on or off (kClamp).  K7 is the
+// instantiation with both on, the code it had before the switches.
 #include "mma_bf16.cuh"
 
 using namespace physicedit;
 
 namespace {
 
-constexpr float kClamp = 100.f;
+constexpr float kClampValue = 100.f;
 
+template <bool kHasBias, bool kClamp>
 __global__ void __launch_bounds__(kThreads)
 fixedmax_bias_kernel(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
                      const uint16_t* __restrict__ v, const float* __restrict__ bias,
@@ -75,28 +82,35 @@ fixedmax_bias_kernel(const uint16_t* __restrict__ q, const uint16_t* __restrict_
   const uint8_t* mb = key_mask ? key_mask + (long)blockIdx.z * sk : nullptr;
   // the bias rows of this thread's two query rows (a row past S_q reads the
   // last row's values and is never written)
-  const float* bb = bias + (long)blockIdx.z * bias_batch_stride;
-  const float* b_g = bb + (long)min(rg, sq - 1) * bias_row_pitch;
-  const float* b_g8 = bb + (long)min(rg8, sq - 1) * bias_row_pitch;
-  // a thread's two keys (2t, 2t + 1) as one 8-byte load
-  const bool pairs = bias_row_pitch % 2 == 0 && bias_batch_stride % 2 == 0 &&
-                     reinterpret_cast<uintptr_t>(bias) % 8 == 0;
+  const float* b_g = nullptr;
+  const float* b_g8 = nullptr;
+  bool pairs = false;
+  if constexpr (kHasBias) {
+    const float* bb = bias + (long)blockIdx.z * bias_batch_stride;
+    b_g = bb + (long)min(rg, sq - 1) * bias_row_pitch;
+    b_g8 = bb + (long)min(rg8, sq - 1) * bias_row_pitch;
+    // a thread's two keys (2t, 2t + 1) as one 8-byte load
+    pairs = bias_row_pitch % 2 == 0 && bias_batch_stride % 2 == 0 &&
+            reinterpret_cast<uintptr_t>(bias) % 8 == 0;
+  }
 
   for (int k0 = 0; k0 < sk; k0 += kBlockK) {
     // C fragment element (j, e) is row g (e < 2) or g + 8, key k0 + 8j + 2t + (e & 1)
     float bv[8][4];
+    if constexpr (kHasBias) {
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int key = k0 + 8 * j + 2 * t;
-      if (pairs && key + 1 < sk) {
-        const float2 lo = __ldg(reinterpret_cast<const float2*>(b_g + key));
-        const float2 hi = __ldg(reinterpret_cast<const float2*>(b_g8 + key));
-        bv[j][0] = lo.x, bv[j][1] = lo.y, bv[j][2] = hi.x, bv[j][3] = hi.y;
-      } else {
+      for (int j = 0; j < 8; ++j) {
+        const int key = k0 + 8 * j + 2 * t;
+        if (pairs && key + 1 < sk) {
+          const float2 lo = __ldg(reinterpret_cast<const float2*>(b_g + key));
+          const float2 hi = __ldg(reinterpret_cast<const float2*>(b_g8 + key));
+          bv[j][0] = lo.x, bv[j][1] = lo.y, bv[j][2] = hi.x, bv[j][3] = hi.y;
+        } else {
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int kk = key + (e & 1);
-          bv[j][e] = kk < sk ? __ldg((e < 2 ? b_g : b_g8) + kk) : 0.f;
+          for (int e = 0; e < 4; ++e) {
+            const int kk = key + (e & 1);
+            bv[j][e] = kk < sk ? __ldg((e < 2 ? b_g : b_g8) + kk) : 0.f;
+          }
         }
       }
     }
@@ -114,7 +128,9 @@ fixedmax_bias_kernel(const uint16_t* __restrict__ q, const uint16_t* __restrict_
     for (int j = 0; j < 8; ++j) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const float x = fminf(__fadd_rn(__fmul_rn(s[j][e], scale), bv[j][e]), kClamp);
+        float x = __fmul_rn(s[j][e], scale);
+        if constexpr (kHasBias) x = __fadd_rn(x, bv[j][e]);
+        if constexpr (kClamp) x = fminf(x, kClampValue);
         const float p = live[8 * j + 2 * t + (e & 1)] ? exp2f(x) : 0.f;
         s[j][e] = p;
         if (e < 2) l_g += p; else l_g8 += p;
@@ -143,11 +159,28 @@ extern "C" int fixedmax_attention_bias_bf16(const void* q, const void* k, const 
                                             float scale, void* stream) {
   // the head fastest: the head-blocks of one (batch, q tile) share its bias rows in L2
   const dim3 grid(heads, (sq + kBlockQ - 1) / kBlockQ, batch);
-  fixedmax_bias_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  fixedmax_bias_kernel<true, true><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint16_t*>(q), static_cast<const uint16_t*>(k),
       static_cast<const uint16_t*>(v), static_cast<const float*>(bias),
       static_cast<long>(bias_batch_stride), static_cast<long>(bias_row_pitch),
       static_cast<const uint8_t*>(key_mask), static_cast<uint16_t*>(out), heads, sq, sk,
       scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K1': q [B, N, Sq, 128], k/v [B, N, Sk, 128], out [B, N, Sq, 128]: bf16,
+// contiguous.  No bias; q scaled in fp32 here (scale = log2(e) / sqrt(128));
+// the clamp on when clamp != 0.  key_mask [B, Sk] uint8 (1 = live) or null.
+extern "C" int fixedmax_attention_scaled_bf16(const void* q, const void* k, const void* v,
+                                              const void* key_mask, void* out, int batch,
+                                              int heads, int sq, int sk, int clamp,
+                                              float scale, void* stream) {
+  const dim3 grid(heads, (sq + kBlockQ - 1) / kBlockQ, batch);
+  const auto kernel = clamp ? fixedmax_bias_kernel<false, true>
+                            : fixedmax_bias_kernel<false, false>;
+  kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint16_t*>(q), static_cast<const uint16_t*>(k),
+      static_cast<const uint16_t*>(v), nullptr, 0, 0, static_cast<const uint8_t*>(key_mask),
+      static_cast<uint16_t*>(out), heads, sq, sk, scale);
   return static_cast<int>(cudaGetLastError());
 }

@@ -13,8 +13,18 @@ masks; it replaces ``_fixedmax_kernel_bias2d`` (entered through
 ``flash_attention_bnsd(bias=...)``).  K2 :func:`gqa_causal_attention`
 (``csrc/gqa_causal_attention.cu``) is the Qwen2.5-VL prefill and
 prompt-encode attention; it replaces ``_gqa_causal_kernel`` (entered through
-``gqa_causal_flash``).  Each source file says what bounds its kernel on the
-H100 and what the design does about it.
+``gqa_causal_flash``).  K10 :func:`online_attention`
+(``csrc/online_attention.cu``) is the online-softmax attention (a running
+max, right for unbounded logits), with an optional head-shared bias (K10b);
+it replaces ``_flash_kernel`` and ``_flash_kernel_bias`` (entered through
+``flash_attention_bnsd(variant="online")``).  K1' :func:`fixedmax_bnsd` is the
+fixed-max attention without the row sums, q prescaled (K1's kernel) or
+scaled in fp32 in the kernel (K7's kernel without its bias, the clamp
+switchable); it replaces ``_fixedmax_kernel`` (entered through
+``_fixedmax_bnsd``).  :func:`flash_attention_bnsd` and the BSND
+:func:`flash_attention` dispatch as the JAX package's functions of those
+names do.  Each source file says what bounds its kernel on the H100 and what
+the design does about it.
 
 Each wrapper takes its plain PyTorch version (``*_reference``) for a tensor
 that lies on the CPU.  For a CUDA tensor it launches the kernel, or raises
@@ -42,7 +52,8 @@ HEAD_DIM = 128
 LN2 = 1.0 / LOG2E   # d sig / d q' = k * ln 2 for the prescaled q' (and likewise for k)
 
 LAUNCHES = {"fixedmax_attention": 0, "fixedmax_attention_bwd": 0,
-            "fixedmax_attention_bias": 0, "gqa_causal_attention": 0}
+            "fixedmax_attention_bias": 0, "gqa_causal_attention": 0,
+            "online_attention": 0, "online_attention_bias": 0, "fixedmax_bnsd": 0}
 
 
 def reset_launch_counts() -> None:
@@ -280,6 +291,29 @@ def bias_log2(attn_bias: torch.Tensor) -> torch.Tensor:
     return attn_bias.float() * LOG2E
 
 
+def _fixedmax_scaled_reference(q, k, v, bias, key_mask, clamp: bool):
+    """Fixed-max attention with q scaled in fp32: s = fp32(q k^T) *
+    (log2(e) / sqrt(d)) [+ bias] + key_bias, p = exp2(min(s, CLAMP) if
+    clamp), fp32 row sum l, out = (p in v's dtype . v) / max(l, 1e-30)."""
+    b, n, sq, d = q.shape
+    sk = k.shape[2]
+    scale = LOG2E / math.sqrt(d)
+    key_bias = None if key_mask is None else _key_bias(key_mask)
+    out = torch.empty_like(q)
+    for bi in range(b):
+        for hs in _head_groups(n, sq, sk):
+            s = torch.matmul(q[bi, hs].float(), k[bi, hs].float().transpose(-1, -2)).mul_(scale)
+            if bias is not None:
+                s.add_(bias[bi])
+            if key_bias is not None:
+                s.add_(key_bias[bi])
+            p = torch.exp2(s.clamp_(max=CLAMP) if clamp else s)
+            l = p.sum(-1)
+            acc = torch.matmul(p.to(v.dtype).float(), v[bi, hs].float())
+            out[bi, hs] = (acc / l.clamp(min=1e-30)[..., None]).to(q.dtype)
+    return out
+
+
 def fixedmax_attention_bias_reference(q, k, v, bias, key_mask=None):
     """Plain version of K7 with the kernel's numerics (the JAX package's
     ``_fixedmax_kernel_bias2d``).
@@ -290,22 +324,30 @@ def fixedmax_attention_bias_reference(q, k, v, bias, key_mask=None):
     p = exp2(min(s, CLAMP)) (the clamp is always on), fp32 row sum l,
     out = (p in v's dtype . v) / max(l, 1e-30) in q's dtype.
     """
-    b, n, sq, d = q.shape
+    return _fixedmax_scaled_reference(q, k, v, bias, key_mask, clamp=True)
+
+
+def _check_forward_only(name: str, *tensors) -> None:
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(f"{name} is forward only (the JAX package's kernel has no VJP)")
+
+
+def _check_bias(name: str, bias, b: int, sq: int, sk: int) -> None:
+    if (not bias.is_cuda or bias.dtype != torch.float32 or bias.shape != (b, sq, sk)
+            or bias.stride(-1) != 1):
+        raise ValueError(f"{name}: bias must be fp32 [{b}, {sq}, {sk}] on the card with a "
+                         f"contiguous last dim, got {bias.dtype} {tuple(bias.shape)} "
+                         f"strides {bias.stride()} on {bias.device}")
+
+
+def _check_qkv(name: str, q, k, v, sq_le_sk: bool = False):
+    _check_cuda(name, {"q": q, "k": k, "v": v})
+    b, n, sq, _ = q.shape
     sk = k.shape[2]
-    scale = LOG2E / math.sqrt(d)
-    key_bias = None if key_mask is None else _key_bias(key_mask)
-    out = torch.empty_like(q)
-    for bi in range(b):
-        for hs in _head_groups(n, sq, sk):
-            s = torch.matmul(q[bi, hs].float(), k[bi, hs].float().transpose(-1, -2)).mul_(scale)
-            s.add_(bias[bi])
-            if key_bias is not None:
-                s.add_(key_bias[bi])
-            p = torch.exp2(s.clamp_(max=CLAMP))
-            l = p.sum(-1)
-            acc = torch.matmul(p.to(v.dtype).float(), v[bi, hs].float())
-            out[bi, hs] = (acc / l.clamp(min=1e-30)[..., None]).to(q.dtype)
-    return out
+    if k.shape != (b, n, sk, HEAD_DIM) or v.shape != k.shape or (sq_le_sk and sq > sk):
+        raise ValueError(f"{name}: k/v {tuple(k.shape)}/{tuple(v.shape)} do not match q "
+                         f"{tuple(q.shape)}" + (" (S_q <= S_k)" if sq_le_sk else ""))
+    return b, n, sq, sk
 
 
 def fixedmax_attention_bias(q, k, v, bias, key_mask=None):
@@ -323,22 +365,11 @@ def fixedmax_attention_bias(q, k, v, bias, key_mask=None):
     if bias is None:
         raise ValueError("fixedmax_attention_bias needs a bias (without one, use "
                          "fixedmax_attention)")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v, bias)):
-        raise RuntimeError("fixedmax_attention_bias is forward only (the JAX package's "
-                           "biased fixed-max kernel has no VJP)")
+    _check_forward_only("fixedmax_attention_bias", q, k, v, bias)
     if q.device.type == "cpu":
         return fixedmax_attention_bias_reference(q, k, v, bias, key_mask)
-    _check_cuda("fixedmax_attention_bias", {"q": q, "k": k, "v": v})
-    b, n, sq, _ = q.shape
-    sk = k.shape[2]
-    if k.shape != (b, n, sk, HEAD_DIM) or v.shape != k.shape or sq > sk:
-        raise ValueError(f"fixedmax_attention_bias: k/v {tuple(k.shape)}/{tuple(v.shape)} "
-                         f"do not match q {tuple(q.shape)} (S_q <= S_k)")
-    if (not bias.is_cuda or bias.dtype != torch.float32 or bias.shape != (b, sq, sk)
-            or bias.stride(-1) != 1):
-        raise ValueError(f"fixedmax_attention_bias: bias must be fp32 [{b}, {sq}, {sk}] "
-                         f"on the card with a contiguous last dim, got {bias.dtype} "
-                         f"{tuple(bias.shape)} strides {bias.stride()} on {bias.device}")
+    b, n, sq, sk = _check_qkv("fixedmax_attention_bias", q, k, v, sq_le_sk=True)
+    _check_bias("fixedmax_attention_bias", bias, b, sq, sk)
     mask = _mask_arg(key_mask, b, sk, "fixedmax_attention_bias")
     out = torch.empty_like(q)
     ptr = _build.ptr
@@ -390,3 +421,166 @@ def gqa_causal_attention(q, k, v, key_mask):
                   ptr(q), ptr(k), ptr(v), ptr(mask), ptr(out), b, s, n, kv)
     LAUNCHES["gqa_causal_attention"] += 1
     return out
+
+
+# ---------------------------------------------------------------------------
+# K1': fixed-max attention without the row sums (the JAX package's
+# ``_fixedmax_bnsd``)
+# ---------------------------------------------------------------------------
+
+def fixedmax_bnsd_reference(q, k, v, key_mask=None, clamp: bool = True,
+                            prescaled: bool = False):
+    """Plain version of K1' with the kernel's numerics.  ``prescaled``: q
+    arrives as q' = q * log2(e) / sqrt(d) (K1's arithmetic, without l);
+    otherwise q is scaled in fp32 after the product (K7's arithmetic without
+    a bias).  ``clamp`` switches the min(., CLAMP) on or off."""
+    if prescaled:
+        return _fixedmax_prescaled_reference(q, k, v, key_mask, clamp)[0]
+    return _fixedmax_scaled_reference(q, k, v, None, key_mask, clamp)
+
+
+def fixedmax_bnsd(q, k, v, key_mask=None, clamp: bool = True, prescaled: bool = False):
+    """K1': fixed-max attention, [B, N, S_q, D] x [B, N, S_k, D] ->
+    [B, N, S_q, D], forward only (the JAX package's ``_fixedmax_bnsd`` has no
+    VJP).  ``prescaled=True`` takes q' = q * log2(e) / sqrt(d) and runs K1's
+    kernel without its row sums; ``prescaled=False`` scales q in fp32 inside
+    K7's kernel, instantiated without the bias and with the clamp as
+    ``clamp`` says.  Masked keys take no weight; a row whose keys are all
+    masked returns 0."""
+    _check_forward_only("fixedmax_bnsd", q, k, v)
+    if q.device.type == "cpu":
+        return fixedmax_bnsd_reference(q, k, v, key_mask, clamp, prescaled)
+    b, n, sq, sk = _check_qkv("fixedmax_bnsd", q, k, v)
+    mask = _mask_arg(key_mask, b, sk, "fixedmax_bnsd")
+    out = torch.empty_like(q)
+    ptr = _build.ptr
+    if prescaled:
+        _build.launch("fixedmax_attention", "fixedmax_attention_bf16",
+                      [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5,
+                      ptr(q), ptr(k), ptr(v), ptr(mask), ptr(out), ptr(None),
+                      b, n, sq, sk, int(bool(clamp)))
+    else:
+        _build.launch("fixedmax_attention_bias", "fixedmax_attention_scaled_bf16",
+                      [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_float],
+                      ptr(q), ptr(k), ptr(v), ptr(mask), ptr(out), b, n, sq, sk,
+                      int(bool(clamp)), LOG2E / math.sqrt(HEAD_DIM))
+    LAUNCHES["fixedmax_bnsd"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K10 / K10b: online-softmax attention, with an optional head-shared bias
+# ---------------------------------------------------------------------------
+
+ONLINE_BLOCK_K = 64     # the key tile of csrc/online_attention.cu (kBlockK)
+
+
+def online_attention_reference(q, k, v, key_mask=None, bias=None):
+    """Plain version of K10 (K10b with ``bias``) with the kernel's numerics.
+
+    q: [B, N, S_q, D]; k/v: [B, N, S_k, D]; key_mask: [B, S_k] bool; bias:
+    [B, S_q, S_k] in natural-log units, shared by the heads.  In exp2 units,
+    key tile by key tile of ``ONLINE_BLOCK_K`` keys as the kernel walks them:
+    x = fp32(q k^T) * (log2(e) / sqrt(d)) + bias * log2(e); a masked key, or
+    one whose x is below -5e29 (a -1e30 bias), takes no weight; the running
+    row max m takes the tile's max, the fp32 row sum l and accumulator are
+    rescaled by exp2(m_old - m), p = exp2(x - m) is rounded to v's dtype for
+    the product with v; out = acc / max(l, 1e-30) in q's dtype.  A row with
+    no live key returns 0.
+    """
+    b, n, sq, d = q.shape
+    sk = k.shape[2]
+    scale = LOG2E / math.sqrt(d)
+    out = torch.empty_like(q)
+    for bi in range(b):
+        qf = q[bi].float()
+        m = torch.full((n, sq), NEG_INF, dtype=torch.float32, device=q.device)
+        l = torch.zeros((n, sq), dtype=torch.float32, device=q.device)
+        acc = torch.zeros((n, sq, d), dtype=torch.float32, device=q.device)
+        for k0 in range(0, sk, ONLINE_BLOCK_K):
+            k1 = min(sk, k0 + ONLINE_BLOCK_K)
+            x = torch.matmul(qf, k[bi, :, k0:k1].float().transpose(-1, -2)).mul_(scale)
+            if bias is not None:
+                x.add_(bias[bi, :, k0:k1].float() * LOG2E)
+            if key_mask is not None:
+                x.masked_fill_(~key_mask[bi, k0:k1].bool(), NEG_INF)
+            m_new = torch.maximum(m, x.amax(-1))
+            alpha = torch.exp2(m - m_new)
+            p = torch.where(x > 0.5 * NEG_INF, torch.exp2(x - m_new[..., None]), 0.0)
+            l = l * alpha + p.sum(-1)
+            acc = acc * alpha[..., None] + torch.matmul(p.to(v.dtype).float(),
+                                                        v[bi, :, k0:k1].float())
+            m = m_new
+        out[bi] = (acc / l.clamp(min=1e-30)[..., None]).to(q.dtype)
+    return out
+
+
+def online_attention(q, k, v, key_mask=None, bias=None):
+    """K10 (K10b with ``bias``): online-softmax attention, [B, N, S_q, D] x
+    [B, N, S_k, D] -> [B, N, S_q, D], forward only (the JAX package's
+    ``_flash_bnsd`` has no VJP).
+
+    A running max keeps it right for logits of any size.  ``bias`` is fp32
+    [B, S_q, S_k] in natural-log units (the JAX package's form), its last dim
+    contiguous; its rows may be a view with any row pitch and batch stride.
+    A row with no live key returns 0.
+    """
+    _check_forward_only("online_attention", q, k, v, bias)
+    if q.device.type == "cpu":
+        return online_attention_reference(q, k, v, key_mask, bias)
+    b, n, sq, sk = _check_qkv("online_attention", q, k, v)
+    mask = _mask_arg(key_mask, b, sk, "online_attention")
+    out = torch.empty_like(q)
+    ptr = _build.ptr
+    scale = LOG2E / math.sqrt(HEAD_DIM)
+    if bias is None:
+        _build.launch("online_attention", "online_attention_bf16",
+                      [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_float],
+                      ptr(q), ptr(k), ptr(v), ptr(mask), ptr(out), b, n, sq, sk, scale)
+        LAUNCHES["online_attention"] += 1
+        return out
+    _check_bias("online_attention", bias, b, sq, sk)
+    _build.launch("online_attention", "online_attention_bias_bf16",
+                  [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 2 + [ctypes.c_void_p] * 2
+                  + [ctypes.c_int] * 4 + [ctypes.c_float],
+                  ptr(q), ptr(k), ptr(v), ptr(bias), bias.stride(0), bias.stride(1), ptr(mask),
+                  ptr(out), b, n, sq, sk, scale)
+    LAUNCHES["online_attention_bias"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The JAX package's entry points
+# ---------------------------------------------------------------------------
+
+VARIANTS = ("fixedmax", "online")
+
+
+def flash_attention_bnsd(q, k, v, key_mask=None, bias=None, variant: str = "fixedmax",
+                         clamp: bool = True):
+    """Heads-major attention, q/k/v [B, N, S, D] -> [B, N, S_q, D], with the
+    JAX package's dispatch: ``variant="fixedmax"`` without a bias is K1
+    (differentiable through K8), with a bias K7 (which always clamps);
+    ``variant="online"`` is K10, or K10b with a bias.  ``bias`` is an
+    additive head-shared [B, S_q, S_k] in natural-log units."""
+    if variant == "fixedmax":
+        if bias is None:
+            return fixedmax_attention(q, k, v, key_mask, clamp)
+        return fixedmax_attention_bias(q, k, v, bias_log2(bias), key_mask)
+    if variant == "online":
+        return online_attention(q, k, v, key_mask, bias)
+    raise ValueError(f"unknown attention variant {variant!r}; known: {VARIANTS}")
+
+
+def flash_attention(q, k, v, key_mask=None, bias=None, variant: str = "fixedmax"):
+    """BSND attention, q/k/v [B, S, N, D] -> [B, S, N, D] (the JAX package's
+    ``flash_attention``): a bias, or a head_dim that is not a multiple of
+    128, goes to the dense ``ops.attention.sdpa_xla`` as there; everything
+    else to :func:`flash_attention_bnsd`, whose kernels raise on what they do
+    not take (a dtype other than bf16, a head_dim other than 128)."""
+    if bias is not None or q.shape[-1] % 128 != 0:
+        from physicedit_torch.ops.attention import sdpa_xla
+
+        return sdpa_xla(q, k, v, key_mask=key_mask, bias=bias)
+    q, k, v = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    return flash_attention_bnsd(q, k, v, key_mask, variant=variant).transpose(1, 2)

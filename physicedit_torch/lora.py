@@ -1,5 +1,6 @@
-"""The DiT's trainable LoRA factors (the trainable-factor half of
-``physicedit_tpu/lora/__init__.py``).
+"""The DiT's LoRA (``physicedit_tpu/lora/__init__.py``): trainable factors,
+their peft export and import, and the offline merge of a reference-format
+LoRA file into a state dict.
 
 The factors are stacked along the layer axis as in the JAX package, so a
 tree of weights or gradients carries across by name: ``img_qkv`` and
@@ -8,12 +9,17 @@ projections of the fused QKV), ``to_out``, ``to_add_out``, ``img_mlp_fc2``,
 ``txt_mlp_fc2``, ``img_mod`` and ``txt_mod`` hold ``A [L, in, r]`` and
 ``B [L, r, out]``.  Deltas are applied on activations, ``y += (x @ A) @ B``,
 in the promoted dtype of x and the factors; the DiT casts the delta to its
-own dtype.  :func:`export_dit_lora` writes the reference's peft keys.
+own dtype.  :func:`export_dit_lora` writes the reference's peft keys,
+:func:`import_dit_lora` reads them back into live factors,
+:func:`merge_lora_into_state_dict` folds them into the DiT's torch-layout
+weights and :func:`split_finetuned_checkpoint` separates a training export
+into its LoRA and ``pipe.*`` halves.
 """
 
 from __future__ import annotations
 
 import math
+import re
 
 import numpy as np
 import torch
@@ -122,3 +128,129 @@ def export_dit_lora(lora: DiTLoRA, prefix: str = "pipe.dit.") -> dict:
         for name, module in _PLAIN.items():
             put(i, module, host[name]["A"][i], host[name]["B"][i])
     return out
+
+
+# ---------------------------------------------------------------------------
+# Reference-format LoRA files: pairs, the offline merge, the finetuned split,
+# and the import into live factors
+# ---------------------------------------------------------------------------
+
+_LORA_RE = re.compile(r"^(.*)\.lora_([AB])(?:\.default)?\.weight$")
+
+
+def collect_lora_pairs(lora_sd: dict) -> dict:
+    """``{module_name: {"A": [r, in], "B": [out, r]}}`` (fp32 tensors) from a
+    LoRA state dict; a leading ``diffusion_model.`` is stripped, as the
+    reference's ``GeneralLoRALoader`` does, so community LoRA files load."""
+    pairs: dict = {}
+    for k, v in lora_sd.items():
+        m = _LORA_RE.match(k)
+        if m:
+            name = m.group(1)
+            if name.startswith("diffusion_model."):
+                name = name[len("diffusion_model."):]
+            pairs.setdefault(name, {})[m.group(2)] = torch.as_tensor(v).float()
+    return {k: v for k, v in pairs.items() if "A" in v and "B" in v}
+
+
+def merge_lora_into_state_dict(sd: dict, lora_sd: dict, alpha: float = 1.0,
+                               dtype=None) -> dict:
+    """``sd`` with ``weight += alpha * B @ A`` for every matched module, in
+    fp32, on the weights' torch ``[out, in]`` layout, so one path serves
+    every family.  Each merged weight is cast to ``dtype`` (the working
+    dtype the load casts to anyway) as soon as it is made, so a 60-block DiT
+    never holds all of them in fp32 at once; fp32 when ``dtype`` is None.
+    Raises if a LoRA module has no weight in ``sd``."""
+    pairs = collect_lora_pairs(lora_sd)
+    missing = [n for n in pairs if n + ".weight" not in sd]
+    if missing:
+        raise KeyError(f"LoRA modules not found in base weights: {missing[:5]}...")
+    out = dict(sd)
+    for name, ab in pairs.items():
+        w = torch.as_tensor(sd[name + ".weight"]).float()
+        w = w + alpha * (ab["B"].to(w.device) @ ab["A"].to(w.device))
+        out[name + ".weight"] = w if dtype is None else w.to(dtype)
+    return out
+
+
+def split_finetuned_checkpoint(sd: dict) -> tuple[dict, dict]:
+    """A PhysicEdit training export -> (DiT LoRA keys, ``pipe.*`` keys with
+    the prefix stripped); anything else is dropped with a warning, as the
+    reference's validate script drops it."""
+    import warnings
+
+    lora_sd, pipe_sd, dropped = {}, {}, []
+    for k, v in sd.items():
+        if "lora_A" in k or "lora_B" in k:
+            lora_sd[k] = v
+        elif k.startswith("pipe."):
+            pipe_sd[k[len("pipe."):]] = v
+        else:
+            dropped.append(k)
+    if dropped:
+        warnings.warn(f"finetuned checkpoint: dropped {len(dropped)} keys that are neither "
+                      f"LoRA nor pipe.*; first: {dropped[:3]}", stacklevel=2)
+    return lora_sd, pipe_sd
+
+
+@torch.no_grad()
+def import_dit_lora(lora_sd: dict, cfg, dtype=torch.float32, device="cuda") -> DiTLoRA:
+    """A peft-format LoRA state dict (keys with or without ``pipe.dit.``) ->
+    live factors for ``DiT.forward(lora=...)``, the inverse of
+    :func:`export_dit_lora`."""
+    pairs = collect_lora_pairs(lora_sd)
+
+    def get(i, module):
+        for cand in (f"transformer_blocks.{i}.{module}",
+                     f"pipe.dit.transformer_blocks.{i}.{module}"):
+            if cand in pairs:
+                return pairs[cand]["A"].T, pairs[cand]["B"].T   # (in, r), (r, out)
+        raise KeyError(f"missing LoRA for layer {i} module {module}")
+
+    rank = next(iter(pairs.values()))["A"].shape[0]
+    lora = materialize(DiTLoRA(cfg, rank, dtype), device)
+    for name, modules in _FUSED.items():
+        leaf = getattr(lora, name)
+        for i in range(cfg.num_layers):
+            for p, module in enumerate(modules):
+                a, b = get(i, module)
+                leaf.A[i, p].copy_(a)
+                leaf.B[i, p].copy_(b)
+    for name, module in _PLAIN.items():
+        leaf = getattr(lora, name)
+        for i in range(cfg.num_layers):
+            a, b = get(i, module)
+            leaf.A[i].copy_(a)
+            leaf.B[i].copy_(b)
+    return lora
+
+
+# the DiT linear each factor name adapts, as attribute paths from a block
+_TARGETS = {"img_qkv": ("attn", "img_qkv"), "txt_qkv": ("attn", "txt_qkv"),
+            "to_out": ("attn", "to_out"), "to_add_out": ("attn", "to_add_out"),
+            "img_mlp_fc2": ("img_mlp", "fc2"), "txt_mlp_fc2": ("txt_mlp", "fc2"),
+            "img_mod": ("img_mod",), "txt_mod": ("txt_mod",)}
+
+
+@torch.no_grad()
+def merge_dit_lora_(dit, lora: DiTLoRA, alpha: float = 1.0):
+    """Fold live factors into the DiT's float weights in place: W += alpha *
+    (A @ B)^T, in fp32, cast back to W's dtype (the JAX package's
+    ``_merge_lora_pytree``).  The fused QKV projections take their three
+    parts' deltas on their row blocks.  Raises for a packed int4 layer:
+    merge before ``quantize_``."""
+    for i, block in enumerate(dit.blocks):
+        for name, path in _TARGETS.items():
+            lin = block
+            for attr in path:
+                lin = getattr(lin, attr)
+            if not isinstance(lin, nn.Linear):
+                raise ValueError(f"merge_dit_lora_: block {i} {name} is {type(lin).__name__}; "
+                                 "merge the LoRA into the float DiT before quantize_")
+            leaf = getattr(lora, name)
+            delta = (leaf.A[i].float() @ leaf.B[i].float()) * alpha   # [(3,) in, out]
+            if delta.dim() == 3:
+                delta = delta.transpose(0, 1).reshape(delta.shape[1], -1)
+            lin.weight.copy_((lin.weight.float() + delta.T.to(lin.weight.device))
+                             .to(lin.weight.dtype))
+    return dit

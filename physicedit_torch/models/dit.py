@@ -6,7 +6,10 @@ the host (``ops/rope.py``); text padding is a key-side mask, so the CFG
 positive and negative rows ride one batch.  The joint attention runs
 through kernel K1 (``kernels/flash_attention.fixedmax_attention``), or,
 when an EliGen entity bias is given, through kernel K7
-(``fixedmax_attention_bias``) in every block, the slim last block included.
+(``fixedmax_attention_bias``) in every block, the slim last block included:
+the fixed-max branch of ``kernels.flash_attention.flash_attention_bnsd``.
+``attn_impl="dense"`` takes the JAX package's ``attn_impl="xla"`` instead,
+the plain ``ops.attention.sdpa_bnsd`` with the bias.
 
 A blockwise ControlNet (``models/controlnet.py``) adds its residual to the
 base image rows after each block; the slim last block is off then, as it is
@@ -46,6 +49,7 @@ from physicedit_torch.kernels.flash_attention import (CLAMP, LOG2E, fixedmax_att
 from physicedit_torch.kernels.fused_quant import gelu_quant, ln_mod_quant, transpose_quant
 from physicedit_torch.kernels.quant_matmul import W4Linear, w4a8_linear_q
 from physicedit_torch.lora import lora_delta, lora_delta_fused
+from physicedit_torch.ops.attention import sdpa_bnsd
 from physicedit_torch.ops.norms import approximate_gelu, layer_norm, rms_norm
 from physicedit_torch.ops.rope import apply_rope
 
@@ -147,7 +151,7 @@ class DiTBlock(nn.Module):
 
     def forward(self, image, text, temb_silu, img_cos, img_sin, txt_cos, txt_sin,
                 joint_key_mask, slim_base: int = 0, attn_clamp: bool = True, lora=None,
-                attn_bias_log2=None):
+                attn_bias_log2=None, attn_impl: str = "kernels"):
         """One dual-stream block; returns (text, image).
 
         ``slim_base > 0`` runs it as the last block: only the first
@@ -157,7 +161,9 @@ class DiTBlock(nn.Module):
         ``lora`` is this layer's factors (an entry of ``DiTLoRA.layers()``)
         or None.  ``attn_bias_log2`` is the joint [B, S, S] entity bias in
         exp2 units: the attention then runs through K7, the slim block's
-        reading the rows of its queries as a view.
+        reading the rows of its queries as a view.  ``attn_impl``: "kernels"
+        (K1 / K7) or "dense" (the plain softmax, the bias back in natural-log
+        units).
         """
         cfg = self.cfg
         b, s_i, d = image.shape
@@ -194,11 +200,20 @@ class DiTBlock(nn.Module):
             q = torch.cat([tq, iq], dim=2)
         k = torch.cat([tk, ik], dim=2)
         v = torch.cat([tv, iv], dim=2)
-        if attn_bias_log2 is None:
-            out = fixedmax_attention(q, k, v, key_mask=joint_key_mask, clamp=attn_clamp)
+        rows = attn_bias_log2
+        if rows is not None and slim_base:
+            rows = rows[:, s_t:s_t + slim_base]
+        if attn_impl == "kernels":
+            if rows is None:
+                out = fixedmax_attention(q, k, v, key_mask=joint_key_mask, clamp=attn_clamp)
+            else:
+                out = fixedmax_attention_bias(q, k, v, rows, key_mask=joint_key_mask)
+        elif attn_impl == "dense":
+            out = sdpa_bnsd(q, k, v, key_mask=joint_key_mask,
+                            bias=None if rows is None else (rows / LOG2E)[:, None])
         else:
-            rows = attn_bias_log2[:, s_t:s_t + slim_base] if slim_base else attn_bias_log2
-            out = fixedmax_attention_bias(q, k, v, rows, key_mask=joint_key_mask)
+            raise ValueError(f"attn_impl {attn_impl!r}: the DiT takes 'kernels' or 'dense' "
+                             "('ring' comes with the multi-GPU slice)")
 
         # K6: the heads-to-features transpose and the row quantize in one pass
         if slim_base:
@@ -258,7 +273,7 @@ class DiT(nn.Module):
     def forward(self, img_tokens, txt_tokens, timestep, img_cos, img_sin,
                 txt_cos, txt_sin, txt_key_mask=None, slim_last: int = 0,
                 attn_clamp: bool = True, lora=None, use_remat: bool = False,
-                attn_bias_log2=None, control=None):
+                attn_bias_log2=None, control=None, attn_impl: str = "kernels"):
         """img_tokens [B, S_i, 64] (base image first, then edit tokens);
         txt_tokens [B, S_t, txt_in_dim]; timestep [B] in [0, 1];
         txt_cos/txt_sin [S_t, 64], or [B, 1, S_t, 64] for a table per row;
@@ -269,7 +284,8 @@ class DiT(nn.Module):
         activations.  ``attn_bias_log2``: the EliGen entity bias [B, S_t +
         S_i, S_t + S_i] in exp2 units (``kernels.flash_attention.bias_log2``
         of the 0 / -1e30 bias, made once per edit).  ``control``: a
-        ``models.controlnet.Control`` at this step."""
+        ``models.controlnet.Control`` at this step.  ``attn_impl``: "kernels"
+        or "dense" (``DiTBlock.forward``)."""
         cfg = self.cfg
         s_i = img_tokens.shape[1]
         image = self.img_in(img_tokens)
@@ -292,7 +308,7 @@ class DiT(nn.Module):
                 text, image = block(image, text, temb_silu, img_cos, img_sin, txt_cos, txt_sin,
                                     joint_key_mask, slim_base=slim_last if i == last else 0,
                                     attn_clamp=attn_clamp, lora=layer_lora[i],
-                                    attn_bias_log2=attn_bias_log2)
+                                    attn_bias_log2=attn_bias_log2, attn_impl=attn_impl)
                 if control is not None:
                     image = control.add_residual(i, image)
                 return text, image

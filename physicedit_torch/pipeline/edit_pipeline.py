@@ -23,11 +23,19 @@ counts that set the stages' shapes.
 
 :meth:`PhysicEditPipeline.quantize_` turns a loaded pipeline into the JAX
 package's ``quantize="int4"`` serving lane, in place.
+:meth:`PhysicEditPipeline.from_pretrained` builds a pipeline from checkpoint
+files in the reference's torch layout (``io/convert.py``), identified by the
+hash of their keys, with an optional finetuned PhysicEdit export or LoRA file
+merged into the DiT; ``load_lora`` / ``clear_lora`` merge or hot-load a LoRA
+afterwards.  ``attn_impl`` names the DiT's attention: ``"kernels"`` (K1 /
+K7, the JAX package's ``"pallas"``) or ``"dense"`` (its ``"xla"``).
 """
 
 from __future__ import annotations
 
 import contextlib
+import json
+import os
 import time
 
 import numpy as np
@@ -35,6 +43,10 @@ import torch
 
 from physicedit_torch.kernels.flash_attention import LOG2E
 from physicedit_torch.kernels.quant_matmul import DIT_OUTER_KEYS, quantize_module_int4
+from physicedit_torch import lora as tlora
+from physicedit_torch.io import convert as C
+from physicedit_torch.io.safetensors_io import (EXTENSION_LOADERS, detect_model_name,
+                                                load_state_dict)
 from physicedit_torch.models import vae as m_vae
 from physicedit_torch.models.controlnet import (Control, controlnet_step_scales,
                                                 process_conditioning)
@@ -62,9 +74,15 @@ class PhysicEditPipeline:
                  vision_start_id: int = VISION_START_ID,
                  edit_drop_idx: int = P.EDIT_DROP_IDX, t2i_drop_idx: int = P.T2I_DROP_IDX,
                  rope_axes: tuple = m_rope.AXES_DIM, txt_len_bucket: int = 64,
-                 kv_int8: bool = False, controlnet=None):
+                 kv_int8: bool = False, controlnet=None, attn_impl: str = "kernels",
+                 adapters: dict | None = None):
         self.dit, self.vae, self.text, self.vision = dit, vae, text, vision
-        self.adapter = adapter
+        # every adapter group of a finetuned checkpoint; the DiT uses the dual one
+        self.adapters = dict(adapters or {})
+        self.adapter = adapter if adapter is not None else self.adapters.get(
+            "visual_thinking_adapter")
+        self.attn_impl = attn_impl      # "kernels" or "dense" (models/dit.py)
+        self.dit_lora = None            # hot-loaded LoRA factors (load_lora)
         self.dinov2 = dinov2            # the training prior's DINOv2 (train/)
         self.controlnet = controlnet    # models/controlnet.BlockwiseControlNet or None
         self.tokenizer = tokenizer
@@ -78,8 +96,139 @@ class PhysicEditPipeline:
         self.kv_int8 = kv_int8          # int8 reasoner KV cache (the W4 lane's)
         self.t_min, self.t_max = fm.adapter_t_range()
         # load-time decision (models/dit.attn_clamp_needed)
-        self.attn_clamp = attn_clamp_needed(dit)
+        self.attn_clamp = True if dit is None else attn_clamp_needed(dit)
         self.timings: dict = {}
+
+    # ------------------------------------------------------------------
+    # Loading
+    # ------------------------------------------------------------------
+
+    @classmethod
+    @torch.no_grad()
+    def from_pretrained(cls, model_paths: list | None = None,
+                        tokenizer_path: str | None = None, dtype=torch.bfloat16,
+                        attn_impl: str | None = None, lora_path: str | None = None,
+                        finetuned_path: str | None = None, quantize: str | None = None,
+                        model_id: str | None = None, local_model_path: str = "./models",
+                        skip_download: bool = False,
+                        device="cuda") -> "PhysicEditPipeline":
+        """Build the pipeline from checkpoint files (the JAX package's
+        ``from_pretrained``).
+
+        ``model_paths``: safetensors files, lists of shards or folders, or
+        ``io.model_config.ModelConfig`` rows, each identified by the hash of
+        its keys (``io/safetensors_io.detect_model_name``) and loaded
+        straight into the port's modules in ``dtype`` on ``device``.
+        ``model_id`` resolves a Qwen-Image preset (``io/model_config.py``)
+        under ``local_model_path``; ``skip_download`` keeps the hub gate
+        closed.  ``finetuned_path``: a PhysicEdit training export, its DiT
+        LoRA merged into the DiT weights (fp32 merge, then the cast) and its
+        ``pipe.*`` adapter groups loaded in fp32; else ``lora_path``: a LoRA
+        file merged alike.  ``quantize="int4"`` applies :meth:`quantize_`;
+        ``attn_impl`` defaults to ``ops.attention.default_impl()``.  The
+        text model's and the ViT's configs come from the ``config.json``
+        beside the text-encoder files (else Qwen2.5-VL-7B's at the
+        checkpoint's depth), the DiT's and the VAE's from the shapes.
+        """
+        from physicedit_torch.io.model_config import ModelConfig, qwen_image_preset
+        from physicedit_torch.ops.attention import default_impl
+
+        if model_id is not None:
+            preset = qwen_image_preset(model_id, local_model_path, skip_download)
+            model_paths = list(model_paths or []) + preset["model_configs"]
+            if tokenizer_path is None:
+                tokenizer_path = preset["tokenizer_config"]
+        if model_paths is None:
+            raise ValueError("pass model_paths and/or a preset model_id")
+        model_paths = [p.download_if_necessary() if isinstance(p, ModelConfig) else p
+                       for p in model_paths]
+        if isinstance(tokenizer_path, ModelConfig):
+            tokenizer_path = tokenizer_path.download_if_necessary()
+
+        parts, part_paths = {}, {}
+        for path in model_paths:
+            sd = load_state_dict(path)
+            name = detect_model_name(sd)
+            if name is None:
+                raise ValueError(f"unrecognised checkpoint: {path}")
+            if name in EXTENSION_LOADERS:
+                raise ValueError(f"{path} is a '{name}' checkpoint: not a pipeline part; load "
+                                 f"it with {EXTENSION_LOADERS[name]}")
+            parts[name] = sd
+            part_paths[name] = path[0] if isinstance(path, (list, tuple)) else path
+
+        adapters = {}
+        dit_sd = parts.get("qwen_image_dit")
+        if finetuned_path is not None:
+            lora_sd, pipe_sd = tlora.split_finetuned_checkpoint(load_state_dict(finetuned_path))
+            lora_sd = {k.replace("pipe.dit.", ""): v for k, v in lora_sd.items()}
+            if dit_sd is not None and lora_sd:
+                dit_sd = tlora.merge_lora_into_state_dict(dit_sd, lora_sd, dtype=dtype)
+            adapters = C.physic_adapters_from_state_dict(pipe_sd, torch.float32, device)
+        elif lora_path is not None and dit_sd is not None:
+            dit_sd = tlora.merge_lora_into_state_dict(dit_sd, load_state_dict(lora_path),
+                                                      dtype=dtype)
+
+        kw = dict(adapters=adapters, dtype=dtype, device=device,
+                  attn_impl=attn_impl or default_impl())
+        kw["dit"] = None if dit_sd is None else C.dit_from_state_dict(dit_sd, dtype, device)
+        del dit_sd
+        vae_sd = parts.pop("qwen_image_vae", None)
+        kw["vae"] = None if vae_sd is None else C.vae_from_state_dict(vae_sd, dtype, device)
+        kw["text"] = kw["vision"] = None
+        if "qwen_image_text_encoder" in parts:
+            sd = C.remap_text_encoder_keys(parts.pop("qwen_image_text_encoder"))
+            text_cfg = vision_cfg = None
+            where = part_paths["qwen_image_text_encoder"]
+            cfg_json = os.path.join(where if os.path.isdir(where) else os.path.dirname(where),
+                                    "config.json")
+            if os.path.exists(cfg_json):
+                with open(cfg_json) as f:
+                    hf = json.load(f)
+                text_cfg, vision_cfg = C.text_config_from_hf(hf), C.vision_config_from_hf(hf)
+                kw["image_pad_id"] = text_cfg.image_token_id
+                kw["vision_start_id"] = text_cfg.vision_start_token_id
+            kw["text"] = C.qwen_vl_text_from_state_dict(sd, text_cfg, dtype, device)
+            kw["vision"] = C.qwen_vl_vision_from_state_dict(sd, vision_cfg, dtype, device)
+            del sd
+        parts.clear()
+        pipe = cls(**kw)
+        if quantize is not None:
+            pipe.quantize_(quantize)
+        if tokenizer_path is not None:
+            pipe.load_tokenizer(tokenizer_path)
+        return pipe
+
+    def load_tokenizer(self, path: str) -> None:
+        """The Qwen2 tokenizer of ``path`` with PhysicEdit's special tokens
+        (host only; ``transformers`` is imported here, not at import)."""
+        from transformers import Qwen2Tokenizer
+
+        tok = Qwen2Tokenizer.from_pretrained(path)
+        tok.add_special_tokens({"additional_special_tokens": P.SPECIAL_TOKENS})
+        self.tokenizer = tok
+        self.boi_token_id = tok.convert_tokens_to_ids("<begin_of_img>")
+        self.eoi_token_id = tok.convert_tokens_to_ids("<end_of_img>")
+
+    @torch.no_grad()
+    def load_lora(self, lora_path: str, alpha: float = 1.0, hotload: bool = False) -> None:
+        """A DiT LoRA file (peft keys, with or without ``pipe.dit.``):
+        merged into the DiT's float weights (``W += alpha * B @ A`` in fp32),
+        or with ``hotload`` kept as live fp32 factors that every denoise step
+        applies (the training forward's LoRA path) until :meth:`clear_lora`."""
+        sd = {k.replace("pipe.dit.", ""): v for k, v in load_state_dict(lora_path).items()}
+        lora = tlora.import_dit_lora(sd, self.dit.cfg, torch.float32, self.device)
+        if hotload:
+            if alpha != 1.0:
+                for leaf in lora.children():
+                    leaf.A.mul_(alpha)
+            self.dit_lora = lora
+        else:
+            tlora.merge_dit_lora_(self.dit, lora, alpha)
+
+    def clear_lora(self) -> None:
+        """Drop hot-loaded LoRA factors."""
+        self.dit_lora = None
 
     def to(self, device) -> "PhysicEditPipeline":
         """Move every model to ``device``.  Nothing is cast: the models are
@@ -530,7 +679,8 @@ class PhysicEditPipeline:
                 self._tensor(sched.timesteps, torch.float32), float(cfg_scale),
                 latent_hw=latent_hw, adapter=self.adapter, special_idx=special_idx,
                 t_min=self.t_min, t_max=self.t_max, attn_clamp=self.attn_clamp,
-                cfg_truncate_after=cfg_truncate_step, **options)
+                cfg_truncate_after=cfg_truncate_step, lora=self.dit_lora,
+                attn_impl=self.attn_impl, **options)
 
     # ------------------------------------------------------------------
     # Batched serving

@@ -41,7 +41,8 @@ def denoise(dit: DiT, latents, extra_img_tokens, prompt_emb, txt_mask,
             cfg_scale: float, latent_hw: tuple, adapter=None, special_idx=None,
             t_min: float = 0.0, t_max: float = 1000.0, slim_last: bool = True,
             attn_clamp: bool = True, cfg_truncate_after: int | None = None,
-            attn_bias_log2=None, inpaint_mask=None, input_latents=None, control=None):
+            attn_bias_log2=None, inpaint_mask=None, input_latents=None, control=None,
+            lora=None, attn_impl: str = "kernels"):
     """Run the schedule; returns the final latents [N, h, w, 16].
 
     latents [N, h, w, 16]; extra_img_tokens [1 or N, S_extra, 64] or None;
@@ -54,7 +55,9 @@ def denoise(dit: DiT, latents, extra_img_tokens, prompt_emb, txt_mask,
     inpaint_mask [1, h, w, 1] in [0, 1] (1 = repaint) with input_latents
     [1, h, w, 16]: outside the mask the velocity is the one the clean
     latents imply.  control: a ``models.controlnet.Control`` (its ``step``
-    is set here), which turns the slim last block off.
+    is set here), which turns the slim last block off.  lora: live LoRA
+    factors (``lora.DiTLoRA``), which turn it off too.  attn_impl: the DiT's
+    ("kernels" or "dense").
     """
     h, w = latent_hw
     n_items = latents.shape[0]
@@ -65,7 +68,7 @@ def denoise(dit: DiT, latents, extra_img_tokens, prompt_emb, txt_mask,
     if k is not None and k < 0:
         raise ValueError(f"cfg_truncate_after must be >= 0, got {k}")
 
-    slim = base if slim_last and control is None else 0
+    slim = base if slim_last and control is None and lora is None else 0
 
     for i in range(sigmas.shape[0]):
         if k is not None and reps == 2 and i == k:
@@ -98,7 +101,8 @@ def denoise(dit: DiT, latents, extra_img_tokens, prompt_emb, txt_mask,
             control = dataclasses.replace(control, step=i)
         out = dit(img_tokens, prompt_emb, t_norm, img_cos, img_sin, txt_cos, txt_sin,
                   txt_key_mask=txt_mask, slim_last=slim, attn_clamp=attn_clamp,
-                  attn_bias_log2=attn_bias_log2, control=control)
+                  attn_bias_log2=attn_bias_log2, control=control, lora=lora,
+                  attn_impl=attn_impl)
         v = unpatchify(out[:, :base], h, w)
         if reps == 2:
             v_posi, v_nega = v[:n_items], v[n_items:]

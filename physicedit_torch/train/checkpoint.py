@@ -3,9 +3,8 @@
 The trainable surface is written in the reference's key space: the DiT LoRA
 in peft keys without prefix, the adapters under ``pipe.*``, in a
 safetensors file beside a JSON metadata sidecar and a ``latest.json``
-pointer.  The file format is written here directly (an 8-byte little-endian
-header length, a JSON header, then the raw little-endian tensor bytes), so
-no ``safetensors`` package is needed.  Resuming is not ported yet.
+pointer.  The file is written by ``io/safetensors_io.save_safetensors``,
+without the ``safetensors`` package.  Resuming is not ported yet.
 """
 
 from __future__ import annotations
@@ -16,6 +15,7 @@ import os
 
 import numpy as np
 
+from physicedit_torch.io.safetensors_io import save_safetensors
 from physicedit_torch.lora import export_dit_lora
 
 
@@ -74,28 +74,6 @@ def export_trainable_state_dict(trainable) -> dict:
     sd = export_dit_lora(trainable.lora, prefix="")
     sd.update(export_adapters_state_dict(trainable.adapters))
     return sd
-
-
-def save_safetensors(sd: dict, path: str) -> None:
-    """Write ``{name: fp32 array}`` in the safetensors format: u64
-    little-endian header length, the JSON header (padded with spaces to 8
-    bytes), then each tensor's little-endian bytes in header order."""
-    arrays = {k: np.ascontiguousarray(v, dtype="<f4") for k, v in sd.items()}
-    header, offset = {}, 0
-    for name in sorted(arrays):
-        a = arrays[name]
-        header[name] = {"dtype": "F32", "shape": list(a.shape),
-                        "data_offsets": [offset, offset + a.nbytes]}
-        offset += a.nbytes
-    blob = json.dumps(header, separators=(",", ":")).encode()
-    blob += b" " * (-len(blob) % 8)
-    tmp = path + ".tmp"
-    with open(tmp, "wb") as f:
-        f.write(len(blob).to_bytes(8, "little"))
-        f.write(blob)
-        for name in sorted(arrays):
-            f.write(arrays[name].reshape(-1).view(np.uint8).data)
-    os.replace(tmp, path)
 
 
 def save_checkpoint(output_dir: str, trainable, global_step: int, epoch: int,

@@ -321,3 +321,84 @@ def test_fixedmax_bias_kernel_raises_on_unsupported_inputs(cuda):
         tfa.fixedmax_attention_bias(z, z, z, bias.bfloat16())
     with pytest.raises(RuntimeError, match="forward only"):
         tfa.fixedmax_attention_bias(z.clone().requires_grad_(True), z, z, bias)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["ragged_masked", "sq_lt_sk", "bias_blocked_row",
+                                  "unbounded_logits"])
+def test_online_kernel_matches_plain_on_cuda(cuda, case):
+    """K10 (and K10b with a natural-log bias) against its plain version: a
+    ragged S with masked keys, S_q < S_k, a query row whose keys are all
+    blocked (exactly 0), and logits far past any fixed max (q and k x 10)."""
+    b, n, sq, sk, scale, rows = {
+        "ragged_masked": (2, 3, 301, 301, 1.0, None),
+        "sq_lt_sk": (1, 2, 96, 333, 1.0, None),
+        "bias_blocked_row": (1, 2, 237, 237, 1.0, (5, 236)),
+        "unbounded_logits": (1, 2, 200, 200, 10.0, None),
+    }[case]
+    g = torch.Generator(cuda).manual_seed(20 + len(case))
+    q, k, v, bias_log2, mask = _k7_inputs(g, b, n, sq, sk, scale, rows or ())
+    bias = None if rows is None else bias_log2 / tfa.LOG2E
+    name = "online_attention" if bias is None else "online_attention_bias"
+    before = tfa.LAUNCHES[name]
+    out = tfa.flash_attention_bnsd(q, k, v, mask, bias=bias, variant="online")
+    ref = tfa.online_attention_reference(q, k, v, mask, bias)
+    assert tfa.LAUNCHES[name] == before + 1
+    assert torch.isfinite(out).all()
+    torch.testing.assert_close(out.float(), ref.float(), rtol=BF16_TOL, atol=BF16_TOL)
+    assert _rel_l2(out, ref) <= K7_REL_L2
+    for r in rows or ():
+        assert torch.equal(out[:, :, r], torch.zeros_like(out[:, :, r]))
+
+
+@pytest.mark.cuda
+def test_online_bias_kernel_reads_a_strided_view_on_cuda(cuda):
+    g = torch.Generator(cuda).manual_seed(12)
+    s_t, base, s = 40, 96, 232
+    q, k, v, bias, mask = _k7_inputs(g, 2, 2, s, s)
+    bias = bias / tfa.LOG2E
+    qs = q[:, :, s_t:s_t + base].contiguous()
+    view = bias[:, s_t:s_t + base]
+    out = tfa.online_attention(qs, k, v, mask, view)
+    torch.testing.assert_close(out, tfa.online_attention(qs, k, v, mask, view.contiguous()),
+                               rtol=0, atol=0)
+    ref = tfa.online_attention_reference(qs, k, v, mask, view)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=BF16_TOL, atol=BF16_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("clamp", [True, False])
+@pytest.mark.parametrize("prescaled", [True, False])
+def test_fixedmax_bnsd_kernel_matches_plain_on_cuda(cuda, prescaled, clamp):
+    """K1': K1's kernel without l (prescaled) or K7's without the bias,
+    with the clamp on or off, against its plain version."""
+    g = torch.Generator(cuda).manual_seed(30 + 2 * prescaled + clamp)
+    q, k, v, _, mask = _k7_inputs(g, 2, 3, 250, 250)
+    if prescaled:
+        q = tfa._prescale(q).contiguous()
+    before = tfa.LAUNCHES["fixedmax_bnsd"]
+    out = tfa.fixedmax_bnsd(q, k, v, mask, clamp=clamp, prescaled=prescaled)
+    ref = tfa.fixedmax_bnsd_reference(q, k, v, mask, clamp=clamp, prescaled=prescaled)
+    assert tfa.LAUNCHES["fixedmax_bnsd"] == before + 1
+    torch.testing.assert_close(out.float(), ref.float(), rtol=BF16_TOL, atol=BF16_TOL)
+    assert _rel_l2(out, ref) <= K7_REL_L2
+
+
+@pytest.mark.cuda
+def test_attention_api_dispatch_on_cuda(cuda):
+    """ops.attention.attention(impl="kernels") reaches K10 for
+    variant="online" and K1 for "fixedmax"; a bias goes to the dense
+    softmax (no kernel), as the JAX package routes it."""
+    from physicedit_torch.ops.attention import attention
+
+    g = torch.Generator(cuda).manual_seed(40)
+    q, k, v, _, mask = _k7_inputs(g, 1, 2, 130, 130)
+    q, k, v = (x.transpose(1, 2) for x in (q, k, v))
+    tfa.reset_launch_counts()
+    attention(q, k, v, mask, impl="kernels", variant="online")
+    attention(q, k, v, mask, impl="kernels", variant="fixedmax")
+    attention(q, k, v, mask, bias=torch.zeros(1, 1, 130, 130, device=cuda), impl="kernels")
+    assert tfa.LAUNCHES["online_attention"] == 1 and tfa.LAUNCHES["fixedmax_attention"] == 1
+    assert sum(tfa.LAUNCHES.values()) == 2
+    with pytest.raises(ValueError, match="bf16"):
+        attention(q.float(), k.float(), v.float(), mask, impl="kernels", variant="online")

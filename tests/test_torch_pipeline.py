@@ -295,6 +295,10 @@ def test_port_sources_import_no_jax():
     files = sorted(glob.glob(os.path.join(REPO, "physicedit_torch", "**", "*.py"),
                              recursive=True)) + [os.path.join(REPO, "chip_smoke.py")]
     assert len(files) > 30
+    rel = {os.path.relpath(f, REPO) for f in files}
+    assert {"physicedit_torch/io/safetensors_io.py", "physicedit_torch/io/convert.py",
+            "physicedit_torch/io/model_config.py", "physicedit_torch/cli/validate.py",
+            "physicedit_torch/tools/make_synthetic_checkpoint.py"} <= rel
     bad = []
     for path in files:
         for node in ast.walk(ast.parse(open(path).read(), path)):
@@ -311,9 +315,10 @@ def test_port_sources_import_no_jax():
 
 def test_port_runs_without_jax():
     """The tiny slice end to end, in the float lane and after quantize_, a
-    tiny EliGen edit, a tiny edit_batch, a tiny ControlNet edit and a tiny
-    training step, in a fresh process load neither JAX nor the JAX
-    package."""
+    tiny EliGen edit, a tiny edit_batch, a tiny ControlNet edit, a tiny
+    training step, and the validate CLI on a tree written by the port's
+    synthetic-checkpoint tool, in a fresh process load neither JAX nor the
+    JAX package."""
     code = textwrap.dedent("""
         import sys
         import numpy as np
@@ -351,6 +356,32 @@ def test_port_runs_without_jax():
                    num_inference_steps=2, edit_image_auto_resize=False)
         assert out.size == (64, 64) and pipe.kv_int8, out.size
         print(pipe.reason_physical_batch(["tilt"], [edit], max_new_tokens=4)[0][:20])
+        # a reference-layout tree written by the port's tool, through the CLI
+        import dataclasses, tempfile
+        from physicedit_torch.cli import validate as cli
+        from physicedit_torch.models.dit import DiTConfig
+        from physicedit_torch.pipeline.edit_pipeline import PhysicEditPipeline
+        from physicedit_torch.pipeline.testing import SIZES, FakeTokenizer, random_pipeline
+        from physicedit_torch.tools import make_synthetic_checkpoint as synth
+        dims = dataclasses.replace(SIZES["tiny"], rope_axes=(16, 56, 56), dit=DiTConfig(
+            num_layers=2, dim=128, num_heads=1, head_dim=128, txt_in_dim=64, patch_dim=64,
+            time_dim=32))
+        small = random_pipeline(dims, "cpu", torch.float32, torch.Generator().manual_seed(1))
+        base = tempfile.mkdtemp()
+        info = synth.write_tree(small, base, synth.random_trainable(
+            small, 2, 32, torch.Generator().manual_seed(2)))
+        def fake_tokenizer(self, path):
+            self.tokenizer = FakeTokenizer()
+            self.boi_token_id, self.eoi_token_id = 96, 95
+            self.edit_drop_idx = self.t2i_drop_idx = 2
+        PhysicEditPipeline.load_tokenizer = fake_tokenizer
+        cli.resize_image = lambda im, target_area=0: im.resize((64, 64))
+        edit.save(base + "/in.png")
+        loaded = cli.main(["--prompt", "tilt", "--image_path", base + "/in.png",
+                           "--save_path", base + "/out.png", "--base_model_path", base,
+                           "--lora_path", info["paths"]["finetuned"], "--device", "cpu",
+                           "--num_inference_steps", "1", "--no_text_reasoning"])
+        assert Image.open(base + "/out.png").size == (64, 64) and len(loaded.adapters) == 7
         assert "jax" not in sys.modules, "the port imported jax"
         assert "physicedit_tpu" not in sys.modules, "the port imported the JAX package"
         print("NO_JAX_OK")

@@ -43,7 +43,13 @@ Phases, each printed as one JSON line, any failure exits non-zero:
      their plain versions at the training shapes, with times, bounds and
      PyTorch's own attention backward beside K8; K1's out and l there
      against its plain version; K3 against its exact plain version at the
-     W4 training lane's forward shapes.
+     W4 training lane's forward shapes;
+ 13. the bf16 attention prototypes of tools/ (T1 v1-v4, T2, T3, T5, T7, T8;
+     csrc/proto_fixedmax_attention.cu) at B = 2, N = 24, S = 8448, each
+     instantiation against its plain version with its time, registers and
+     spills, and the one SDPA call that computes the same function; rows
+     with no live key (NaN from T7, 0 from T3) at a ragged S; then each
+     ported tool's main() (physicedit_torch/tools/proto_*.py), their path.
 The line before the last lists each kernel with its launches on its main
 path, its error against the plain version, its time, the plain version's,
 its bound and the one PyTorch call that computes the same function; the
@@ -71,13 +77,16 @@ PIPE_REL_L2 = 0.05   # small pipeline, bf16 on the card vs bf16 on the CPU
 W4_REL_L2 = 0.05     # full-width W4 edit against the same edit in bf16
 KERNEL_SOURCES = ("fixedmax_attention", "gqa_causal_attention", "w4a8_matmul", "fused_quant",
                   "fixedmax_attention_bwd", "w4_bwd_dx", "fixedmax_attention_bias",
-                  "online_attention")
+                  "online_attention", "proto_fixedmax_attention")
 # small training step, bf16 card vs bf16 CPU through 2 blocks, about 10x the
 # readings on an H100 (loss 4.6e-5, all gradients 5.1e-5, worst leaf 2.8e-3)
 TRAIN_LOSS_REL = 5e-4  # the loss
 TRAIN_GRAD_REL = 5e-4  # all gradients together (rel-L2)
 TRAIN_LEAF_REL = 2e-2  # and each gradient leaf on its own (rel-L2)
 K8_REL = 2e-2          # K8 / K9 against their plain versions: max |err| / max |ref|
+# T1 v3 / v4 (unnormalised, their outputs grow with S) against their plain
+# versions: max |err| / max |ref|, one bf16 step of the largest output (2^-7)
+PROTO_UNNORM_REL = 8e-3
 K8_REL_L2 = 1e-2       # and rel-L2; where the clamp binds only rel-L2 applies: a logit
                        # within rounding of the clamp is clamped on one side only,
                        # which zeroes or keeps its whole dS entry
@@ -133,6 +142,20 @@ KERNEL_ROWS = [
     # kernel, the clamp on), K7's kernel; the prescaled form runs K1's
     ("fixedmax_bnsd", "physicedit_torch/csrc/fixedmax_attention_bias.cu",
      "physicedit_tpu/kernels/flash_attention.py:78", None),
+    # the bf16 attention prototypes of tools/, one instantiation each
+    *((name, "physicedit_torch/csrc/proto_fixedmax_attention.cu", replaces, None)
+      for name, replaces in (
+          ("proto_fixedmax", "tools/proto_fixedmax.py:49"),            # T7
+          ("proto_fixedmax2", "tools/proto_fixedmax2.py:68"),          # T8, sub = 1
+          ("proto_fixedmax2_overlap", "tools/proto_fixedmax2.py:68"),  # T8, sub > 1
+          ("proto_nobias_inscale", "tools/proto_attn_fast.py:72"),     # T2, inscale
+          ("proto_nobias", "tools/proto_attn_fast.py:72"),             # T2 = T1 v2
+          ("proto_nmask", "tools/proto_attn_fast.py:130"),             # T3
+          ("proto_bf16s", "tools/proto_attn_bf16s.py:69"),             # T1 v1
+          ("proto_expnosum", "tools/proto_attn_bf16s.py:148"),         # T1 v3
+          ("proto_noexp", "tools/proto_attn_bf16s.py:124"),            # T1 v4
+          ("proto_interleave", "tools/proto_attn_interleave.py:103"),  # T5, sub = 1
+          ("proto_interleave_overlap", "tools/proto_attn_interleave.py:103"))),
 ]
 
 
@@ -1059,6 +1082,180 @@ def k1prime_phase(report: dict, gen, time_ms, compare) -> dict:
     return launches
 
 
+def ptxas_report(log_path) -> dict:
+    """Registers and spill bytes of each instantiation of
+    ``csrc/proto_fixedmax_attention.cu`` from nvcc's ``-Xptxas -v`` report,
+    keyed by its template arguments as ints (``Variant.template_args()``)."""
+    import re
+
+    report, args = {}, None
+    for line in open(log_path):
+        entry = re.search(r"Compiling entry function '(\S+)'", line)
+        if entry:
+            tmpl = re.search(r"proto_kernelI((?:L[bi]\d+E)+)E", entry.group(1))
+            args = tuple(int(x) for x in re.findall(r"L[bi](\d+)E", tmpl.group(1))) \
+                if tmpl else None
+            continue
+        if args is None:
+            continue
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if spill:
+            report.setdefault(args, {}).update(spill_store_bytes=int(spill.group(1)),
+                                               spill_load_bytes=int(spill.group(2)))
+        used = re.search(r"Used (\d+) registers", line)
+        if used:
+            report.setdefault(args, {})["registers"] = int(used.group(1))
+    return report
+
+
+def proto_phase(report: dict, gen, time_ms, compare) -> dict:
+    """The bf16 attention prototypes of ``tools/`` (T1 v1-v4, T2, T3, T5,
+    T7, T8) at the DiT's joint attention, B = 2, N = 24, S = 8448, RMS-normed
+    q and k: each instantiation of ``csrc/proto_fixedmax_attention.cu``
+    against its plain version (the normalised ones under the K1 gates, T1 v3
+    and v4 relative to their largest output), timed beside its plain
+    version, the one SDPA call that computes the same function where there
+    is one, and the bound, with its registers and spills; the last 64 keys
+    masked for T3, T7 and T1 v1, keys [200, 256) of the text prefix for T8
+    and T5 (bias_keys 1408, the overlap off and on).  A ragged S where one
+    batch has no live key: NaN rows from T7 (no floor on l), 0 from T3.
+    Then each ported tool's ``main()`` once with the counts at 0: the
+    prototypes' path.  Returns its launches."""
+    import torch
+    import torch.nn.functional as F
+
+    from physicedit_torch.kernels import _build
+    from physicedit_torch.kernels import flash_attention as fa
+    from physicedit_torch.tools import _proto_attention as pa
+    from physicedit_torch.tools import proto_attn_bf16s as t1
+    from physicedit_torch.tools import proto_attn_fast as t23
+    from physicedit_torch.tools import proto_attn_interleave as t5
+    from physicedit_torch.tools import proto_fixedmax as t7
+    from physicedit_torch.tools import proto_fixedmax2 as t8
+
+    dev = gen.device
+    b, n, s, bias_keys = 2, 24, 8448, 1408
+    q, k = (_rms(torch.randn(b, n, s, 128, device=dev, generator=gen)).bfloat16()
+            for _ in range(2))
+    v = torch.randn(b, n, s, 128, device=dev, generator=gen).bfloat16()
+    qs = fa._prescale(q).contiguous()
+    tail = torch.ones(b, s, dtype=torch.bool, device=dev)
+    tail[:, -64:] = False
+    prefix = torch.ones_like(tail)
+    prefix[:, 200:256] = False
+    bias_tail, bias_prefix = pa.mask_bias(tail), pa.mask_bias(prefix)
+    # SDPA's float masks, [B, 1, 1, S] in the inputs' dtype
+    lib_tail, lib_prefix = (x[:, None].bfloat16() for x in (bias_tail, bias_prefix))
+    sdpa = F.scaled_dot_product_attention
+    ln2 = 1.0 / fa.LOG2E    # SDPA's scale for a prescaled q': exp(q'k ln 2) = exp2(q'k)
+    cases = {  # name: (the kernel, its plain version, the one PyTorch call or None)
+        "proto_fixedmax": (lambda: t7.fixedmax_bnsd(q, k, v, bias_tail),
+                           lambda: t7.fixedmax_bnsd_reference(q, k, v, bias_tail),
+                           lambda: sdpa(q, k, v, attn_mask=lib_tail)),
+        "proto_nobias_inscale": (lambda: t23.attn_nobias(q, k, v, True),
+                                 lambda: t23.attn_nobias_reference(q, k, v, True),
+                                 lambda: sdpa(q, k, v)),
+        "proto_nobias": (lambda: t23.attn_nobias(qs, k, v, False),
+                         lambda: t23.attn_nobias_reference(qs, k, v, False),
+                         lambda: sdpa(qs, k, v, scale=ln2)),
+        "proto_nmask": (lambda: t23.attn_nmask(q, k, v, tail),
+                        lambda: t23.attn_nmask_reference(q, k, v, tail),
+                        lambda: sdpa(q, k, v, attn_mask=tail[:, None, None, :])),
+        "proto_bf16s": (lambda: t1.attn_bf16s(qs, k, v, bias_tail),
+                        lambda: t1.attn_bf16s_reference(qs, k, v, bias_tail),
+                        lambda: sdpa(qs, k, v, attn_mask=lib_tail, scale=ln2)),
+        "proto_expnosum": (lambda: t1.attn_expnosum(qs, k, v),
+                           lambda: t1.attn_expnosum_reference(qs, k, v), None),
+        "proto_noexp": (lambda: t1.attn_noexp(qs, k, v),
+                        lambda: t1.attn_noexp_reference(qs, k, v), None),
+    }
+    for suffix, overlap in (("", False), ("_overlap", True)):
+        cases["proto_fixedmax2" + suffix] = (
+            lambda ov=overlap: t8.fixedmax2_bnsd(q, k, v, bias_prefix, bias_keys, ov),
+            lambda: t8.fixedmax2_bnsd_reference(q, k, v, bias_prefix, bias_keys),
+            lambda: sdpa(q, k, v, attn_mask=lib_prefix))
+        cases["proto_interleave" + suffix] = (
+            lambda ov=overlap: t5.attn_interleaved(q, k, v, bias_prefix, bias_keys, ov),
+            lambda: t5.attn_interleaved_reference(q, k, v, bias_prefix, bias_keys),
+            lambda: sdpa(q, k, v, attn_mask=lib_prefix))
+    registers = ptxas_report(f"{_build.library_path(pa.SOURCE)}.log")
+    flops = 4 * b * n * s * s * 128
+    overlap_off = {}
+    for name in pa.VARIANTS:
+        kernel, plain, library = cases[name]
+        var = pa.VARIANTS[name]
+        out = kernel()
+        ref = plain()
+        torch.cuda.synchronize()
+        row = _attention_row("proto", name, [b, n, s, s], out, ref, compare)
+        if var.norm == "none":
+            row["max_abs_ref"] = ref.float().abs().max().item()
+            row["max_err_over_max_ref"] = row["max_abs_err"] / row["max_abs_ref"]
+            row["max_err_over_max_ref_limit"] = PROTO_UNNORM_REL
+            ok = (row["max_err_over_max_ref"] <= PROTO_UNNORM_REL
+                  and row["rel_l2"] <= ATTN_REL_L2)
+        else:
+            ok = _attention_ok(row)
+        if var.overlap:     # the same arithmetic in the same order: the same bits
+            off = overlap_off.pop(name.removesuffix("_overlap"))
+            row["equals_overlap_off"] = bool(torch.equal(out, off))
+        elif name + "_overlap" in pa.VARIANTS:
+            overlap_off[name] = out
+        del out, ref
+        row["ms"] = time_ms(kernel, 10)
+        row["plain_ms"] = time_ms(plain, 2)
+        row["library_ms"] = time_ms(library, 10) if library is not None else None
+        row["tflops"] = flops / row["ms"] / 1e9
+        # q, k and v read, out written (bf16), and the key bias or the mask
+        extra = 4 * b * s if var.bias != "none" else (b * s if name == "proto_nmask" else 0)
+        row.update(bound(flops, 2 * 4 * q.numel() + extra, PEAK_BF16))
+        row.update(registers.get(var.template_args(), {}))
+        report[name] = row
+        report[f"{name}_err"] = [row["max_abs_err"]]
+        emit(row)
+        if not ok:
+            fail(f"prototype {name} disagrees with its plain version")
+    del q, k, v, qs, overlap_off
+    torch.cuda.empty_cache()
+
+    # a ragged S where batch 1 has no live key
+    sr = 300
+    qr, kr, vr = (torch.randn(2, 3, sr, 128, device=dev, generator=gen).bfloat16()
+                  for _ in range(3))
+    live = torch.ones(2, sr, dtype=torch.bool, device=dev)
+    live[0, 250:] = False
+    live[1] = False
+    nan_rows = t7.fixedmax_bnsd(qr, kr, vr, pa.mask_bias(live))
+    zero_rows = t23.attn_nmask(qr, kr, vr, live)
+    row = {"phase": "proto", "case": "ragged_300_no_live_key", "shape": [2, 3, sr, sr],
+           "t7_dead_batch_all_nan": bool(torch.isnan(nan_rows[1]).all()),
+           "t3_dead_batch_max_abs": zero_rows[1].abs().max().item(),
+           "t7_live_batch_max_abs_err": pa.max_abs_diff(
+               nan_rows[0], t7.fixedmax_bnsd_reference(qr, kr, vr, pa.mask_bias(live))[0]),
+           "t3_live_batch_max_abs_err": pa.max_abs_diff(
+               zero_rows[0], t23.attn_nmask_reference(qr, kr, vr, live)[0]),
+           "max_abs_limit": ATTN_MAX_ABS}
+    emit(row)
+    if not (row["t7_dead_batch_all_nan"] and row["t3_dead_batch_max_abs"] == 0.0
+            and row["t7_live_batch_max_abs_err"] <= ATTN_MAX_ABS
+            and row["t3_live_batch_max_abs_err"] <= ATTN_MAX_ABS):
+        fail("a prototype's rows with no live key, or its ragged edge, differ from the "
+             "plain version")
+    report["proto_fixedmax_err"].append(row["t7_live_batch_max_abs_err"])
+    report["proto_nmask_err"].append(row["t3_live_batch_max_abs_err"])
+
+    # the prototypes' path: each ported tool, as a user runs it
+    reset_counts()
+    rows = [r for tool in (t7, t8, t23, t1, t5) for r in tool.main()]
+    torch.cuda.synchronize()
+    launches = {name: counts()[name] for name in pa.VARIANTS}
+    for r in rows:
+        emit({"phase": "proto_tool", **r})
+    emit({"phase": "proto_tools", "launches": launches})
+    torch.cuda.empty_cache()
+    return launches
+
+
 # the load phase's depth cut (full widths): DiT blocks, VL text layers, ViT blocks
 LOAD_DEPTH = (6, 4, 8)
 LOAD_REL_L2 = 1e-3       # the CLI's image against the direct call's, same weights
@@ -1656,12 +1853,11 @@ def main() -> int:
     reset_counts()
     _, row = edit(w, h, seed, True)
     launches = counts()
-    want = {**w4_launch_counts(pipe.timings, args.steps, n_blocks, n_layers,
-                               pipe.vision.cfg.depth),
-            "fixedmax_attention_bwd": 0, "w4_bwd_dx": 0,     # an edit runs no backward
-            "fixedmax_attention_bias": 0,                     # nor an entity bias,
-            "online_attention": 0, "online_attention_bias": 0,  # nor K10 / K10b / K1'
-            "fixedmax_bnsd": 0}
+    # an edit runs no backward, no entity bias, no K10 / K10b / K1' and no
+    # prototype: every other count is 0
+    want = {**dict.fromkeys(launches, 0),
+            **w4_launch_counts(pipe.timings, args.steps, n_blocks, n_layers,
+                               pipe.vision.cfg.depth)}
     emit({"phase": "w4_edit", **row, "kv_int8": pipe.kv_int8, "launches": launches,
           "launches_expected": want})
     if launches != want:
@@ -1721,15 +1917,18 @@ def main() -> int:
              + [(f"text_{n}", text_tokens, k, o, True) for n, k, o in DIT_LINEARS]
              + [("mod", 1, 3072, 18432, True)], phase="k3_training")
 
+    # 13. the attention prototypes, and their tools
+    proto_launches = proto_phase(report, gen, time_ms, compare)
+
     # each kernel's launches on its own path: K1 and K2 in the bf16 edits,
     # K3-K6 in the W4 edit, K8 and K9 in the training lanes, K7 in the
-    # full-CFG EliGen edit
+    # full-CFG EliGen edit, the prototypes in their tools
     path_launches = {**w4_launches,
                      **{k: main_launches[k] for k in ("fixedmax_attention",
                                                       "gqa_causal_attention")},
                      **{k: train_launches[k] for k in ("fixedmax_attention_bwd", "w4_bwd_dx")},
                      "fixedmax_attention_bias": eligen_launches["fixedmax_attention_bias"],
-                     **attention_launches}
+                     **attention_launches, **proto_launches}
     if min(path_launches[name] for name, *_ in KERNEL_ROWS) == 0:
         fail(f"a kernel was not launched on its path: {path_launches}")
     kernels = []

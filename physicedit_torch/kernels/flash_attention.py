@@ -53,7 +53,12 @@ LN2 = 1.0 / LOG2E   # d sig / d q' = k * ln 2 for the prescaled q' (and likewise
 
 LAUNCHES = {"fixedmax_attention": 0, "fixedmax_attention_bwd": 0,
             "fixedmax_attention_bias": 0, "gqa_causal_attention": 0,
-            "online_attention": 0, "online_attention_bias": 0, "fixedmax_bnsd": 0}
+            "online_attention": 0, "online_attention_bias": 0, "fixedmax_bnsd": 0,
+            # the bf16 attention prototypes (tools/_proto_attention.VARIANTS)
+            "proto_fixedmax": 0, "proto_fixedmax2": 0, "proto_fixedmax2_overlap": 0,
+            "proto_nobias_inscale": 0, "proto_nobias": 0, "proto_nmask": 0,
+            "proto_bf16s": 0, "proto_expnosum": 0, "proto_noexp": 0,
+            "proto_interleave": 0, "proto_interleave_overlap": 0}
 
 
 def reset_launch_counts() -> None:

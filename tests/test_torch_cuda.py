@@ -1,4 +1,5 @@
-"""Port kernels K1-K9 on an NVIDIA GPU against their plain versions.
+"""Port kernels K1-K10b and the attention prototypes on an NVIDIA GPU
+against their plain versions.
 
 Every test here needs a card and nvcc and skips without one.  The file
 imports no JAX, so it also runs where JAX is not installed:
@@ -12,6 +13,9 @@ import torch
 from physicedit_torch.kernels import flash_attention as tfa
 from physicedit_torch.kernels import fused_quant as tfq
 from physicedit_torch.kernels import quant_matmul as tqm
+from physicedit_torch.tools import _proto_attention as tpa
+from physicedit_torch.tools import proto_attn_fast as t_t23
+from physicedit_torch.tools import proto_fixedmax as t_t7
 
 
 @pytest.fixture
@@ -402,3 +406,81 @@ def test_attention_api_dispatch_on_cuda(cuda):
     assert sum(tfa.LAUNCHES.values()) == 2
     with pytest.raises(ValueError, match="bf16"):
         attention(q.float(), k.float(), v.float(), mask, impl="kernels", variant="online")
+
+
+def _proto_inputs(name, g, sq=300, sk=333):
+    """The operands of prototype ``name`` at a ragged S: q prescaled unless
+    the variant scales in the kernel; a key bias with masked spans, of which
+    [150, 200) lies past the 128-key prefix that T8 and T5 bias (those keys
+    stay live there); for T3 K and V zeroed where masked and the counts."""
+    var = tpa.VARIANTS[name]
+    q, k, v, _, mask = _k7_inputs(g, 2, 3, sq, sk)
+    mask[0, 40:60] = False
+    mask[0, 150:200] = False
+    if name == "proto_nmask":
+        q, k, v, nm = t_t23._nmask_operands(q, k, v, mask)
+        return q, k, v, {"n_masked": nm}
+    if not var.inscale:
+        q = tfa._prescale(q).contiguous()
+    kwargs = {}
+    if var.bias != "none":
+        prefix = "fixedmax2" in name or "interleave" in name
+        kwargs = {"key_bias": tpa.mask_bias(mask), "bias_keys": 128 if prefix else sk}
+    return q, k, v, kwargs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(tpa.VARIANTS))
+def test_proto_attention_kernel_matches_plain_on_cuda(cuda, name):
+    """Each instantiation of ``csrc/proto_fixedmax_attention.cu`` against its
+    plain version at S_q 300, S_k 333 (ragged edges): the normalised ones
+    within the K1 gates, T1 v3 / v4 (unnormalised) relative to their largest
+    output, as chip_smoke.py gates them."""
+    g = torch.Generator(cuda).manual_seed(50 + tpa.VARIANTS[name].kernel_id)
+    q, k, v, kwargs = _proto_inputs(name, g)
+    before = tfa.LAUNCHES[name]
+    out = tpa.run(name, q, k, v, **kwargs)
+    ref = tpa.reference(name, q, k, v, **kwargs)
+    assert tfa.LAUNCHES[name] == before + 1
+    assert torch.isfinite(out).all()
+    if tpa.VARIANTS[name].norm == "none":
+        err = (out.float() - ref.float()).abs().max() / ref.float().abs().max()
+        assert err <= 8e-3
+    else:
+        torch.testing.assert_close(out.float(), ref.float(), rtol=BF16_TOL, atol=4e-3)
+    assert _rel_l2(out, ref) <= K7_REL_L2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["proto_fixedmax2", "proto_interleave"])
+def test_proto_attention_overlap_gives_the_same_bits_on_cuda(cuda, name):
+    """The overlap switch reorders issue, not arithmetic."""
+    g = torch.Generator(cuda).manual_seed(60)
+    q, k, v, kwargs = _proto_inputs(name, g, 257, 1000)
+    assert torch.equal(tpa.run(name, q, k, v, **kwargs),
+                       tpa.run(name + "_overlap", q, k, v, **kwargs))
+
+
+@pytest.mark.cuda
+def test_proto_attention_rows_with_no_live_key_on_cuda(cuda):
+    """T7 (no floor on l) gives NaN where a batch has no live key, T3 0."""
+    g = torch.Generator(cuda).manual_seed(61)
+    q, k, v, _, _ = _k7_inputs(g, 2, 2, 130, 130)
+    live = torch.ones(2, 130, dtype=torch.bool, device=cuda)
+    live[1] = False
+    assert torch.isnan(t_t7.fixedmax_bnsd(q, k, v, tpa.mask_bias(live))[1]).all()
+    out = t_t23.attn_nmask(q, k, v, live)
+    assert torch.equal(out[1], torch.zeros_like(out[1]))
+    torch.testing.assert_close(out[0].float(), t_t23.attn_nmask_reference(q, k, v, live)[0].float(),
+                               rtol=BF16_TOL, atol=4e-3)
+
+
+@pytest.mark.cuda
+def test_proto_attention_raises_on_unsupported_inputs(cuda):
+    z = torch.zeros(1, 2, 64, 128, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="bf16"):
+        tpa.run("proto_nobias", z.float(), z.float(), z.float())
+    with pytest.raises(ValueError, match="key bias"):
+        tpa.run("proto_fixedmax", z, z, z, None, 64)
+    with pytest.raises(RuntimeError, match="forward only"):
+        tpa.run("proto_noexp", z.clone().requires_grad_(True), z, z)

@@ -1,0 +1,351 @@
+"""The bf16 attention prototypes of ``tools/`` (T1 v1-v4, T2, T3, T5, T7,
+T8) against their ports in ``physicedit_torch/tools/``, on the CPU with the
+same numpy inputs: each JAX tool function runs its Pallas kernel in
+interpret mode, the port's wrapper its plain version (the tensors lie on
+the CPU, so no kernel launches).
+
+Interpret mode: T3's kernel has a scalar-prefetch grid and
+("arbitrary", "parallel", ...) dimension semantics, which the plain
+``interpret=True`` cannot lower on the CPU (no rule for ``program_id``) and
+``interpret=pltpu.InterpretParams()`` refuses (parallel dimensions must
+lead the grid); it runs with ``InterpretParams()`` and the dimension
+semantics dropped from its ``CompilerParams``.  Both are patches of this
+file's fixtures; ``tools/`` is unchanged.  Each JAX function is compiled
+with XLA's excess precision off: XLA's CPU compiler may otherwise keep a
+bf16 intermediate in fp32 (T1 v1's p, whose rounding moves its output by
+rel-L2 1.7e-3), where the jaxpr's types, the TPU kernel and the port round
+it.  Three of the tool modules point
+JAX's persistent compilation cache at the repo's ``.jax_cache`` when they
+are imported: the config is restored right after the import, so the other
+tests on the same worker are untouched.
+
+Tolerances: fp32 inputs within 1e-5 of the largest output (the same
+arithmetic; only the order of the fp32 sums differs).  T1 v1 rounds the
+score to bf16 three times, where a difference of one fp32 ulp in the
+product can flip a rounding, so rel-L2 1e-3.  bf16 inputs (the kernel's
+type): max |err| 4e-3 and rel-L2 5e-3, the card's gates for the kernel
+against this plain version.  The unnormalised v3 and v4 grow with S, so
+their max |err| is taken relative to the largest output.
+"""
+
+import functools
+import re
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental import pallas as pl
+from jax.experimental.pallas import tpu as pltpu
+
+from physicedit_torch.kernels import flash_attention as tfa
+from physicedit_torch.tools import _proto_attention as pa
+from physicedit_torch.tools import proto_attn_bf16s as t_t1
+from physicedit_torch.tools import proto_attn_fast as t_t23
+from physicedit_torch.tools import proto_attn_interleave as t_t5
+from physicedit_torch.tools import proto_fixedmax as t_t7
+from physicedit_torch.tools import proto_fixedmax2 as t_t8
+
+_CACHE_KEYS = ("jax_compilation_cache_dir", "jax_persistent_cache_min_compile_time_secs")
+_saved_config = {key: getattr(jax.config, key) for key in _CACHE_KEYS}
+from tools import proto_attn_bf16s as j_t1  # noqa: E402
+from tools import proto_attn_fast as j_t23  # noqa: E402
+from tools import proto_attn_interleave as j_t5  # noqa: E402
+from tools import proto_fixedmax as j_t7  # noqa: E402
+from tools import proto_fixedmax2 as j_t8  # noqa: E402
+
+for _key, _value in _saved_config.items():
+    jax.config.update(_key, _value)
+
+torch.set_num_threads(2)
+
+NEG = -1e30
+DTYPES = {"fp32": (np.float32, torch.float32), "bf16": (jnp.bfloat16, torch.bfloat16)}
+CU_SOURCE = Path(pa.__file__).resolve().parents[1] / "csrc" / f"{pa.SOURCE}.cu"
+
+
+@pytest.fixture
+def interpret(monkeypatch):
+    """pallas_call in interpret mode on the CPU, as the JAX tests run it."""
+    monkeypatch.setattr(pl, "pallas_call", functools.partial(pl.pallas_call, interpret=True))
+
+
+@pytest.fixture
+def interpret_t3(monkeypatch):
+    """T3's interpret mode: ``InterpretParams()`` and no dimension semantics."""
+    real = pltpu.CompilerParams
+
+    def without_semantics(**kwargs):
+        kwargs.pop("dimension_semantics", None)
+        return real(**kwargs)
+
+    monkeypatch.setattr(pl, "pallas_call", functools.partial(
+        pl.pallas_call, interpret=pltpu.InterpretParams()))
+    monkeypatch.setattr(pltpu, "CompilerParams", without_semantics)
+
+
+@pytest.fixture
+def no_launch():
+    """The port's wrappers take their plain versions on CPU tensors."""
+    before = dict(tfa.LAUNCHES)
+    yield
+    assert tfa.LAUNCHES == before
+
+
+def _qkv(seed, b, n, s, d, std=0.5):
+    rng = np.random.default_rng(seed)
+    return rng, [(rng.normal(size=(b, n, s, d)) * std).astype(np.float32) for _ in range(3)]
+
+
+def _both(dtype, *arrays):
+    """The same values for JAX and for the port, in ``dtype`` (bf16 rounds
+    to nearest even on both sides)."""
+    jdt, tdt = DTYPES[dtype]
+    return ([jnp.asarray(a, jdt) for a in arrays],
+            [torch.from_numpy(np.ascontiguousarray(a)).to(tdt) for a in arrays])
+
+
+def _f32(x):
+    return np.asarray(jnp.asarray(x, jnp.float32)) if not isinstance(x, torch.Tensor) \
+        else x.float().numpy()
+
+
+def _check(got, want, dtype, rel_l2_only=False, unnormalised=False):
+    got, want = _f32(got), _f32(want)
+    assert got.shape == want.shape and np.isfinite(want).all()
+    err = np.abs(got - want).max()
+    rel_l2 = np.linalg.norm(got - want) / np.linalg.norm(want)
+    scale = np.abs(want).max() if unnormalised else 1.0
+    if dtype == "fp32":
+        if rel_l2_only:
+            assert rel_l2 <= 1e-3, rel_l2
+        else:
+            assert err <= 1e-5 * np.abs(want).max(), (err, np.abs(want).max())
+    else:
+        assert err <= 4e-3 * scale and rel_l2 <= 5e-3, (err, scale, rel_l2)
+
+
+def _jax(fn, *args):
+    """``fn(*args)`` compiled with ``xla_allow_excess_precision`` off."""
+    lowered = jax.jit(fn).lower(*args)
+    return lowered.compile(compiler_options={"xla_allow_excess_precision": False})(*args)
+
+
+def _prescaled(q, d):
+    """q' = q * log2(e) / sqrt(d) in q's dtype, the scale rounded to it
+    first, as the T1 tool's caller forms it for bf16 inputs (``q0 * scale``)
+    and the port's ``_prescale``."""
+    return q * jnp.asarray(j_t1.fa.LOG2E / d ** 0.5, q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# T7, T8, T5: the key bias
+# ---------------------------------------------------------------------------
+
+def _key_bias(rng, b, s, masked, big=None):
+    """[B, 1, S] fp32: normal x 0.5, -1e30 on each batch's ``masked`` span,
+    and in the last batch the values of ``big`` ({key: value}) at their
+    keys.  Two keys at +120 and +140 make the clamp at 100 bind: with it
+    they weigh the same, without it the second outweighs the first 2^20
+    times.  In fp32 only: in bf16 the output is then the mean of two bf16
+    values, often a rounding tie, which JAX's exp2 (exp(x * ln 2), a few
+    fp32 ulps from exp2 at x = 100) breaks one way and exp2 the other."""
+    bias = (rng.normal(size=(b, 1, s)) * 0.5).astype(np.float32)
+    for i, (m0, m1) in enumerate(masked):
+        bias[i, :, m0:m1] = NEG
+    for key, value in (big or {}).items():
+        bias[-1, :, key] = value
+    return bias
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_t7_fixedmax_matches_jax(dtype, interpret, no_launch):
+    b, n, s, d = 2, 2, 256, 64
+    rng, (q, k, v) = _qkv(0, b, n, s, d)
+    bias = _key_bias(rng, b, s, [(200, 256), (10, 40)],
+                     big={77: 120.0, 90: 140.0} if dtype == "fp32" else None)
+    (jq, jk, jv), (tq, tk, tv) = _both(dtype, q, k, v)
+    want = _jax(functools.partial(j_t7.fixedmax_bnsd, block_q=128, block_k=128),
+                jq, jk, jv, jnp.asarray(bias))
+    got = t_t7.fixedmax_bnsd(tq, tk, tv, torch.from_numpy(bias))
+    _check(got, want, dtype)
+
+
+def test_t7_row_with_no_live_key_is_nan(interpret, no_launch):
+    """l == 0 and no floor: acc * (1 / l) = 0 * inf, in JAX and in the port."""
+    b, n, s, d = 2, 2, 256, 64
+    rng, (q, k, v) = _qkv(1, b, n, s, d)
+    bias = _key_bias(rng, b, s, [(0, 0), (0, s)])
+    want = _f32(_jax(functools.partial(j_t7.fixedmax_bnsd, block_q=128, block_k=128),
+                     q, k, v, bias))
+    got = _f32(t_t7.fixedmax_bnsd(*map(torch.from_numpy, (q, k, v, bias))))
+    assert np.isnan(want[1]).all() and np.isnan(got[1]).all()
+    _check(got[:1], want[:1], "fp32")
+
+
+@pytest.mark.parametrize("sub", [1, 2])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_t8_fixedmax2_bias_on_the_prefix_only(dtype, sub, interpret, no_launch):
+    """Batch 0's bias holds -1e30 on keys 100-199, past the prefix from key
+    128: JAX adds the bias on its first k block only, the port on the keys
+    before ``bias_keys``; keys 128-199 stay live, so biasing every key would
+    give another output.  In fp32 the clamp binds in batch 1's prefix."""
+    b, n, s, d, block_k = 2, 2, 384, 128, 128
+    rng, (q, k, v) = _qkv(2, b, n, s, d)
+    bias = _key_bias(rng, b, s, [(100, 200), (60, 128)],
+                     big={5: 120.0, 9: 140.0} if dtype == "fp32" else None)
+    (jq, jk, jv), (tq, tk, tv) = _both(dtype, q, k, v)
+    want = _jax(functools.partial(j_t8.fixedmax2_bnsd, block_q=128, block_k=block_k, sub=sub),
+                jq, jk, jv, jnp.asarray(bias))
+    tbias = torch.from_numpy(bias)
+    got = t_t8.fixedmax2_bnsd(tq, tk, tv, tbias, bias_keys=block_k, overlap=sub > 1)
+    _check(got, want, dtype)
+    everywhere = t_t8.fixedmax2_bnsd_reference(tq, tk, tv, tbias, bias_keys=s)
+    assert pa.max_abs_diff(got[:1], everywhere[:1]) > 0.05
+
+
+@pytest.mark.parametrize("sub,bias_subs", [(2, 1), (4, 1), (2, 0)])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_t5_interleaved_bias_on_the_prefix_only(dtype, sub, bias_subs, interpret, no_launch):
+    """JAX adds the bias on the first ``bias_subs`` sub-tiles of its first k
+    block (none for 0); the port on the keys before bias_subs * block_k /
+    sub.  The bias holds -1e30 past that prefix too."""
+    b, n, s, d, block_k = 1, 2, 512, 64, 256
+    rng, (q, k, v) = _qkv(3, b, n, s, d)
+    bias = _key_bias(rng, b, s, [(40, 60)])
+    bias[:, :, 280:480] = NEG
+    bias_keys = bias_subs * block_k // sub
+    (jq, jk, jv), (tq, tk, tv) = _both(dtype, q, k, v)
+    want = _jax(functools.partial(j_t5.attn_interleaved, block_q=128, block_k=block_k,
+                                  sub=sub, bias_subs=bias_subs), jq, jk, jv, jnp.asarray(bias))
+    got = t_t5.attn_interleaved(tq, tk, tv, torch.from_numpy(bias), bias_keys=bias_keys,
+                                overlap=sub > 1)
+    _check(got, want, dtype)
+    everywhere = t_t5.attn_interleaved_reference(tq, tk, tv, torch.from_numpy(bias),
+                                                 bias_keys=s)
+    assert pa.max_abs_diff(got, everywhere) > 0.05
+
+
+# ---------------------------------------------------------------------------
+# T2, T3: no bias in the loop
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("inscale", [True, False], ids=["inscale", "prescaled"])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_t2_nobias_matches_jax(dtype, inscale, interpret, no_launch):
+    b, n, s, d = 2, 2, 256, 128
+    _, (q, k, v) = _qkv(4, b, n, s, d, std=0.3)
+    (jq, jk, jv), (tq, tk, tv) = _both(dtype, q, k, v)
+    want = _jax(functools.partial(j_t23.attn_nobias, block_q=128, block_k=128, inscale=inscale),
+                jq, jk, jv)
+    got = t_t23.attn_nobias(tq, tk, tv, inscale)
+    _check(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_t3_nmask_matches_jax(dtype, interpret_t3, no_launch):
+    """Two batches with different masked counts (64 and 150 of 384)."""
+    b, n, s, d = 2, 2, 384, 64
+    _, (q, k, v) = _qkv(5, b, n, s, d)
+    mask = np.ones((b, s), bool)
+    mask[0, -64:] = False
+    mask[1, 20:170] = False
+    (jq, jk, jv), (tq, tk, tv) = _both(dtype, q, k, v)
+    want = _jax(functools.partial(j_t23.attn_nmask, block_q=128, block_k=128),
+                jq, jk, jv, jnp.asarray(mask))
+    got = t_t23.attn_nmask(tq, tk, tv, torch.from_numpy(mask))
+    _check(got, want, dtype)
+
+
+def test_t3_batch_with_no_live_key_is_zero(interpret_t3, no_launch):
+    """Every key of batch 1 masked: l - n_masked = 0 is floored at 1e-30 and
+    the zeroed V leaves acc at 0, so the batch comes out 0 on both sides."""
+    b, n, s, d = 2, 2, 256, 64
+    _, (q, k, v) = _qkv(6, b, n, s, d)
+    mask = np.ones((b, s), bool)
+    mask[1] = False
+    want = _f32(_jax(functools.partial(j_t23.attn_nmask, block_q=128, block_k=128),
+                     q, k, v, mask))
+    got = _f32(t_t23.attn_nmask(*map(torch.from_numpy, (q, k, v, mask))))
+    assert (want[1] == 0).all() and (got[1] == 0).all()
+    _check(got[:1], want[:1], "fp32")
+
+
+# ---------------------------------------------------------------------------
+# T1 v1-v4: the score-tile ablations
+# ---------------------------------------------------------------------------
+
+T1_VARIANTS = {  # name: (JAX body, port function, takes the bias, normalised)
+    "v1_bf16s": (j_t1._bf16s_kernel, t_t1.attn_bf16s, True, True),
+    "v2_nobias": (j_t1._nobias_kernel,
+                  functools.partial(t_t23.attn_nobias, inscale=False), False, True),
+    "v3_expnosum": (j_t1._expnosum_kernel, t_t1.attn_expnosum, False, False),
+    "v4_noexp": (j_t1._noexp_kernel, t_t1.attn_noexp, False, False),
+}
+
+
+@pytest.mark.parametrize("variant", list(T1_VARIANTS))
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_t1_ablations_match_jax(dtype, variant, interpret, no_launch):
+    """q prescaled by the caller on both sides; v1's bias is taken in bf16."""
+    body, port, with_bias, normalised = T1_VARIANTS[variant]
+    b, n, s, d = 2, 2, 256, 128
+    rng, (q, k, v) = _qkv(7, b, n, s, d)
+    (jq, jk, jv), (tq, tk, tv) = _both(dtype, q, k, v)
+    jqs, tqs = _prescaled(jq, d), tfa._prescale(tq)
+    assert np.array_equal(_f32(jqs), _f32(tqs))
+    if with_bias:
+        bias = _key_bias(rng, b, s, [(200, 256), (0, 30)])
+        want = _jax(lambda q_, k_, v_, b_: j_t1._call(body, q_, k_, v_, (b_,), 128, 128),
+                    jqs, jk, jv, jnp.asarray(bias, jnp.bfloat16))
+        got = port(tqs, tk, tv, torch.from_numpy(bias))
+    else:
+        want = _jax(lambda q_, k_, v_: j_t1._call(body, q_, k_, v_, (), 128, 128), jqs, jk, jv)
+        got = port(tqs, tk, tv)
+    _check(got, want, dtype, rel_l2_only=variant == "v1_bf16s", unnormalised=not normalised)
+
+
+# ---------------------------------------------------------------------------
+# the kernel source against the switches the plain version follows
+# ---------------------------------------------------------------------------
+
+def test_kernel_instantiations_match_the_variants():
+    """Each variant's id selects, in the C entry point, the instantiation
+    whose template arguments are the variant's switches; every variant has
+    its launch counter.  (The source is compiled only on the card.)"""
+    codes = {"true": 1, "false": 0, "kNoBias": 0, "kBiasF32": 1, "kBiasBf16": 2,
+             "kRecip": 0, "kFloor": 1, "kUnnormalised": 2}
+    cases = {int(i): tuple(codes[a.strip()] for a in args.split(","))
+             for i, args in re.findall(r"case (\d+): return launch<([^>]*)>",
+                                       CU_SOURCE.read_text())}
+    assert sorted(cases) == sorted({var.kernel_id for var in pa.VARIANTS.values()})
+    for name, var in pa.VARIANTS.items():
+        assert cases[var.kernel_id] == var.template_args(), name
+        assert name in tfa.LAUNCHES
+
+
+def test_chip_smoke_reads_registers_per_instantiation(tmp_path):
+    """``chip_smoke.ptxas_report`` keys nvcc's ``-Xptxas -v`` lines by the
+    template arguments of each instantiation, as ``Variant.template_args``
+    gives them."""
+    import chip_smoke
+
+    args = sorted({var.template_args() for var in pa.VARIANTS.values()})
+    lines = ["ptxas info    : 0 bytes gmem"]
+    for i, a in enumerate(args):
+        mangled = ("_ZN60_GLOBAL__N__97cb8cc7_27_proto_fixedmax_attention_cu_8eff71d0"
+                   "12proto_kernelI"
+                   + "".join(f"L{'i' if j in (1, 5) else 'b'}{x}E" for j, x in enumerate(a))
+                   + "EEvPKtS2_S2_PKfS4_Ptiiiif")
+        lines += [f"ptxas info    : Compiling entry function '{mangled}' for 'sm_90a'",
+                  f"ptxas info    : Function properties for {mangled}",
+                  f"    0 bytes stack frame, {4 * i} bytes spill stores, {8 * i} bytes spill loads",
+                  f"ptxas info    : Used {160 + i} registers, used 1 barriers",
+                  "ptxas info    : Compile time = 374.846 ms"]
+    log = tmp_path / "proto.so.log"
+    log.write_text("\n".join(lines) + "\n")
+    assert chip_smoke.ptxas_report(log) == {
+        a: {"registers": 160 + i, "spill_store_bytes": 4 * i, "spill_load_bytes": 8 * i}
+        for i, a in enumerate(args)}

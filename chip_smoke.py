@@ -49,7 +49,13 @@ Phases, each printed as one JSON line, any failure exits non-zero:
      instantiation against its plain version with its time, registers and
      spills, and the one SDPA call that computes the same function; rows
      with no live key (NaN from T7, 0 from T3) at a ragged S; then each
-     ported tool's main() (physicedit_torch/tools/proto_*.py), their path.
+     ported tool's main() (physicedit_torch/tools/proto_*.py), their path;
+ 14. the int8, W4 and elementwise-rate probes of tools/ (T9, T10, T12,
+     T11, T4, T6; csrc/proto_int8_matmul.cu, proto_int8qk_attention.cu,
+     proto_ew_scale.cu) at their tools' shapes, each against its plain
+     version (integers exact, epilogues and T6 bit for bit, T4 under K1's
+     gates) with its time, bound, registers and the one PyTorch call where
+     there is one; then each ported tool's main(), their path.
 The line before the last lists each kernel with its launches on its main
 path, its error against the plain version, its time, the plain version's,
 its bound and the one PyTorch call that computes the same function; the
@@ -77,7 +83,8 @@ PIPE_REL_L2 = 0.05   # small pipeline, bf16 on the card vs bf16 on the CPU
 W4_REL_L2 = 0.05     # full-width W4 edit against the same edit in bf16
 KERNEL_SOURCES = ("fixedmax_attention", "gqa_causal_attention", "w4a8_matmul", "fused_quant",
                   "fixedmax_attention_bwd", "w4_bwd_dx", "fixedmax_attention_bias",
-                  "online_attention", "proto_fixedmax_attention")
+                  "online_attention", "proto_fixedmax_attention", "proto_int8_matmul",
+                  "proto_int8qk_attention", "proto_ew_scale")
 # small training step, bf16 card vs bf16 CPU through 2 blocks, about 10x the
 # readings on an H100 (loss 4.6e-5, all gradients 5.1e-5, worst leaf 2.8e-3)
 TRAIN_LOSS_REL = 5e-4  # the loss
@@ -156,6 +163,17 @@ KERNEL_ROWS = [
           ("proto_noexp", "tools/proto_attn_bf16s.py:124"),            # T1 v4
           ("proto_interleave", "tools/proto_attn_interleave.py:103"),  # T5, sub = 1
           ("proto_interleave_overlap", "tools/proto_attn_interleave.py:103"))),
+    # the int8, W4 and elementwise-rate probes of tools/, one instantiation each
+    *((name, f"physicedit_torch/csrc/{src}.cu", replaces, None)
+      for name, src, replaces in (
+          ("proto_mm_i32", "proto_int8_matmul", "tools/proto_int8_rate.py:55"),         # T9
+          ("proto_mm_f32", "proto_int8_matmul", "tools/proto_int8_rate.py:55"),         # T9
+          ("proto_w4_i32", "proto_int8_matmul", "tools/proto_prefill_blocks.py:46"),    # T10
+          ("proto_w4_and", "proto_int8_matmul", "tools/proto_w4_unpack.py:72"),         # T12
+          ("proto_w4_gemv_and", "proto_int8_matmul", "tools/proto_w4_gemv.py:65"),     # T11
+          ("proto_int8qk", "proto_int8qk_attention", "tools/proto_attn_int8qk.py:63"),  # T4
+          ("proto_ew_scale_bf16", "proto_ew_scale", "tools/proto_ew_rate.py:45"),       # T6
+          ("proto_ew_scale_fp32", "proto_ew_scale", "tools/proto_ew_rate.py:45"))),     # T6
 ]
 
 
@@ -174,8 +192,9 @@ def rel_l2(got, want) -> float:
 
 def _counter_modules():
     from physicedit_torch.kernels import flash_attention, fused_quant, quant_matmul
+    from physicedit_torch.tools import _proto_int8
 
-    return flash_attention, quant_matmul, fused_quant
+    return flash_attention, quant_matmul, fused_quant, _proto_int8
 
 
 def reset_counts() -> None:
@@ -1082,19 +1101,21 @@ def k1prime_phase(report: dict, gen, time_ms, compare) -> dict:
     return launches
 
 
-def ptxas_report(log_path) -> dict:
-    """Registers and spill bytes of each instantiation of
-    ``csrc/proto_fixedmax_attention.cu`` from nvcc's ``-Xptxas -v`` report,
-    keyed by its template arguments as ints (``Variant.template_args()``)."""
+def ptxas_report(log_path, kernel: str = "proto_kernel") -> dict:
+    """Registers and spill bytes of each instantiation of the kernel
+    function ``kernel`` (by default ``proto_kernel`` of
+    ``csrc/proto_fixedmax_attention.cu``) from nvcc's ``-Xptxas -v`` report,
+    keyed by its template arguments as ints (``Variant.template_args()``;
+    () for a function that is no template)."""
     import re
 
     report, args = {}, None
     for line in open(log_path):
         entry = re.search(r"Compiling entry function '(\S+)'", line)
         if entry:
-            tmpl = re.search(r"proto_kernelI((?:L[bi]\d+E)+)E", entry.group(1))
-            args = tuple(int(x) for x in re.findall(r"L[bi](\d+)E", tmpl.group(1))) \
-                if tmpl else None
+            name = re.search(rf"\d{kernel}(I((?:L[bi]\d+E)+)E|E)", entry.group(1))
+            args = None if name is None else tuple(
+                int(x) for x in re.findall(r"L[bi](\d+)E", name.group(2) or ""))
             continue
         if args is None:
             continue
@@ -1252,6 +1273,184 @@ def proto_phase(report: dict, gen, time_ms, compare) -> dict:
     for r in rows:
         emit({"phase": "proto_tool", **r})
     emit({"phase": "proto_tools", "launches": launches})
+    torch.cuda.empty_cache()
+    return launches
+
+
+def int8_phase(report: dict, gen, time_ms, compare) -> dict:
+    """The int8, W4 and elementwise-rate probes of ``tools/`` (T9, T10, T12,
+    T11, T4, T6; ``csrc/proto_int8_matmul.cu``,
+    ``csrc/proto_int8qk_attention.cu``, ``csrc/proto_ew_scale.cu``) at their
+    tools' full shapes: each instantiation against its plain version
+    (integer results exact; the W4 epilogues in fp32, bf16 and int8 and T6
+    in both dtypes bit for bit; T9 f32 bit for bit on integer-valued inputs,
+    whose fp32 sums are exact in any order, and on normal ones within one
+    bf16 step of its largest output, what a flipped rounding moves it; T4
+    under K1's gates), timed beside its plain version and the one PyTorch
+    call that computes the same function where there is one, with its
+    bound, registers and spills.  Then each
+    ported tool's ``main()`` once with the counts at 0: the probes' path.
+    Returns its launches."""
+    import torch
+    import torch.nn.functional as F
+
+    from physicedit_torch.kernels import _build
+    from physicedit_torch.tools import _bench, _proto_int8 as pi
+    from physicedit_torch.tools import proto_attn_int8qk as t4
+    from physicedit_torch.tools import proto_ew_rate as t6
+    from physicedit_torch.tools import proto_int8_rate as t9
+    from physicedit_torch.tools import proto_prefill_blocks as t10
+    from physicedit_torch.tools import proto_w4_gemv as t11
+    from physicedit_torch.tools import proto_w4_unpack as t12
+
+    dev = gen.device
+
+    def randint(lo, hi, *shape):
+        return torch.randint(lo, hi, shape, device=dev, generator=gen, dtype=torch.int8)
+
+    def randn(*shape):
+        return torch.randn(*shape, device=dev, generator=gen)
+
+    def record(name, row, ok, kernel, plain, library, bound_row, rate_bytes=0):
+        """Times, bound and registers into ``row``; emit it; fail if not ok.
+        ``graph_ms`` is the device time per call replayed from a CUDA graph;
+        ``rate_bytes`` over it, the row's GB/s."""
+        var = pi.VARIANTS[name]
+        row["ms"] = time_ms(kernel, 10)
+        row["graph_ms"] = _bench.graph_ms(kernel)
+        if rate_bytes:
+            row["gb_per_s_graph"] = rate_bytes / row["graph_ms"] / 1e6
+        row["plain_ms"] = time_ms(plain, 2)
+        row["library_ms"] = time_ms(library, 10) if library is not None else None
+        row.update(bound_row)
+        row.update(ptxas_report(f"{_build.library_path(var.source)}.log", var.kernel)
+                   .get(var.template_args, {}))
+        report[name] = row
+        report[f"{name}_err"] = [row["max_abs_err"]]
+        emit(row)
+        if not ok:
+            fail(f"probe {name} disagrees with its plain version")
+
+    def max_err(got, want):
+        return (got.double() - want.double()).abs().max().item()
+
+    # T9 at the DiT fc1 shape, int8 over the whole range, bf16 integer-valued and normal
+    m, k, n = t9.M, t9.K, t9.N
+    xi, wi = randint(-128, 128, m, k), randint(-128, 128, n, k)
+    got, want = t9.pallas_mm(xi, wi, "i32"), t9.pallas_mm_reference(xi, wi, "i32")
+    wit = wi.T
+    row = {"phase": "int8_probe", "case": "proto_mm_i32", "shape": [m, k, n],
+           "exact": bool(torch.equal(got, want)), "max_abs_err": max_err(got, want),
+           "int_mm_exact": bool(torch.equal(torch._int_mm(xi, wit), want))}
+    record("proto_mm_i32", row, row["exact"], lambda: t9.pallas_mm(xi, wi, "i32"),
+           lambda: t9.pallas_mm_reference(xi, wi, "i32"), lambda: torch._int_mm(xi, wit),
+           bound(2 * m * k * n, m * k + n * k + 4 * m * n, PEAK_INT8))
+    del xi, wi, wit, got, want
+    xb, wb = (randint(-15, 16, m, k).bfloat16(), randint(-15, 16, n, k).bfloat16())
+    integers_equal = bool(torch.equal(t9.pallas_mm(xb, wb, "f32"),
+                                      t9.pallas_mm_reference(xb, wb, "f32")))
+    xb, wb = (randn(m, k) * 0.1).bfloat16(), (randn(n, k) * 0.1).bfloat16()
+    got, want = t9.pallas_mm(xb, wb, "f32"), t9.pallas_mm_reference(xb, wb, "f32")
+    row = {"phase": "int8_probe", "case": "proto_mm_f32", "shape": [m, k, n],
+           "integer_inputs_equal": integers_equal, "max_abs_err": max_err(got, want),
+           "max_abs_ref": want.float().abs().max().item(), "rel_l2": rel_l2(got, want)}
+    # one bf16 step of the largest output: 2^(e - 8) for max |ref| = f 2^e, f in [0.5, 1)
+    row["limit_bf16_step_of_max_ref"] = 2.0 ** (math.frexp(row["max_abs_ref"])[1] - 8)
+    record("proto_mm_f32", row,
+           integers_equal and row["max_abs_err"] <= row["limit_bf16_step_of_max_ref"],
+           lambda: t9.pallas_mm(xb, wb, "f32"), lambda: t9.pallas_mm_reference(xb, wb, "f32"),
+           lambda: xb @ wb.T,
+           bound(2 * m * k * n, 2 * (m * k + n * k + m * n), PEAK_BF16))
+    del xb, wb, got, want
+
+    # T10 at the VL prefill gate+up, T12 at the DiT fc1: any byte is a valid
+    # packing; a bias row of normal x 100 makes the int8 output saturate
+    for name, fn, plain, (m, k, n) in (
+            ("proto_w4_i32", t10.i32_matmul, t10.i32_matmul_reference, (1536, 3584, 37888)),
+            ("proto_w4_and", t12.w4a8_i8_matmul, t12.w4a8_i8_matmul_reference,
+             (16384, 3072, 12288))):
+        xq, w4 = randint(-127, 128, m, k), randint(-128, 128, n, k // 2)
+        xs = torch.rand(m, 1, device=dev, generator=gen) * 1e-2 + 1e-3
+        wsb = torch.stack([torch.rand(n, device=dev, generator=gen) * 1e-2 + 1e-3,
+                           randn(n) * 100])
+        outs = (torch.float32, torch.bfloat16) + ((torch.int8,) if name == "proto_w4_and" else ())
+        row = {"phase": "int8_probe", "case": name, "shape": [m, k, n]}
+        for dt in outs:
+            out, acc = fn(xq, w4, xs, wsb, dt, return_acc=True)
+            ref, acc_ref = plain(xq, w4, xs, wsb, dt, return_acc=True)
+            key = str(dt).removeprefix("torch.")
+            row[f"acc_exact_{key}"] = bool(torch.equal(acc, acc_ref))
+            row[f"out_equal_{key}"] = bool(torch.equal(out, ref))
+            row.setdefault("max_abs_err", max_err(out, ref))
+        if name == "proto_w4_and":
+            row["int8_saturated_share"] = (ref.abs() >= 127).float().mean().item()
+        del out, acc, ref, acc_ref
+        ok = all(v for key, v in row.items() if key.startswith(("acc_exact", "out_equal")))
+        out_bytes = 2 * m * n     # timed with bf16 out, as K3 writes
+        record(name, row, ok, lambda: fn(xq, w4, xs, wsb, torch.bfloat16),
+               lambda: plain(xq, w4, xs, wsb, torch.bfloat16), None,
+               bound(2 * m * k * n, m * k + n * k // 2 + 4 * m + 8 * n + out_bytes, PEAK_INT8))
+        del xq, w4, xs, wsb
+
+    # T11 at the VL decode gate+up, weights rotated past the L2
+    m, k, n = t11.M_DECODE, 3584, 37888
+    xq, w4 = randint(-127, 128, m, k), randint(-128, 128, n, k // 2)
+    got, want = t11.gemv_and_only(xq, w4), t11.gemv_and_only_reference(xq, w4)
+    rotated = pi.rotated(lambda w: t11.gemv_and_only(xq, w), pi.l2_copies(w4))
+    row = {"phase": "int8_probe", "case": "proto_w4_gemv_and", "shape": [m, k, n],
+           "exact": bool(torch.equal(got, want)), "max_abs_err": max_err(got, want)}
+    record("proto_w4_gemv_and", row, row["exact"], rotated,
+           lambda: t11.gemv_and_only_reference(xq, w4), None,
+           bound(2 * m * k * n, n * k // 2 + m * k + 4 * m + 4 * m * n, PEAK_INT8),
+           rate_bytes=n * k // 2)
+    del xq, w4, got, want, rotated
+
+    # T4 at the DiT's joint attention: RMS-normed q and k, a normal key bias
+    # with batch 1's last 64 keys blocked
+    b, n_h, s, d = 2, 24, 8448, 128
+    q, k = (_rms(randn(b, n_h, s, d)).bfloat16() for _ in range(2))
+    v = randn(b, n_h, s, d).bfloat16()
+    bias = randn(b, 1, s) * 0.5
+    bias[1, :, -64:] = -1e30
+    out, ref = t4.fixedmax_int8qk(q, k, v, bias), t4.fixedmax_int8qk_reference(q, k, v, bias)
+    torch.cuda.synchronize()
+    row = _attention_row("int8_probe", "proto_int8qk", [b, n_h, s, s], out, ref, compare)
+    row["sdpa_ms_context"] = time_ms(lambda: F.scaled_dot_product_attention(q, k, v), 10)
+    operands = t4._kernel_operands(q, k, v, bias)
+    row["kernel_alone_graph_ms"] = _bench.graph_ms(lambda: pi.launch_int8qk(*operands))
+    del operands
+    qk_ops = pv_ops = 2 * b * n_h * s * s * d
+    # the two products at their own peaks: operations / peak in seconds (peak 1)
+    record("proto_int8qk", row, _attention_ok(row), lambda: t4.fixedmax_int8qk(q, k, v, bias),
+           lambda: t4.fixedmax_int8qk_reference(q, k, v, bias), None,
+           bound(qk_ops / PEAK_INT8 + pv_ops / PEAK_BF16, 4 * 2 * q.numel() + 4 * b * s, 1.0))
+    del q, k, v, out, ref
+
+    # T6 at the DiT's [2 x 8448, 9216] QKV activation
+    for dtype, name in ((torch.bfloat16, "proto_ew_scale_bf16"),
+                        (torch.float32, "proto_ew_scale_fp32")):
+        x = (randn(16896, 9216) * 0.1).to(dtype)
+        c, d = (t.to(dev) for t in t6.scale_constants(dtype))
+        got, want = t6.pallas_scale(x), t6.pallas_scale_reference(x)
+        one_call = torch.addcmul(d, x, c)
+        row = {"phase": "int8_probe", "case": name, "shape": list(x.shape),
+               "equal": bool(torch.equal(got, want)), "max_abs_err": max_err(got, want),
+               "addcmul_equal": bool(torch.equal(one_call, want))}
+        nbytes = 2 * x.numel() * x.element_size()
+        record(name, row, row["equal"], lambda: t6.pallas_scale(x),
+               lambda: t6.pallas_scale_reference(x), lambda: torch.addcmul(d, x, c),
+               bound(2 * x.numel(), nbytes, PEAK_FP32), rate_bytes=nbytes)
+        del x, got, want, one_call
+    torch.cuda.empty_cache()
+
+    # the probes' path: each ported tool, as a user runs it
+    reset_counts()
+    rows = [r for tool in (t9, t10, t12, t11, t4, t6) for r in tool.main()]
+    torch.cuda.synchronize()
+    launches = {name: counts()[name] for name in pi.VARIANTS}
+    for r in rows:
+        emit({"phase": "int8_tool", **r})
+    emit({"phase": "int8_tools", "launches": launches})
     torch.cuda.empty_cache()
     return launches
 
@@ -1920,15 +2119,18 @@ def main() -> int:
     # 13. the attention prototypes, and their tools
     proto_launches = proto_phase(report, gen, time_ms, compare)
 
+    # 14. the int8, W4 and elementwise-rate probes, and their tools
+    int8_launches = int8_phase(report, gen, time_ms, compare)
+
     # each kernel's launches on its own path: K1 and K2 in the bf16 edits,
     # K3-K6 in the W4 edit, K8 and K9 in the training lanes, K7 in the
-    # full-CFG EliGen edit, the prototypes in their tools
+    # full-CFG EliGen edit, the prototypes and the probes in their tools
     path_launches = {**w4_launches,
                      **{k: main_launches[k] for k in ("fixedmax_attention",
                                                       "gqa_causal_attention")},
                      **{k: train_launches[k] for k in ("fixedmax_attention_bwd", "w4_bwd_dx")},
                      "fixedmax_attention_bias": eligen_launches["fixedmax_attention_bias"],
-                     **attention_launches, **proto_launches}
+                     **attention_launches, **proto_launches, **int8_launches}
     if min(path_launches[name] for name, *_ in KERNEL_ROWS) == 0:
         fail(f"a kernel was not launched on its path: {path_launches}")
     kernels = []

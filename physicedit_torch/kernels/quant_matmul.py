@@ -113,13 +113,18 @@ def _dequant_w4(w4: torch.Tensor, w_scale: torch.Tensor) -> torch.Tensor:
 # K3
 # ---------------------------------------------------------------------------
 
-def _exact_acc(xq: torch.Tensor, w4: torch.Tensor) -> torch.Tensor:
-    """The int32 accumulator ``xq . unpack(w4)^T``, exactly: int64 on the CPU,
-    float64 on the card (|acc| < K * 127 * 8 is far inside 2^53)."""
-    w8 = _unpack_w4_int8(w4)
+def _exact_mm(xq: torch.Tensor, w8: torch.Tensor) -> torch.Tensor:
+    """The int32 product ``xq . w8^T`` of int8 ``[M, K]`` and ``[N, K]``,
+    exactly: int64 on the CPU, float64 on the card (|acc| < K * 128 * 128 is
+    far inside 2^53)."""
     if xq.is_cuda:
         return (xq.double() @ w8.double().T).to(torch.int32)
     return (xq.long() @ w8.long().T).to(torch.int32)
+
+
+def _exact_acc(xq: torch.Tensor, w4: torch.Tensor) -> torch.Tensor:
+    """The int32 accumulator ``xq . unpack(w4)^T``, exactly (:func:`_exact_mm`)."""
+    return _exact_mm(xq, _unpack_w4_int8(w4))
 
 
 def _epilogue(acc, xs, w_scale, bias, out_dtype):

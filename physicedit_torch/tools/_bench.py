@@ -8,7 +8,9 @@ launch issued runs, and an event recorded on the stream after it completes
 only when the launch has.  So the port times each call between two CUDA
 events on the current stream, after a warm-up, and reports the median of
 ``iters`` calls: no chain, no host clock, and a stray slow call does not
-move the result.
+move the result.  A call of a few microseconds is bounded by the host's
+launch cost there, so each row also replays the calls from a CUDA graph
+(:func:`graph_ms`), the device's own time per call.
 """
 
 from __future__ import annotations
@@ -53,10 +55,47 @@ def attention_flops(b: int, n: int, sq: int, sk: int, d: int) -> int:
     return 4 * b * n * sq * sk * d
 
 
-def timing_row(tool: str, label: str, fn, flops: int, iters: int = 10) -> dict:
-    """Time ``fn`` (:func:`cuda_time_ms`), print its row as the JAX tools do,
-    in ms and TFLOP/s, and return it."""
-    ms = cuda_time_ms(fn, iters)
-    row = {"tool": tool, "variant": label, "ms": ms, "tflops": flops / ms / 1e9}
-    log(f"{label}: {ms:8.3f} ms ({row['tflops']:6.1f} TFLOP/s)")
+def graph_ms(fn, calls: int = 10) -> float:
+    """The device time per call of ``fn`` in ms: ``calls`` calls captured in
+    one CUDA graph and replayed between two CUDA events, so no host launch
+    cost sits between the kernels (it bounds a call of a few microseconds
+    in a CUDA-event time).  Each captured call keeps what ``fn`` reads at
+    capture, so a rotation over operand copies stays a rotation."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / calls
+
+
+def timing_row(tool: str, label: str, fn, ops: float = 0, nbytes: float = 0,
+               iters: int = 10) -> dict:
+    """Time ``fn``: the CUDA-event median of ``iters`` calls
+    (:func:`cuda_time_ms`) and the device time per call replayed from a CUDA
+    graph (:func:`graph_ms`); print its row as the JAX tools do, with the
+    rates from the graph time: TOP/s for ``ops`` (an attention's FLOP
+    count, an int8 GEMM's operations), GB/s for ``nbytes``; and return it."""
+    row = {"tool": tool, "variant": label, "ms": cuda_time_ms(fn, iters),
+           "graph_ms": graph_ms(fn, iters)}
+    text = f"{label}: {row['ms']:8.3f} ms (graph {row['graph_ms']:.4f} ms)"
+    if ops:
+        row["tops"] = ops / row["graph_ms"] / 1e9
+        text += f" {row['tops']:7.1f} TOP/s"
+    if nbytes:
+        row["gb_per_s"] = nbytes / row["graph_ms"] / 1e6
+        text += f" {row['gb_per_s']:7.0f} GB/s"
+    log(text)
     return row

@@ -1,5 +1,5 @@
-"""Port kernels K1-K10b and the attention prototypes on an NVIDIA GPU
-against their plain versions.
+"""Port kernels K1-K10b, the attention prototypes and the int8, W4 and
+elementwise-rate probes on an NVIDIA GPU against their plain versions.
 
 Every test here needs a card and nvcc and skips without one.  The file
 imports no JAX, so it also runs where JAX is not installed:
@@ -13,9 +13,17 @@ import torch
 from physicedit_torch.kernels import flash_attention as tfa
 from physicedit_torch.kernels import fused_quant as tfq
 from physicedit_torch.kernels import quant_matmul as tqm
+from physicedit_torch.tools import _bench as tbench
 from physicedit_torch.tools import _proto_attention as tpa
+from physicedit_torch.tools import _proto_int8 as tpi
 from physicedit_torch.tools import proto_attn_fast as t_t23
+from physicedit_torch.tools import proto_attn_int8qk as t_t4
+from physicedit_torch.tools import proto_ew_rate as t_t6
 from physicedit_torch.tools import proto_fixedmax as t_t7
+from physicedit_torch.tools import proto_int8_rate as t_t9
+from physicedit_torch.tools import proto_prefill_blocks as t_t10
+from physicedit_torch.tools import proto_w4_gemv as t_t11
+from physicedit_torch.tools import proto_w4_unpack as t_t12
 
 
 @pytest.fixture
@@ -484,3 +492,123 @@ def test_proto_attention_raises_on_unsupported_inputs(cuda):
         tpa.run("proto_fixedmax", z, z, z, None, 64)
     with pytest.raises(RuntimeError, match="forward only"):
         tpa.run("proto_noexp", z.clone().requires_grad_(True), z, z)
+
+
+def _w4_probe_operands(g, m, k, n):
+    """int8 x over [-127, 127], every byte a packed weight, row scales, and
+    wsb with a bias row of normal x 100 (int8 outputs saturate)."""
+    dev = g.device
+    xq = torch.randint(-127, 128, (m, k), device=dev, generator=g, dtype=torch.int8)
+    w4 = torch.randint(-128, 128, (n, k // 2), device=dev, generator=g, dtype=torch.int8)
+    xs = torch.rand(m, 1, device=dev, generator=g) * 1e-2 + 1e-3
+    wsb = torch.stack([torch.rand(n, device=dev, generator=g) * 1e-2 + 1e-3,
+                       torch.randn(n, device=dev, generator=g) * 100])
+    return xq, w4, xs, wsb
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [256, 300])
+def test_probe_int8_mm_matches_plain_on_cuda(cuda, m):
+    """T9: int8 exactly (the whole int8 range); bf16 bit for bit on
+    integer-valued inputs (fp32 sums exact in any order)."""
+    g = torch.Generator(cuda).manual_seed(70)
+    x = torch.randint(-128, 128, (m, 384), device=cuda, generator=g, dtype=torch.int8)
+    w = torch.randint(-128, 128, (256, 384), device=cuda, generator=g, dtype=torch.int8)
+    before = dict(tpi.LAUNCHES)
+    assert torch.equal(t_t9.pallas_mm(x, w, "i32"), t_t9.pallas_mm_reference(x, w, "i32"))
+    xb, wb = (torch.randint(-15, 16, t.shape, device=cuda, generator=g).bfloat16()
+              for t in (x, w))
+    assert torch.equal(t_t9.pallas_mm(xb, wb, "f32"), t_t9.pallas_mm_reference(xb, wb, "f32"))
+    assert tpi.LAUNCHES["proto_mm_i32"] == before["proto_mm_i32"] + 1
+    assert tpi.LAUNCHES["proto_mm_f32"] == before["proto_mm_f32"] + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form,out_dtype", [("t10", torch.float32), ("t10", torch.bfloat16),
+                                            ("t12", torch.float32), ("t12", torch.bfloat16),
+                                            ("t12", torch.int8)])
+def test_probe_w4_tiled_matches_plain_on_cuda(cuda, form, out_dtype):
+    """T10 and T12 at a ragged M: the int32 accumulators exactly, the
+    epilogue bit for bit in each output dtype (T10 writes fp32 and bf16)."""
+    fn, plain = ((t_t10.i32_matmul, t_t10.i32_matmul_reference) if form == "t10"
+                 else (t_t12.w4a8_i8_matmul, t_t12.w4a8_i8_matmul_reference))
+    g = torch.Generator(cuda).manual_seed(71)
+    xq, w4, xs, wsb = _w4_probe_operands(g, 300, 1024, 384)
+    out, acc = fn(xq, w4, xs, wsb, out_dtype, return_acc=True)
+    ref, acc_ref = plain(xq, w4, xs, wsb, out_dtype, return_acc=True)
+    assert torch.equal(acc, acc_ref)
+    assert torch.equal(out, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [8, 3, 1])
+def test_probe_w4_gemv_matches_plain_on_cuda(cuda, m):
+    g = torch.Generator(cuda).manual_seed(72)
+    xq, w4, _, _ = _w4_probe_operands(g, m, 3584, 1000)
+    assert torch.equal(t_t11.gemv_and_only(xq, w4), t_t11.gemv_and_only_reference(xq, w4))
+
+
+@pytest.mark.cuda
+def test_probe_int8qk_attention_matches_plain_on_cuda(cuda):
+    """T4 under K1's gates (max |err| 4e-3, rel-L2 5e-3), with a normal key
+    bias and one batch's last 64 keys blocked."""
+    g = torch.Generator(cuda).manual_seed(73)
+    q, k = (_rms(torch.randn(2, 3, 320, 128, device=cuda, generator=g)).bfloat16()
+            for _ in range(2))
+    v = torch.randn(2, 3, 320, 128, device=cuda, generator=g).bfloat16()
+    bias = torch.randn(2, 1, 320, device=cuda, generator=g) * 0.5
+    bias[1, :, -64:] = -1e30
+    out = t_t4.fixedmax_int8qk(q, k, v, bias)
+    ref = t_t4.fixedmax_int8qk_reference(q, k, v, bias)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=0, atol=4e-3)
+    assert _rel_l2(out, ref) <= K7_REL_L2
+    with pytest.raises(ValueError, match="64-row tile"):
+        t_t4.fixedmax_int8qk(q[:, :, :100], k, v, bias)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("n", [4096 * 1024, 1000003])
+def test_probe_ew_scale_bit_for_bit_on_cuda(cuda, dtype, n):
+    """T6 over a whole number of 16-byte vectors and over a ragged tail."""
+    g = torch.Generator(cuda).manual_seed(74)
+    x = (torch.randn(n, device=cuda, generator=g) * 3).to(dtype)
+    assert torch.equal(t_t6.pallas_scale(x), t_t6.pallas_scale_reference(x))
+
+
+@pytest.mark.cuda
+def test_probe_wrappers_raise_on_unsupported_inputs(cuda):
+    x = torch.zeros(16, 256, device=cuda, dtype=torch.int8)
+    with pytest.raises(ValueError, match="N % 128"):
+        t_t9.pallas_mm(x, torch.zeros(100, 256, device=cuda, dtype=torch.int8), "i32")
+    with pytest.raises(ValueError, match="int8"):
+        t_t9.pallas_mm(x.float(), torch.zeros(128, 256, device=cuda), "i32")
+    with pytest.raises(ValueError, match="M <= 8"):
+        t_t11.gemv_and_only(torch.zeros(9, 256, device=cuda, dtype=torch.int8),
+                            torch.zeros(128, 128, device=cuda, dtype=torch.int8))
+    with pytest.raises(ValueError, match="bf16 or fp32"):
+        t_t6.pallas_scale(torch.zeros(64, device=cuda, dtype=torch.float16))
+
+
+@pytest.mark.cuda
+def test_probe_l2_rotation_on_cuda(cuda):
+    """The copies lie on the card, each in its own storage, and fill twice
+    the 50 MB L2; the tools' timing rows take the next copy at each call,
+    also inside the CUDA graph that ``graph_ms`` captures."""
+    w = torch.zeros(10 << 20, dtype=torch.int8, device=cuda)
+    copies = tpi.l2_copies(w)
+    assert len(copies) == 10 and all(c.is_cuda for c in copies)
+    assert len({c.data_ptr() for c in copies}) == 10
+    seen = []
+
+    def gemv(w):
+        seen.append(w)
+        return t_t11.gemv_and_only(x, w[: 128 * 512].view(128, 512))
+
+    x = torch.zeros(8, 1024, device=cuda, dtype=torch.int8)
+    run = tpi.rotated(gemv, copies)
+    outs = [run() for _ in range(10)]
+    assert len({t.data_ptr() for t in seen}) == 10
+    assert len({o.data_ptr() for o in outs}) == 10
+    row = tbench.timing_row("test", "gemv rotating", run, nbytes=128 * 512)
+    assert row["ms"] > 0 and row["graph_ms"] > 0 and row["gb_per_s"] > 0

@@ -298,7 +298,12 @@ def test_port_sources_import_no_jax():
     rel = {os.path.relpath(f, REPO) for f in files}
     assert {"physicedit_torch/io/safetensors_io.py", "physicedit_torch/io/convert.py",
             "physicedit_torch/io/model_config.py", "physicedit_torch/cli/validate.py",
-            "physicedit_torch/tools/make_synthetic_checkpoint.py"} <= rel
+            "physicedit_torch/tools/make_synthetic_checkpoint.py",
+            "physicedit_torch/tools/_proto_int8.py", "physicedit_torch/tools/proto_int8_rate.py",
+            "physicedit_torch/tools/proto_prefill_blocks.py",
+            "physicedit_torch/tools/proto_w4_unpack.py", "physicedit_torch/tools/proto_w4_gemv.py",
+            "physicedit_torch/tools/proto_attn_int8qk.py",
+            "physicedit_torch/tools/proto_ew_rate.py"} <= rel
     bad = []
     for path in files:
         for node in ast.walk(ast.parse(open(path).read(), path)):

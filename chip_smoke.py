@@ -9,8 +9,13 @@ Phases, each printed as one JSON line, any failure exits non-zero:
      all at once;
   3. K1 (DiT fixed-max attention) and K7 (the same with a 2-D entity bias)
      against their plain versions at the main path's shapes, before any
-     weights are allocated;
-  4. K2 (VL causal GQA attention) against its plain version;
+     weights are allocated; K1 also with a key-mask hole across its 128-key
+     stages and at a ragged 8513, timed (CUDA events and a CUDA graph)
+     beside its ping-pong off, its clamp on, the mma.sync loop it replaced
+     (T2 proto_nobias) and SDPA, with its ptxas report (no spills);
+  4. K2 (VL causal GQA attention) against its plain version, also at
+     S = 1500 with left pads across query row 128, timed from a CUDA graph
+     beside SDPA's graph;
   5. K3 (W4A8 matmul) against its exact plain version at the W4 lane's
      shapes, and at the DiT image-stream shapes beside an unpack to int8
      and torch._int_mm (the JAX package's route at M >= 8192);
@@ -183,6 +188,18 @@ def bound(ops: float, nbytes: float, peak: float) -> dict:
     t_ops, t_bytes = ops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
     return {"bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def stage_varying_mask(b: int, s: int, device):
+    """A [b, s] bool key mask that changes from one 128-key stage of the
+    Hopper mainloop to the next: stage j of batch row r loses its 32-key
+    word (j + r) % 4, and every third stage is whole, so the two stages that
+    share a slot of the 2-stage ring never carry the same liveness word."""
+    import torch
+
+    i = torch.arange(s, device=device)
+    j = i // 128
+    return torch.stack([~((j % 3 != 2) & ((i % 128) // 32 == (j + r) % 4)) for r in range(b)])
 
 
 def rel_l2(got, want) -> float:
@@ -1129,6 +1146,22 @@ def ptxas_report(log_path, kernel: str = "proto_kernel") -> dict:
     return report
 
 
+def hopper_ptxas(source: str, kernel: str, switches: tuple) -> dict:
+    """Registers, spills and dynamic shared memory of each instantiation of
+    a Hopper-mainloop kernel (``csrc/<source>.cu``); fails on a spill.
+    Instantiations are keyed by their template switches."""
+    from physicedit_torch.kernels import _build
+
+    report = ptxas_report(f"{_build.library_path(source)}.log", kernel)
+    smem = getattr(_build.load(source), f"{source}_smem_bytes")()
+    out = {",".join(f"{k}={v}" for k, v in zip(switches, args)) or kernel:
+           {**entry, "dynamic_smem_bytes": smem} for args, entry in sorted(report.items())}
+    if not out or any(e.get("spill_store_bytes", 0) or e.get("spill_load_bytes", 0)
+                      for e in out.values()):
+        fail(f"{kernel}: ptxas reports spills or no entry: {out}")
+    return out
+
+
 def proto_phase(report: dict, gen, time_ms, compare) -> dict:
     """The bf16 attention prototypes of ``tools/`` (T1 v1-v4, T2, T3, T5,
     T7, T8) at the DiT's joint attention, B = 2, N = 24, S = 8448, RMS-normed
@@ -1740,6 +1773,7 @@ def main() -> int:
 
     from physicedit_torch.kernels import _build
     from physicedit_torch.kernels import flash_attention as fa
+    from physicedit_torch.tools import _bench, _proto_attention
 
     # 1. the card
     card = subprocess.run(
@@ -1795,19 +1829,30 @@ def main() -> int:
     report = {}
 
     # 3. K1 at the main path's shapes
-    k1_cases = [  # name, B, N, S_q, S_k, clamp, text rows masked in row 1
+    k1_cases = [  # name, B, N, S_q, S_k, clamp, keys masked in row 1 (or "per_stage")
         ("joint_8448_noclamp", 2, 24, 8448, 8448, False, (60, 256)),
         ("joint_8448_clamp", 2, 24, 8448, 8448, True, (60, 256)),
         ("slim_4096x8448", 2, 24, 4096, 8448, False, (60, 256)),
         ("ragged_2303", 2, 24, 2303, 2303, True, (2000, 2303)),
+        # the Hopper mainloop's 128-key stages: a hole across stage edges, a
+        # ragged last stage
+        ("hole_across_tiles_8448", 2, 24, 8448, 8448, False, (1000, 1300)),
+        ("ragged_8513_clamp", 2, 24, 8513, 8513, True, (60, 256)),
+        # a mask that changes from stage to stage: no tile may be masked with
+        # the liveness word of the tile that next takes its ring slot
+        ("mask_changes_every_stage_8448", 2, 24, 8448, 8448, False, "per_stage"),
     ]
-    for name, b, n, sq, sk, clamp, (m0, m1) in k1_cases:
+    k1_ptxas = hopper_ptxas("fixedmax_attention", "fixedmax_kernel", ("clamp",))
+    for name, b, n, sq, sk, clamp, dead in k1_cases:
         scale = CLAMP_QK_SCALE if clamp else 1.0
         q = (rms(randn(b, n, sq, 128)) * scale).bfloat16()
         k = (rms(randn(b, n, sk, 128)) * scale).bfloat16()
         v = randn(b, n, sk, 128).bfloat16()
-        mask = torch.ones(b, sk, dtype=torch.bool, device=dev)
-        mask[1, m0:m1] = False
+        if dead == "per_stage":
+            mask = stage_varying_mask(b, sk, dev)
+        else:
+            mask = torch.ones(b, sk, dtype=torch.bool, device=dev)
+            mask[1, dead[0]:dead[1]] = False
         # share of logits (batch 0, head 0) the clamp cuts: > 0 when it binds
         logits = fa._prescale(q[0, 0]).float() @ k[0, 0].float().T
         clamped = (logits > fa.CLAMP).float().mean().item()
@@ -1826,7 +1871,19 @@ def main() -> int:
                "n_out_of_tol": n_bad, "l_max_rel_err": l_rel, "atol": ATOL, "rtol": RTOL,
                "max_abs_limit": ATTN_MAX_ABS, "rel_l2_limit": ATTN_REL_L2}
         if name == "joint_8448_noclamp":
+            qs = fa._prescale(q).contiguous()
             row["ms"] = time_ms(lambda: fa.fixedmax_attention(q, k, v, mask, clamp), 10)
+            row["graph_ms"] = _bench.graph_ms(lambda: fa.fixedmax_attention(q, k, v, mask,
+                                                                            clamp))
+            # the kernel alone on the prescaled q', and with the clamp on;
+            # the mma.sync loop that K1 ran before its Hopper mainloop (T2
+            # proto_nobias, prescaled, no mask) on the same inputs
+            row["kernel_ms"] = time_ms(
+                lambda: fa._fixedmax_prescaled(qs, k, v, mask, clamp, False), 10)
+            row["clamp_on_ms"] = time_ms(
+                lambda: fa._fixedmax_prescaled(qs, k, v, mask, True, False), 10)
+            row["old_loop_ms"] = time_ms(lambda: _proto_attention.run("proto_nobias", qs, k, v),
+                                         10)
             row["plain_ms"] = time_ms(
                 lambda: fa.fixedmax_attention_reference(q, k, v, mask, clamp), 3)
             mask4 = mask[:, None, None, :]
@@ -1836,6 +1893,9 @@ def main() -> int:
             row.update(bound(4 * b * n * sq * sk * 128,
                              2 * (q.numel() + k.numel() + v.numel() + out.numel()) + b * sk,
                              PEAK_BF16))
+            row["bound_share"] = row["bound_ms"] / row["ms"]
+            row["ptxas"] = k1_ptxas
+            del qs
             report["fixedmax_attention"] = dict(row)
         report.setdefault("fixedmax_attention_err", []).append(max_err)
         emit(row)
@@ -1860,8 +1920,10 @@ def main() -> int:
         "fixedmax_bnsd": k1prime_phase(report, gen, time_ms, compare)["fixedmax_bnsd"]}
 
     # 4. K2 at the reasoner prefill / prompt-encode shapes
+    k2_ptxas = hopper_ptxas("gqa_causal_attention", "gqa_causal_kernel", ())
     for name, b, s, pads in [("prefill_1536", 1, 1536, (0,)),
-                             ("left_padded_2x1536", 2, 1536, (300, 17))]:
+                             ("left_padded_2x1536", 2, 1536, (300, 17)),
+                             ("left_padded_2x1500", 2, 1500, (300, 130))]:
         q = randn(b, s, 28, 128).bfloat16()
         k = randn(b, s, 4, 128).bfloat16()
         v = randn(b, s, 4, 128).bfloat16()
@@ -1873,15 +1935,27 @@ def main() -> int:
         torch.cuda.synchronize()
         live = mask[:, :, None].expand_as(out)
         max_err, mean_err, n_bad = compare(out, ref, live)
+        pad_rows_zero = bool((out[~live] == 0).all())
         row = {"phase": "k2", "case": name, "shape": [b, s, 28, 4], "left_pad": list(pads),
                "max_abs_err_live_rows": max_err, "mean_abs_err_live_rows": mean_err,
-               "n_out_of_tol": n_bad, "atol": ATOL, "rtol": RTOL}
+               "rel_l2_live_rows": rel_l2(out[live], ref[live]), "n_out_of_tol": n_bad,
+               "pad_rows_zero": pad_rows_zero, "atol": ATOL, "rtol": RTOL,
+               "rel_l2_limit": ATTN_REL_L2}
         if name == "prefill_1536":
+            # at ~0.05 ms a CUDA-event time of back-to-back calls may be the
+            # host's; the graph times replay the calls from a CUDA graph
             row["ms"] = time_ms(lambda: fa.gqa_causal_attention(q, k, v, mask), 20)
+            row["graph_ms"] = _bench.graph_ms(lambda: fa.gqa_causal_attention(q, k, v, mask), 20)
             row["plain_ms"] = time_ms(lambda: fa.gqa_causal_attention_reference(q, k, v, mask), 5)
             qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-            row["library_ms"] = time_ms(lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True, enable_gqa=True), 20)
+
+            def sdpa_causal():
+                return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                      enable_gqa=True)
+
+            row["library_ms"] = time_ms(sdpa_causal, 20)
+            row["library_graph_ms"] = _bench.graph_ms(sdpa_causal, 20)
+            row["ptxas"] = k2_ptxas
             row["tflops"] = 2 * b * 28 * s * s * 128 / row["ms"] / 1e9
             # causal: each query row reads the keys up to its own position
             row.update(bound(4 * b * 28 * (s * (s + 1) // 2) * 128,
@@ -1891,8 +1965,10 @@ def main() -> int:
             report["gqa_causal_attention"] = dict(row)
         report.setdefault("gqa_causal_attention_err", []).append(max_err)
         emit(row)
-        if n_bad:
+        if n_bad or row["rel_l2_live_rows"] > ATTN_REL_L2:
             fail(f"K2 {name} disagrees with its plain version on live rows")
+        if not pad_rows_zero:
+            fail(f"K2 {name}: a left-pad row (no live key) is not exactly 0")
     del q, k, v, out, ref
     torch.cuda.empty_cache()
 

@@ -7,140 +7,165 @@
 // h / (N / KV); K/V are never repeated.  Causality is by absolute position
 // and a key padding mask excludes padded keys, so left- and right-padded
 // batches both work.  Qwen has no q/k norm, so the logits are unbounded and
-// the softmax keeps a running max (online softmax, in exp2 units).
-// A query row with no live key (a left-pad row) has l == 0 and comes out as
-// exactly 0; the caller discards such rows.
+// the softmax keeps a running max (online softmax, in exp2 units, with
+// log2(e) / sqrt(d) folded into the fp32 scores).  Masked positions get
+// p = 0 explicitly: with the running max still at -1e30, exp2(s - m) would
+// weigh them by 1.  A query row with no live key (a left-pad row) has l == 0
+// and comes out as exactly 0; the caller discards such rows.
 //
 // What bounds it on an H100: the tensor cores once S is a few hundred
 // (2 * 2 * B*N*S^2*D / 2 FLOP under the causal mask against
-// (B*S*(N + 2*KV)*D) * 2 bytes).  Design: one block of 4 warps per (64-row q
-// tile, q head, batch), reading the inputs in their [B, S, heads, D] layout
-// with a row pitch (no transposes); K/V tiles of 64 keys staged in shared
-// memory; bf16 mma.sync with fp32 accumulators; P kept in registers between
-// the two products; tiles wholly above the causal diagonal are skipped.  Not
-// done yet: sharing one K/V tile across the 7 q heads of a group, TMA,
-// wgmma, a multi-stage copy pipeline.
-#include "mma_bf16.cuh"
+// (B*S*(N + 2*KV)*D) * 2 bytes).  Design: the Hopper mainloop of
+// hopper_attention.cuh (TMA, wgmma, a producer and two ping-ponged consumer
+// warpgroups) over 4-D tensor maps (D, heads, S, B) that read the inputs in
+// their [B, S, heads, D] layout (no transposes).  Tiles wholly above the
+// diagonal are never loaded; only the diagonal tile pays for the per-element
+// causal test, and a tile below it whose keys are all live skips the
+// liveness test; p = exp2(s * log2(e)/sqrt(d) - m) is one FFMA and one
+// ex2.approx.ftz (a weight below 2^-126 of the row max flushes to 0).  The
+// grid issues the heaviest q tiles first (q tile index = the slowest grid
+// dimension, reversed) so the triangle leaves no SMs idle in the last wave.
+// The q heads of a group share their K/V head through L2 (3 MB of K/V at
+// S = 1536).  Not done yet: sharing one K/V tile across the q heads of a
+// group in shared memory.
+#include "hopper_attention.cuh"
 
 using namespace physicedit;
+using namespace physicedit::hopper;
 
 namespace {
 
-constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kMasked = -1e30f;
+constexpr float kScale = 1.4426950408889634f * 0.08838834764831845f;  // log2(e) / sqrt(128)
 
-__global__ void __launch_bounds__(kThreads)
-gqa_causal_kernel(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
-                  const uint16_t* __restrict__ v, const uint8_t* __restrict__ key_mask,
-                  uint16_t* __restrict__ out, int seq, int n_heads, int n_kv) {
-  __shared__ __align__(16) uint16_t ks[kBlockK * kRowStride];
-  __shared__ __align__(16) uint16_t vs[kBlockK * kRowStride];
-  __shared__ uint8_t live[kBlockK];
+struct GqaCausalPolicy {
+  const CUtensorMap* qmap;
+  const CUtensorMap* kmap;
+  const CUtensorMap* vmap;
+  const uint8_t* mask;    // this batch row's [S] (1 = live), or null
+  uint16_t* out;          // [B, S, N, 128]
+  int q0, h, kvh, b, seq, n_heads, n_tiles;
+  float m0, m1, l0, l1;   // running max (exp2 units) and row-sum partials of the thread's rows
 
-  const int q0 = blockIdx.x * kBlockQ;
-  const int h = blockIdx.y;
-  const long b = blockIdx.z;
-  const int kvh = h / (n_heads / n_kv);
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int wr = warp * 16;
-  const long q_pitch = (long)n_heads * kHeadDim;
-  const long kv_pitch = (long)n_kv * kHeadDim;
-  const uint16_t* qb = q + (b * seq * n_heads + h) * kHeadDim;
-
-  load_tile(ks, qb, q_pitch, q0, seq);
-  __syncthreads();
-  uint32_t qa[8][4];
-  load_q_fragments(qa, ks, wr, g, t);
-  __syncthreads();
-
-  float acc[16][4];
-#pragma unroll
-  for (int jd = 0; jd < 16; ++jd) acc[jd][0] = acc[jd][1] = acc[jd][2] = acc[jd][3] = 0.f;
-  float m_g = kMasked, m_g8 = kMasked;
-  float l_g = 0.f, l_g8 = 0.f;
-
-  const int rg = q0 + wr + g;
-  const int rg8 = rg + 8;
-  const float scale = kLog2e * rsqrtf((float)kHeadDim);
-  const uint16_t* kb = k + (b * seq * n_kv + kvh) * kHeadDim;
-  const uint16_t* vb = v + (b * seq * n_kv + kvh) * kHeadDim;
-  const uint8_t* mb = key_mask ? key_mask + b * seq : nullptr;
-  const int k_end = min(seq, q0 + kBlockQ);
-
-  for (int k0 = 0; k0 < k_end; k0 += kBlockK) {
-    load_tile(ks, kb, kv_pitch, k0, seq);
-    load_tile(vs, vb, kv_pitch, k0, seq);
-    if (threadIdx.x < kBlockK) {
-      const int key = k0 + threadIdx.x;
-      live[threadIdx.x] = key < seq && (mb == nullptr || mb[key] != 0);
-    }
-    __syncthreads();
-
-    float s[8][4];
-    qk_tile(s, qa, ks, g, t);
-    float mx_g = kMasked, mx_g8 = kMasked;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = 8 * j + 2 * t + (e & 1);
-        const int row = e < 2 ? rg : rg8;
-        const bool ok = live[col] && k0 + col <= row;
-        const float x = ok ? s[j][e] * scale : kMasked;
-        s[j][e] = x;
-        if (e < 2) mx_g = fmaxf(mx_g, x); else mx_g8 = fmaxf(mx_g8, x);
-      }
-    }
-    const float mn_g = fmaxf(m_g, quad_max(mx_g));
-    const float mn_g8 = fmaxf(m_g8, quad_max(mx_g8));
-    const float alpha_g = exp2f(m_g - mn_g);
-    const float alpha_g8 = exp2f(m_g8 - mn_g8);
-    m_g = mn_g;
-    m_g8 = mn_g8;
-    l_g *= alpha_g;
-    l_g8 *= alpha_g8;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float x = s[j][e];
-        const float p = x > 0.5f * kMasked ? exp2f(x - (e < 2 ? mn_g : mn_g8)) : 0.f;
-        s[j][e] = p;
-        if (e < 2) l_g += p; else l_g8 += p;
-      }
-    }
-#pragma unroll
-    for (int jd = 0; jd < 16; ++jd) {
-      acc[jd][0] *= alpha_g;
-      acc[jd][1] *= alpha_g;
-      acc[jd][2] *= alpha_g8;
-      acc[jd][3] *= alpha_g8;
-    }
-    pv_tile(acc, s, vs, g, t);
-    __syncthreads();
+  __device__ void load_q(uint32_t dst, uint64_t* bar) const {
+    tma_load_4d(dst, qmap, bar, 0, h, q0, b);
+    tma_load_4d(dst + kBoxBytes, qmap, bar, 64, h, q0, b);
+  }
+  __device__ void load_k(uint32_t dst, int j, uint64_t* bar) const {
+    tma_load_4d(dst, kmap, bar, 0, kvh, j * kTile, b);
+    tma_load_4d(dst + kBoxBytes, kmap, bar, 64, kvh, j * kTile, b);
+  }
+  __device__ void load_v(uint32_t dst, int j, uint64_t* bar) const {
+    tma_load_4d(dst, vmap, bar, 0, kvh, j * kTile, b);
+    tma_load_4d(dst + kBoxBytes, vmap, bar, 64, kvh, j * kTile, b);
+  }
+  __device__ bool live(int key) const {
+    return key < seq && (mask == nullptr || mask[key] != 0);
   }
 
-  l_g = quad_sum(l_g);
-  l_g8 = quad_sum(l_g8);
-  store_rows(out, ((b * seq + rg) * n_heads + h) * kHeadDim,
-             ((b * seq + rg8) * n_heads + h) * kHeadDim,
-             rg < seq, rg8 < seq, acc, l_g, l_g8, t);
+  // One tile of the online softmax on raw scores s: kTest 0 (every key
+  // live: a tile below the diagonal whose keys are all live), 1 (the
+  // liveness word) or 2 (the word and the causal test of the diagonal tile).
+  // A masked score becomes kMasked and its p exactly 0.
+  template <int kTest>
+  __device__ __forceinline__ void online_tile(float (&s)[64], uint4 word, int k0, int row,
+                                              float (&o)[64], uint32_t (&p)[32], int t) {
+    if (kTest > 0) {
+      const uint32_t w[4] = {word.x >> (2 * t), word.y >> (2 * t), word.z >> (2 * t),
+                             word.w >> (2 * t)};
+#pragma unroll
+      for (int nb = 0; nb < 16; ++nb) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          bool ok = (w[nb / 4] >> (8 * (nb % 4) + (e & 1))) & 1u;
+          if (kTest == 2) ok = ok && k0 + 8 * nb + 2 * t + (e & 1) <= row + 8 * (e >> 1);
+          if (!ok) s[4 * nb + e] = kMasked;
+        }
+      }
+    }
+    float mx0 = kMasked, mx1 = kMasked;
+#pragma unroll
+    for (int i = 0; i < 64; ++i) {
+      if (i & 2) mx1 = fmaxf(mx1, s[i]); else mx0 = fmaxf(mx0, s[i]);
+    }
+    const float mn0 = fmaxf(m0, quad_max(mx0) * kScale);
+    const float mn1 = fmaxf(m1, quad_max(mx1) * kScale);
+    const float a0 = ex2_ftz(m0 - mn0), a1 = ex2_ftz(m1 - mn1);
+    m0 = mn0;
+    m1 = mn1;
+    l0 *= a0;
+    l1 *= a1;
+#pragma unroll
+    for (int i = 0; i < 64; ++i) {
+      float x = ex2_ftz(fmaf(s[i], kScale, (i & 2) ? -mn1 : -mn0));
+      if (kTest > 0 && s[i] == kMasked) x = 0.f;
+      s[i] = x;
+      if (i & 2) l1 += x; else l0 += x;
+      o[i] *= (i & 2) ? a1 : a0;
+    }
+#pragma unroll
+    for (int i = 0; i < 32; ++i) p[i] = pack_bf16(s[2 * i], s[2 * i + 1]);
+  }
+
+  __device__ void softmax(float (&s)[64], uint4 word, int j, float (&o)[64], uint32_t (&p)[32],
+                          int row, int t) {
+    // the last tile is the diagonal one: q tile index == key tile index
+    if (j == n_tiles - 1) online_tile<2>(s, word, j * kTile, q0 + row, o, p, t);
+    else if (all_live(word)) online_tile<0>(s, word, j * kTile, q0 + row, o, p, t);
+    else online_tile<1>(s, word, j * kTile, q0 + row, o, p, t);
+  }
+
+  __device__ void epilogue(const float (&o)[64], int row, int t) const {
+    const int r0 = q0 + row, r1 = r0 + 8;
+    store_rows(out, (((long)b * seq + r0) * n_heads + h) * kHeadDim,
+               (((long)b * seq + r1) * n_heads + h) * kHeadDim, r0 < seq, r1 < seq, as_rows(o),
+               quad_sum(l0), quad_sum(l1), t);
+  }
+};
+
+__global__ void __launch_bounds__(kBlockThreads, 1)
+gqa_causal_kernel(const __grid_constant__ CUtensorMap qmap,
+                  const __grid_constant__ CUtensorMap kmap,
+                  const __grid_constant__ CUtensorMap vmap, const uint8_t* __restrict__ key_mask,
+                  uint16_t* __restrict__ out, int seq, int n_heads, int n_kv) {
+  const int q_tile = gridDim.z - 1 - blockIdx.z;   // heaviest first
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  GqaCausalPolicy pol{&qmap, &kmap, &vmap,
+                      key_mask ? key_mask + (long)b * seq : nullptr, out,
+                      q_tile * kTile, h, h / (n_heads / n_kv), b, seq, n_heads, q_tile + 1,
+                      kMasked, kMasked, 0.f, 0.f};
+  attention_mainloop<GqaCausalPolicy>(pol);
 }
 
 }  // namespace
 
 // q [B, S, N, 128], k/v [B, S, KV, 128], out [B, S, N, 128]: bf16, contiguous,
-// N % KV == 0.  key_mask [B, S] uint8 (1 = live) or null.
+// 16-byte aligned (TMA), N % KV == 0.  key_mask [B, S] uint8 (1 = live) or null.
 extern "C" int gqa_causal_attention_bf16(const void* q, const void* k, const void* v,
                                          const void* key_mask, void* out, int batch,
                                          int seq, int heads, int kv_heads, void* stream) {
-  const dim3 grid((seq + kBlockQ - 1) / kBlockQ, heads, batch);
-  gqa_causal_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint16_t*>(q), static_cast<const uint16_t*>(k),
-      static_cast<const uint16_t*>(v), static_cast<const uint8_t*>(key_mask),
-      static_cast<uint16_t*>(out), seq, heads, kv_heads);
+  if (batch == 0 || seq == 0 || heads == 0) return 0;
+  const cuuint64_t row = kHeadDim * 2;
+  const cuuint64_t qdims[4] = {kHeadDim, static_cast<cuuint64_t>(heads),
+                               static_cast<cuuint64_t>(seq), static_cast<cuuint64_t>(batch)};
+  const cuuint64_t kdims[4] = {kHeadDim, static_cast<cuuint64_t>(kv_heads),
+                               static_cast<cuuint64_t>(seq), static_cast<cuuint64_t>(batch)};
+  const cuuint64_t qstr[3] = {row, row * heads, row * heads * seq};
+  const cuuint64_t kstr[3] = {row, row * kv_heads, row * kv_heads * seq};
+  CUtensorMap qm, km, vm;
+  if (!make_map(&qm, q, 4, qdims, qstr, 2) || !make_map(&km, k, 4, kdims, kstr, 2) ||
+      !make_map(&vm, v, 4, kdims, kstr, 2))
+    return static_cast<int>(cudaErrorInvalidValue);
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      gqa_causal_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const dim3 grid(heads, batch, (seq + kTile - 1) / kTile);
+  gqa_causal_kernel<<<grid, kBlockThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
+      qm, km, vm, static_cast<const uint8_t*>(key_mask), static_cast<uint16_t*>(out), seq, heads,
+      kv_heads);
   return static_cast<int>(cudaGetLastError());
 }
+
+// The dynamic shared memory of one block, for the report beside ptxas's.
+extern "C" int gqa_causal_attention_smem_bytes() { return kSmemBytes; }

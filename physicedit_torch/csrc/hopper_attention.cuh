@@ -1,0 +1,447 @@
+// The Hopper attention mainloop shared by K1 (fixedmax_attention.cu) and K2
+// (gqa_causal_attention.cu): bf16, head_dim 128, fp32 accumulators.
+//
+// One block of three warpgroups (384 threads) per 128-row q tile:
+//   warpgroup 0, the producer, gives its registers back (setmaxnreg.dec);
+//     one thread issues the TMA loads (Q once, then K and V tiles of 128
+//     keys into a ring of kStages stages), and warp 1 writes each K stage's
+//     128-bit key-liveness word (key < S_k and the key mask);
+//   warpgroups 1 and 2, the consumers, take more registers
+//     (setmaxnreg.inc) and own 64 query rows each.
+// A consumer walks the key tiles in phases: phase j issues O += P(j-1) V(j-1)
+// (A = P from registers, B = V from shared memory, MN-major) and
+// S(j) = Q K(j)^T (both operands K-major in shared memory) as wgmma.mma_async
+// m64n128k16 products, waits for both, releases V(j-1) and K(j), and turns
+// S(j) into P(j) in registers through the kernel's Policy (K1: fixed-max
+// exp2; K2: the online softmax with the causal mask).  The two consumers
+// take turns (ping-pong) through two named barriers, so one warpgroup's
+// softmax runs while the other's products own the tensor cores.
+//
+// Shared memory: Q 32 KB + kStages x (K 32 KB + V 32 KB), each tile two TMA
+// boxes of [128 rows x 64 d] bf16 with the 128-byte swizzle that wgmma's
+// descriptors name (layout type 1), so nothing is transposed or re-staged.
+// Barriers: one mbarrier for Q; per stage a full barrier (the TMA's bytes;
+// K's also the liveness word's arrive) and an empty barrier for K and for V
+// separately, so that K(j+1) can land while V(j) is still read.  Every
+// consumer warp arrives on an empty barrier once it is done with the stage
+// (its wgmma waited for, its read of the liveness word behind a __syncwarp):
+// wgmma.wait_group and a warp's loads order nothing across the warpgroup, so
+// one arrive per warpgroup would let the producer overwrite a word that a
+// late warp has not read yet.
+//
+// The tensor maps are built on the host each call with
+// cuTensorMapEncodeTiled, reached through cudaGetDriverEntryPointByVersion
+// (cudaGetDriverEntryPoint before CUDA 12.5; no link flag: the libraries
+// link nothing beyond the runtime), and passed as __grid_constant__ kernel
+// parameters, so a CUDA graph captures them by value.
+#pragma once
+
+#include <cuda.h>
+
+#include "mma_bf16.cuh"
+
+namespace physicedit {
+namespace hopper {
+
+constexpr int kTile = 128;                   // q rows per block, keys per stage
+constexpr int kStages = 2;
+constexpr int kBlockThreads = 384;
+constexpr int kBoxBytes = kTile * 64 * 2;    // one TMA box: 128 rows x 64 d, 16 KB
+constexpr int kTileBytes = 2 * kBoxBytes;    // 128 rows x 128 d, 32 KB
+constexpr int kProducerRegs = 40;
+constexpr int kConsumerRegs = 232;           // 40 x 128 + 232 x 256 <= 65536
+constexpr int kConsumerWarps = 8;            // two consumer warpgroups
+
+struct __align__(1024) SharedStorage {
+  uint8_t q[kTileBytes];
+  uint8_t k[kStages][kTileBytes];
+  uint8_t v[kStages][kTileBytes];
+  uint32_t live[kStages][4];                 // bit c of word w: key 32 w + c of the tile
+  uint64_t q_full;
+  uint64_t k_full[kStages], k_empty[kStages];
+  uint64_t v_full[kStages], v_empty[kStages];
+};
+
+// Dynamic shared memory per block: the storage plus room to align it to 1 KB
+// (the 128-byte swizzle repeats every 1024 bytes).
+constexpr int kSmemBytes = static_cast<int>(sizeof(SharedStorage)) + 1024;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ SharedStorage& shared_storage() {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = smem_u32(smem_raw);
+  return *reinterpret_cast<SharedStorage*>(smem_raw + (((base + 1023u) & ~1023u) - base));
+}
+
+// ---- mbarriers -------------------------------------------------------------
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+// Wait until the phase of the given parity has completed.  A fresh barrier
+// counts its phase before phase 0 (parity 1) as completed, so a producer's
+// first wait on an empty barrier passes.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// ---- TMA -------------------------------------------------------------------
+
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3)
+      : "memory");
+}
+
+// ---- named barriers (the consumers' ping-pong) -------------------------------
+
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+__device__ __forceinline__ void named_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// ---- wgmma -----------------------------------------------------------------
+
+// Shared-memory matrix descriptor, 128-byte swizzle: start address, leading
+// and stride byte offsets, all in 16-byte units; base offset 0 (every tile
+// starts on a 1024-byte boundary).
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Keep the compiler from reading or moving registers that an issued wgmma
+// still writes: a no-op that claims to modify each one.
+__device__ __forceinline__ void fence_regs(float (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+__device__ __forceinline__ void fence_regs(uint32_t (&a)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+r"(a[i])::"memory");
+}
+
+#define PE_WGMMA_D64                                                                             \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),            \
+      "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),    \
+      "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), \
+      "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), \
+      "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), \
+      "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), \
+      "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), \
+      "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), \
+      "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), \
+      "+f"(d[63])
+
+#define PE_WGMMA_REGS64                                                          \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "      \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, " \
+  "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, " \
+  "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
+
+// D[64 x 128] (+)= A[64 x 16] . B[16 x 128]^T, A and B K-major in shared
+// memory.  Accumulator layout (warp w of the warpgroup, g = lane / 4,
+// t = lane % 4): d[4 n + 2 i + j] is row 16 w + g + 8 i, column 8 n + 2 t + j.
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t desc_a, uint64_t desc_b,
+                                         int scale_d) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " PE_WGMMA_REGS64
+      ", %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : PE_WGMMA_D64
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// D[64 x 128] += A[64 x 16] . B[16 x 128], A from registers (the layout of
+// mma.sync's m16n8k16 A fragment per warp: a0 rows g / cols 2t.., a1 rows
+// g+8, a2 cols 2t+8.., a3 both), B MN-major in shared memory (transposed).
+__device__ __forceinline__ void wgmma_rs(float (&d)[64], uint32_t a0, uint32_t a1, uint32_t a2,
+                                         uint32_t a3, uint64_t desc_b) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " PE_WGMMA_REGS64
+      ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : PE_WGMMA_D64
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(desc_b), "r"(1));
+}
+
+#undef PE_WGMMA_D64
+#undef PE_WGMMA_REGS64
+
+// S = Q K^T over d = 128: 8 k-steps of 16; the two 64-d boxes of each tile
+// lie kBoxBytes apart, and a k-step inside a box is 32 bytes along the row.
+__device__ __forceinline__ void qk_product(float (&s)[64], uint32_t q_rows, uint32_t k_tile) {
+#pragma unroll
+  for (int ks = 0; ks < 8; ++ks) {
+    const uint32_t off = (ks >> 2) * kBoxBytes + (ks & 3) * 32;
+    wgmma_ss(s, sw128_desc(q_rows + off, 16, 1024), sw128_desc(k_tile + off, 16, 1024),
+             ks > 0);
+  }
+}
+
+// O += P V over 128 keys: 8 k-steps of 16 keys (2048 bytes of V each); V is
+// MN-major, its two 64-d boxes kBoxBytes apart (the leading byte offset).
+// p[i] holds P's columns as packed bf16 pairs: p[4 ks + r] is the A fragment
+// register r of k-step ks.
+__device__ __forceinline__ void pv_product(float (&o)[64], const uint32_t (&p)[32],
+                                           uint32_t v_tile) {
+#pragma unroll
+  for (int ks = 0; ks < 8; ++ks) {
+    wgmma_rs(o, p[4 * ks], p[4 * ks + 1], p[4 * ks + 2], p[4 * ks + 3],
+             sw128_desc(v_tile + ks * 2048, kBoxBytes, 1024));
+  }
+}
+
+// The wgmma accumulator viewed as mma.sync's [16][4] C fragments (the same
+// layout: d[4 n + e] is fragment n, element e), for store_rows.
+__device__ __forceinline__ const float (&as_rows(const float (&d)[64]))[16][4] {
+  return *reinterpret_cast<const float(*)[16][4]>(&d);
+}
+
+// 2^x on the special-function unit, subnormal results flushed to 0 (exp2f
+// adds a range test and two multiplies per call to keep them).
+__device__ __forceinline__ float ex2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ bool all_live(uint4 word) {
+  return (word.x & word.y & word.z & word.w) == 0xffffffffu;
+}
+
+// ---- the mainloop ----------------------------------------------------------
+
+// Policy supplies, for one block:
+//   int n_tiles;                       key tiles to walk (>= 1)
+//   void load_q(uint32_t dst, uint64_t* bar);   TMA of the q tile (two boxes)
+//   void load_k(uint32_t dst, int j, uint64_t* bar), load_v(...): tile j
+//   bool live(int key);                 key < S_k and not masked
+//   void softmax(float (&s)[64], uint4 live, int j, float (&o)[64],
+//                uint32_t (&p)[32], int row, int t);
+//                                      S(j) -> P(j) in place; may rescale o
+//   void epilogue(const float (&o)[64], int row, int t);
+// where row is the query row of the thread's first accumulator row (the
+// second is row + 8) and t = lane % 4.
+template <class Policy>
+__device__ __forceinline__ void attention_mainloop(Policy& pol) {
+  SharedStorage& sm = shared_storage();
+  const int wg = threadIdx.x / 128;
+  const int n = pol.n_tiles;
+
+  if (threadIdx.x == 0) {
+    mbar_init(&sm.q_full, 1);
+#pragma unroll
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&sm.k_full[s], 2);   // the TMA thread's expect_tx and warp 1's word
+      mbar_init(&sm.v_full[s], 1);
+      mbar_init(&sm.k_empty[s], kConsumerWarps);  // one arrive per consumer warp
+      mbar_init(&sm.v_empty[s], kConsumerWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    const int warp = threadIdx.x / 32;
+    const int lane = threadIdx.x % 32;
+    if (warp == 0 && lane == 0) {
+      mbar_expect_tx(&sm.q_full, kTileBytes);
+      pol.load_q(smem_u32(sm.q), &sm.q_full);
+      for (int j = 0; j < n; ++j) {
+        const int s = j % kStages;
+        const uint32_t ph = (j / kStages) & 1;
+        mbar_wait(&sm.k_empty[s], ph ^ 1);
+        mbar_expect_tx(&sm.k_full[s], kTileBytes);
+        pol.load_k(smem_u32(sm.k[s]), j, &sm.k_full[s]);
+        mbar_wait(&sm.v_empty[s], ph ^ 1);
+        mbar_expect_tx(&sm.v_full[s], kTileBytes);
+        pol.load_v(smem_u32(sm.v[s]), j, &sm.v_full[s]);
+      }
+    } else if (warp == 1) {
+      for (int j = 0; j < n; ++j) {
+        const int s = j % kStages;
+        mbar_wait(&sm.k_empty[s], ((j / kStages) & 1) ^ 1);
+        uint32_t w[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          w[i] = __ballot_sync(0xffffffffu, pol.live(j * kTile + 32 * i + lane));
+        if (lane == 0) {
+          *reinterpret_cast<uint4*>(sm.live[s]) = make_uint4(w[0], w[1], w[2], w[3]);
+          mbar_arrive(&sm.k_full[s]);  // release: the word is visible to the waiters
+        }
+      }
+    }
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+  const int cw = wg - 1;                  // consumer 0 or 1: q rows 64 cw ..
+  const int tid = threadIdx.x % 128;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int t = lane % 4;
+  const int row = cw * 64 + warp * 16 + lane / 4;   // within the q tile
+  const bool signals = lane == 0;                   // one arrive per warp
+  const int my_bar = 1 + cw, other_bar = 2 - cw;    // named barriers 1, 2
+  const uint32_t q_rows = smem_u32(sm.q) + cw * 64 * 128;   // 64 rows x 128 B per box
+
+  float o[64], s[64];
+  uint32_t p[32];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) o[i] = s[i] = 0.f;
+
+  if (cw == 1) named_arrive(1, 256);   // consumer 0 goes first
+  mbar_wait(&sm.q_full, 0);
+
+  // phase 0: S(0)
+  mbar_wait(&sm.k_full[0], 0);
+  named_sync(my_bar, 256);
+  wgmma_fence();
+  qk_product(s, q_rows, smem_u32(sm.k[0]));
+  wgmma_commit();
+  named_arrive(other_bar, 256);
+  wgmma_wait_all();
+  fence_regs(s);
+  uint4 live = *reinterpret_cast<const uint4*>(sm.live[0]);
+  __syncwarp();   // every lane has read the word before the warp releases it
+  if (signals) mbar_arrive(&sm.k_empty[0]);
+  pol.softmax(s, live, 0, o, p, row, t);
+
+  // phases 1 .. n-1: O += P(j-1) V(j-1) and S(j)
+  for (int j = 1; j < n; ++j) {
+    const int sk = j % kStages, sv = (j - 1) % kStages;
+    mbar_wait(&sm.k_full[sk], (j / kStages) & 1);
+    mbar_wait(&sm.v_full[sv], ((j - 1) / kStages) & 1);
+    named_sync(my_bar, 256);
+    fence_regs(o);
+    fence_regs(p);
+    wgmma_fence();
+    pv_product(o, p, smem_u32(sm.v[sv]));
+    qk_product(s, q_rows, smem_u32(sm.k[sk]));
+    wgmma_commit();
+    named_arrive(other_bar, 256);
+    wgmma_wait_all();
+    fence_regs(o);
+    fence_regs(s);
+    if (signals) mbar_arrive(&sm.v_empty[sv]);
+    live = *reinterpret_cast<const uint4*>(sm.live[sk]);
+    __syncwarp();
+    if (signals) mbar_arrive(&sm.k_empty[sk]);
+    pol.softmax(s, live, j, o, p, row, t);
+  }
+
+  // last phase: O += P(n-1) V(n-1)
+  const int sv = (n - 1) % kStages;
+  mbar_wait(&sm.v_full[sv], ((n - 1) / kStages) & 1);
+  named_sync(my_bar, 256);
+  fence_regs(o);
+  fence_regs(p);
+  wgmma_fence();
+  pv_product(o, p, smem_u32(sm.v[sv]));
+  wgmma_commit();
+  // consumer 1's last turn hands over to nobody: consumer 0 has finished
+  if (cw == 0) named_arrive(other_bar, 256);
+  wgmma_wait_all();
+  fence_regs(o);
+  if (signals) mbar_arrive(&sm.v_empty[sv]);
+  pol.epilogue(o, row, t);
+}
+
+// ---- host: tensor maps -----------------------------------------------------
+
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+inline EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
+                                     &found);
+#else
+    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (found == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  return fn;
+}
+
+// A bf16 tensor map of `rank` dims (innermost first: d = 128, then the
+// others), strides in bytes for dims 1.., and boxes of 64 d x 128 rows along
+// `row_dim` (1 elsewhere), 128-byte swizzle, zero fill out of bounds.
+inline bool make_map(CUtensorMap* map, const void* base, int rank, const cuuint64_t* dims,
+                     const cuuint64_t* strides, int row_dim) {
+  EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return false;
+  cuuint32_t box[5] = {64, 1, 1, 1, 1};
+  cuuint32_t elem[5] = {1, 1, 1, 1, 1};
+  box[row_dim] = kTile;
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base), dims, strides,
+            box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+}  // namespace hopper
+}  // namespace physicedit

@@ -83,7 +83,8 @@ def _check_cuda(name: str, tensors: dict) -> None:
             raise ValueError(f"{name}: {tname} has shape {tuple(t.shape)}; the "
                              f"kernel takes 4-D inputs with head_dim {HEAD_DIM}")
         if not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError(f"{name}: {tname} must be contiguous and 16-byte aligned")
+            raise ValueError(f"{name}: {tname} must be contiguous and 16-byte aligned "
+                             f"(no copy is made; K1 and K2 read it through TMA)")
 
 
 def _mask_arg(key_mask: torch.Tensor | None, b: int, s: int, name: str):

@@ -9,7 +9,8 @@ sqrt(d))), and runs the two products of attention; they differ in what lies
 between them:
 
   v0  K1′ ``fixedmax_bnsd(prescaled=True, clamp=False)`` with the key mask:
-      the full kernel (fp32 scores, exp2, row sums, normalised)
+      the full kernel (fp32 scores, exp2, row sums, normalised) on K1's
+      Hopper mainloop (TMA, wgmma), while v1-v4 run the mma.sync loop
   v1  :func:`attn_bf16s`: the score, its sum with the bf16 key bias and
       exp2 each rounded to bf16, l = sum(p) in fp32,
       out = (p . v) / max(l, 1e-30)
@@ -98,8 +99,8 @@ def main() -> list:
                f"max|v1-sdpa| = {check['v1_max_abs_err_vs_sdpa']:.5f}")
     flops = _bench.attention_flops(b, n, s, s, d)
     variants = (
-        ("v0 K1' fp32 score", lambda: fa.fixedmax_bnsd(qs, k, v, mask, clamp=False,
-                                                         prescaled=True)),
+        ("v0 K1' prescaled, Hopper mainloop",
+         lambda: fa.fixedmax_bnsd(qs, k, v, mask, clamp=False, prescaled=True)),
         ("v1 bf16 score", lambda: attn_bf16s(qs, k, v, key_bias)),
         ("v2 fp32 nobias", lambda: attn_nobias(qs, k, v, inscale=False)),
         ("v3 exp, no sum", lambda: attn_expnosum(qs, k, v)),

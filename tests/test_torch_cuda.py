@@ -7,6 +7,8 @@ imports no JAX, so it also runs where JAX is not installed:
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 """
 
+import math
+
 import pytest
 import torch
 
@@ -226,6 +228,182 @@ def test_fixedmax_autograd_runs_k1_and_k8_on_cuda(cuda):
     assert tfa.LAUNCHES["fixedmax_attention"] == before["fixedmax_attention"] + 1
     assert tfa.LAUNCHES["fixedmax_attention_bwd"] == before["fixedmax_attention_bwd"] + 1
     assert all(torch.isfinite(t.grad).all() for t in (q, k, v))
+
+
+# K1 and K2 at the edges of the Hopper mainloop (csrc/hopper_attention.cuh):
+# 128-row q tiles and 128-key stages, so a ragged last key tile, a key-mask
+# hole across key 128, S_q < S_k, and left pads across query row 128; and a
+# key mask that changes every stage (chip_smoke.stage_varying_mask), so that
+# a tile masked with the liveness word of the tile that next takes its ring
+# slot shows.
+K1_EDGE_CASES = {
+    # name: (b, n, sq, sk, masked [lo, hi) per batch row or "per_stage",
+    #        clamp, q/k scale)
+    "sk_129": (1, 2, 129, 129, [], True, 1.0),
+    "sk_255": (2, 2, 255, 255, [(0, 0), (200, 255)], True, 1.0),
+    "hole_across_key_128": (2, 3, 300, 300, [(100, 160), (0, 0)], False, 1.0),
+    "sq_lt_sk_ragged_8513_clamp": (1, 2, 130, 8448 + 65, [(8400, 8513)], True, 8.0),
+    "stage_varying_mask_8448": (2, 4, 8448, 8448, "per_stage", False, 1.0),
+}
+
+
+def _edge_mask(b, s, masked, device):
+    """The key mask of an edge case: ``masked`` is a [lo, hi) span per batch
+    row, a left pad per batch row, or "per_stage"."""
+    from chip_smoke import stage_varying_mask
+
+    if masked == "per_stage":
+        return stage_varying_mask(b, s, device)
+    mask = torch.ones(b, s, dtype=torch.bool, device=device)
+    for row, span in enumerate(masked):
+        lo, hi = span if isinstance(span, tuple) else (0, span)
+        mask[row, lo:hi] = False
+    return mask
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(K1_EDGE_CASES))
+def test_fixedmax_kernel_tile_edges_on_cuda(cuda, case):
+    """K1 (out and l) against its plain version at the tile edges, two more
+    calls and K1' prescaled, the same kernel with l null, bit for bit
+    against the first."""
+    b, n, sq, sk, spans, clamp, scale = K1_EDGE_CASES[case]
+    g = torch.Generator(cuda).manual_seed(50 + sorted(K1_EDGE_CASES).index(case))
+    q = _rms(torch.randn(b, n, sq, 128, device=cuda, generator=g), scale)
+    k = _rms(torch.randn(b, n, sk, 128, device=cuda, generator=g), scale)
+    v = torch.randn(b, n, sk, 128, device=cuda, generator=g).bfloat16()
+    mask = _edge_mask(b, sk, spans, cuda)
+    out, l = tfa.fixedmax_attention(q, k, v, mask, clamp, return_l=True)
+    ref, l_ref = tfa.fixedmax_attention_reference(q, k, v, mask, clamp, return_l=True)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=BF16_TOL, atol=BF16_TOL)
+    assert _rel_l2(out, ref) <= K7_REL_L2
+    torch.testing.assert_close(l, l_ref, rtol=1e-4, atol=0)
+    for _ in range(2):
+        assert torch.equal(tfa.fixedmax_attention(q, k, v, mask, clamp), out)
+    before = tfa.LAUNCHES["fixedmax_bnsd"]
+    qs = tfa._prescale(q).contiguous()
+    assert torch.equal(tfa.fixedmax_bnsd(qs, k, v, mask, clamp, prescaled=True), out)
+    assert tfa.LAUNCHES["fixedmax_bnsd"] == before + 1
+
+
+GQA_EDGE_CASES = {
+    # name: (b, s, n, kv, left pad per batch row or "per_stage")
+    "s_130": (1, 130, 14, 2, [0]),
+    "s_129_pad_128": (2, 129, 8, 4, [5, 128]),
+    "s_1500_pads_300_130": (2, 1500, 28, 4, [300, 130]),
+    "stage_varying_mask_4096": (2, 4096, 28, 4, "per_stage"),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(GQA_EDGE_CASES))
+def test_gqa_kernel_tile_edges_on_cuda(cuda, case):
+    """K2 against its plain version on live rows (a live key at or before
+    them) at lengths that are no multiple of 128, with left pads across
+    query row 128; rows with no live key come out exactly 0; two more calls
+    give the same bits."""
+    b, s, n, kv, pads = GQA_EDGE_CASES[case]
+    g = torch.Generator(cuda).manual_seed(60 + sorted(GQA_EDGE_CASES).index(case))
+    q = torch.randn(b, s, n, 128, device=cuda, generator=g).bfloat16()
+    k = torch.randn(b, s, kv, 128, device=cuda, generator=g).bfloat16()
+    v = torch.randn(b, s, kv, 128, device=cuda, generator=g).bfloat16()
+    mask = _edge_mask(b, s, pads, cuda)
+    out = tfa.gqa_causal_attention(q, k, v, mask)
+    ref = tfa.gqa_causal_attention_reference(q, k, v, mask)
+    live = (mask.cumsum(1) > 0)[:, :, None].expand_as(out)
+    torch.testing.assert_close(out.float()[live], ref.float()[live],
+                               rtol=BF16_TOL, atol=BF16_TOL)
+    assert _rel_l2(out[live], ref[live]) <= K7_REL_L2
+    assert torch.equal(out[~live], torch.zeros_like(out[~live]))
+    for _ in range(2):
+        assert torch.equal(tfa.gqa_causal_attention(q, k, v, mask), out)
+
+
+@pytest.mark.cuda
+def test_fixedmax_autograd_matches_plain_k1_k8_on_cuda(cuda):
+    """The gradients of the differentiable K1 (the kernel forward, K8
+    backward) against K8's plain version on K1's plain outputs."""
+    g = torch.Generator(cuda).manual_seed(8)
+    q, k = (_rms(torch.randn(1, 2, 300, 128, device=cuda, generator=g)) for _ in range(2))
+    v = torch.randn(1, 2, 300, 128, device=cuda, generator=g).bfloat16()
+    go = torch.randn(1, 2, 300, 128, device=cuda, generator=g).bfloat16()
+    mask = torch.ones(1, 300, dtype=torch.bool, device=cuda)
+    mask[0, 120:140] = False
+    qg, kg, vg = (x.clone().requires_grad_(True) for x in (q, k, v))
+    tfa.fixedmax_attention(qg, kg, vg, mask).backward(go)
+    qs = tfa._prescale(q).contiguous()
+    out, l = tfa._fixedmax_prescaled_reference(qs, k, v, mask, True)
+    dqs, dk, dv = tfa.fixedmax_attention_bwd_reference(qs, k, v, mask, go, out, l, True)
+    scale = torch.tensor(tfa.LOG2E / 128 ** 0.5, dtype=torch.bfloat16).item()
+    for got, want in zip((qg.grad, kg.grad, vg.grad), (dqs.float() * scale, dk, dv)):
+        tol = BF16_TOL * max(1.0, want.float().abs().max().item())
+        torch.testing.assert_close(got.float(), want.float(), rtol=BF16_TOL, atol=tol)
+
+
+@pytest.mark.cuda
+def test_hopper_kernels_raise_on_misaligned_or_strided_inputs(cuda):
+    """TMA takes 16-byte aligned, contiguous tensors: a contiguous view one
+    bf16 element into a flat buffer, or a transposed view, raises (no copy)."""
+    def misaligned(shape):
+        buf = torch.zeros(math.prod(shape) + 1, dtype=torch.bfloat16, device=cuda)
+        x = buf[1:].view(shape)
+        assert x.is_contiguous() and x.data_ptr() % 16 == 2
+        return x
+
+    shape = (1, 2, 130, 128)
+    ok = torch.zeros(shape, dtype=torch.bfloat16, device=cuda)
+    strided = torch.zeros(1, 130, 2, 128, dtype=torch.bfloat16, device=cuda).transpose(1, 2)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        tfa.fixedmax_attention(ok, misaligned(shape), ok)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        tfa.fixedmax_bnsd(misaligned(shape), ok, ok, prescaled=True)
+    with pytest.raises(ValueError, match="contiguous"):
+        tfa.fixedmax_attention(ok, ok, strided)
+    gshape = (1, 130, 4, 128)
+    gq = torch.zeros(gshape, dtype=torch.bfloat16, device=cuda)
+    kv = torch.zeros(1, 130, 2, 128, dtype=torch.bfloat16, device=cuda)
+    mask = torch.ones(1, 130, dtype=torch.bool, device=cuda)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        tfa.gqa_causal_attention(misaligned(gshape), kv, kv, mask)
+    with pytest.raises(ValueError, match="contiguous"):
+        tfa.gqa_causal_attention(gq.transpose(1, 2).contiguous().transpose(1, 2), kv, kv, mask)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["k1_with_l", "k1prime_prescaled", "k2"])
+def test_hopper_kernels_in_a_cuda_graph_give_the_eager_bits(cuda, kernel):
+    """The tensor maps reach the kernel by value: a CUDA-graph replay gives
+    the eager call's bits."""
+    g = torch.Generator(cuda).manual_seed(70)
+    if kernel == "k2":
+        q = torch.randn(2, 300, 14, 128, device=cuda, generator=g).bfloat16()
+        k, v = (torch.randn(2, 300, 2, 128, device=cuda, generator=g).bfloat16()
+                for _ in range(2))
+        mask = torch.ones(2, 300, dtype=torch.bool, device=cuda)
+        mask[1, :140] = False
+
+        def fn():
+            return (tfa.gqa_causal_attention(q, k, v, mask),)
+    else:
+        q, k, v, _, mask = _k7_inputs(g, 2, 3, 250, 333)
+        qs = tfa._prescale(q).contiguous()
+
+        def fn():
+            if kernel == "k1prime_prescaled":
+                return (tfa.fixedmax_bnsd(qs, k, v, mask, prescaled=True),)
+            return tfa.fixedmax_attention(q, k, v, mask, return_l=True)
+    eager = fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(eager, captured))
 
 
 @pytest.mark.cuda

@@ -21,7 +21,8 @@ from physicedit_tpu.io import convert as JC
 from physicedit_tpu.io import safetensors_io as jst
 from physicedit_tpu.io.model_config import qwen_image_preset as j_preset
 from physicedit_tpu.models import dinov2 as j_dino
-from physicedit_tpu.pipeline.edit_pipeline import (PhysicEditPipeline as JPipe,
+from physicedit_tpu.pipeline.edit_pipeline import (IMAGE_PAD_ID, VISION_START_ID,
+                                                   PhysicEditPipeline as JPipe,
                                                    _remap_text_encoder_keys)
 from physicedit_tpu.pipeline.testing import FakeTokenizer as JFakeTokenizer
 from physicedit_torch.cli.validate import find_model_files
@@ -243,6 +244,31 @@ def test_from_pretrained_matches_jax_bitwise(tree, dtype):
     assert tp.text.cfg.num_layers == jp.text_cfg.num_layers == 2
     assert tp.attn_clamp == jp.attn_clamp
     assert tp.adapter is None and tp.attn_impl == "dense"     # no CUDA here
+
+
+def test_text_encoder_config_is_read_inside_its_folder(tree):
+    """J5: a text-encoder folder path (no trailing slash) whose config.json
+    sets image_token_id / vision_start_token_id away from the 7B defaults.
+    The port reads the ids from inside the folder; the JAX package looks for
+    config.json in the folder's parent (its edit_pipeline.py:193-195), finds
+    none there and keeps its defaults."""
+    folder = os.path.join(tree["base"], "text_encoder")
+    with open(os.path.join(folder, "config.json")) as f:
+        hf = json.load(f)
+    assert (hf["image_token_id"], hf["vision_start_token_id"]) == (99, 98)
+    assert (99, 98) != (IMAGE_PAD_ID, VISION_START_ID)
+    assert not os.path.exists(os.path.join(tree["base"], "config.json"))
+
+    def in_folder(p):
+        return os.path.dirname(p[0] if isinstance(p, (list, tuple)) else p) == folder
+
+    paths = [p for p in tree["paths"] if not in_folder(p)] + [folder]
+    assert len(paths) == len(tree["paths"]) and not folder.endswith(os.sep)
+    tp = TPipe.from_pretrained(paths, dtype=torch.float32, device="cpu")
+    jp = JPipe.from_pretrained(paths, dtype=jnp.float32)
+    assert (tp.image_pad_id, tp.vision_start_id) == (99, 98)
+    assert tp.text.cfg.num_layers == 2
+    assert (jp.image_pad_id, jp.vision_start_id) == (IMAGE_PAD_ID, VISION_START_ID)
 
 
 def test_from_pretrained_finetuned_matches_jax(tree):

@@ -41,6 +41,11 @@ K1_CASES = {
     "sq_ne_sk": (1, 2, 128, 384, 0.3, False, True, [(300, 384)]),
     "noclamp_rms": (1, 2, 256, 256, 1.0, True, False, [(200, 256)]),
     "clamp_large_logits": (1, 2, 128, 128, 30.0, False, True, []),
+    # the edges of the card kernel's 128-row q tiles and 128-key stages
+    "sk_129": (1, 2, 129, 129, 1.0, True, True, []),
+    "sk_255": (2, 2, 255, 255, 1.0, True, False, [(0, 0), (200, 255)]),
+    "hole_across_key_128": (2, 2, 300, 300, 1.0, False, True, [(100, 160)]),
+    "sq_lt_sk_ragged": (1, 2, 130, 385, 0.5, False, True, [(300, 385)]),
 }
 
 
@@ -102,6 +107,11 @@ GQA_CASES = {
     # name: (b, s, n, kv, left pad per row)
     "full_mask_8q_2kv": (1, 384, 8, 2, [0]),
     "left_padded_batch": (2, 300, 4, 4, [77, 5]),
+    # lengths that are no multiple of the card kernel's 128-row tiles, and
+    # left pads across query row 128
+    "s_130": (1, 130, 4, 2, [0]),
+    "s_1500_pads_300_130": (2, 1500, 2, 1, [300, 130]),
+    "pad_across_row_128": (2, 260, 4, 2, [129, 0]),
 }
 
 

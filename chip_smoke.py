@@ -12,7 +12,11 @@ Phases, each printed as one JSON line, any failure exits non-zero:
      weights are allocated; K1 also with a key-mask hole across its 128-key
      stages and at a ragged 8513, timed (CUDA events and a CUDA graph)
      beside its ping-pong off, its clamp on, the mma.sync loop it replaced
-     (T2 proto_nobias) and SDPA, with its ptxas report (no spills);
+     (T2 proto_nobias) and SDPA, with its ptxas report (no spills); K7 also
+     with a key-mask hole across key 128 at a ragged 8513 and with a bias
+     and key mask that change every stage, timed (CUDA events and a CUDA
+     graph) beside K1' scaled (its kernel without the bias) and SDPA, with
+     ptxas's report of its kernel (no spills);
   4. K2 (VL causal GQA attention) against its plain version, also at
      S = 1500 with left pads across query row 128, timed from a CUDA graph
      beside SDPA's graph;
@@ -45,8 +49,10 @@ Phases, each printed as one JSON line, any failure exits non-zero:
      K8, K3 and K9 launch counts per step, finite gradients, every leaf
      moving by step two, memory, times and a profiled step;
  12. K8 (the attention backward) and K9 (the W4 input gradient) against
-     their plain versions at the training shapes, with times, bounds and
-     PyTorch's own attention backward beside K8; K1's out and l there
+     their plain versions at the training shapes (K8 also at a ragged 8513
+     with a key-mask hole across key 128, three calls bit for bit, ptxas's
+     report of both passes), with times, bounds and PyTorch's own attention
+     backward beside K8; K1's out and l there
      against its plain version; K3 against its exact plain version at the
      W4 training lane's forward shapes;
  13. the bf16 attention prototypes of tools/ (T1 v1-v4, T2, T3, T5, T7, T8;
@@ -200,6 +206,24 @@ def stage_varying_mask(b: int, s: int, device):
     i = torch.arange(s, device=device)
     j = i // 128
     return torch.stack([~((j % 3 != 2) & ((i % 128) // 32 == (j + r) % 4)) for r in range(b)])
+
+
+def stage_varying_bias(b: int, sq: int, sk: int, device, gen):
+    """An fp32 [b, sq, sk] entity-style bias in exp2 units that changes from
+    one 128-key stage to the next: in stage j, query row r's 32-key word
+    (j + r) % 4 is blocked (-1e30) unless j % 3 == 1; the other keys carry a
+    small graded bias, and key 0 stays live."""
+    import torch
+
+    from physicedit_torch.kernels.flash_attention import LOG2E
+
+    i = torch.arange(sk, device=device)
+    j = i // 128
+    r = torch.arange(sq, device=device)[:, None]
+    blocked = ((i % 128) // 32 == (j + r) % 4) & (j % 3 != 1)
+    bias = torch.where(blocked, -1e30, 0.5 * torch.randn(b, sq, sk, device=device, generator=gen))
+    bias[:, :, 0] = 0.0
+    return bias * LOG2E
 
 
 def rel_l2(got, want) -> float:
@@ -458,15 +482,21 @@ def k8_phase(report: dict, gen, time_ms, joint: int) -> None:
     K1: at the training slice's joint length and at 8448, text keys masked,
     and a case whose logits pass the clamp.  K1's out and l there (the
     prescaled entry the training step calls, ``return_l``) are first held
-    against K1's plain version, as in phase 3.  The slice's case is timed
-    beside the plain version and beside PyTorch's own attention backward
-    (``scaled_dot_product_attention`` with the same boolean key mask)."""
+    against K1's plain version, as in phase 3; and a ragged 8513 with a
+    key-mask hole across key 128.  Every case calls K8 twice more and must
+    get the same bits (no atomics).  The slice's case is timed (CUDA events
+    and a CUDA graph) beside the plain version and beside PyTorch's own
+    attention backward (``scaled_dot_product_attention`` with the same
+    boolean key mask), with the ptxas report of both passes (no spills)."""
     import torch
     import torch.nn.functional as F
 
     from physicedit_torch.kernels import flash_attention as fa
+    from physicedit_torch.tools import _bench
 
     dev = gen.device
+    ptxas = {kernel: hopper_ptxas("fixedmax_attention_bwd", kernel, ("clamp",))
+             for kernel in ("fm_bwd_dq_kernel", "fm_bwd_dkv_kernel")}
 
     def randn(*shape):
         return torch.randn(*shape, device=dev, generator=gen)
@@ -474,15 +504,16 @@ def k8_phase(report: dict, gen, time_ms, joint: int) -> None:
     def rms(x):
         return x * torch.rsqrt(x.pow(2).mean(-1, keepdim=True))
 
-    cases = [(f"joint_{joint}", joint, 1.0), ("joint_8448", 8448, 1.0),
-             (f"joint_{joint}_clamp", joint, CLAMP_QK_SCALE)]
-    for name, s, scale in cases:
+    cases = [(f"joint_{joint}", joint, 1.0, (100, 256)), ("joint_8448", 8448, 1.0, (100, 256)),
+             (f"joint_{joint}_clamp", joint, CLAMP_QK_SCALE, (100, 256)),
+             ("hole_across_key_128_8513", 8513, 1.0, (100, 160))]
+    for name, s, scale, (m0, m1) in cases:
         q = fa._prescale((rms(randn(1, 24, s, 128)) * scale).bfloat16()).contiguous()
         k = (rms(randn(1, 24, s, 128)) * scale).bfloat16()
         v = randn(1, 24, s, 128).bfloat16()
         go = randn(1, 24, s, 128).bfloat16()
         mask = torch.ones(1, s, dtype=torch.bool, device=dev)
-        mask[0, 100:256] = False                 # padded text keys
+        mask[0, m0:m1] = False                   # padded text keys, or a hole
         clamped = (q[0, 0].float() @ k[0, 0].float().T > fa.CLAMP).float().mean().item()
         if scale != 1.0 and clamped == 0.0:
             fail(f"K8 {name}: no logit reaches the clamp")
@@ -505,7 +536,11 @@ def k8_phase(report: dict, gen, time_ms, joint: int) -> None:
         want = fa.fixedmax_attention_bwd_reference(q, k, v, mask, go, out, l, True)
         torch.cuda.synchronize()
         row = {"phase": "k8", "case": name, "shape": [1, 24, s, s], "clamped_logit_share":
-               clamped, "finite": all(bool(torch.isfinite(x).all()) for x in got)}
+               clamped, "finite": all(bool(torch.isfinite(x).all()) for x in got),
+               "repeat_bits_equal": all(
+                   all(torch.equal(x, y) for x, y in zip(
+                       fa.fixedmax_attention_bwd(q, k, v, mask, go, out, l, True), got))
+                   for _ in range(2))}
         errs = []
         for gname, x, y in zip(("dq", "dk", "dv"), got, want):
             err = (x.float() - y.float()).abs().max().item()
@@ -513,13 +548,16 @@ def k8_phase(report: dict, gen, time_ms, joint: int) -> None:
             row[f"{gname}_max_abs_err"], row[f"{gname}_rel_max_err"] = err, rel
             row[f"{gname}_rel_l2"] = rel_l2(x, y)
             errs.append(err)
-        ok = row["finite"] and all(row[f"{g}_rel_l2"] <= K8_REL_L2 for g in ("dq", "dk", "dv"))
+        ok = (row["finite"] and row["repeat_bits_equal"]
+              and all(row[f"{g}_rel_l2"] <= K8_REL_L2 for g in ("dq", "dk", "dv")))
         if scale == 1.0:
             ok = ok and all(row[f"{g}_rel_max_err"] <= K8_REL for g in ("dq", "dk", "dv"))
             report.setdefault("fixedmax_attention_bwd_err", []).extend(errs)
         if name == f"joint_{joint}":
             row["ms"] = time_ms(lambda: fa.fixedmax_attention_bwd(q, k, v, mask, go, out, l),
                                 10)
+            row["graph_ms"] = _bench.graph_ms(
+                lambda: fa.fixedmax_attention_bwd(q, k, v, mask, go, out, l))
             row["plain_ms"] = time_ms(
                 lambda: fa.fixedmax_attention_bwd_reference(q, k, v, mask, go, out, l), 2)
             ql, kl, vl = (x.detach().clone().requires_grad_(True) for x in (q, k, v))
@@ -530,6 +568,8 @@ def k8_phase(report: dict, gen, time_ms, joint: int) -> None:
             row.update(bound(10 * 24 * s * s * 128,
                              2 * (q.numel() + k.numel() + v.numel() + go.numel() + out.numel()
                                   + 3 * q.numel()) + 4 * l.numel() + s, PEAK_BF16))
+            row["bound_share"] = row["bound_ms"] / row["ms"]
+            row["ptxas"] = ptxas
             report["fixedmax_attention_bwd"] = dict(row)
             del ql, kl, vl, lib_out
         emit(row)
@@ -767,21 +807,33 @@ ENTITY_PROMPTS = [
 ]
 
 
+def k7_ptxas() -> dict:
+    """ptxas's report of K7's kernel: K7 (bias=1) and K1' scaled (bias=0)."""
+    return hopper_ptxas("fixedmax_attention_bias", "fixedmax_bias_kernel", ("bias", "clamp"),
+                        lambda args: "fixedmax_attention_bias_smem_bytes" if args[0]
+                        else "fixedmax_attention_scaled_smem_bytes")
+
+
 def k7_phase(report: dict, gen, time_ms, compare) -> None:
     """K7 against its plain version: (a) the full-width EliGen call, B = 2,
     N = 24, joint 256 + 2 x 4096, with the bias build_entity_bias makes for
     two entities (on both CFG rows) and a text key mask; (b) the slim last
     block, its 4096 base-image query rows reading their bias rows as a
     strided view; (c) a ragged S with a query row whose keys are all blocked
-    (exactly 0); (d) q and k x CLAMP_QK_SCALE, where the clamp binds.  Case
-    (a) is timed beside the plain version and beside PyTorch's attention
-    with the bias as a float mask broadcast over the heads."""
+    (exactly 0); (d) q and k x CLAMP_QK_SCALE, where the clamp binds; (e) a
+    key-mask hole across key 128 at a ragged 8513; (f) a bias and a key mask
+    that change every 128-key stage.  Case (a) is timed (CUDA events and a
+    CUDA graph) beside K1' scaled on the same q, k, v and mask (the same
+    kernel without the bias: the difference is the bias's cost), the plain
+    version and PyTorch's attention with the bias as a float mask broadcast
+    over the heads, with the ptxas report (no spills)."""
     import numpy as np
     import torch
     import torch.nn.functional as F
 
     from physicedit_torch.kernels import flash_attention as fa
     from physicedit_torch.pipeline.eligen import build_entity_bias, downsample_entity_mask
+    from physicedit_torch.tools import _bench
 
     dev = gen.device
 
@@ -805,20 +857,28 @@ def k7_phase(report: dict, gen, time_ms, compare) -> None:
         ("slim_4096x8448_view", 2, base, s, 1.0, bias[:, s_t:s_t + base], (220, 256)),
         ("ragged_2303_blocked_row", 1, 2303, 2303, 1.0, None, (2000, 2303)),
         ("clamp_2303", 1, 2303, 2303, CLAMP_QK_SCALE, None, (2000, 2303)),
+        ("hole_across_key_128_8513", 2, 8513, 8513, 1.0, None, (100, 160)),
+        ("stage_varying_mask_and_bias_8448", 2, s, s, 1.0, "per_stage", "per_stage"),
     ]
-    for name, b, sq, sk, scale, bias_c, (m0, m1) in cases:
+    ptxas = k7_ptxas()
+    for name, b, sq, sk, scale, bias_c, dead in cases:
         if bias_c is None:          # a random entity-style bias of this shape
             bias_c = fa.bias_log2(torch.where(torch.rand(b, sq, sk, device=dev, generator=gen)
                                               < 0.3, -1e30, 0.0))
             bias_c[:, :, 0] = 0.0
+        elif isinstance(bias_c, str):
+            bias_c = stage_varying_bias(b, sq, sk, dev, gen)
         blocked = 17 if name.startswith("ragged") else None
         if blocked is not None:
             bias_c[:, blocked] = -1e30 * fa.LOG2E
         q = (rms(randn(b, 24, sq, 128)) * scale).bfloat16()
         k = (rms(randn(b, 24, sk, 128)) * scale).bfloat16()
         v = randn(b, 24, sk, 128).bfloat16()
-        mask = torch.ones(b, sk, dtype=torch.bool, device=dev)
-        mask[b - 1, m0:m1] = False
+        if dead == "per_stage":
+            mask = stage_varying_mask(b, sk, dev)
+        else:
+            mask = torch.ones(b, sk, dtype=torch.bool, device=dev)
+            mask[b - 1, dead[0]:dead[1]] = False
         logits = q[0, 0].float() @ k[0, 0].float().T * (fa.LOG2E / 128 ** 0.5) + bias_c[0]
         clamped = (logits > fa.CLAMP).float().mean().item()
         del logits
@@ -840,6 +900,10 @@ def k7_phase(report: dict, gen, time_ms, compare) -> None:
             row["bias_blocked_share"] = (bias_nat < 0).float().mean().item()
             row["bias_build_host_ms"] = host_ms
             row["ms"] = time_ms(lambda: fa.fixedmax_attention_bias(q, k, v, bias_c, mask), 10)
+            row["graph_ms"] = _bench.graph_ms(
+                lambda: fa.fixedmax_attention_bias(q, k, v, bias_c, mask))
+            row["k1prime_scaled_ms"] = time_ms(lambda: fa.fixedmax_bnsd(q, k, v, mask), 10)
+            row["bias_cost_ms"] = row["ms"] - row["k1prime_scaled_ms"]
             row["plain_ms"] = time_ms(
                 lambda: fa.fixedmax_attention_bias_reference(q, k, v, bias_c, mask), 2)
             # the same function in one PyTorch call: the bias in natural units
@@ -852,6 +916,8 @@ def k7_phase(report: dict, gen, time_ms, compare) -> None:
             row.update(bound(4 * b * 24 * sq * sk * 128,
                              2 * (q.numel() + k.numel() + v.numel() + out.numel())
                              + 4 * bias_c.numel() + b * sk, PEAK_BF16))
+            row["bound_share"] = row["bound_ms"] / row["ms"]
+            row["ptxas"] = ptxas
             report["fixedmax_attention_bias"] = dict(row)
         report.setdefault("fixedmax_attention_bias_err", []).append(max_err)
         emit(row)
@@ -1060,14 +1126,17 @@ def k1prime_phase(report: dict, gen, time_ms, compare) -> dict:
     JAX package's default form, scaled with the clamp on) driven once with
     the counts at 0.  Each form timed beside its plain version; the clamp
     also where it binds (q and k x CLAMP_QK_SCALE).  Returns the path's
-    launches."""
+    launches.  The scaled rows also carry a CUDA-graph time, the bound and
+    the ptxas report of K7's kernel without the bias."""
     import torch
     import torch.nn.functional as F
 
     from physicedit_torch.kernels import flash_attention as fa
+    from physicedit_torch.tools import _bench
 
     dev = gen.device
     b, n, s = 2, 24, 8448
+    ptxas = {key: entry for key, entry in k7_ptxas().items() if key.startswith("bias=0")}
     mask = torch.ones(b, s, dtype=torch.bool, device=dev)
     mask[1, 60:256] = False
     launches = None
@@ -1101,13 +1170,18 @@ def k1prime_phase(report: dict, gen, time_ms, compare) -> dict:
             row["plain_ms"] = time_ms(lambda: fa.fixedmax_bnsd_reference(
                 q, k, v, mask, clamp=clamp, prescaled=prescaled), 2)
             report.setdefault("fixedmax_bnsd_err", []).append(row["max_abs_err"])
+            if not prescaled:
+                row["graph_ms"] = _bench.graph_ms(lambda: fa.fixedmax_bnsd(q, k, v, mask,
+                                                                          clamp=clamp))
+                row.update(bound(4 * b * n * s * s * 128,
+                                 2 * (q.numel() + k.numel() + v.numel() + out.numel()) + b * s,
+                                 PEAK_BF16))
+                row["bound_share"] = row["bound_ms"] / row["ms"]
+                row["ptxas"] = ptxas
             if not prescaled and clamp:     # the JAX package's default form
                 mask4 = mask[:, None, None, :]
                 row["library_ms"] = time_ms(
                     lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask4), 10)
-                row.update(bound(4 * b * n * s * s * 128,
-                                 2 * (q.numel() + k.numel() + v.numel() + out.numel()) + b * s,
-                                 PEAK_BF16))
                 row["launches"] = launches
                 report["fixedmax_bnsd"] = dict(row)
         emit(row)
@@ -1146,16 +1220,23 @@ def ptxas_report(log_path, kernel: str = "proto_kernel") -> dict:
     return report
 
 
-def hopper_ptxas(source: str, kernel: str, switches: tuple) -> dict:
+def hopper_ptxas(source: str, kernel: str, switches: tuple, smem_symbol=None) -> dict:
     """Registers, spills and dynamic shared memory of each instantiation of
     a Hopper-mainloop kernel (``csrc/<source>.cu``); fails on a spill.
-    Instantiations are keyed by their template switches."""
+    Instantiations are keyed by their template switches; ``smem_symbol``
+    maps an instantiation's switches to the C function that reports its
+    shared memory (by default ``<source>_smem_bytes``)."""
     from physicedit_torch.kernels import _build
 
     report = ptxas_report(f"{_build.library_path(source)}.log", kernel)
-    smem = getattr(_build.load(source), f"{source}_smem_bytes")()
+    lib = _build.load(source)
+
+    def smem(args):
+        name = smem_symbol(args) if smem_symbol else f"{source}_smem_bytes"
+        return getattr(lib, name)()
+
     out = {",".join(f"{k}={v}" for k, v in zip(switches, args)) or kernel:
-           {**entry, "dynamic_smem_bytes": smem} for args, entry in sorted(report.items())}
+           {**entry, "dynamic_smem_bytes": smem(args)} for args, entry in sorted(report.items())}
     if not out or any(e.get("spill_store_bytes", 0) or e.get("spill_load_bytes", 0)
                       for e in out.values()):
         fail(f"{kernel}: ptxas reports spills or no entry: {out}")

@@ -62,6 +62,7 @@ struct FixedMaxPolicy {
     tma_load_3d(dst + kBoxBytes, vmap, bar, 64, j * kTile, bh);
   }
   __device__ bool live(int key) const { return key < sk && (mask == nullptr || mask[key] != 0); }
+  __device__ void begin(int, int) const {}
 
   // p = exp2(min(s, 100)) where live, else 0; the row sums; P packed to bf16.
   // A tile whose 128 keys are all live skips the liveness test (kTest).

@@ -12,175 +12,285 @@
 // q is not pre-scaled; the bias is fp32 [B, S_q, S_k], shared by the heads and
 // already multiplied by log2(e) (once per edit, by the pipeline).  Its rows
 // are read with a row pitch and a batch stride, so the slim last block passes
-// the rows of its base-image queries as a view, not a copy.  A row whose keys
-// are all blocked has l == 0 and comes out as exactly 0.
-//
-// What bounds it on an H100: the tensor cores, as K1 (at B=2, N=24, S=8448:
-// 1.75e12 FLOP, 1.77 ms at 989 TFLOP/s); the bias adds 0.57 GB, 0.17 ms of
-// bytes if read once.  Design: K1's (64-row q tile in mma A fragments, K/V
-// tiles of 64 keys staged in shared memory, P kept in registers between the
-// two products), with the bias of the thread's two rows loaded from global
-// memory into registers before each tile's QK^T product so the loads overlap
-// it, as 8-byte loads of a key pair where the pitch allows (the bias tile is
-// not staged in shared memory, where its loads would sit on the critical path
-// of every tile).  The grid puts the head on the fastest-varying block
-// index: the 24 head-blocks of one (batch, q-tile) run next to each other and
-// read the same bias rows, which the 50 MB L2 then serves instead of HBM 24
-// times.  The products' rounding is
-// kept apart (no FMA contraction of the scale and the bias add), as the
-// plain version rounds them.  Not done yet: TMA, wgmma, a multi-stage copy
-// pipeline.
+// the rows of its base-image queries as a view, not a copy.  The multiply
+// and the add are rounded apart (no FMA contraction), as the plain version
+// rounds them.  A row whose keys are all blocked has l == 0 and comes out as
+// exactly 0.
 //
 // K1' (physicedit_tpu/kernels/flash_attention.py::_fixedmax_kernel with
 // prescaled=False, called through _fixedmax_bnsd) is this kernel with two
 // compile-time switches: no bias (kHasBias = false: s = fp32(q k^T) * scale
-// alone, no bias loads) and the clamp on or off (kClamp).  K7 is the
-// instantiation with both on, the code it had before the switches.
-#include "mma_bf16.cuh"
+// alone) and the clamp on or off (kClamp).  K7 is the instantiation with
+// both on.
+//
+// Design: the Hopper mainloop of hopper_attention.cuh (one block per
+// 128-row q tile, head and batch row: a producer warpgroup issuing TMA loads
+// of Q, K and V into a 2-stage 128-byte-swizzled ring under mbarriers, two
+// ping-ponged consumer warpgroups of 64 rows running both products as
+// wgmma m64n128k16), with this file's Policy doing the scale multiply, the
+// bias add, the clamp and ex2 in the consumer's fp32 S registers.
+//
+// Where the bias lives: shared memory, each consumer warp's own 8 KB (its
+// 16 q rows x 128 keys of the tile, fp32).  The warp copies tile j + 1's
+// rows with cp.async right after softmax(j) has read tile j's, and waits for
+// them at the start of softmax(j + 1): the copies have a whole phase (both
+// consumers' products) to land.  Each instruction copies a whole 512-byte
+// row segment as 16-byte cp.async.cg (four full lines from L2, no L1
+// allocation), or as 4-byte copies where the pitch or base is not 16-byte
+// aligned; keys past S_k are zero-filled.  The rows are XOR-swizzled in
+// 8-key groups, so both the copies and the thread's 8-byte reads of its key
+// pairs are free of bank conflicts.  Only the warp reads what it copied, so
+// a __syncwarp on each side of the reads is the whole handshake, and the
+// producer warpgroup is unchanged.  64 KB in all, on top of the mainloop's
+// 165,888 B: 231,424 of the 232,448 B a block may use, so one tile and no
+// second buffer.  Registers instead (the bias loaded between the products'
+// commit and wait) would add 64 live floats to the consumer's o 64 + s 64 +
+// p 32 under its 232-register cap.  TMA cannot take the bias: its row pitch
+// S_k x 4 bytes is a multiple of 16 only when S_k % 4 == 0, and text lengths
+// make S_k arbitrary.
+//
+// What bounds it on an H100: L2 traffic.  The products take 1.77 ms at B=2,
+// N=24, S=8448 (1.75e12 FLOP at 989 TFLOP/s), and the bias adds 4 bytes per
+// score against 512 FLOP per score.  Each (head, q tile) block reads its own
+// bias rows, 24 x 571 MB = 13.7 GB from L2 a call, and streams its head's K
+// and V, another 66 q tiles x 208 MB = 13.7 GB.  On an H100 80GB HBM3 at
+// 700 W the call takes 4.6 ms where the bias-free instantiation takes 2.6 on
+// the same inputs (chip_smoke.py): 27.4 GB at about 6 TB/s, the rate K1's
+// 13.7 GB of K/V reads reach.  The grid puts the head on the fastest block
+// index (the bias-free K1' keeps K1's order, q tile fastest), so the 24
+// head-blocks of one (batch, q tile) run side by side and read the same bias
+// rows, which the 50 MB L2 then serves from one HBM read.  Sharing one bias
+// tile across heads in a thread-block cluster would cut the L2 traffic (not
+// done).  Keys past S_k arrive as TMA's zeros and are zeroed by the liveness
+// word, as in K1; p below 2^-126 flushes to 0 (ex2.approx.ftz), as in K1.
+#include "hopper_attention.cuh"
 
 using namespace physicedit;
+using namespace physicedit::hopper;
 
 namespace {
 
 constexpr float kClampValue = 100.f;
+constexpr int kBiasBytes = 8 * 16 * kTile * 4;   // 8 consumer warps x 16 rows x 128 keys fp32
 
-template <bool kHasBias, bool kClamp>
-__global__ void __launch_bounds__(kThreads)
-fixedmax_bias_kernel(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
-                     const uint16_t* __restrict__ v, const float* __restrict__ bias,
-                     long bias_batch_stride, long bias_row_pitch,
-                     const uint8_t* __restrict__ key_mask, uint16_t* __restrict__ out,
-                     int n_heads, int sq, int sk, float scale) {
-  __shared__ __align__(16) uint16_t ks[kBlockK * kRowStride];
-  __shared__ __align__(16) uint16_t vs[kBlockK * kRowStride];
-  __shared__ uint8_t live[kBlockK];
+template <bool kHasBias>
+constexpr int smem_bytes() {
+  return kSmemBytes + (kHasBias ? kBiasBytes : 0);
+}
 
-  const int q0 = blockIdx.y * kBlockQ;
-  const long bh = (long)blockIdx.z * n_heads + blockIdx.x;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int wr = warp * 16;
-  const int rg = q0 + wr + g;
-  const int rg8 = rg + 8;
+template <bool kHasBias, bool kClampOn>
+struct ScaledPolicy {
+  const CUtensorMap* qmap;
+  const CUtensorMap* kmap;
+  const CUtensorMap* vmap;
+  const uint8_t* mask;    // this batch row's [S_k] (1 = live), or null
+  uint16_t* out;          // this (batch, head)'s [S_q, 128]
+  const float* bias;      // this batch row's bias rows (row pitch `pitch`), or null
+  long pitch;
+  bool wide;              // 16-byte copies (pitch and stride multiples of 4, base 16-aligned)
+  int q0, bh, sq, sk, n_tiles;
+  float scale;
+  float l0, l1;           // row-sum partials of the thread's rows
+  int rw;                 // the warp's first q row (set by begin)
+  uint32_t wslot;         // shared address of the warp's 16 x 128 bias tile
+  uint32_t rslot;         // the thread's read address: row g, key 2t, unswizzled
 
-  // Stage the q tile through the K buffer into registers.
-  load_tile(ks, q + bh * sq * kHeadDim, kHeadDim, q0, sq);
-  __syncthreads();
-  uint32_t qa[8][4];
-  load_q_fragments(qa, ks, wr, g, t);
-  __syncthreads();
-
-  float acc[16][4];
-#pragma unroll
-  for (int jd = 0; jd < 16; ++jd) acc[jd][0] = acc[jd][1] = acc[jd][2] = acc[jd][3] = 0.f;
-  float l_g = 0.f, l_g8 = 0.f;
-
-  const uint16_t* kb = k + bh * sk * kHeadDim;
-  const uint16_t* vb = v + bh * sk * kHeadDim;
-  const uint8_t* mb = key_mask ? key_mask + (long)blockIdx.z * sk : nullptr;
-  // the bias rows of this thread's two query rows (a row past S_q reads the
-  // last row's values and is never written)
-  const float* b_g = nullptr;
-  const float* b_g8 = nullptr;
-  bool pairs = false;
-  if constexpr (kHasBias) {
-    const float* bb = bias + (long)blockIdx.z * bias_batch_stride;
-    b_g = bb + (long)min(rg, sq - 1) * bias_row_pitch;
-    b_g8 = bb + (long)min(rg8, sq - 1) * bias_row_pitch;
-    // a thread's two keys (2t, 2t + 1) as one 8-byte load
-    pairs = bias_row_pitch % 2 == 0 && bias_batch_stride % 2 == 0 &&
-            reinterpret_cast<uintptr_t>(bias) % 8 == 0;
+  __device__ void load_q(uint32_t dst, uint64_t* bar) const {
+    tma_load_3d(dst, qmap, bar, 0, q0, bh);
+    tma_load_3d(dst + kBoxBytes, qmap, bar, 64, q0, bh);
   }
+  __device__ void load_k(uint32_t dst, int j, uint64_t* bar) const {
+    tma_load_3d(dst, kmap, bar, 0, j * kTile, bh);
+    tma_load_3d(dst + kBoxBytes, kmap, bar, 64, j * kTile, bh);
+  }
+  __device__ void load_v(uint32_t dst, int j, uint64_t* bar) const {
+    tma_load_3d(dst, vmap, bar, 0, j * kTile, bh);
+    tma_load_3d(dst + kBoxBytes, vmap, bar, 64, j * kTile, bh);
+  }
+  __device__ bool live(int key) const { return key < sk && (mask == nullptr || mask[key] != 0); }
 
-  for (int k0 = 0; k0 < sk; k0 += kBlockK) {
-    // C fragment element (j, e) is row g (e < 2) or g + 8, key k0 + 8j + 2t + (e & 1)
-    float bv[8][4];
-    if constexpr (kHasBias) {
+  // Copies of tile j's bias rows for the warp's 16 q rows into its slots:
+  // row r, key c at float r * 128 + (c ^ 8 (r % 4)) of the warp's 8 KB, so
+  // that a 16-byte copy of 4 keys stays whole and both the copies (8 lanes x
+  // 16 B) and the reads (16 lanes x 8 B: rows g, keys 8 nb + 2t) hit 32
+  // distinct banks.  A warp instruction copies a whole row (512 B, four
+  // full lines) with 16-byte copies, or 128 B with 4-byte ones where the
+  // pitch or base is not 16-byte aligned; keys past S_k are zero-filled, a
+  // row past S_q reads the last row (never written out).
+  __device__ __forceinline__ void prefetch(int j) const {
+    const int lane = threadIdx.x % 32;
+    const int k0 = j * kTile;
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int key = k0 + 8 * j + 2 * t;
-        if (pairs && key + 1 < sk) {
-          const float2 lo = __ldg(reinterpret_cast<const float2*>(b_g + key));
-          const float2 hi = __ldg(reinterpret_cast<const float2*>(b_g8 + key));
-          bv[j][0] = lo.x, bv[j][1] = lo.y, bv[j][2] = hi.x, bv[j][3] = hi.y;
-        } else {
+    for (int r = 0; r < 16; ++r) {
+      const float* src = bias + (long)min(rw + r, sq - 1) * pitch;
+      const uint32_t dst = wslot + r * 512;
+      if (wide) {
+        const int key = k0 + 4 * lane;
+        const int n = min(max(sk - key, 0), 4);
+        cp_async_16(dst + ((4 * lane) ^ (8 * (r % 4))) * 4, n ? src + key : src, 4 * n);
+      } else {
 #pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int kk = key + (e & 1);
-            bv[j][e] = kk < sk ? __ldg((e < 2 ? b_g : b_g8) + kk) : 0.f;
-          }
+        for (int c = 0; c < 4; ++c) {
+          const int key = k0 + 32 * c + lane;
+          cp_async_4(dst + ((32 * c + lane) ^ (8 * (r % 4))) * 4, key < sk ? src + key : src,
+                     key < sk ? 4u : 0u);
         }
       }
     }
-    load_tile(ks, kb, kHeadDim, k0, sk);
-    load_tile(vs, vb, kHeadDim, k0, sk);
-    if (threadIdx.x < kBlockK) {
-      const int key = k0 + threadIdx.x;
-      live[threadIdx.x] = key < sk && (mb == nullptr || mb[key] != 0);
-    }
-    __syncthreads();
-
-    float s[8][4];
-    qk_tile(s, qa, ks, g, t);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float x = __fmul_rn(s[j][e], scale);
-        if constexpr (kHasBias) x = __fadd_rn(x, bv[j][e]);
-        if constexpr (kClamp) x = fminf(x, kClampValue);
-        const float p = live[8 * j + 2 * t + (e & 1)] ? exp2f(x) : 0.f;
-        s[j][e] = p;
-        if (e < 2) l_g += p; else l_g8 += p;
-      }
-    }
-    pv_tile(acc, s, vs, g, t);
-    __syncthreads();
+    cp_async_commit();
   }
 
-  l_g = quad_sum(l_g);
-  l_g8 = quad_sum(l_g8);
-  store_rows(out, (bh * sq + rg) * kHeadDim, (bh * sq + rg8) * kHeadDim,
-             rg < sq, rg8 < sq, acc, l_g, l_g8, t);
+  __device__ void begin(int row, int t) {
+    if constexpr (kHasBias) {
+      const int g = (threadIdx.x % 32) / 4;
+      rw = q0 + row - g;
+      wslot = extra_smem_u32() + (threadIdx.x / 32 - 4) * 8192;
+      rslot = wslot + g * 512 + 8 * t;
+      prefetch(0);
+    }
+  }
+
+  // p = exp2(min(s * scale + bias, 100)) where live, else 0; the row sums;
+  // P packed to bf16.  A tile whose 128 keys are all live skips the liveness
+  // test (kTest).
+  template <bool kTest>
+  __device__ __forceinline__ void exp_tile(float (&s)[64], uint4 word, uint32_t (&p)[32],
+                                           int t) {
+    const uint32_t w[4] = {word.x >> (2 * t), word.y >> (2 * t), word.z >> (2 * t),
+                           word.w >> (2 * t)};
+#pragma unroll
+    for (int nb = 0; nb < 16; ++nb) {
+      float2 b0, b1;   // rows g and g + 8, keys 8 nb + 2t and + 1
+      if constexpr (kHasBias) {
+        const uint32_t at = rslot + 32 * (nb ^ ((threadIdx.x / 4) % 4));
+        asm volatile("ld.shared.v2.f32 {%0, %1}, [%2];\n" : "=f"(b0.x), "=f"(b0.y) : "r"(at));
+        asm volatile("ld.shared.v2.f32 {%0, %1}, [%2];\n"
+                     : "=f"(b1.x), "=f"(b1.y) : "r"(at + 8 * 512));
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = __fmul_rn(s[4 * nb + e], scale);
+        if constexpr (kHasBias) {
+          const float2 b = e < 2 ? b0 : b1;
+          x = __fadd_rn(x, (e & 1) ? b.y : b.x);
+        }
+        x = ex2_ftz(kClampOn ? fminf(x, kClampValue) : x);
+        if (kTest && !((w[nb / 4] >> (8 * (nb % 4) + (e & 1))) & 1u)) x = 0.f;
+        s[4 * nb + e] = x;
+        if (e < 2) l0 += x; else l1 += x;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 32; ++i) p[i] = pack_bf16(s[2 * i], s[2 * i + 1]);
+  }
+
+  __device__ void softmax(float (&s)[64], uint4 word, int j, float (&)[64], uint32_t (&p)[32],
+                          int, int t) {
+    if constexpr (kHasBias) {
+      cp_async_wait_all();
+      __syncwarp();   // the warp's copies are visible to every lane
+    }
+    if (all_live(word)) exp_tile<false>(s, word, p, t);
+    else exp_tile<true>(s, word, p, t);
+    if constexpr (kHasBias) {
+      __syncwarp();   // every lane has read tile j's slots
+      if (j + 1 < n_tiles) prefetch(j + 1);
+    }
+  }
+
+  __device__ void epilogue(const float (&o)[64], int row, int t) const {
+    const int r0 = q0 + row, r1 = r0 + 8;
+    store_rows(out, (long)r0 * kHeadDim, (long)r1 * kHeadDim, r0 < sq, r1 < sq, as_rows(o),
+               quad_sum(l0), quad_sum(l1), t);
+  }
+};
+
+// The grid: (heads, q tiles, batch) with the bias, the head fastest so that
+// the head-blocks of one (batch, q tile) share its bias rows in L2;
+// (q tiles, heads, batch) without, as K1.
+template <bool kHasBias, bool kClampOn>
+__global__ void __launch_bounds__(kBlockThreads, 1)
+fixedmax_bias_kernel(const __grid_constant__ CUtensorMap qmap,
+                     const __grid_constant__ CUtensorMap kmap,
+                     const __grid_constant__ CUtensorMap vmap, const float* __restrict__ bias,
+                     long bias_batch_stride, long bias_row_pitch, int wide,
+                     const uint8_t* __restrict__ key_mask, uint16_t* __restrict__ out,
+                     int n_heads, int sq, int sk, float scale) {
+  using Policy = ScaledPolicy<kHasBias, kClampOn>;
+  const int head = kHasBias ? blockIdx.x : blockIdx.y;
+  const int q_tile = kHasBias ? blockIdx.y : blockIdx.x;
+  const int bh = blockIdx.z * n_heads + head;
+  Policy pol{&qmap, &kmap, &vmap,
+             key_mask ? key_mask + (long)blockIdx.z * sk : nullptr,
+             out + (long)bh * sq * kHeadDim,
+             kHasBias ? bias + (long)blockIdx.z * bias_batch_stride : nullptr,
+             bias_row_pitch, wide != 0,
+             q_tile * kTile, bh, sq, sk, (sk + kTile - 1) / kTile, scale, 0.f, 0.f, 0, 0u, 0u};
+  attention_mainloop<Policy>(pol);
+}
+
+template <bool kHasBias, bool kClampOn>
+int launch_kernel(const void* q, const void* k, const void* v, const float* bias,
+                  long long batch_stride, long long row_pitch, const void* key_mask, void* out,
+                  int batch, int heads, int sq, int sk, float scale, void* stream) {
+  if (batch == 0 || heads == 0 || sq == 0) return 0;
+  if (sk <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const cuuint64_t bn = static_cast<cuuint64_t>(batch) * heads;
+  const cuuint64_t qdims[3] = {kHeadDim, static_cast<cuuint64_t>(sq), bn};
+  const cuuint64_t kdims[3] = {kHeadDim, static_cast<cuuint64_t>(sk), bn};
+  const cuuint64_t qstr[2] = {kHeadDim * 2, static_cast<cuuint64_t>(sq) * kHeadDim * 2};
+  const cuuint64_t kstr[2] = {kHeadDim * 2, static_cast<cuuint64_t>(sk) * kHeadDim * 2};
+  CUtensorMap qm, km, vm;
+  if (!make_map(&qm, q, 3, qdims, qstr, 1) || !make_map(&km, k, 3, kdims, kstr, 1) ||
+      !make_map(&vm, v, 3, kdims, kstr, 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = fixedmax_bias_kernel<kHasBias, kClampOn>;
+  constexpr int smem = smem_bytes<kHasBias>();
+  static const cudaError_t attr =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const int wide = row_pitch % 4 == 0 && batch_stride % 4 == 0 &&
+                   reinterpret_cast<uintptr_t>(bias) % 16 == 0;
+  const unsigned q_tiles = (sq + kTile - 1) / kTile;
+  const dim3 grid = kHasBias ? dim3(heads, q_tiles, batch) : dim3(q_tiles, heads, batch);
+  kernel<<<grid, kBlockThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      qm, km, vm, bias, static_cast<long>(batch_stride), static_cast<long>(row_pitch), wide,
+      static_cast<const uint8_t*>(key_mask), static_cast<uint16_t*>(out), heads, sq, sk, scale);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// q [B, N, Sq, 128], k/v [B, N, Sk, 128], out [B, N, Sq, 128]: bf16, contiguous.
-// bias: fp32, element (b, row, key) at bias[b * batch_stride + row * row_pitch
-// + key], already times log2(e).  key_mask [B, Sk] uint8 (1 = live)
-// or null.  scale = log2(e) / sqrt(128) in fp32.
+// q [B, N, Sq, 128], k/v [B, N, Sk, 128], out [B, N, Sq, 128]: bf16, contiguous,
+// 16-byte aligned (TMA).  bias: fp32, element (b, row, key) at
+// bias[b * batch_stride + row * row_pitch + key], already times log2(e).
+// key_mask [B, Sk] uint8 (1 = live) or null.  scale = log2(e) / sqrt(128) in
+// fp32.  Sq <= Sk.
 extern "C" int fixedmax_attention_bias_bf16(const void* q, const void* k, const void* v,
                                             const void* bias, long long bias_batch_stride,
                                             long long bias_row_pitch, const void* key_mask,
                                             void* out, int batch, int heads, int sq, int sk,
                                             float scale, void* stream) {
-  // the head fastest: the head-blocks of one (batch, q tile) share its bias rows in L2
-  const dim3 grid(heads, (sq + kBlockQ - 1) / kBlockQ, batch);
-  fixedmax_bias_kernel<true, true><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint16_t*>(q), static_cast<const uint16_t*>(k),
-      static_cast<const uint16_t*>(v), static_cast<const float*>(bias),
-      static_cast<long>(bias_batch_stride), static_cast<long>(bias_row_pitch),
-      static_cast<const uint8_t*>(key_mask), static_cast<uint16_t*>(out), heads, sq, sk,
-      scale);
-  return static_cast<int>(cudaGetLastError());
+  return launch_kernel<true, true>(q, k, v, static_cast<const float*>(bias), bias_batch_stride,
+                                   bias_row_pitch, key_mask, out, batch, heads, sq, sk, scale,
+                                   stream);
 }
 
 // K1': q [B, N, Sq, 128], k/v [B, N, Sk, 128], out [B, N, Sq, 128]: bf16,
-// contiguous.  No bias; q scaled in fp32 here (scale = log2(e) / sqrt(128));
-// the clamp on when clamp != 0.  key_mask [B, Sk] uint8 (1 = live) or null.
+// contiguous, 16-byte aligned (TMA).  No bias; q scaled in fp32 here (scale =
+// log2(e) / sqrt(128)); the clamp on when clamp != 0.  key_mask [B, Sk] uint8
+// (1 = live) or null.
 extern "C" int fixedmax_attention_scaled_bf16(const void* q, const void* k, const void* v,
                                               const void* key_mask, void* out, int batch,
                                               int heads, int sq, int sk, int clamp,
                                               float scale, void* stream) {
-  const dim3 grid(heads, (sq + kBlockQ - 1) / kBlockQ, batch);
-  const auto kernel = clamp ? fixedmax_bias_kernel<false, true>
-                            : fixedmax_bias_kernel<false, false>;
-  kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint16_t*>(q), static_cast<const uint16_t*>(k),
-      static_cast<const uint16_t*>(v), nullptr, 0, 0, static_cast<const uint8_t*>(key_mask),
-      static_cast<uint16_t*>(out), heads, sq, sk, scale);
-  return static_cast<int>(cudaGetLastError());
+  return clamp ? launch_kernel<false, true>(q, k, v, nullptr, 0, 0, key_mask, out, batch, heads,
+                                            sq, sk, scale, stream)
+               : launch_kernel<false, false>(q, k, v, nullptr, 0, 0, key_mask, out, batch,
+                                             heads, sq, sk, scale, stream);
 }
+
+// The dynamic shared memory of one block, for the report beside ptxas's: K7
+// (with the bias slots) and K1' scaled.
+extern "C" int fixedmax_attention_bias_smem_bytes() { return smem_bytes<true>(); }
+extern "C" int fixedmax_attention_scaled_smem_bytes() { return smem_bytes<false>(); }

@@ -62,6 +62,7 @@ struct GqaCausalPolicy {
   __device__ bool live(int key) const {
     return key < seq && (mask == nullptr || mask[key] != 0);
   }
+  __device__ void begin(int, int) const {}
 
   // One tile of the online softmax on raw scores s: kTest 0 (every key
   // live: a tile below the diagonal whose keys are all live), 1 (the

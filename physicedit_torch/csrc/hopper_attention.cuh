@@ -1,5 +1,8 @@
-// The Hopper attention mainloop shared by K1 (fixedmax_attention.cu) and K2
-// (gqa_causal_attention.cu): bf16, head_dim 128, fp32 accumulators.
+// The Hopper attention mainloop shared by K1 (fixedmax_attention.cu), K2
+// (gqa_causal_attention.cu) and K7 / K1' scaled (fixedmax_attention_bias.cu):
+// bf16, head_dim 128, fp32 accumulators.  Its primitives (mbarriers, TMA,
+// wgmma, named barriers, cp.async) also build K8's two backward passes
+// (fixedmax_attention_bwd.cu).
 //
 // One block of three warpgroups (384 threads) per 128-row q tile:
 //   warpgroup 0, the producer, gives its registers back (setmaxnreg.dec);
@@ -76,6 +79,13 @@ __device__ __forceinline__ SharedStorage& shared_storage() {
   return *reinterpret_cast<SharedStorage*>(smem_raw + (((base + 1023u) & ~1023u) - base));
 }
 
+// Dynamic shared memory a Policy asks for beyond SharedStorage (K7's bias
+// slots): it starts 1 KB-aligned right after the storage, so a kernel that
+// asks for none (K1, K2) keeps kSmemBytes.
+__device__ __forceinline__ uint32_t extra_smem_u32() {
+  return smem_u32(&shared_storage()) + static_cast<uint32_t>(sizeof(SharedStorage));
+}
+
 // ---- mbarriers -------------------------------------------------------------
 
 __device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
@@ -141,6 +151,32 @@ __device__ __forceinline__ void named_arrive(int id, int threads) {
   asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
+// ---- cp.async (asynchronous copies into shared memory) ---------------------
+
+// Each copies src_bytes of src to dst and zero-fills the rest of its size (16
+// or 4 bytes); with src_bytes 0 nothing is read.  cp_async_16 caches in L2
+// only and needs dst and src 16-byte aligned.
+__device__ __forceinline__ void cp_async_16(uint32_t dst, const void* src, uint32_t src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_4(uint32_t dst, const void* src, uint32_t src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
+               "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait for this thread's copies; their bytes are then visible to it.
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
 // ---- wgmma -----------------------------------------------------------------
 
 // Shared-memory matrix descriptor, 128-byte swizzle: start address, leading
@@ -174,6 +210,16 @@ __device__ __forceinline__ void fence_regs(float (&d)[64]) {
 __device__ __forceinline__ void fence_regs(uint32_t (&a)[32]) {
 #pragma unroll
   for (int i = 0; i < 32; ++i) asm volatile("" : "+r"(a[i])::"memory");
+}
+
+__device__ __forceinline__ void fence_regs(float (&d)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+__device__ __forceinline__ void fence_regs(uint32_t (&a)[16]) {
+#pragma unroll
+  for (int i = 0; i < 16; ++i) asm volatile("" : "+r"(a[i])::"memory");
 }
 
 #define PE_WGMMA_D64                                                                             \
@@ -220,6 +266,30 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64], uint32_t a0, uint32_t a
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(desc_b), "r"(1));
 }
 
+#define PE_WGMMA_D32                                                                             \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),            \
+      "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),    \
+      "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), \
+      "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), \
+      "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+
+// D[64 x 64] (+)= A[64 x 16] . B[16 x 64]^T, A and B K-major in shared
+// memory (the backward's score products over 64-row stream tiles).
+// Accumulator layout as wgmma_ss's with n < 8: d[4 n + 2 i + j] is row
+// 16 w + g + 8 i, column 8 n + 2 t + j.
+__device__ __forceinline__ void wgmma_ss64(float (&d)[32], uint64_t desc_a, uint64_t desc_b,
+                                           int scale_d) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
+      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : PE_WGMMA_D32
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+#undef PE_WGMMA_D32
 #undef PE_WGMMA_D64
 #undef PE_WGMMA_REGS64
 
@@ -244,6 +314,28 @@ __device__ __forceinline__ void pv_product(float (&o)[64], const uint32_t (&p)[3
   for (int ks = 0; ks < 8; ++ks) {
     wgmma_rs(o, p[4 * ks], p[4 * ks + 1], p[4 * ks + 2], p[4 * ks + 3],
              sw128_desc(v_tile + ks * 2048, kBoxBytes, 1024));
+  }
+}
+
+// The same over 64 rows of B (4 k-steps), B a 64-row tile whose two 64-d
+// boxes lie kBoxBytes / 2 apart: the backward's dS.K, P^T.g and dS^T.q'.
+__device__ __forceinline__ void pv_product64(float (&o)[64], const uint32_t (&p)[16],
+                                             uint32_t b_tile) {
+#pragma unroll
+  for (int ks = 0; ks < 4; ++ks) {
+    wgmma_rs(o, p[4 * ks], p[4 * ks + 1], p[4 * ks + 2], p[4 * ks + 3],
+             sw128_desc(b_tile + ks * 2048, kBoxBytes / 2, 1024));
+  }
+}
+
+// S[64 x 64] = A B^T over d = 128, A 64 rows of a 128-row tile (its boxes
+// kBoxBytes apart), B a 64-row tile (boxes kBoxBytes / 2 apart).
+__device__ __forceinline__ void qk_product64(float (&s)[32], uint32_t a_rows, uint32_t b_tile) {
+#pragma unroll
+  for (int ks = 0; ks < 8; ++ks) {
+    const uint32_t in_box = (ks & 3) * 32;
+    wgmma_ss64(s, sw128_desc(a_rows + (ks >> 2) * kBoxBytes + in_box, 16, 1024),
+               sw128_desc(b_tile + (ks >> 2) * (kBoxBytes / 2) + in_box, 16, 1024), ks > 0);
   }
 }
 
@@ -276,6 +368,9 @@ __device__ __forceinline__ bool all_live(uint4 word) {
 //                uint32_t (&p)[32], int row, int t);
 //                                      S(j) -> P(j) in place; may rescale o
 //   void epilogue(const float (&o)[64], int row, int t);
+//   void begin(int row, int t);        once per consumer thread before the
+//                                      loop (K1, K2: empty; K7 starts the
+//                                      first bias tile's copies)
 // where row is the query row of the thread's first accumulator row (the
 // second is row + 8) and t = lane % 4.
 template <class Policy>
@@ -347,6 +442,7 @@ __device__ __forceinline__ void attention_mainloop(Policy& pol) {
 #pragma unroll
   for (int i = 0; i < 64; ++i) o[i] = s[i] = 0.f;
 
+  pol.begin(row, t);
   if (cw == 1) named_arrive(1, 256);   // consumer 0 goes first
   mbar_wait(&sm.q_full, 0);
 
@@ -428,15 +524,15 @@ inline EncodeTiledFn encode_tiled() {
 }
 
 // A bf16 tensor map of `rank` dims (innermost first: d = 128, then the
-// others), strides in bytes for dims 1.., and boxes of 64 d x 128 rows along
-// `row_dim` (1 elsewhere), 128-byte swizzle, zero fill out of bounds.
+// others), strides in bytes for dims 1.., and boxes of 64 d x box_rows rows
+// along `row_dim` (1 elsewhere), 128-byte swizzle, zero fill out of bounds.
 inline bool make_map(CUtensorMap* map, const void* base, int rank, const cuuint64_t* dims,
-                     const cuuint64_t* strides, int row_dim) {
+                     const cuuint64_t* strides, int row_dim, int box_rows = kTile) {
   EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return false;
   cuuint32_t box[5] = {64, 1, 1, 1, 1};
   cuuint32_t elem[5] = {1, 1, 1, 1, 1};
-  box[row_dim] = kTile;
+  box[row_dim] = static_cast<cuuint32_t>(box_rows);
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base), dims, strides,
             box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,

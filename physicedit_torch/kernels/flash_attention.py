@@ -23,8 +23,12 @@ scaled in fp32 in the kernel (K7's kernel without its bias, the clamp
 switchable); it replaces ``_fixedmax_kernel`` (entered through
 ``_fixedmax_bnsd``).  :func:`flash_attention_bnsd` and the BSND
 :func:`flash_attention` dispatch as the JAX package's functions of those
-names do.  Each source file says what bounds its kernel on the H100 and what
-the design does about it.
+names do.  K1, K2, K7 (with K1' scaled) and K8 run on the Hopper loop of
+``csrc/hopper_attention.cuh`` (TMA, ``wgmma``, a producer and two
+ping-ponged consumer warpgroups), so their q, k, v (and K8's g) must be
+contiguous and 16-byte aligned; K10 and K10b keep the ``mma.sync`` loop of
+``csrc/mma_bf16.cuh``.  Each source file says what bounds its kernel on the
+H100 and what the design does about it.
 
 Each wrapper takes its plain PyTorch version (``*_reference``) for a tensor
 that lies on the CPU.  For a CUDA tensor it launches the kernel, or raises
@@ -84,7 +88,7 @@ def _check_cuda(name: str, tensors: dict) -> None:
                              f"kernel takes 4-D inputs with head_dim {HEAD_DIM}")
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name}: {tname} must be contiguous and 16-byte aligned "
-                             f"(no copy is made; K1 and K2 read it through TMA)")
+                             f"(no copy is made; the Hopper kernels read it through TMA)")
 
 
 def _mask_arg(key_mask: torch.Tensor | None, b: int, s: int, name: str):

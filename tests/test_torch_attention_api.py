@@ -160,6 +160,8 @@ K1P_CASES = {
     "sq_lt_sk": (1, 2, 64, 256, 1.0, [(200, 256)]),
     "masked_batch_row": (2, 2, 128, 128, 1.0, [(0, 0), (0, 128)]),
     "clamp_binds": (1, 2, 128, 128, 12.0, [(100, 128)]),
+    # a ragged last 128-key stage of the card kernels
+    "tile_edge_sk_255": (1, 2, 255, 255, 1.0, [(200, 255)]),
 }
 
 

@@ -320,14 +320,16 @@ def test_gqa_kernel_tile_edges_on_cuda(cuda, case):
 
 
 @pytest.mark.cuda
-def test_fixedmax_autograd_matches_plain_k1_k8_on_cuda(cuda):
+@pytest.mark.parametrize("s", [300, 3504])
+def test_fixedmax_autograd_matches_plain_k1_k8_on_cuda(cuda, s):
     """The gradients of the differentiable K1 (the kernel forward, K8
-    backward) against K8's plain version on K1's plain outputs."""
+    backward) against K8's plain version on K1's plain outputs, also at the
+    training slice's ragged joint length 3,504."""
     g = torch.Generator(cuda).manual_seed(8)
-    q, k = (_rms(torch.randn(1, 2, 300, 128, device=cuda, generator=g)) for _ in range(2))
-    v = torch.randn(1, 2, 300, 128, device=cuda, generator=g).bfloat16()
-    go = torch.randn(1, 2, 300, 128, device=cuda, generator=g).bfloat16()
-    mask = torch.ones(1, 300, dtype=torch.bool, device=cuda)
+    q, k = (_rms(torch.randn(1, 2, s, 128, device=cuda, generator=g)) for _ in range(2))
+    v = torch.randn(1, 2, s, 128, device=cuda, generator=g).bfloat16()
+    go = torch.randn(1, 2, s, 128, device=cuda, generator=g).bfloat16()
+    mask = torch.ones(1, s, dtype=torch.bool, device=cuda)
     mask[0, 120:140] = False
     qg, kg, vg = (x.clone().requires_grad_(True) for x in (q, k, v))
     tfa.fixedmax_attention(qg, kg, vg, mask).backward(go)
@@ -359,6 +361,21 @@ def test_hopper_kernels_raise_on_misaligned_or_strided_inputs(cuda):
         tfa.fixedmax_bnsd(misaligned(shape), ok, ok, prescaled=True)
     with pytest.raises(ValueError, match="contiguous"):
         tfa.fixedmax_attention(ok, ok, strided)
+    # K7 and K1' scaled (one kernel), K8
+    bias = torch.zeros(1, 130, 130, device=cuda)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        tfa.fixedmax_attention_bias(misaligned(shape), ok, ok, bias)
+    with pytest.raises(ValueError, match="contiguous"):
+        tfa.fixedmax_attention_bias(ok, strided, ok, bias)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        tfa.fixedmax_bnsd(ok, ok, misaligned(shape), prescaled=False)
+    with pytest.raises(ValueError, match="contiguous"):
+        tfa.fixedmax_bnsd(strided, ok, ok, prescaled=False)
+    l = torch.ones(1, 2, 130, device=cuda)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        tfa.fixedmax_attention_bwd(ok, ok, ok, None, misaligned(shape), ok, l)
+    with pytest.raises(ValueError, match="contiguous"):
+        tfa.fixedmax_attention_bwd(ok, strided, ok, None, ok, ok, l)
     gshape = (1, 130, 4, 128)
     gq = torch.zeros(gshape, dtype=torch.bfloat16, device=cuda)
     kv = torch.zeros(1, 130, 2, 128, dtype=torch.bfloat16, device=cuda)
@@ -370,7 +387,8 @@ def test_hopper_kernels_raise_on_misaligned_or_strided_inputs(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kernel", ["k1_with_l", "k1prime_prescaled", "k2"])
+@pytest.mark.parametrize("kernel", ["k1_with_l", "k1prime_prescaled", "k2", "k7",
+                                    "k1prime_scaled", "k8"])
 def test_hopper_kernels_in_a_cuda_graph_give_the_eager_bits(cuda, kernel):
     """The tensor maps reach the kernel by value: a CUDA-graph replay gives
     the eager call's bits."""
@@ -384,13 +402,25 @@ def test_hopper_kernels_in_a_cuda_graph_give_the_eager_bits(cuda, kernel):
 
         def fn():
             return (tfa.gqa_causal_attention(q, k, v, mask),)
-    else:
+    elif kernel == "k8":
         q, k, v, _, mask = _k7_inputs(g, 2, 3, 250, 333)
+        qs = tfa._prescale(q).contiguous()
+        go = torch.randn(2, 3, 250, 128, device=cuda, generator=g).bfloat16()
+        out, l = tfa._fixedmax_prescaled(qs, k, v, mask, True, return_l=True)
+
+        def fn():
+            return tfa.fixedmax_attention_bwd(qs, k, v, mask, go, out, l)
+    else:
+        q, k, v, bias, mask = _k7_inputs(g, 2, 3, 250, 333)
         qs = tfa._prescale(q).contiguous()
 
         def fn():
             if kernel == "k1prime_prescaled":
                 return (tfa.fixedmax_bnsd(qs, k, v, mask, prescaled=True),)
+            if kernel == "k1prime_scaled":
+                return (tfa.fixedmax_bnsd(q, k, v, mask, prescaled=False),)
+            if kernel == "k7":
+                return (tfa.fixedmax_attention_bias(q, k, v, bias, mask),)
             return tfa.fixedmax_attention(q, k, v, mask, return_l=True)
     eager = fn()
     side = torch.cuda.Stream()
@@ -495,6 +525,88 @@ def test_fixedmax_bias_kernel_reads_a_strided_slim_view_on_cuda(cuda):
     ref = tfa.fixedmax_attention_bias_reference(qs, k, v, view, mask)
     torch.testing.assert_close(out.float(), ref.float(), rtol=BF16_TOL, atol=BF16_TOL)
     assert _rel_l2(out, ref) <= K7_REL_L2
+
+
+# K7 (and K1' scaled, its kernel without the bias) and K8 at the edges of
+# their Hopper loops: 128-row q tiles and 128-key stages (K7), 64-row stream
+# tiles (K8), so a ragged last tile, a key-mask hole across key 128, S_q < S_k
+# with a blocked row past row 128, and a key mask (and for K7 a bias) that
+# changes every stage.
+K7_EDGE_CASES = {
+    # name: (b, n, sq, sk, masked [lo, hi) per batch row or "per_stage", rows blocked)
+    "sk_129": (1, 2, 129, 129, [(100, 129)], ()),
+    "sk_255": (2, 2, 255, 255, [(0, 0), (200, 255)], ()),
+    "hole_across_key_128": (2, 3, 300, 300, [(100, 160), (0, 0)], ()),
+    "sq_130_lt_sk_385_blocked_row_129": (1, 2, 130, 385, [(350, 385)], (129,)),
+    "stage_varying_mask_and_bias_1100": (2, 2, 1100, 1100, "per_stage", ()),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(K7_EDGE_CASES))
+def test_fixedmax_bias_kernel_tile_edges_on_cuda(cuda, case):
+    """K7 against its plain version at the tile edges (blocked rows exactly
+    0), two more calls bit for bit against the first; then K1' scaled, the
+    same kernel without the bias, with the clamp on and off, likewise."""
+    from chip_smoke import stage_varying_bias
+
+    b, n, sq, sk, spans, rows = K7_EDGE_CASES[case]
+    g = torch.Generator(cuda).manual_seed(80 + sorted(K7_EDGE_CASES).index(case))
+    q, k, v, bias, _ = _k7_inputs(g, b, n, sq, sk, blocked_rows=rows)
+    mask = _edge_mask(b, sk, spans, cuda)
+    if spans == "per_stage":
+        bias = stage_varying_bias(b, sq, sk, cuda, g)
+    out = tfa.fixedmax_attention_bias(q, k, v, bias, mask)
+    ref = tfa.fixedmax_attention_bias_reference(q, k, v, bias, mask)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=BF16_TOL, atol=BF16_TOL)
+    assert _rel_l2(out, ref) <= K7_REL_L2
+    for r in rows:
+        assert torch.equal(out[:, :, r], torch.zeros_like(out[:, :, r]))
+    for _ in range(2):
+        assert torch.equal(tfa.fixedmax_attention_bias(q, k, v, bias, mask), out)
+    for clamp in (True, False):
+        out = tfa.fixedmax_bnsd(q, k, v, mask, clamp=clamp, prescaled=False)
+        ref = tfa.fixedmax_bnsd_reference(q, k, v, mask, clamp=clamp, prescaled=False)
+        torch.testing.assert_close(out.float(), ref.float(), rtol=BF16_TOL, atol=BF16_TOL)
+        assert _rel_l2(out, ref) <= K7_REL_L2
+        for _ in range(2):
+            assert torch.equal(tfa.fixedmax_bnsd(q, k, v, mask, clamp=clamp), out)
+
+
+K8_EDGE_CASES = {
+    # name: (b, n, sq, sk, masked [lo, hi) per batch row or "per_stage", clamp)
+    "s_129": (1, 2, 129, 129, [(100, 129)], True),
+    "s_300_hole_across_key_128": (2, 2, 300, 300, [(100, 160), (0, 0)], True),
+    "sq_130_lt_sk_385": (1, 2, 130, 385, [(350, 385)], False),
+    "stage_varying_mask_1100": (2, 2, 1100, 1100, "per_stage", True),
+    "training_joint_3504": (1, 2, 3504, 3504, [(100, 256)], True),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(K8_EDGE_CASES))
+def test_fixedmax_bwd_kernel_tile_edges_on_cuda(cuda, case):
+    """K8 against its plain version at the edges of its 128-row own tiles
+    and 64-row stream tiles, and two more calls bit for bit against the
+    first (no atomics)."""
+    b, n, sq, sk, spans, clamp = K8_EDGE_CASES[case]
+    g = torch.Generator(cuda).manual_seed(90 + sorted(K8_EDGE_CASES).index(case))
+    q = tfa._prescale(_rms(torch.randn(b, n, sq, 128, device=cuda, generator=g)))
+    k = _rms(torch.randn(b, n, sk, 128, device=cuda, generator=g))
+    v = torch.randn(b, n, sk, 128, device=cuda, generator=g).bfloat16()
+    go = torch.randn(b, n, sq, 128, device=cuda, generator=g).bfloat16()
+    mask = _edge_mask(b, sk, spans, cuda)
+    out, l = tfa._fixedmax_prescaled(q, k, v, mask, clamp, return_l=True)
+    got = tfa.fixedmax_attention_bwd(q, k, v, mask, go, out, l, clamp)
+    want = tfa.fixedmax_attention_bwd_reference(q, k, v, mask, go, out, l, clamp)
+    for x, y in zip(got, want):
+        assert torch.isfinite(x).all()
+        tol = BF16_TOL * max(1.0, y.float().abs().max().item())
+        torch.testing.assert_close(x.float(), y.float(), rtol=BF16_TOL, atol=tol)
+        assert _rel_l2(x, y) <= 1e-2
+    for _ in range(2):
+        again = tfa.fixedmax_attention_bwd(q, k, v, mask, go, out, l, clamp)
+        assert all(torch.equal(x, y) for x, y in zip(again, got))
 
 
 @pytest.mark.cuda

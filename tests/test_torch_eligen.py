@@ -66,6 +66,14 @@ K7_CASES = {
     "ragged_300_blocked_row": (1, 2, 300, 300, 1.0, [(250, 300)], [7, 299], True),
     "sq_lt_sk": (1, 2, 128, 384, 1.0, [(300, 384)], [], True),
     "clamp_false_still_clamps": (1, 2, 128, 128, 12.0, [(100, 128)], [], False),
+    # the card kernel's 128-row q tiles and 128-key stages: a ragged last
+    # stage, a key-mask hole across key 128, S_q < S_k with a blocked row in
+    # the second q tile
+    "tile_edge_sk_129": (1, 2, 129, 129, 1.0, [(100, 129)], [], True),
+    "tile_edge_sk_255": (2, 2, 255, 255, 1.0, [(0, 0), (200, 255)], [], True),
+    "tile_edge_hole_across_key_128": (2, 2, 300, 300, 1.0, [(100, 160), (0, 0)], [], True),
+    "tile_edge_sq_130_lt_sk_385_blocked_row_129": (1, 2, 130, 385, 1.0, [(350, 385)], [129],
+                                                   True),
 }
 
 

@@ -120,13 +120,28 @@ K8_CASES = {
     "clamp_binds": (1, 2, 128, 128, 8.0, True, []),
     "noclamp_sq_ne_sk": (1, 2, 128, 256, 1.0, False, [(250, 256)]),
     "fully_masked_row": (2, 1, 128, 128, 1.0, True, [(0, 0), (0, 128)]),
+    # the card kernel's 128-row own tiles and 64-row stream tiles: a ragged
+    # length, a key-mask hole across key 128, S_q < S_k both ragged
+    "tile_edge_s_129": (1, 2, 129, 129, 1.0, True, [(100, 129)]),
+    "tile_edge_s_300_hole_across_key_128": (2, 2, 300, 300, 1.0, True, [(100, 160), (0, 0)]),
+    "tile_edge_sq_130_lt_sk_385": (1, 2, 130, 385, 1.0, False, [(350, 385)]),
 }
+
+
+def _pad_rows(x, axis, to, value=0.0):
+    """x padded with ``value`` along ``axis`` to a multiple of ``to`` (the
+    JAX kernels take block multiples)."""
+    widths = [(0, 0)] * x.ndim
+    widths[axis] = (0, (-x.shape[axis]) % to)
+    return np.pad(x, widths, constant_values=value)
 
 
 @pytest.mark.parametrize("case", list(K8_CASES))
 def test_fixedmax_bwd_plain_matches_pallas(case):
     """K8's plain twin against the JAX package's _fm_bwd (Pallas, interpret
-    mode) on the same prescaled q', l and D."""
+    mode) on the same prescaled q', l and D.  Ragged lengths are padded to
+    the JAX blocks: padded keys masked, padded query rows with g = 0 and
+    D = 0 (their dS is 0, so they add nothing to dk or dv)."""
     b, n, sq, sk, scale, clamp, spans = K8_CASES[case]
     rng = np.random.default_rng(sorted(K8_CASES).index(case))
     q = _bnsd(rng, b, n, sq, scale) * np.float32(jfa.LOG2E / np.sqrt(128))
@@ -142,15 +157,19 @@ def test_fixedmax_bwd_plain_matches_pallas(case):
     out, l = tfa._fixedmax_prescaled_reference(tq, tk, tv, tm, clamp)
     got = tfa.fixedmax_attention_bwd_reference(tq, tk, tv, tm, tg, out, l, clamp)
 
-    key_bias = jnp.where(jnp.asarray(mask), 0.0, jfa.NEG_INF)[:, None, :].astype(jnp.float32)
-    dd = jnp.asarray(tfa.attention_bwd_rowdot(tg, out).numpy())
-    want = jfa._fm_bwd(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), key_bias,
-                       jnp.asarray(g), jnp.broadcast_to(dd[..., None], dd.shape + (8,)),
-                       jnp.broadcast_to(jnp.asarray(l.numpy())[..., None], l.shape + (8,)),
+    key_bias = jnp.where(jnp.asarray(_pad_rows(mask, 1, 128)), 0.0,
+                         jfa.NEG_INF)[:, None, :].astype(jnp.float32)
+    dd = _pad_rows(tfa.attention_bwd_rowdot(tg, out).numpy(), 2, 128)
+    lp = _pad_rows(l.numpy(), 2, 128, 1.0)
+    want = jfa._fm_bwd(jnp.asarray(_pad_rows(q, 2, 128)), jnp.asarray(_pad_rows(k, 2, 128)),
+                       jnp.asarray(_pad_rows(v, 2, 128)), key_bias,
+                       jnp.asarray(_pad_rows(g, 2, 128)),
+                       jnp.broadcast_to(jnp.asarray(dd)[..., None], dd.shape + (8,)),
+                       jnp.broadcast_to(jnp.asarray(lp)[..., None], lp.shape + (8,)),
                        128, 128, clamp=clamp, prescaled=True)
-    for x, y in zip(got, want):
+    for x, y, s in zip(got, want, (sq, sk, sk)):
         assert torch.isfinite(x).all()
-        np.testing.assert_allclose(x.numpy(), np.asarray(y), rtol=1e-4, atol=1e-4)
+        np.testing.assert_allclose(x.numpy(), np.asarray(y)[:, :, :s], rtol=1e-4, atol=1e-4)
     if case == "fully_masked_row":
         for x in got:
             np.testing.assert_array_equal(x[1].numpy(), 0.0)

@@ -16,7 +16,13 @@ Phases, each printed as one JSON line, any failure exits non-zero:
      with a key-mask hole across key 128 at a ragged 8513 and with a bias
      and key mask that change every stage, timed (CUDA events and a CUDA
      graph) beside K1' scaled (its kernel without the bias) and SDPA, with
-     ptxas's report of its kernel (no spills);
+     ptxas's report of its kernel (no spills); then K10 and K10b (online
+     softmax, through the public attention API) and K1' against their plain
+     versions at B = 2, N = 24, S = 8448, K10 also with unbounded logits
+     against an fp32 SDPA, K10b with the EliGen bias, its slim view and a
+     ragged S with a first-tile-blocked row beside fully blocked rows, each
+     timed (K10 and K10b also from a CUDA graph, with their ptxas report:
+     no spills) beside SDPA, and two more calls bit for bit;
   4. K2 (VL causal GQA attention) against its plain version, also at
      S = 1500 with left pads across query row 128, timed from a CUDA graph
      beside SDPA's graph;
@@ -946,23 +952,34 @@ def _attention_ok(row) -> bool:
             and row["rel_l2"] <= ATTN_REL_L2)
 
 
+def online_ptxas() -> dict:
+    """ptxas's report of K10's kernel: K10b (bias=1) and K10 (bias=0)."""
+    return hopper_ptxas("online_attention", "online_kernel", ("bias",),
+                        lambda args: "online_attention_bias_smem_bytes" if args[0]
+                        else "online_attention_smem_bytes")
+
+
 def k10_phase(report: dict, gen, time_ms, compare) -> dict:
     """K10 (online-softmax attention) at the DiT's shape, B = 2, N = 24,
     S = 8448, the last 64 keys masked.  Its path is the public API:
     ``ops.attention.attention(impl="kernels", variant="online")`` on BSND
     inputs, driven once with the counts at 0.  Then K10 against its plain
-    version, timed beside it, beside PyTorch's attention with the boolean
-    mask and beside the bound; and the unbounded-logit case (q and k x
-    CLAMP_QK_SCALE, so that the fixed-max clamp binds): K10 against its plain
-    version and against an fp32 SDPA, with K1's distance from that SDPA
-    beside it.  Returns the path's launches."""
+    version, timed (CUDA events and a CUDA graph) beside it, beside
+    PyTorch's attention with the boolean mask and beside the bound, with
+    ptxas's report of its kernel (no spills); and the unbounded-logit case
+    (q and k x CLAMP_QK_SCALE, so that the fixed-max clamp binds): K10
+    against its plain version and against an fp32 SDPA, with K1's distance
+    from that SDPA beside it.  Every case: two more calls bit for bit.
+    Returns the path's launches."""
     import torch
     import torch.nn.functional as F
 
     from physicedit_torch.kernels import flash_attention as fa
     from physicedit_torch.ops.attention import attention
+    from physicedit_torch.tools import _bench
 
     dev = gen.device
+    ptxas = online_ptxas()
     b, n, s = 2, 24, 8448
     mask = torch.ones(b, s, dtype=torch.bool, device=dev)
     mask[:, -64:] = False
@@ -988,9 +1005,12 @@ def k10_phase(report: dict, gen, time_ms, compare) -> dict:
         torch.cuda.synchronize()
         row = _attention_row("k10", name, [b, n, s, s], out, ref, compare)
         row["qk_scale"] = scale
-        ok = _attention_ok(row)
+        row["repeat_bits_equal"] = all(torch.equal(fa.online_attention(q, k, v, mask), out)
+                                       for _ in range(2))
+        ok = _attention_ok(row) and row["repeat_bits_equal"]
         if scale == 1.0:
             row["ms"] = time_ms(lambda: fa.online_attention(q, k, v, mask), 10)
+            row["graph_ms"] = _bench.graph_ms(lambda: fa.online_attention(q, k, v, mask))
             row["plain_ms"] = time_ms(lambda: fa.online_attention_reference(q, k, v, mask), 2)
             mask4 = mask[:, None, None, :]
             row["library_ms"] = time_ms(
@@ -999,6 +1019,8 @@ def k10_phase(report: dict, gen, time_ms, compare) -> dict:
             row.update(bound(4 * b * n * s * s * 128,
                              2 * (q.numel() + k.numel() + v.numel() + out.numel()) + b * s,
                              PEAK_BF16))
+            row["bound_share"] = row["bound_ms"] / row["ms"]
+            row["ptxas"] = {key: e for key, e in ptxas.items() if key == "bias=0"}
             row["launches"] = launches
             report["online_attention"] = dict(row)
         else:
@@ -1029,20 +1051,26 @@ def k10b_phase(report: dict, gen, time_ms, compare) -> dict:
     ``flash_attention_bnsd(bias=, variant="online")`` driven once with the
     counts at 0: (a) the full-width EliGen call, B = 2, N = 24, joint 256 +
     2 x 4096, with the two-entity bias ``build_entity_bias`` makes and a text
-    key mask, timed beside its plain version, beside PyTorch's attention with
-    the bias as a bf16 float mask and beside the bound; (b) the slim block's
-    4096 query rows reading their bias rows as a strided view, bit for bit
-    against the same call on a contiguous copy; (c) a ragged S with a query
-    row whose keys are all blocked (the live rows gated; that row exactly 0).
-    Returns the path's launches."""
+    key mask, timed (CUDA events and a CUDA graph) beside its plain version,
+    beside PyTorch's attention with the bias as a bf16 float mask and beside
+    the bound, with ptxas's report of its kernel (no spills); (b) the slim
+    block's 4096 query rows reading their bias rows as a strided view, bit
+    for bit against the same call on a contiguous copy; (c) a ragged S
+    (4-byte bias copies) with a query row whose first 128-key tile (and keys
+    200-239) the bias blocks, within the gates, beside rows whose keys are
+    all blocked, at -1e30 and at -6e29 (-8.7e29 in exp2 units: above the
+    running max's start, below the -5e29 threshold), each exactly 0.  Every
+    case: two more calls bit for bit.  Returns the path's launches."""
     import numpy as np
     import torch
     import torch.nn.functional as F
 
     from physicedit_torch.kernels import flash_attention as fa
     from physicedit_torch.pipeline.eligen import build_entity_bias, downsample_entity_mask
+    from physicedit_torch.tools import _bench
 
     dev = gen.device
+    ptxas = online_ptxas()
     s_t, base = 256, 4096
     s = s_t + 2 * base
     masks = [downsample_entity_mask(m, 128, 128) for m in entity_masks(1024, 1024)]
@@ -1064,8 +1092,11 @@ def k10b_phase(report: dict, gen, time_ms, compare) -> dict:
     launches = counts()
     ref = fa.online_attention_reference(q, k, v, mask, bias)
     row = _attention_row("k10b", "eligen_joint_8448", [2, 24, s, s], out, ref, compare)
+    row["repeat_bits_equal"] = all(torch.equal(fa.online_attention(q, k, v, mask, bias), out)
+                                   for _ in range(2))
     row["bias_blocked_share"] = (bias < 0).float().mean().item()
     row["ms"] = time_ms(lambda: fa.online_attention(q, k, v, mask, bias), 10)
+    row["graph_ms"] = _bench.graph_ms(lambda: fa.online_attention(q, k, v, mask, bias))
     row["plain_ms"] = time_ms(lambda: fa.online_attention_reference(q, k, v, mask, bias), 2)
     lib_mask = bias.masked_fill(~mask[:, None, :], -1e30)[:, None].bfloat16()
     row["library_ms"] = time_ms(
@@ -1075,6 +1106,8 @@ def k10b_phase(report: dict, gen, time_ms, compare) -> dict:
     row.update(bound(4 * 2 * 24 * s * s * 128,
                      2 * (q.numel() + k.numel() + v.numel() + out.numel()) + 4 * bias.numel()
                      + 2 * s, PEAK_BF16))
+    row["bound_share"] = row["bound_ms"] / row["ms"]
+    row["ptxas"] = {key: e for key, e in ptxas.items() if key == "bias=1"}
     row["launches"] = launches
     report["online_attention_bias"] = dict(row)
     rows = [row]
@@ -1088,30 +1121,44 @@ def k10b_phase(report: dict, gen, time_ms, compare) -> dict:
     row = _attention_row("k10b", "slim_4096x8448_view", [2, 24, base, s], out_v, ref, compare)
     row["bias_strides"] = list(view.stride())
     row["view_equals_copy"] = bool(torch.equal(out_v, out_c))
+    row["repeat_bits_equal"] = all(torch.equal(fa.online_attention(qs, k, v, mask, view), out_v)
+                                   for _ in range(2))
     rows.append(row)
     del q, k, v, qs, out, out_v, out_c, ref, view
 
-    # (c) a ragged S with a fully blocked query row
-    sr, blocked = 2303, 17
+    # (c) a ragged S: a row whose first key tile the bias blocks, beside
+    # rows it blocks wholly
+    sr, first, blocked, band = 2303, 16, 17, 18
     q, k, v = qkv(1, sr, sr)
     mask = torch.ones(1, sr, dtype=torch.bool, device=dev)
     mask[0, 2000:] = False
     bias_r = torch.where(torch.rand(1, sr, sr, device=dev, generator=gen) < 0.3, -1e30, 0.0)
     bias_r[:, :, 0] = 0.0
+    bias_r[:, first, :128] = -1e30
+    bias_r[:, first, 200:240] = -1e30
     bias_r[:, blocked] = -1e30
+    bias_r[:, band] = -6e29
     out = fa.online_attention(q, k, v, mask, bias_r)
     ref = fa.online_attention_reference(q, k, v, mask, bias_r)
     live = torch.ones(1, 24, sr, dtype=torch.bool, device=dev)
-    live[:, :, blocked] = False
-    row = _attention_row("k10b", "ragged_2303_blocked_row", [1, 24, sr, sr], out, ref,
-                         compare, live)
-    row["blocked_row_max_abs"] = out[:, :, blocked].abs().max().item()
+    live[:, :, [blocked, band]] = False
+    row = _attention_row("k10b", "ragged_2303_first_tile_and_blocked_rows", [1, 24, sr, sr],
+                         out, ref, compare, live)
+    first_row = _attention_row("k10b", "first_tile_blocked_row", [1, 24, 1, sr],
+                               out[:, :, first], ref[:, :, first], compare)
+    row["first_tile_row_max_abs_err"] = first_row["max_abs_err"]
+    row["first_tile_row_rel_l2"] = first_row["rel_l2"]
+    row["first_tile_row_ok"] = _attention_ok(first_row)
+    row["blocked_row_max_abs"] = out[:, :, [blocked, band]].abs().max().item()
+    row["repeat_bits_equal"] = all(torch.equal(fa.online_attention(q, k, v, mask, bias_r), out)
+                                   for _ in range(2))
     rows.append(row)
     del q, k, v, out, ref, bias_r, bias
     for row in rows:
         report.setdefault("online_attention_bias_err", []).append(row["max_abs_err"])
         emit(row)
         if (not _attention_ok(row) or row.get("view_equals_copy") is False
+                or not row["repeat_bits_equal"] or row.get("first_tile_row_ok") is False
                 or row.get("blocked_row_max_abs", 0.0) != 0.0):
             fail(f"K10b {row['case']} disagrees with its plain version")
     torch.cuda.empty_cache()

@@ -124,14 +124,8 @@ int launch_kernel(const void* q, const void* k, const void* v, const void* key_m
                   void* l, int batch, int heads, int sq, int sk, void* stream) {
   if (batch == 0 || heads == 0 || sq == 0) return 0;
   if (sk <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const cuuint64_t bn = static_cast<cuuint64_t>(batch) * heads;
-  const cuuint64_t qdims[3] = {kHeadDim, static_cast<cuuint64_t>(sq), bn};
-  const cuuint64_t kdims[3] = {kHeadDim, static_cast<cuuint64_t>(sk), bn};
-  const cuuint64_t qstr[2] = {kHeadDim * 2, static_cast<cuuint64_t>(sq) * kHeadDim * 2};
-  const cuuint64_t kstr[2] = {kHeadDim * 2, static_cast<cuuint64_t>(sk) * kHeadDim * 2};
   CUtensorMap qm, km, vm;
-  if (!make_map(&qm, q, 3, qdims, qstr, 1) || !make_map(&km, k, 3, kdims, kstr, 1) ||
-      !make_map(&vm, v, 3, kdims, kstr, 1))
+  if (!make_bnsd_maps(&qm, &km, &vm, q, k, v, batch * heads, sq, sk))
     return static_cast<int>(cudaErrorInvalidValue);
   auto kernel = fixedmax_kernel<kClampOn>;
   static const cudaError_t attr =

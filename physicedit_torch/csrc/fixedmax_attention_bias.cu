@@ -31,23 +31,12 @@
 // bias add, the clamp and ex2 in the consumer's fp32 S registers.
 //
 // Where the bias lives: shared memory, each consumer warp's own 8 KB (its
-// 16 q rows x 128 keys of the tile, fp32).  The warp copies tile j + 1's
-// rows with cp.async right after softmax(j) has read tile j's, and waits for
-// them at the start of softmax(j + 1): the copies have a whole phase (both
-// consumers' products) to land.  Each instruction copies a whole 512-byte
-// row segment as 16-byte cp.async.cg (four full lines from L2, no L1
-// allocation), or as 4-byte copies where the pitch or base is not 16-byte
-// aligned; keys past S_k are zero-filled.  The rows are XOR-swizzled in
-// 8-key groups, so both the copies and the thread's 8-byte reads of its key
-// pairs are free of bank conflicts.  Only the warp reads what it copied, so
-// a __syncwarp on each side of the reads is the whole handshake, and the
-// producer warpgroup is unchanged.  64 KB in all, on top of the mainloop's
-// 165,888 B: 231,424 of the 232,448 B a block may use, so one tile and no
-// second buffer.  Registers instead (the bias loaded between the products'
-// commit and wait) would add 64 live floats to the consumer's o 64 + s 64 +
-// p 32 under its 232-register cap.  TMA cannot take the bias: its row pitch
-// S_k x 4 bytes is a multiple of 16 only when S_k % 4 == 0, and text lengths
-// make S_k arbitrary.
+// 16 q rows x 128 keys of the tile, fp32), staged a phase ahead with
+// cp.async by hopper_attention.cuh's BiasSlots (K10b shares it).  64 KB in
+// all, on top of the mainloop's 165,888 B: 231,424 of the 232,448 B a block
+// may use, so one tile and no second buffer.  Registers instead (the bias
+// loaded between the products' commit and wait) would add 64 live floats to
+// the consumer's o 64 + s 64 + p 32 under its 232-register cap.
 //
 // What bounds it on an H100: L2 traffic.  The products take 1.77 ms at B=2,
 // N=24, S=8448 (1.75e12 FLOP at 989 TFLOP/s), and the bias adds 4 bytes per
@@ -71,12 +60,6 @@ using namespace physicedit::hopper;
 namespace {
 
 constexpr float kClampValue = 100.f;
-constexpr int kBiasBytes = 8 * 16 * kTile * 4;   // 8 consumer warps x 16 rows x 128 keys fp32
-
-template <bool kHasBias>
-constexpr int smem_bytes() {
-  return kSmemBytes + (kHasBias ? kBiasBytes : 0);
-}
 
 template <bool kHasBias, bool kClampOn>
 struct ScaledPolicy {
@@ -85,15 +68,10 @@ struct ScaledPolicy {
   const CUtensorMap* vmap;
   const uint8_t* mask;    // this batch row's [S_k] (1 = live), or null
   uint16_t* out;          // this (batch, head)'s [S_q, 128]
-  const float* bias;      // this batch row's bias rows (row pitch `pitch`), or null
-  long pitch;
-  bool wide;              // 16-byte copies (pitch and stride multiples of 4, base 16-aligned)
+  BiasSlots bias;         // unused without the bias
   int q0, bh, sq, sk, n_tiles;
   float scale;
   float l0, l1;           // row-sum partials of the thread's rows
-  int rw;                 // the warp's first q row (set by begin)
-  uint32_t wslot;         // shared address of the warp's 16 x 128 bias tile
-  uint32_t rslot;         // the thread's read address: row g, key 2t, unswizzled
 
   __device__ void load_q(uint32_t dst, uint64_t* bar) const {
     tma_load_3d(dst, qmap, bar, 0, q0, bh);
@@ -109,45 +87,8 @@ struct ScaledPolicy {
   }
   __device__ bool live(int key) const { return key < sk && (mask == nullptr || mask[key] != 0); }
 
-  // Copies of tile j's bias rows for the warp's 16 q rows into its slots:
-  // row r, key c at float r * 128 + (c ^ 8 (r % 4)) of the warp's 8 KB, so
-  // that a 16-byte copy of 4 keys stays whole and both the copies (8 lanes x
-  // 16 B) and the reads (16 lanes x 8 B: rows g, keys 8 nb + 2t) hit 32
-  // distinct banks.  A warp instruction copies a whole row (512 B, four
-  // full lines) with 16-byte copies, or 128 B with 4-byte ones where the
-  // pitch or base is not 16-byte aligned; keys past S_k are zero-filled, a
-  // row past S_q reads the last row (never written out).
-  __device__ __forceinline__ void prefetch(int j) const {
-    const int lane = threadIdx.x % 32;
-    const int k0 = j * kTile;
-#pragma unroll
-    for (int r = 0; r < 16; ++r) {
-      const float* src = bias + (long)min(rw + r, sq - 1) * pitch;
-      const uint32_t dst = wslot + r * 512;
-      if (wide) {
-        const int key = k0 + 4 * lane;
-        const int n = min(max(sk - key, 0), 4);
-        cp_async_16(dst + ((4 * lane) ^ (8 * (r % 4))) * 4, n ? src + key : src, 4 * n);
-      } else {
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const int key = k0 + 32 * c + lane;
-          cp_async_4(dst + ((32 * c + lane) ^ (8 * (r % 4))) * 4, key < sk ? src + key : src,
-                     key < sk ? 4u : 0u);
-        }
-      }
-    }
-    cp_async_commit();
-  }
-
   __device__ void begin(int row, int t) {
-    if constexpr (kHasBias) {
-      const int g = (threadIdx.x % 32) / 4;
-      rw = q0 + row - g;
-      wslot = extra_smem_u32() + (threadIdx.x / 32 - 4) * 8192;
-      rslot = wslot + g * 512 + 8 * t;
-      prefetch(0);
-    }
+    if constexpr (kHasBias) bias.begin(q0 + row, t);
   }
 
   // p = exp2(min(s * scale + bias, 100)) where live, else 0; the row sums;
@@ -161,12 +102,7 @@ struct ScaledPolicy {
 #pragma unroll
     for (int nb = 0; nb < 16; ++nb) {
       float2 b0, b1;   // rows g and g + 8, keys 8 nb + 2t and + 1
-      if constexpr (kHasBias) {
-        const uint32_t at = rslot + 32 * (nb ^ ((threadIdx.x / 4) % 4));
-        asm volatile("ld.shared.v2.f32 {%0, %1}, [%2];\n" : "=f"(b0.x), "=f"(b0.y) : "r"(at));
-        asm volatile("ld.shared.v2.f32 {%0, %1}, [%2];\n"
-                     : "=f"(b1.x), "=f"(b1.y) : "r"(at + 8 * 512));
-      }
+      if constexpr (kHasBias) bias.read(nb, b0, b1);
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         float x = __fmul_rn(s[4 * nb + e], scale);
@@ -186,16 +122,10 @@ struct ScaledPolicy {
 
   __device__ void softmax(float (&s)[64], uint4 word, int j, float (&)[64], uint32_t (&p)[32],
                           int, int t) {
-    if constexpr (kHasBias) {
-      cp_async_wait_all();
-      __syncwarp();   // the warp's copies are visible to every lane
-    }
+    if constexpr (kHasBias) bias.wait();
     if (all_live(word)) exp_tile<false>(s, word, p, t);
     else exp_tile<true>(s, word, p, t);
-    if constexpr (kHasBias) {
-      __syncwarp();   // every lane has read tile j's slots
-      if (j + 1 < n_tiles) prefetch(j + 1);
-    }
+    if constexpr (kHasBias) bias.release(j, n_tiles);
   }
 
   __device__ void epilogue(const float (&o)[64], int row, int t) const {
@@ -205,9 +135,8 @@ struct ScaledPolicy {
   }
 };
 
-// The grid: (heads, q tiles, batch) with the bias, the head fastest so that
-// the head-blocks of one (batch, q tile) share its bias rows in L2;
-// (q tiles, heads, batch) without, as K1.
+// The grid (launch_bias_kernel): (heads, q tiles, batch) with the bias,
+// (q tiles, heads, batch) without.
 template <bool kHasBias, bool kClampOn>
 __global__ void __launch_bounds__(kBlockThreads, 1)
 fixedmax_bias_kernel(const __grid_constant__ CUtensorMap qmap,
@@ -223,9 +152,9 @@ fixedmax_bias_kernel(const __grid_constant__ CUtensorMap qmap,
   Policy pol{&qmap, &kmap, &vmap,
              key_mask ? key_mask + (long)blockIdx.z * sk : nullptr,
              out + (long)bh * sq * kHeadDim,
-             kHasBias ? bias + (long)blockIdx.z * bias_batch_stride : nullptr,
-             bias_row_pitch, wide != 0,
-             q_tile * kTile, bh, sq, sk, (sk + kTile - 1) / kTile, scale, 0.f, 0.f, 0, 0u, 0u};
+             BiasSlots{kHasBias ? bias + (long)blockIdx.z * bias_batch_stride : nullptr,
+                       bias_row_pitch, wide != 0, sq, sk, 0, 0u, 0u},
+             q_tile * kTile, bh, sq, sk, (sk + kTile - 1) / kTile, scale, 0.f, 0.f};
   attention_mainloop<Policy>(pol);
 }
 
@@ -235,28 +164,9 @@ int launch_kernel(const void* q, const void* k, const void* v, const float* bias
                   int batch, int heads, int sq, int sk, float scale, void* stream) {
   if (batch == 0 || heads == 0 || sq == 0) return 0;
   if (sk <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const cuuint64_t bn = static_cast<cuuint64_t>(batch) * heads;
-  const cuuint64_t qdims[3] = {kHeadDim, static_cast<cuuint64_t>(sq), bn};
-  const cuuint64_t kdims[3] = {kHeadDim, static_cast<cuuint64_t>(sk), bn};
-  const cuuint64_t qstr[2] = {kHeadDim * 2, static_cast<cuuint64_t>(sq) * kHeadDim * 2};
-  const cuuint64_t kstr[2] = {kHeadDim * 2, static_cast<cuuint64_t>(sk) * kHeadDim * 2};
-  CUtensorMap qm, km, vm;
-  if (!make_map(&qm, q, 3, qdims, qstr, 1) || !make_map(&km, k, 3, kdims, kstr, 1) ||
-      !make_map(&vm, v, 3, kdims, kstr, 1))
-    return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = fixedmax_bias_kernel<kHasBias, kClampOn>;
-  constexpr int smem = smem_bytes<kHasBias>();
-  static const cudaError_t attr =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (attr != cudaSuccess) return static_cast<int>(attr);
-  const int wide = row_pitch % 4 == 0 && batch_stride % 4 == 0 &&
-                   reinterpret_cast<uintptr_t>(bias) % 16 == 0;
-  const unsigned q_tiles = (sq + kTile - 1) / kTile;
-  const dim3 grid = kHasBias ? dim3(heads, q_tiles, batch) : dim3(q_tiles, heads, batch);
-  kernel<<<grid, kBlockThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      qm, km, vm, bias, static_cast<long>(batch_stride), static_cast<long>(row_pitch), wide,
-      static_cast<const uint8_t*>(key_mask), static_cast<uint16_t*>(out), heads, sq, sk, scale);
-  return static_cast<int>(cudaGetLastError());
+  return launch_bias_kernel<fixedmax_bias_kernel<kHasBias, kClampOn>, kHasBias>(
+      q, k, v, bias, batch_stride, row_pitch, key_mask, out, batch, heads, sq, sk, scale,
+      static_cast<cudaStream_t>(stream));
 }
 
 }  // namespace
@@ -292,5 +202,5 @@ extern "C" int fixedmax_attention_scaled_bf16(const void* q, const void* k, cons
 
 // The dynamic shared memory of one block, for the report beside ptxas's: K7
 // (with the bias slots) and K1' scaled.
-extern "C" int fixedmax_attention_bias_smem_bytes() { return smem_bytes<true>(); }
-extern "C" int fixedmax_attention_scaled_smem_bytes() { return smem_bytes<false>(); }
+extern "C" int fixedmax_attention_bias_smem_bytes() { return kSmemBytes + kBiasSlotBytes; }
+extern "C" int fixedmax_attention_scaled_smem_bytes() { return kSmemBytes; }

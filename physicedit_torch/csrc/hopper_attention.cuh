@@ -1,8 +1,8 @@
 // The Hopper attention mainloop shared by K1 (fixedmax_attention.cu), K2
-// (gqa_causal_attention.cu) and K7 / K1' scaled (fixedmax_attention_bias.cu):
-// bf16, head_dim 128, fp32 accumulators.  Its primitives (mbarriers, TMA,
-// wgmma, named barriers, cp.async) also build K8's two backward passes
-// (fixedmax_attention_bwd.cu).
+// (gqa_causal_attention.cu), K7 / K1' scaled (fixedmax_attention_bias.cu)
+// and K10 / K10b (online_attention.cu): bf16, head_dim 128, fp32
+// accumulators.  Its primitives (mbarriers, TMA, wgmma, named barriers,
+// cp.async) also build K8's two backward passes (fixedmax_attention_bwd.cu).
 //
 // One block of three warpgroups (384 threads) per 128-row q tile:
 //   warpgroup 0, the producer, gives its registers back (setmaxnreg.dec);
@@ -15,8 +15,8 @@
 // (A = P from registers, B = V from shared memory, MN-major) and
 // S(j) = Q K(j)^T (both operands K-major in shared memory) as wgmma.mma_async
 // m64n128k16 products, waits for both, releases V(j-1) and K(j), and turns
-// S(j) into P(j) in registers through the kernel's Policy (K1: fixed-max
-// exp2; K2: the online softmax with the causal mask).  The two consumers
+// S(j) into P(j) in registers through the kernel's Policy (K1, K7: fixed-max
+// exp2; K2, K10: the online softmax, K2's with the causal mask).  The two consumers
 // take turns (ping-pong) through two named barriers, so one warpgroup's
 // softmax runs while the other's products own the tensor cores.
 //
@@ -357,6 +357,91 @@ __device__ __forceinline__ bool all_live(uint4 word) {
   return (word.x & word.y & word.z & word.w) == 0xffffffffu;
 }
 
+// ---- a head-shared fp32 bias staged in shared memory (K7, K10b) -----------
+
+// Each consumer warp's own 8 KB: its 16 q rows x 128 keys of the tile, fp32.
+constexpr int kBiasSlotBytes = kConsumerWarps * 16 * kTile * 4;   // 64 KB
+
+// The bias rows of one batch row, [S_q, S_k] fp32 with a row pitch, staged
+// tile by tile in each consumer warp's slots past SharedStorage.  The warp
+// copies tile j + 1's rows with cp.async right after its softmax has read
+// tile j's (release), and waits for them at the start of softmax(j + 1)
+// (wait): the copies have a whole phase (both consumers' products) to land.
+// Only the warp reads what it copied, so a __syncwarp on each side of the
+// reads is the whole handshake, and the producer warpgroup is unchanged.
+// Row r, key c sits at float r * 128 + (c ^ 8 (r % 4)) of the warp's 8 KB,
+// so that a 16-byte copy of 4 keys stays whole and both the copies (8 lanes
+// x 16 B) and the reads (16 lanes x 8 B: rows g, keys 8 nb + 2t) hit 32
+// distinct banks.  A warp instruction copies a whole row (512 B, four full
+// lines, cp.async.cg: no L1 allocation) with 16-byte copies where `wide`
+// (pitch and batch stride multiples of 4 floats, base 16-byte aligned), or
+// 128 B with 4-byte ones otherwise; keys past S_k are zero-filled, a row
+// past S_q reads the last row (never written out).  TMA cannot take the
+// bias: its row pitch S_k x 4 bytes is a multiple of 16 only when
+// S_k % 4 == 0, and text lengths make S_k arbitrary.
+struct BiasSlots {
+  const float* rows;      // this batch row's bias rows
+  long pitch;             // floats from one row to the next
+  bool wide;
+  int sq, sk;
+  int rw;                 // the warp's first q row (set by begin)
+  uint32_t wslot;         // shared address of the warp's 16 x 128 tile
+  uint32_t rslot;         // the thread's read address: row g, key 2t, unswizzled
+
+  __device__ __forceinline__ void prefetch(int j) const {
+    const int lane = threadIdx.x % 32;
+    const int k0 = j * kTile;
+#pragma unroll
+    for (int r = 0; r < 16; ++r) {
+      const float* src = rows + (long)min(rw + r, sq - 1) * pitch;
+      const uint32_t dst = wslot + r * 512;
+      if (wide) {
+        const int key = k0 + 4 * lane;
+        const int n = min(max(sk - key, 0), 4);
+        cp_async_16(dst + ((4 * lane) ^ (8 * (r % 4))) * 4, n ? src + key : src, 4 * n);
+      } else {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int key = k0 + 32 * c + lane;
+          cp_async_4(dst + ((32 * c + lane) ^ (8 * (r % 4))) * 4, key < sk ? src + key : src,
+                     key < sk ? 4u : 0u);
+        }
+      }
+    }
+    cp_async_commit();
+  }
+
+  // Once per consumer thread: q_row is the q row of its first accumulator
+  // row; starts the copies of tile 0.
+  __device__ __forceinline__ void begin(int q_row, int t) {
+    const int g = (threadIdx.x % 32) / 4;
+    rw = q_row - g;
+    wslot = extra_smem_u32() + (threadIdx.x / 32 - 4) * 8192;
+    rslot = wslot + g * 512 + 8 * t;
+    prefetch(0);
+  }
+
+  // Before the reads of a tile: the warp's copies are visible to every lane.
+  __device__ __forceinline__ void wait() const {
+    cp_async_wait_all();
+    __syncwarp();
+  }
+
+  // Rows g (b0) and g + 8 (b1), keys 8 nb + 2t and + 1 of the staged tile.
+  __device__ __forceinline__ void read(int nb, float2& b0, float2& b1) const {
+    const uint32_t at = rslot + 32 * (nb ^ ((threadIdx.x / 4) % 4));
+    asm volatile("ld.shared.v2.f32 {%0, %1}, [%2];\n" : "=f"(b0.x), "=f"(b0.y) : "r"(at));
+    asm volatile("ld.shared.v2.f32 {%0, %1}, [%2];\n"
+                 : "=f"(b1.x), "=f"(b1.y) : "r"(at + 8 * 512));
+  }
+
+  // After the reads of tile j: every lane has read its slots; start tile j + 1.
+  __device__ __forceinline__ void release(int j, int n_tiles) const {
+    __syncwarp();
+    if (j + 1 < n_tiles) prefetch(j + 1);
+  }
+};
+
 // ---- the mainloop ----------------------------------------------------------
 
 // Policy supplies, for one block:
@@ -369,8 +454,8 @@ __device__ __forceinline__ bool all_live(uint4 word) {
 //                                      S(j) -> P(j) in place; may rescale o
 //   void epilogue(const float (&o)[64], int row, int t);
 //   void begin(int row, int t);        once per consumer thread before the
-//                                      loop (K1, K2: empty; K7 starts the
-//                                      first bias tile's copies)
+//                                      loop (K1, K2, K10: empty; K7 and K10b
+//                                      start the first bias tile's copies)
 // where row is the query row of the thread's first accumulator row (the
 // second is row + 8) and t = lane % 4.
 template <class Policy>
@@ -537,6 +622,49 @@ inline bool make_map(CUtensorMap* map, const void* base, int rank, const cuuint6
             box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The tensor maps of q [B*N, S_q, 128] and k, v [B*N, S_k, 128] (bf16,
+// contiguous), boxes of 128 rows; false if cuTensorMapEncodeTiled refuses one.
+inline bool make_bnsd_maps(CUtensorMap* qm, CUtensorMap* km, CUtensorMap* vm, const void* q,
+                           const void* k, const void* v, int batch_heads, int sq, int sk) {
+  const cuuint64_t bn = static_cast<cuuint64_t>(batch_heads);
+  const cuuint64_t qdims[3] = {kHeadDim, static_cast<cuuint64_t>(sq), bn};
+  const cuuint64_t kdims[3] = {kHeadDim, static_cast<cuuint64_t>(sk), bn};
+  const cuuint64_t qstr[2] = {kHeadDim * 2, static_cast<cuuint64_t>(sq) * kHeadDim * 2};
+  const cuuint64_t kstr[2] = {kHeadDim * 2, static_cast<cuuint64_t>(sk) * kHeadDim * 2};
+  return make_map(qm, q, 3, qdims, qstr, 1) && make_map(km, k, 3, kdims, kstr, 1) &&
+         make_map(vm, v, 3, kdims, kstr, 1);
+}
+
+// Launch kKernel, a kernel with K7's signature (K7 / K1' scaled and
+// K10 / K10b: q/k/v maps, the bias with its batch stride, row pitch and
+// `wide`, the key mask, out, heads, S_q, S_k, scale), over q [B*N, S_q, 128]
+// and k, v [B*N, S_k, 128].  The grid is (heads, q tiles, batch) with the
+// bias, the head fastest so that the head-blocks of one (batch, q tile) run
+// side by side and read the same bias rows from L2, and (q tiles, heads,
+// batch) without, as K1's.  The bias rows take 16-byte copies where the
+// pitch, stride and base allow (BiasSlots::wide).
+template <auto kKernel, bool kHasBias>
+int launch_bias_kernel(const void* q, const void* k, const void* v, const float* bias,
+                       long long batch_stride, long long row_pitch, const void* key_mask,
+                       void* out, int batch, int heads, int sq, int sk, float scale,
+                       cudaStream_t stream) {
+  CUtensorMap qm, km, vm;
+  if (!make_bnsd_maps(&qm, &km, &vm, q, k, v, batch * heads, sq, sk))
+    return static_cast<int>(cudaErrorInvalidValue);
+  constexpr int smem = kSmemBytes + (kHasBias ? kBiasSlotBytes : 0);
+  static const cudaError_t attr =
+      cudaFuncSetAttribute(kKernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const int wide = row_pitch % 4 == 0 && batch_stride % 4 == 0 &&
+                   reinterpret_cast<uintptr_t>(bias) % 16 == 0;
+  const unsigned q_tiles = (sq + kTile - 1) / kTile;
+  const dim3 grid = kHasBias ? dim3(heads, q_tiles, batch) : dim3(q_tiles, heads, batch);
+  kKernel<<<grid, kBlockThreads, smem, stream>>>(
+      qm, km, vm, bias, static_cast<long>(batch_stride), static_cast<long>(row_pitch), wide,
+      static_cast<const uint8_t*>(key_mask), static_cast<uint16_t*>(out), heads, sq, sk, scale);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace hopper

@@ -11,180 +11,199 @@
 //         units, so exp2(x) is the JAX kernel's exp(s / sqrt(d) + bias);
 //     a key that is masked, or whose biased x is below -5e29 (a -1e30 bias),
 //     takes no weight;
-//     m = the running row max, p = exp2(x - m), l = sum(p) (fp32), and the
-//     accumulator and l are rescaled by exp2(m_old - m_new) at each tile;
+//     m = the running row max over each 128-key tile, p = exp2(x - m),
+//     l = sum(p) (fp32), and the accumulator and l are rescaled by
+//     exp2(m_old - m_new) at each tile;
 //     out = (bf16(p) . v) / max(l, 1e-30).
 // A query row with no live key has l == 0 and comes out as exactly 0 (the
 // TPU kernel gives a mean of the masked values there; see ROADMAP's watch
-// list).  S_q <= S_k is not required; ragged S_q and S_k are masked here.
+// list).  Any S_q against any S_k (S_q > S_k too); ragged S_q and S_k are
+// masked here.
 //
 // What bounds it on an H100: the tensor cores, as K1 (at B=2, N=24,
 // S=8448: 1.75e12 FLOP, 1.77 ms at 989 TFLOP/s); K10b's bias adds 0.57 GB,
-// 0.17 ms if read once.  Design: K1's structure (one block of 4 warps per
-// 64-row q tile, head and batch; q in mma A fragments; K/V tiles of 64 keys
-// staged in shared memory; bf16 mma.sync for both products; P kept in
-// registers between them) with K2's running max: per tile a quad max over
-// the 4 threads of a row, one exp2 for the rescale factor, and a rescale of
-// the 64 accumulator registers.  K10b loads the bias of its two rows into
-// registers before each tile's QK^T product, as K7 does (8-byte loads of a
-// key pair where the pitch allows), reading the rows with a row pitch and a
-// batch stride so a view needs no copy; the head is the fastest grid index,
-// so the 24 head-blocks of one q tile read the same bias rows from L2.  Not
-// done yet: TMA, wgmma, a multi-stage copy pipeline.
-#include "mma_bf16.cuh"
+// 0.17 ms if read once from HBM, but each (head, q tile) block reads its
+// own rows from L2, 24 x 0.57 GB a call, the traffic that bounds K7.
+// Design: the Hopper mainloop of hopper_attention.cuh (one block per 128-row
+// q tile, head and batch row; a producer warpgroup issuing TMA loads of Q,
+// K and V into a 2-stage 128-byte-swizzled ring; two ping-ponged consumer
+// warpgroups of 64 rows running both products as wgmma m64n128k16) with
+// this file's Policy: K2's running max over K1's non-causal grid.  Per tile
+// and row, a max over the thread's 32 scores and a quad max across the 4
+// threads of a row, one ex2 for the rescale factor, a rescale of l and of
+// the 64 accumulator registers (the P V product of the tile before has
+// landed by then), and p = exp2(x - m) as one ex2.approx.ftz.  Without a
+// bias the max is taken over the raw scores and scaled after (the scale is
+// positive, and fp32 rounding keeps the order), so that x - m is one FFMA.
+// With a bias x is formed first and the max taken over it, and every score
+// is tested against -5e29 even on a tile whose keys are all live: a key the
+// bias blocks is no masked key.  A -1e30 bias puts x at -1.44e30, below the
+// running max's start (-1e30), where exp2(x - m) is 0 anyway, but a bias
+// between about -6.9e29 and -3.5e29 blocks its key and leaves x above that
+// start, and a row it blocks wholly would weigh each key by 1.  Only the
+// key-mask test is skipped on an all-live tile.  K10b
+// stages its bias rows as K7 does (BiasSlots: each consumer warp's 16 rows
+// x 128 keys in shared memory, copied a phase ahead with cp.async, 16-byte
+// copies where the pitch, stride and base allow, 4-byte ones otherwise), in
+// natural-log units, folded here by one FMA; the head is the fastest grid
+// index, so the 24 head-blocks of one (batch, q tile) read the same bias
+// rows from L2.  Keys past S_k arrive as TMA's zeros and are dead in the
+// liveness word; p below 2^-126 of the row max flushes to 0.
+#include "hopper_attention.cuh"
 
 using namespace physicedit;
+using namespace physicedit::hopper;
 
 namespace {
 
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kMasked = -1e30f;
 
-template <bool kBias>
-__global__ void __launch_bounds__(kThreads)
-online_kernel(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
-              const uint16_t* __restrict__ v, const float* __restrict__ bias,
-              long bias_batch_stride, long bias_row_pitch,
-              const uint8_t* __restrict__ key_mask, uint16_t* __restrict__ out,
-              int n_heads, int sq, int sk, float scale) {
-  __shared__ __align__(16) uint16_t ks[kBlockK * kRowStride];
-  __shared__ __align__(16) uint16_t vs[kBlockK * kRowStride];
-  __shared__ uint8_t live[kBlockK];
+template <bool kHasBias>
+struct OnlinePolicy {
+  const CUtensorMap* qmap;
+  const CUtensorMap* kmap;
+  const CUtensorMap* vmap;
+  const uint8_t* mask;    // this batch row's [S_k] (1 = live), or null
+  uint16_t* out;          // this (batch, head)'s [S_q, 128]
+  BiasSlots bias;         // unused without the bias
+  int q0, bh, sq, sk, n_tiles;
+  float scale;
+  float m0, m1, l0, l1;   // running max (exp2 units) and row-sum partials of the thread's rows
 
-  const int q0 = blockIdx.y * kBlockQ;
-  const long bh = (long)blockIdx.z * n_heads + blockIdx.x;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int wr = warp * 16;
-  const int rg = q0 + wr + g;
-  const int rg8 = rg + 8;
+  __device__ void load_q(uint32_t dst, uint64_t* bar) const {
+    tma_load_3d(dst, qmap, bar, 0, q0, bh);
+    tma_load_3d(dst + kBoxBytes, qmap, bar, 64, q0, bh);
+  }
+  __device__ void load_k(uint32_t dst, int j, uint64_t* bar) const {
+    tma_load_3d(dst, kmap, bar, 0, j * kTile, bh);
+    tma_load_3d(dst + kBoxBytes, kmap, bar, 64, j * kTile, bh);
+  }
+  __device__ void load_v(uint32_t dst, int j, uint64_t* bar) const {
+    tma_load_3d(dst, vmap, bar, 0, j * kTile, bh);
+    tma_load_3d(dst + kBoxBytes, vmap, bar, 64, j * kTile, bh);
+  }
+  __device__ bool live(int key) const { return key < sk && (mask == nullptr || mask[key] != 0); }
 
-  // Stage the q tile through the K buffer into registers.
-  load_tile(ks, q + bh * sq * kHeadDim, kHeadDim, q0, sq);
-  __syncthreads();
-  uint32_t qa[8][4];
-  load_q_fragments(qa, ks, wr, g, t);
-  __syncthreads();
-
-  float acc[16][4];
-#pragma unroll
-  for (int jd = 0; jd < 16; ++jd) acc[jd][0] = acc[jd][1] = acc[jd][2] = acc[jd][3] = 0.f;
-  float m_g = kMasked, m_g8 = kMasked;
-  float l_g = 0.f, l_g8 = 0.f;
-
-  const uint16_t* kb = k + bh * sk * kHeadDim;
-  const uint16_t* vb = v + bh * sk * kHeadDim;
-  const uint8_t* mb = key_mask ? key_mask + (long)blockIdx.z * sk : nullptr;
-  // the bias rows of this thread's two query rows (a row past S_q reads the
-  // last row's values and is never written)
-  const float* b_g = nullptr;
-  const float* b_g8 = nullptr;
-  bool pairs = false;
-  if constexpr (kBias) {
-    const float* bb = bias + (long)blockIdx.z * bias_batch_stride;
-    b_g = bb + (long)min(rg, sq - 1) * bias_row_pitch;
-    b_g8 = bb + (long)min(rg8, sq - 1) * bias_row_pitch;
-    pairs = bias_row_pitch % 2 == 0 && bias_batch_stride % 2 == 0 &&
-            reinterpret_cast<uintptr_t>(bias) % 8 == 0;
+  __device__ void begin(int row, int t) {
+    if constexpr (kHasBias) bias.begin(q0 + row, t);
   }
 
-  for (int k0 = 0; k0 < sk; k0 += kBlockK) {
-    // C fragment element (j, e) is row g (e < 2) or g + 8, key k0 + 8j + 2t + (e & 1)
-    float bv[8][4];
-    if constexpr (kBias) {
+  // One tile of the online softmax on the raw scores s: s becomes x (with a
+  // bias) and a masked key kMasked; then the running max, the rescale of l
+  // and o, p and the row sums, and P packed to bf16.  kTest: the key-mask
+  // test (a tile whose 128 keys are all live skips it).
+  template <bool kTest>
+  __device__ __forceinline__ void online_tile(float (&s)[64], uint4 word, float (&o)[64],
+                                              uint32_t (&p)[32], int t) {
+    const uint32_t w[4] = {word.x >> (2 * t), word.y >> (2 * t), word.z >> (2 * t),
+                           word.w >> (2 * t)};
+    float mx0 = kMasked, mx1 = kMasked;
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int key = k0 + 8 * j + 2 * t;
-        if (pairs && key + 1 < sk) {
-          const float2 lo = __ldg(reinterpret_cast<const float2*>(b_g + key));
-          const float2 hi = __ldg(reinterpret_cast<const float2*>(b_g8 + key));
-          bv[j][0] = lo.x, bv[j][1] = lo.y, bv[j][2] = hi.x, bv[j][3] = hi.y;
-        } else {
+    for (int nb = 0; nb < 16; ++nb) {
+      float2 b0, b1;   // rows g and g + 8, keys 8 nb + 2t and + 1
+      if constexpr (kHasBias) bias.read(nb, b0, b1);
 #pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int kk = key + (e & 1);
-            bv[j][e] = kk < sk ? __ldg((e < 2 ? b_g : b_g8) + kk) : 0.f;
-          }
+      for (int e = 0; e < 4; ++e) {
+        float x = s[4 * nb + e];
+        if constexpr (kHasBias) {
+          const float2 b = e < 2 ? b0 : b1;
+          x = fmaf((e & 1) ? b.y : b.x, kLog2e, __fmul_rn(x, scale));
         }
+        if (kTest && !((w[nb / 4] >> (8 * (nb % 4) + (e & 1))) & 1u)) x = kMasked;
+        s[4 * nb + e] = x;
+        if (e < 2) mx0 = fmaxf(mx0, x); else mx1 = fmaxf(mx1, x);
       }
     }
-    load_tile(ks, kb, kHeadDim, k0, sk);
-    load_tile(vs, vb, kHeadDim, k0, sk);
-    if (threadIdx.x < kBlockK) {
-      const int key = k0 + threadIdx.x;
-      live[threadIdx.x] = key < sk && (mb == nullptr || mb[key] != 0);
-    }
-    __syncthreads();
-
-    float s[8][4];
-    qk_tile(s, qa, ks, g, t);
-    float mx_g = kMasked, mx_g8 = kMasked;
+    mx0 = quad_max(mx0);
+    mx1 = quad_max(mx1);
+    const float mn0 = fmaxf(m0, kHasBias ? mx0 : mx0 * scale);
+    const float mn1 = fmaxf(m1, kHasBias ? mx1 : mx1 * scale);
+    const float a0 = ex2_ftz(m0 - mn0), a1 = ex2_ftz(m1 - mn1);
+    m0 = mn0;
+    m1 = mn1;
+    l0 *= a0;
+    l1 *= a1;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float x = s[j][e] * scale;
-        if constexpr (kBias) x = fmaf(bv[j][e], kLog2e, x);
-        x = live[8 * j + 2 * t + (e & 1)] ? x : kMasked;
-        s[j][e] = x;
-        if (e < 2) mx_g = fmaxf(mx_g, x); else mx_g8 = fmaxf(mx_g8, x);
+    for (int i = 0; i < 64; ++i) {
+      const float x = s[i];
+      const float mn = (i & 2) ? mn1 : mn0;
+      float pr;
+      if constexpr (kHasBias) {
+        pr = x > 0.5f * kMasked ? ex2_ftz(x - mn) : 0.f;
+      } else {
+        pr = ex2_ftz(fmaf(x, scale, -mn));
+        if (kTest && x == kMasked) pr = 0.f;
       }
-    }
-    const float mn_g = fmaxf(m_g, quad_max(mx_g));
-    const float mn_g8 = fmaxf(m_g8, quad_max(mx_g8));
-    const float alpha_g = exp2f(m_g - mn_g);
-    const float alpha_g8 = exp2f(m_g8 - mn_g8);
-    m_g = mn_g;
-    m_g8 = mn_g8;
-    l_g *= alpha_g;
-    l_g8 *= alpha_g8;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float x = s[j][e];
-        const float p = x > 0.5f * kMasked ? exp2f(x - (e < 2 ? mn_g : mn_g8)) : 0.f;
-        s[j][e] = p;
-        if (e < 2) l_g += p; else l_g8 += p;
-      }
+      s[i] = pr;
+      if (i & 2) l1 += pr; else l0 += pr;
+      o[i] *= (i & 2) ? a1 : a0;
     }
 #pragma unroll
-    for (int jd = 0; jd < 16; ++jd) {
-      acc[jd][0] *= alpha_g;
-      acc[jd][1] *= alpha_g;
-      acc[jd][2] *= alpha_g8;
-      acc[jd][3] *= alpha_g8;
-    }
-    pv_tile(acc, s, vs, g, t);
-    __syncthreads();
+    for (int i = 0; i < 32; ++i) p[i] = pack_bf16(s[2 * i], s[2 * i + 1]);
   }
 
-  l_g = quad_sum(l_g);
-  l_g8 = quad_sum(l_g8);
-  store_rows(out, (bh * sq + rg) * kHeadDim, (bh * sq + rg8) * kHeadDim,
-             rg < sq, rg8 < sq, acc, l_g, l_g8, t);
+  __device__ void softmax(float (&s)[64], uint4 word, int j, float (&o)[64], uint32_t (&p)[32],
+                          int, int t) {
+    if constexpr (kHasBias) bias.wait();
+    if (all_live(word)) online_tile<false>(s, word, o, p, t);
+    else online_tile<true>(s, word, o, p, t);
+    if constexpr (kHasBias) bias.release(j, n_tiles);
+  }
+
+  __device__ void epilogue(const float (&o)[64], int row, int t) const {
+    const int r0 = q0 + row, r1 = r0 + 8;
+    store_rows(out, (long)r0 * kHeadDim, (long)r1 * kHeadDim, r0 < sq, r1 < sq, as_rows(o),
+               quad_sum(l0), quad_sum(l1), t);
+  }
+};
+
+// The grid (launch_bias_kernel): (heads, q tiles, batch) with the bias,
+// (q tiles, heads, batch) without.
+template <bool kHasBias>
+__global__ void __launch_bounds__(kBlockThreads, 1)
+online_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
+              const __grid_constant__ CUtensorMap vmap, const float* __restrict__ bias,
+              long bias_batch_stride, long bias_row_pitch, int wide,
+              const uint8_t* __restrict__ key_mask, uint16_t* __restrict__ out, int n_heads,
+              int sq, int sk, float scale) {
+  using Policy = OnlinePolicy<kHasBias>;
+  const int head = kHasBias ? blockIdx.x : blockIdx.y;
+  const int q_tile = kHasBias ? blockIdx.y : blockIdx.x;
+  const int bh = blockIdx.z * n_heads + head;
+  Policy pol{&qmap, &kmap, &vmap,
+             key_mask ? key_mask + (long)blockIdx.z * sk : nullptr,
+             out + (long)bh * sq * kHeadDim,
+             BiasSlots{kHasBias ? bias + (long)blockIdx.z * bias_batch_stride : nullptr,
+                       bias_row_pitch, wide != 0, sq, sk, 0, 0u, 0u},
+             q_tile * kTile, bh, sq, sk, (sk + kTile - 1) / kTile, scale,
+             kMasked, kMasked, 0.f, 0.f};
+  attention_mainloop<Policy>(pol);
 }
 
-dim3 grid_of(int batch, int heads, int sq) {
-  // the head fastest: the head-blocks of one (batch, q tile) share its bias rows in L2
-  return dim3(heads, (sq + kBlockQ - 1) / kBlockQ, batch);
+template <bool kHasBias>
+int launch_kernel(const void* q, const void* k, const void* v, const float* bias,
+                  long long batch_stride, long long row_pitch, const void* key_mask, void* out,
+                  int batch, int heads, int sq, int sk, float scale, void* stream) {
+  if (batch == 0 || heads == 0 || sq == 0) return 0;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (sk == 0)   // no key at all: every row is a row with no live key
+    return static_cast<int>(cudaMemsetAsync(
+        out, 0, static_cast<size_t>(batch) * heads * sq * kHeadDim * 2, st));
+  return launch_bias_kernel<online_kernel<kHasBias>, kHasBias>(
+      q, k, v, bias, batch_stride, row_pitch, key_mask, out, batch, heads, sq, sk, scale, st);
 }
 
 }  // namespace
 
-// q [B, N, Sq, 128], k/v [B, N, Sk, 128], out [B, N, Sq, 128]: bf16, contiguous.
-// key_mask [B, Sk] uint8 (1 = live) or null.  scale = log2(e) / sqrt(128) in fp32.
+// q [B, N, Sq, 128], k/v [B, N, Sk, 128], out [B, N, Sq, 128]: bf16, contiguous,
+// 16-byte aligned (TMA).  key_mask [B, Sk] uint8 (1 = live) or null.
+// scale = log2(e) / sqrt(128) in fp32.
 extern "C" int online_attention_bf16(const void* q, const void* k, const void* v,
                                      const void* key_mask, void* out, int batch, int heads,
                                      int sq, int sk, float scale, void* stream) {
-  online_kernel<false><<<grid_of(batch, heads, sq), kThreads, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint16_t*>(q), static_cast<const uint16_t*>(k),
-      static_cast<const uint16_t*>(v), nullptr, 0, 0, static_cast<const uint8_t*>(key_mask),
-      static_cast<uint16_t*>(out), heads, sq, sk, scale);
-  return static_cast<int>(cudaGetLastError());
+  return launch_kernel<false>(q, k, v, nullptr, 0, 0, key_mask, out, batch, heads, sq, sk,
+                              scale, stream);
 }
 
 // As online_attention_bf16, with a bias: fp32 in natural-log units, element
@@ -194,12 +213,11 @@ extern "C" int online_attention_bias_bf16(const void* q, const void* k, const vo
                                           long long bias_row_pitch, const void* key_mask,
                                           void* out, int batch, int heads, int sq, int sk,
                                           float scale, void* stream) {
-  online_kernel<true><<<grid_of(batch, heads, sq), kThreads, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint16_t*>(q), static_cast<const uint16_t*>(k),
-      static_cast<const uint16_t*>(v), static_cast<const float*>(bias),
-      static_cast<long>(bias_batch_stride), static_cast<long>(bias_row_pitch),
-      static_cast<const uint8_t*>(key_mask), static_cast<uint16_t*>(out), heads, sq, sk,
-      scale);
-  return static_cast<int>(cudaGetLastError());
+  return launch_kernel<true>(q, k, v, static_cast<const float*>(bias), bias_batch_stride,
+                             bias_row_pitch, key_mask, out, batch, heads, sq, sk, scale,
+                             stream);
 }
+
+// The dynamic shared memory of one block, for the report beside ptxas's.
+extern "C" int online_attention_smem_bytes() { return kSmemBytes; }
+extern "C" int online_attention_bias_smem_bytes() { return kSmemBytes + kBiasSlotBytes; }

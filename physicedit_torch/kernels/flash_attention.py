@@ -23,12 +23,11 @@ scaled in fp32 in the kernel (K7's kernel without its bias, the clamp
 switchable); it replaces ``_fixedmax_kernel`` (entered through
 ``_fixedmax_bnsd``).  :func:`flash_attention_bnsd` and the BSND
 :func:`flash_attention` dispatch as the JAX package's functions of those
-names do.  K1, K2, K7 (with K1' scaled) and K8 run on the Hopper loop of
-``csrc/hopper_attention.cuh`` (TMA, ``wgmma``, a producer and two
-ping-ponged consumer warpgroups), so their q, k, v (and K8's g) must be
-contiguous and 16-byte aligned; K10 and K10b keep the ``mma.sync`` loop of
-``csrc/mma_bf16.cuh``.  Each source file says what bounds its kernel on the
-H100 and what the design does about it.
+names do.  K1, K2, K7 (with K1' scaled), K8, K10 and K10b run on the
+Hopper loop of ``csrc/hopper_attention.cuh`` (TMA, ``wgmma``, a producer
+and two ping-ponged consumer warpgroups), so their q, k, v (and K8's g)
+must be contiguous and 16-byte aligned.  Each source file says what bounds
+its kernel on the H100 and what the design does about it.
 
 Each wrapper takes its plain PyTorch version (``*_reference``) for a tensor
 that lies on the CPU.  For a CUDA tensor it launches the kernel, or raises
@@ -482,7 +481,7 @@ def fixedmax_bnsd(q, k, v, key_mask=None, clamp: bool = True, prescaled: bool = 
 # K10 / K10b: online-softmax attention, with an optional head-shared bias
 # ---------------------------------------------------------------------------
 
-ONLINE_BLOCK_K = 64     # the key tile of csrc/online_attention.cu (kBlockK)
+ONLINE_BLOCK_K = 128    # the key tile of csrc/online_attention.cu (hopper::kTile)
 
 
 def online_attention_reference(q, k, v, key_mask=None, bias=None):
@@ -533,7 +532,7 @@ def online_attention(q, k, v, key_mask=None, bias=None):
     A running max keeps it right for logits of any size.  ``bias`` is fp32
     [B, S_q, S_k] in natural-log units (the JAX package's form), its last dim
     contiguous; its rows may be a view with any row pitch and batch stride.
-    A row with no live key returns 0.
+    Any S_q against any S_k.  A row with no live key returns 0.
     """
     _check_forward_only("online_attention", q, k, v, bias)
     if q.device.type == "cpu":

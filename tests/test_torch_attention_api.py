@@ -82,20 +82,37 @@ def _fp64_softmax_attention(q, k, v, mask, bias=None):
 # ---------------------------------------------------------------------------
 
 K10_CASES = {
-    # name: (b, n, sq, sk, q/k scale, key-masked span per batch row, bias rows blocked, atol)
-    "ragged_300_key_padding": (2, 2, 300, 300, 1.0, [(250, 300), (0, 0)], [], 1e-5),
-    "sq_lt_sk": (1, 2, 96, 384, 1.0, [(300, 384)], [], 1e-5),
-    "masked_batch_row": (2, 2, 128, 200, 1.0, [(0, 0), (0, 200)], [5, 77], 1e-5),
+    # name: (seed, b, n, sq, sk, q/k scale, key-masked span per batch row,
+    #        bias rows blocked (-1e30), {row: key spans blocked by BAND}, atol)
+    "ragged_300_key_padding": (1, 2, 2, 300, 300, 1.0, [(250, 300), (0, 0)], [], {}, 1e-5),
+    "sq_lt_sk": (2, 1, 2, 96, 384, 1.0, [(300, 384)], [], {}, 1e-5),
+    "masked_batch_row": (0, 2, 2, 128, 200, 1.0, [(0, 0), (0, 200)], [5, 77], {}, 1e-5),
     # |q.k / sqrt(d)| up to about 300 (q and k x 10): no fixed max holds here
-    "unbounded_logits": (1, 2, 160, 256, 10.0, [(230, 256)], [], 2e-4),
+    "unbounded_logits": (3, 1, 2, 160, 256, 10.0, [(230, 256)], [], {}, 2e-4),
+    # the card kernel's 128-key tiles: one live key in the last tile, a
+    # ragged last tile, a mask hole across key 128, S_q > S_k
+    "tile_edge_sk_129": (4, 1, 2, 129, 129, 1.0, [(0, 0)], [], {}, 1e-5),
+    "tile_edge_sk_255": (5, 2, 2, 255, 255, 1.0, [(0, 0), (200, 255)], [], {}, 1e-5),
+    "hole_across_key_128": (6, 2, 2, 300, 300, 1.0, [(100, 160), (0, 0)], [], {}, 1e-5),
+    "sq_300_gt_sk_129": (7, 1, 2, 300, 129, 1.0, [(120, 125)], [], {}, 1e-5),
+    # K10b: rows whose first key tile (and keys 200-239) the bias blocks,
+    # beside rows it blocks wholly, at -1e30 and at BAND
+    "first_tile_blocked": (8, 1, 2, 160, 300, 1.0, [(280, 300)], [4],
+                           {3: [(0, 128), (200, 240)], 130: [(0, 128), (200, 240)],
+                            5: [(0, 300)]}, 1e-5),
 }
+# A bias that blocks a key (in exp2 units -8.7e29, below the -5e29 threshold)
+# but leaves its x above the running max's start of -1e30: only the
+# threshold test keeps exp2(x - m) from weighing it by 1 in a row it blocks
+# wholly (a -1e30 bias, -1.44e30 in exp2 units, gives exp2(x - m) = 0 alone).
+BAND = -6e29
 
 
 @pytest.mark.parametrize("with_bias", [False, True], ids=["k10", "k10b"])
 @pytest.mark.parametrize("case", list(K10_CASES))
 def test_k10_plain_matches_pallas(case, with_bias, interpret):
-    b, n, sq, sk, scale, spans, blocked, atol = K10_CASES[case]
-    rng, q, k, v = _inputs(sorted(K10_CASES).index(case), b, n, sq, sk, scale=scale)
+    seed, b, n, sq, sk, scale, spans, blocked, banded, atol = K10_CASES[case]
+    rng, q, k, v = _inputs(seed, b, n, sq, sk, scale=scale)
     mask = np.ones((b, sk), bool)
     for i, (m0, m1) in enumerate(spans):
         mask[i, m0:m1] = False
@@ -105,6 +122,9 @@ def test_k10_plain_matches_pallas(case, with_bias, interpret):
                         rng.normal(size=(b, sq, sk))).astype(np.float32)
         bias[:, :, 0] = 0.0
         bias[:, blocked] = NEG          # query rows with no live key
+        for r, row_spans in banded.items():
+            for k0, k1 in row_spans:
+                bias[:, r, k0:k1] = BAND
     want = np.asarray(jfa.flash_attention_bnsd(
         *map(jnp.asarray, (q, k, v, mask)), bias=None if bias is None else jnp.asarray(bias),
         variant="online"))
@@ -118,6 +138,8 @@ def test_k10_plain_matches_pallas(case, with_bias, interpret):
         live = live & ((bias > -1e29) & mask[:, None, :]).any(-1)[:, None]
     live = np.broadcast_to(live, (b, n, sq))
     assert live.any() and (case != "masked_batch_row" or not live.all())
+    if bias is not None and banded:
+        assert live[:, :, [3, 130]].all() and not live[:, :, [4, 5]].any()
     np.testing.assert_allclose(got[live], want[live], atol=atol, rtol=atol)
     assert np.all(got[~live] == 0.0)
     ref = _fp64_softmax_attention(q, k, v, mask, bias)

@@ -384,11 +384,21 @@ def test_hopper_kernels_raise_on_misaligned_or_strided_inputs(cuda):
         tfa.gqa_causal_attention(misaligned(gshape), kv, kv, mask)
     with pytest.raises(ValueError, match="contiguous"):
         tfa.gqa_causal_attention(gq.transpose(1, 2).contiguous().transpose(1, 2), kv, kv, mask)
+    # K10 and K10b
+    nat = torch.zeros(1, 130, 130, device=cuda)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        tfa.online_attention(misaligned(shape), ok, ok)
+    with pytest.raises(ValueError, match="contiguous"):
+        tfa.online_attention(strided, ok, ok)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        tfa.online_attention(misaligned(shape), ok, ok, bias=nat)
+    with pytest.raises(ValueError, match="contiguous"):
+        tfa.online_attention(ok, ok, strided, bias=nat)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("kernel", ["k1_with_l", "k1prime_prescaled", "k2", "k7",
-                                    "k1prime_scaled", "k8"])
+                                    "k1prime_scaled", "k8", "k10", "k10b"])
 def test_hopper_kernels_in_a_cuda_graph_give_the_eager_bits(cuda, kernel):
     """The tensor maps reach the kernel by value: a CUDA-graph replay gives
     the eager call's bits."""
@@ -413,6 +423,7 @@ def test_hopper_kernels_in_a_cuda_graph_give_the_eager_bits(cuda, kernel):
     else:
         q, k, v, bias, mask = _k7_inputs(g, 2, 3, 250, 333)
         qs = tfa._prescale(q).contiguous()
+        bias_nat = bias / tfa.LOG2E
 
         def fn():
             if kernel == "k1prime_prescaled":
@@ -421,6 +432,10 @@ def test_hopper_kernels_in_a_cuda_graph_give_the_eager_bits(cuda, kernel):
                 return (tfa.fixedmax_bnsd(q, k, v, mask, prescaled=False),)
             if kernel == "k7":
                 return (tfa.fixedmax_attention_bias(q, k, v, bias, mask),)
+            if kernel == "k10":
+                return (tfa.online_attention(q, k, v, mask),)
+            if kernel == "k10b":
+                return (tfa.online_attention(q, k, v, mask, bias_nat),)
             return tfa.fixedmax_attention(q, k, v, mask, return_l=True)
     eager = fn()
     side = torch.cuda.Stream()
@@ -666,6 +681,102 @@ def test_online_bias_kernel_reads_a_strided_view_on_cuda(cuda):
                                rtol=0, atol=0)
     ref = tfa.online_attention_reference(qs, k, v, mask, view)
     torch.testing.assert_close(out.float(), ref.float(), rtol=BF16_TOL, atol=BF16_TOL)
+
+
+# K10 / K10b at the edges of the Hopper loop's 128-row q tiles and 128-key
+# stages.  Rows "first" have the bias block keys [0, 128) and [200, 240)
+# (the running max is still at its start when the first tile ends), rows
+# "blocked" every key at -1e30 and rows "band" every key at ONLINE_BAND.
+ONLINE_EDGE_CASES = {
+    # name: (b, n, sq, sk, masked [lo, hi) per batch row or "per_stage",
+    #        q/k scale, rows first, blocked, band)
+    "sk_129": (1, 2, 129, 129, [(0, 0)], 1.0, (), (), ()),
+    "sk_255": (2, 2, 255, 255, [(0, 0), (200, 255)], 1.0, (), (), ()),
+    "hole_across_key_128": (2, 3, 300, 300, [(100, 160), (0, 0)], 1.0, (), (), ()),
+    "sq_300_gt_sk_129": (1, 2, 300, 129, [(120, 125)], 1.0, (), (), ()),
+    "first_tile_blocked_row": (1, 2, 300, 385, [(350, 385)], 1.0, (3, 130), (4, 131), (5,)),
+    "unbounded_logits_1100": (2, 2, 1100, 1100, "per_stage", 10.0, (), (), ()),
+}
+# In exp2 units -8.7e29: below the kernel's -5e29 threshold, above the
+# running max's start (-1e30), so only that test keeps such a key's weight 0.
+ONLINE_BAND = -6e29
+
+
+def _online_edge_inputs(case, g, dev):
+    b, n, sq, sk, spans, scale, first, blocked, band = ONLINE_EDGE_CASES[case]
+    q, k, v, bias, _ = _k7_inputs(g, b, n, sq, sk, scale, blocked)
+    bias = bias / tfa.LOG2E
+    for r in first:
+        bias[:, r, :128] = -1e30
+        bias[:, r, 200:240] = -1e30
+    if band:
+        bias[:, list(band)] = ONLINE_BAND
+    if scale != 1.0:   # the outputs near one-hot rows of v: v / scale keeps bf16 steps small
+        v = (v.float() / scale).bfloat16()
+    return q, k, v, bias, _edge_mask(b, sk, spans, dev), first, blocked + band
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_bias", [False, True], ids=["k10", "k10b"])
+@pytest.mark.parametrize("case", list(ONLINE_EDGE_CASES))
+def test_online_kernel_tile_edges_on_cuda(cuda, case, with_bias):
+    """K10 and K10b against their plain versions at the tile edges, S_q >
+    S_k, logits far past any fixed max and a key mask that changes every
+    stage; K10b also with rows whose first key tile the bias blocks (within
+    the gates) beside rows it blocks wholly (exactly 0); two more calls bit
+    for bit against the first."""
+    g = torch.Generator(cuda).manual_seed(100 + sorted(ONLINE_EDGE_CASES).index(case))
+    q, k, v, bias, mask, first, dead = _online_edge_inputs(case, g, cuda)
+    if not with_bias:
+        bias, first, dead = None, (), ()
+    name = "online_attention_bias" if with_bias else "online_attention"
+    before = tfa.LAUNCHES[name]
+    out = tfa.online_attention(q, k, v, mask, bias)
+    assert tfa.LAUNCHES[name] == before + 1
+    ref = tfa.online_attention_reference(q, k, v, mask, bias)
+    assert torch.isfinite(out).all()
+    torch.testing.assert_close(out.float(), ref.float(), rtol=BF16_TOL, atol=BF16_TOL)
+    assert (out.float() - ref.float()).abs().max().item() <= 4e-3
+    assert _rel_l2(out, ref) <= K7_REL_L2
+    for r in first:
+        assert out[:, :, r].abs().max() > 0
+    for r in dead:
+        assert torch.equal(out[:, :, r], torch.zeros_like(out[:, :, r]))
+    for _ in range(2):
+        assert torch.equal(tfa.online_attention(q, k, v, mask, bias), out)
+
+
+@pytest.mark.cuda
+def test_online_kernel_with_no_keys_gives_zeros_on_cuda(cuda):
+    """S_k = 0: every query row has no live key, so K10 and K10b give 0, as
+    their plain version does."""
+    q = torch.ones(1, 2, 130, 128, device=cuda, dtype=torch.bfloat16)
+    kv = torch.zeros(1, 2, 0, 128, device=cuda, dtype=torch.bfloat16)
+    for bias in (None, torch.zeros(1, 130, 0, device=cuda)):
+        out = tfa.online_attention(q, kv, kv, bias=bias)
+        assert torch.equal(out, torch.zeros_like(q))
+        assert torch.equal(out, tfa.online_attention_reference(q, kv, kv, bias=bias))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [2304, 2303], ids=["pitch_16_bytes", "ragged_pitch"])
+def test_online_bias_kernel_reads_views_of_any_pitch_on_cuda(cuda, s):
+    """K10b's bias rows as a view (the rows of a slim block's queries, with
+    the joint bias's row pitch and batch stride): a pitch of whole 16-byte
+    groups (16-byte copies) and a ragged one (4-byte copies) each give the
+    bits of a contiguous copy."""
+    g = torch.Generator(cuda).manual_seed(s)
+    s_t, base = 40, 300
+    q, k, v, bias, mask = _k7_inputs(g, 2, 2, s, s)
+    bias = bias / tfa.LOG2E
+    qs = q[:, :, s_t:s_t + base].contiguous()
+    view = bias[:, s_t:s_t + base]
+    assert not view.is_contiguous() and view.stride(1) == s
+    out = tfa.online_attention(qs, k, v, mask, view)
+    assert torch.equal(out, tfa.online_attention(qs, k, v, mask, view.contiguous()))
+    ref = tfa.online_attention_reference(qs, k, v, mask, view)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=BF16_TOL, atol=BF16_TOL)
+    assert _rel_l2(out, ref) <= K7_REL_L2
 
 
 @pytest.mark.cuda

@@ -26,9 +26,13 @@ Phases, each printed as one JSON line, any failure exits non-zero:
   4. K2 (VL causal GQA attention) against its plain version, also at
      S = 1500 with left pads across query row 128, timed from a CUDA graph
      beside SDPA's graph;
-  5. K3 (W4A8 matmul) against its exact plain version at the W4 lane's
-     shapes, and at the DiT image-stream shapes beside an unpack to int8
-     and torch._int_mm (the JAX package's route at M >= 8192);
+  5. K3 (W4A8 matmul: a GEMV at M <= 16, a TMA + wgmma GEMM above)
+     against its exact plain version at the W4 lane's shapes, with times
+     (CUDA events and a CUDA graph), bounds and the GEMM's ptxas report (no
+     spills), and at the DiT image-stream shapes beside an unpack to int8
+     and torch._int_mm (the JAX package's route at M >= 8192),
+     torch._int_mm alone on weights unpacked beforehand and T10's
+     proto_w4_i32 (the mma.sync tiling K3 ran before);
   6. K4-K6 (fused activation quantize) against their plain versions;
   7. a small head_dim-128 pipeline on the card (kernels) against the same
      weights on the CPU (plain versions), in bf16 and then quantized int4,
@@ -56,9 +60,10 @@ Phases, each printed as one JSON line, any failure exits non-zero:
      moving by step two, memory, times and a profiled step;
  12. K8 (the attention backward) and K9 (the W4 input gradient) against
      their plain versions at the training shapes (K8 also at a ragged 8513
-     with a key-mask hole across key 128, three calls bit for bit, ptxas's
-     report of both passes), with times, bounds and PyTorch's own attention
-     backward beside K8; K1's out and l there
+     with a key-mask hole across key 128; both three calls bit for bit,
+     with ptxas's report of their kernels), with times (CUDA events and a
+     CUDA graph), bounds, PyTorch's own attention backward beside K8 and a
+     bf16 matmul on dequantized weights beside K9; K1's out and l there
      against its plain version; K3 against its exact plain version at the
      W4 training lane's forward shapes;
  13. the bf16 attention prototypes of tools/ (T1 v1-v4, T2, T3, T5, T7, T8;
@@ -144,8 +149,12 @@ KERNEL_ROWS = [
      "physicedit_tpu/kernels/flash_attention.py:176", None),
     ("gqa_causal_attention", "physicedit_torch/csrc/gqa_causal_attention.cu",
      "physicedit_tpu/kernels/flash_attention.py:632", None),
-    ("w4a8_matmul", "physicedit_torch/csrc/w4a8_matmul.cu",
+    # K3's two regimes: the GEMV (M <= 16; its row's times at the decode's
+    # gate_up) and the tiled TMA + wgmma GEMM (at the DiT image stream's fc1)
+    ("w4a8_matmul_gemv", "physicedit_torch/csrc/w4a8_matmul.cu",
      "physicedit_tpu/kernels/quant_matmul.py:143", "k3_decode_gate_up"),
+    ("w4a8_matmul_tiled", "physicedit_torch/csrc/w4a8_matmul.cu",
+     "physicedit_tpu/kernels/quant_matmul.py:143", "k3_dit_image_fc1"),
     ("ln_mod_quant", "physicedit_torch/csrc/fused_quant.cu",
      "physicedit_tpu/kernels/fused_quant.py:54", None),
     ("gelu_quant", "physicedit_torch/csrc/fused_quant.cu",
@@ -250,7 +259,13 @@ def reset_counts() -> None:
 
 
 def counts() -> dict:
-    return {name: n for module in _counter_modules() for name, n in module.LAUNCHES.items()}
+    """Every kernel's launches, and K3's by regime (``w4a8_matmul_gemv``,
+    ``w4a8_matmul_tiled``)."""
+    from physicedit_torch.kernels import quant_matmul as qm
+
+    out = {name: n for module in _counter_modules() for name, n in module.LAUNCHES.items()}
+    out.update({f"w4a8_matmul_{regime}": n for regime, n in qm.REGIME_LAUNCHES.items()})
+    return out
 
 
 def device_ms(fn, iters: int, name_part: str) -> float | None:
@@ -288,6 +303,7 @@ def k3_check(report: dict, gen, time_ms, cases, phase: str = "k3") -> None:
     import torch
 
     from physicedit_torch.kernels import quant_matmul as qm
+    from physicedit_torch.tools import _bench
 
     for name, m, k, n, bias in cases:
         xq, w4, xs, ws, b = k3_operands(gen, m, k, n, bias)
@@ -306,20 +322,22 @@ def k3_check(report: dict, gen, time_ms, cases, phase: str = "k3") -> None:
         ms = time_ms(run, 20)
         dev_ms = device_ms(run, 20, "w4a8_")
         plain_ms = time_ms(lambda: qm.w4a8_matmul_reference(xq, w4, xs, ws, b), 3)
+        regime = "gemv" if m <= qm.GEMV_MAX_ROWS else "tiled"
         row = {"phase": phase, "case": name, "shape": [m, k, n], "bias": bias,
-               "regime": "gemv" if m <= 16 else "tiled", "acc_equal": acc_equal,
+               "regime": regime, "acc_equal": acc_equal,
                "max_bf16_ulps": ulps, "max_abs_err": (out.float() - ref.float()).abs().max().item(),
-               "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
-               "weight_copies": len(copies)}
+               "ms": ms, "graph_ms": _bench.graph_ms(run), "device_ms": dev_ms,
+               "plain_ms": plain_ms, "weight_copies": len(copies)}
         row.update(bound(2 * m * n * k, n * k // 2 + m * k + 4 * m + 4 * n + 2 * m * n
                          + (2 * n if bias else 0), PEAK_INT8))
+        row["bound_share"] = row["bound_ms"] / ms
         t = dev_ms or ms
         if m <= 16:
             row["gb_per_s_device"] = (n * k // 2 + m * k + 2 * m * n + 4 * n) / t / 1e6
         else:
             row["tops_device"] = 2 * m * n * k / t / 1e9
         report[f"{phase}_{name}"] = row
-        report.setdefault("w4a8_matmul_err", []).append(row["max_abs_err"])
+        report.setdefault(f"w4a8_matmul_{regime}_err", []).append(row["max_abs_err"])
         emit(row)
         if not acc_equal or ulps > 1.0:
             fail(f"K3 {name} disagrees with its plain version")
@@ -349,13 +367,20 @@ def k3_phase(report: dict, gen, time_ms) -> None:
     """K3 against its exact plain version at the W4 serving lane's shapes:
     decode (M = 1), DiT modulation (M = 2), DiT text stream (M = 512), VL
     prefill (M = 1536), the ViT (784 patches, 196 merged) and a ragged M
-    (``k3_check``).  Then the DiT image-stream shapes (M = 16384) beside the
-    route the JAX package takes there, timed only: unpack to int8,
-    torch._int_mm and the fp32 epilogue."""
+    (``k3_check``), with ptxas's report of the tiled regime (no spills).
+    Then the DiT image-stream shapes (M = 16384): K3 exact against its plain
+    version, timed (CUDA events and a CUDA graph) with its bound, beside what
+    the PyTorch calls and the old design take there, each a measurement
+    only: the route the JAX package takes at M >= 8192 (unpack to int8,
+    torch._int_mm and the fp32 epilogue), torch._int_mm alone on weights
+    unpacked beforehand, and T10's ``proto_w4_i32`` (K3's mma.sync tiling
+    before it moved to wgmma)."""
     import torch
 
     from physicedit_torch.kernels import quant_matmul as qm
+    from physicedit_torch.tools import _bench, proto_prefill_blocks as t10
 
+    ptxas = hopper_ptxas("w4a8_matmul", "w4a8_wgmma_kernel", ())
     cases = [  # name, M, K, N, bias
         ("decode_qkv", 1, 3584, 4608, True), ("decode_o", 1, 3584, 3584, False),
         ("decode_gate_up", 1, 3584, 37888, False), ("decode_down", 1, 18944, 3584, False),
@@ -379,23 +404,44 @@ def k3_phase(report: dict, gen, time_ms) -> None:
     for name, k, n in DIT_LINEARS:
         xq, w4, xs, ws, b = k3_operands(gen, m, k, n, True)
         out, acc = qm.w4a8_matmul(xq, w4, xs, ws, b, return_acc=True)
+        ref, acc_ref = qm.w4a8_matmul_reference(xq, w4, xs, ws, b, return_acc=True)
         route, acc_route = int_mm_route(xq, w4, xs, ws, b)
         torch.cuda.synchronize()
         w8t = qm._unpack_w4_int8(w4).T
+        wsb = torch.stack([ws, b.float()])
+
+        def kernel():
+            return qm.w4a8_matmul(xq, w4, xs, ws, b)
+
         row = {"phase": "k3_vs_int_mm", "case": f"dit_image_{name}", "shape": [m, k, n],
-               "acc_equal": bool(torch.equal(acc, acc_route)),
+               "regime": "tiled", "acc_equal": bool(torch.equal(acc, acc_ref)),
+               "max_bf16_ulps": bf16_ulps(out, ref),
+               "max_abs_err": (out.float() - ref.float()).abs().max().item(),
+               "route_acc_equal": bool(torch.equal(acc, acc_route)),
                "max_bf16_ulps_vs_route": bf16_ulps(out, route),
-               "k3_ms": time_ms(lambda: qm.w4a8_matmul(xq, w4, xs, ws, b), 10),
-               "k3_device_ms": device_ms(lambda: qm.w4a8_matmul(xq, w4, xs, ws, b), 10,
-                                         "w4a8_"),
+               "ms": time_ms(kernel, 10), "graph_ms": _bench.graph_ms(kernel),
+               "device_ms": device_ms(kernel, 10, "w4a8_"),
+               "plain_ms": time_ms(lambda: qm.w4a8_matmul_reference(xq, w4, xs, ws, b), 2),
+               "library_ms": None,
                "int_mm_route_ms": time_ms(lambda: int_mm_route(xq, w4, xs, ws, b), 10),
-               "int_mm_only_ms": time_ms(lambda: torch._int_mm(xq, w8t), 10)}
-        for key in ("k3_ms", "int_mm_route_ms", "int_mm_only_ms"):
-            row[key.replace("_ms", "_tops")] = 2 * m * n * k / row[key] / 1e9
+               "int_mm_preunpacked_ms": time_ms(lambda: torch._int_mm(xq, w8t), 10),
+               "old_design_ms": time_ms(
+                   lambda: t10.i32_matmul(xq, w4, xs, wsb, torch.bfloat16), 10)}
+        row.update(bound(2 * m * n * k, n * k // 2 + m * k + 4 * m + 4 * n + 2 * m * n + 2 * n,
+                         PEAK_INT8))
+        row["bound_share"] = row["bound_ms"] / row["ms"]
+        for key in ("ms", "int_mm_route_ms", "int_mm_preunpacked_ms", "old_design_ms"):
+            row[key.replace("ms", "tops")] = 2 * m * n * k / row[key] / 1e9
+        if name == "fc1":
+            row["ptxas"] = ptxas
+        report[f"k3_dit_image_{name}"] = row
+        report.setdefault("w4a8_matmul_tiled_err", []).append(row["max_abs_err"])
         emit(row)
-        if not row["acc_equal"] or row["max_bf16_ulps_vs_route"] > 1.0:
-            fail(f"K3 and the _int_mm route disagree at the DiT image-stream {name}")
-        del xq, w4, xs, ws, b, out, acc, route, acc_route, w8t
+        if (not row["acc_equal"] or row["max_bf16_ulps"] > 1.0 or not row["route_acc_equal"]
+                or row["max_bf16_ulps_vs_route"] > 1.0):
+            fail(f"K3 disagrees with its plain version or the _int_mm route at the DiT "
+                 f"image-stream {name}")
+        del xq, w4, xs, ws, b, out, acc, ref, acc_ref, route, acc_route, w8t, wsb
     torch.cuda.empty_cache()
 
 
@@ -481,6 +527,18 @@ def w4_launch_counts(tm: dict, steps: int, n_blocks: int, n_layers: int,
             "ln_mod_quant": steps * (4 * (n_blocks - 1) + 3),
             "gelu_quant": steps * (2 * (n_blocks - 1) + 1),
             "transpose_quant": steps * n_blocks}
+
+
+def w4_regime_counts(tm: dict, steps: int, n_blocks: int, n_layers: int,
+                     vit_depth: int) -> dict:
+    """K3's launches of ``w4_launch_counts`` by regime.  The GEMV (M <= 16)
+    takes the DiT's two modulations per block and CFG step (M = 2), the
+    prefill's lm_head (its last row) and, per decode token, the text
+    model's four linears per layer and the lm_head (M = 1); the tiled GEMM
+    the rest: the DiT's streams, the prefill and prompt encode, the ViT."""
+    gemv = steps * 2 * n_blocks + 1 + tm["decode_tokens"] * (4 * n_layers + 1)
+    total = w4_launch_counts(tm, steps, n_blocks, n_layers, vit_depth)["w4a8_matmul"]
+    return {"w4a8_matmul_gemv": gemv, "w4a8_matmul_tiled": total - gemv}
 
 
 def k8_phase(report: dict, gen, time_ms, joint: int) -> None:
@@ -589,12 +647,18 @@ def k9_phase(report: dict, gen, time_ms, m_image: int, m_text: int) -> None:
     """K9 against its plain version at the W4 DiT's backward shapes: the
     image stream (M = base + edit image tokens) and the text stream (M = the
     bucketed text length) through qkv, out, fc1 and fc2, and the modulation
-    3072 -> 18432 at M = 1; all timed with their bounds."""
+    3072 -> 18432 at M = 1; every case three calls bit for bit, timed (CUDA
+    events and a CUDA graph) with its bound and, as context, one bf16
+    torch.matmul of the same shape on weights dequantized beforehand (not
+    the same function: no unpack, no rounding of g * w_scale); with ptxas's
+    report of the kernel (no spills)."""
     import torch
 
     from physicedit_torch.kernels import quant_matmul as qm
+    from physicedit_torch.tools import _bench
 
     dev = gen.device
+    ptxas = hopper_ptxas("w4_bwd_dx", "w4_bwd_dx_wgmma_kernel", ())
     cases = ([(f"image_{n}", m_image, k, o) for n, k, o in DIT_LINEARS]
              + [(f"text_{n}", m_text, k, o) for n, k, o in DIT_LINEARS]
              + [("mod", 1, 3072, 18432)])
@@ -606,20 +670,31 @@ def k9_phase(report: dict, gen, time_ms, m_image: int, m_text: int) -> None:
         want = qm.w4_bwd_dx_reference(go, w4, ws)
         torch.cuda.synchronize()
         err = (got.float() - want.float()).abs().max().item()
+        w_deq = qm._dequant_w4(w4, ws).bfloat16()
+
+        def kernel():
+            return qm.w4_bwd_dx(go, w4, ws)
+
         row = {"phase": "k9", "case": name, "shape": [m, n, k], "max_abs_err": err,
                "rel_max_err": err / max(want.float().abs().max().item(), 1e-30),
                "rel_l2": rel_l2(got, want),
-               "ms": time_ms(lambda: qm.w4_bwd_dx(go, w4, ws), 20),
-               "plain_ms": time_ms(lambda: qm.w4_bwd_dx_reference(go, w4, ws), 3)}
+               "repeat_bits_equal": all(torch.equal(kernel(), got) for _ in range(2)),
+               "ms": time_ms(kernel, 20), "graph_ms": _bench.graph_ms(kernel),
+               "plain_ms": time_ms(lambda: qm.w4_bwd_dx_reference(go, w4, ws), 3),
+               "library_ms": None,
+               "matmul_predequantized_ms": time_ms(lambda: go @ w_deq, 20)}
         row.update(bound(2 * m * n * k, 2 * m * n + n * k // 2 + 4 * n + 2 * m * k, PEAK_BF16))
+        row["bound_share"] = row["bound_ms"] / row["ms"]
         row["tflops"] = 2 * m * n * k / row["ms"] / 1e9
         if name == "image_fc1":
+            row["ptxas"] = ptxas
             report["w4_bwd_dx"] = dict(row)
         report.setdefault("w4_bwd_dx_err", []).append(err)
         emit(row)
-        if not bool(torch.isfinite(got).all()) or row["rel_max_err"] > K8_REL:
-            fail(f"K9 {name} disagrees with its plain version")
-        del go, w4, ws, got, want
+        if (not bool(torch.isfinite(got).all()) or row["rel_max_err"] > K8_REL
+                or not row["repeat_bits_equal"]):
+            fail(f"K9 {name} disagrees with its plain version or with itself")
+        del go, w4, ws, got, want, w_deq
     torch.cuda.empty_cache()
 
 
@@ -734,7 +809,7 @@ def train_lane(pipe, data, cfg, dev, n_blocks: int) -> dict:
           "resident_gb": torch.cuda.memory_allocated() / 1e9,
           "optimizer_state_dtype": cfg.optimizer_state_dtype,
           "quantize_frozen": cfg.quantize_frozen})
-    want = train_launch_counts(n_blocks, quantized)
+    want = {**train_launch_counts(n_blocks, quantized), **train_regime_counts(n_blocks, quantized)}
     steps = []
     for i, batch in enumerate(batches):
         before = counts()
@@ -789,6 +864,14 @@ def train_launch_counts(n_blocks: int, quantized: bool) -> dict:
     return {"fixedmax_attention": 2 * n_blocks, "fixedmax_attention_bwd": n_blocks,
             "w4a8_matmul": 20 * n_blocks if quantized else 0,
             "w4_bwd_dx": 8 * n_blocks - 3 if quantized else 0}
+
+
+def train_regime_counts(n_blocks: int, quantized: bool) -> dict:
+    """K3's launches of ``train_launch_counts`` by regime: the two
+    modulations per block at M = 1 (batch 1) on the GEMV, twice under
+    remat; the streams' eight linears on the tiled GEMM."""
+    return {"w4a8_matmul_gemv": 4 * n_blocks if quantized else 0,
+            "w4a8_matmul_tiled": 16 * n_blocks if quantized else 0}
 
 
 def entity_masks(w: int, h: int) -> list:
@@ -2260,6 +2343,8 @@ def main() -> int:
     # prototype: every other count is 0
     want = {**dict.fromkeys(launches, 0),
             **w4_launch_counts(pipe.timings, args.steps, n_blocks, n_layers,
+                               pipe.vision.cfg.depth),
+            **w4_regime_counts(pipe.timings, args.steps, n_blocks, n_layers,
                                pipe.vision.cfg.depth)}
     emit({"phase": "w4_edit", **row, "kv_int8": pipe.kv_int8, "launches": launches,
           "launches_expected": want})

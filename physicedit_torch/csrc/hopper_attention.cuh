@@ -2,7 +2,8 @@
 // (gqa_causal_attention.cu), K7 / K1' scaled (fixedmax_attention_bias.cu)
 // and K10 / K10b (online_attention.cu): bf16, head_dim 128, fp32
 // accumulators.  Its primitives (mbarriers, TMA, wgmma, named barriers,
-// cp.async) also build K8's two backward passes (fixedmax_attention_bwd.cu).
+// cp.async: hopper_primitives.cuh) also build K8's two backward passes
+// (fixedmax_attention_bwd.cu).
 //
 // One block of three warpgroups (384 threads) per 128-row q tile:
 //   warpgroup 0, the producer, gives its registers back (setmaxnreg.dec);
@@ -32,15 +33,11 @@
 // one arrive per warpgroup would let the producer overwrite a word that a
 // late warp has not read yet.
 //
-// The tensor maps are built on the host each call with
-// cuTensorMapEncodeTiled, reached through cudaGetDriverEntryPointByVersion
-// (cudaGetDriverEntryPoint before CUDA 12.5; no link flag: the libraries
-// link nothing beyond the runtime), and passed as __grid_constant__ kernel
-// parameters, so a CUDA graph captures them by value.
+// The tensor maps are built on the host each call (hopper_primitives.cuh)
+// and passed as __grid_constant__ kernel parameters.
 #pragma once
 
-#include <cuda.h>
-
+#include "hopper_primitives.cuh"
 #include "mma_bf16.cuh"
 
 namespace physicedit {
@@ -69,10 +66,6 @@ struct __align__(1024) SharedStorage {
 // (the 128-byte swizzle repeats every 1024 bytes).
 constexpr int kSmemBytes = static_cast<int>(sizeof(SharedStorage)) + 1024;
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
 __device__ __forceinline__ SharedStorage& shared_storage() {
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = smem_u32(smem_raw);
@@ -84,142 +77,6 @@ __device__ __forceinline__ SharedStorage& shared_storage() {
 // asks for none (K1, K2) keeps kSmemBytes.
 __device__ __forceinline__ uint32_t extra_smem_u32() {
   return smem_u32(&shared_storage()) + static_cast<uint32_t>(sizeof(SharedStorage));
-}
-
-// ---- mbarriers -------------------------------------------------------------
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
-}
-
-// Wait until the phase of the given parity has completed.  A fresh barrier
-// counts its phase before phase 0 (parity 1) as completed, so a producer's
-// first wait on an empty barrier passes.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t addr = smem_u32(bar);
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(addr), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// ---- TMA -------------------------------------------------------------------
-
-__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, uint64_t* bar,
-                                            int c0, int c1, int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
-      : "memory");
-}
-
-__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint64_t* bar,
-                                            int c0, int c1, int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
-      "r"(c3)
-      : "memory");
-}
-
-// ---- named barriers (the consumers' ping-pong) -------------------------------
-
-__device__ __forceinline__ void named_sync(int id, int threads) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
-}
-
-__device__ __forceinline__ void named_arrive(int id, int threads) {
-  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
-}
-
-// ---- cp.async (asynchronous copies into shared memory) ---------------------
-
-// Each copies src_bytes of src to dst and zero-fills the rest of its size (16
-// or 4 bytes); with src_bytes 0 nothing is read.  cp_async_16 caches in L2
-// only and needs dst and src 16-byte aligned.
-__device__ __forceinline__ void cp_async_16(uint32_t dst, const void* src, uint32_t src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
-               "r"(src_bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_4(uint32_t dst, const void* src, uint32_t src_bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
-               "r"(src_bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// Wait for this thread's copies; their bytes are then visible to it.
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-// ---- wgmma -----------------------------------------------------------------
-
-// Shared-memory matrix descriptor, 128-byte swizzle: start address, leading
-// and stride byte offsets, all in 16-byte units; base offset 0 (every tile
-// starts on a 1024-byte boundary).
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
-         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// Keep the compiler from reading or moving registers that an issued wgmma
-// still writes: a no-op that claims to modify each one.
-__device__ __forceinline__ void fence_regs(float (&d)[64]) {
-#pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-__device__ __forceinline__ void fence_regs(uint32_t (&a)[32]) {
-#pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+r"(a[i])::"memory");
-}
-
-__device__ __forceinline__ void fence_regs(float (&d)[32]) {
-#pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-__device__ __forceinline__ void fence_regs(uint32_t (&a)[16]) {
-#pragma unroll
-  for (int i = 0; i < 16; ++i) asm volatile("" : "+r"(a[i])::"memory");
 }
 
 #define PE_WGMMA_D64                                                                             \
@@ -586,27 +443,6 @@ __device__ __forceinline__ void attention_mainloop(Policy& pol) {
 }
 
 // ---- host: tensor maps -----------------------------------------------------
-
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-inline EncodeTiledFn encode_tiled() {
-  static EncodeTiledFn fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
-#if CUDART_VERSION >= 12050
-    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
-                                     &found);
-#else
-    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (found == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiledFn>(p);
-  }
-  return fn;
-}
 
 // A bf16 tensor map of `rank` dims (innermost first: d = 128, then the
 // others), strides in bytes for dims 1.., and boxes of 64 d x box_rows rows

@@ -29,8 +29,9 @@
 // What bounds them on an H100:
 //  - the tiled forms (T9 at M16384 K3072 N12288: 1.24e12 operations over
 //    0.23 GB, T10 / T12 at the VL prefill and DiT image shapes): the tensor
-//    cores, 1,979 TOP/s int8 and 989 TFLOP/s bf16.  Design: K3's tiled
-//    regime (w4a8_matmul.cu): 128 x 128 output tiles, 8 warps of 32 x 64,
+//    cores, 1,979 TOP/s int8 and 989 TFLOP/s bf16.  Design: the mma.sync
+//    tiling K3's tiled regime ran before its TMA + wgmma GEMM
+//    (w4a8_matmul.cu): 128 x 128 output tiles, 8 warps of 32 x 64,
 //    mma.sync m16n8k32 s8 (or m16n8k16 bf16, which takes the same 32 bytes of
 //    k per product with the same fragment byte offsets); each step stages two
 //    64-byte "planes" of k per row in shared memory (k and k + 64 bytes for

@@ -1,5 +1,5 @@
 """The W4A8 lane: packed-int4 weights, int8 activations
-(``physicedit_tpu/kernels/quant_matmul.py``), and kernel K3.
+(``physicedit_tpu/kernels/quant_matmul.py``), and kernels K3 and K9.
 
 Weights are quantized per output channel, symmetric to [-7, 7], and packed
 two to a byte along the contraction axis exactly as the JAX package packs
@@ -17,23 +17,25 @@ the large ``nn.Linear`` layers of a model for it in place.  Its forward is
 - ``K/2 % 128`` or ``N % 128``: the dense fallback (dequantize in fp32, no
   activation quantization), the JAX package's semantics for such layers;
 - otherwise K3, :func:`w4a8_matmul` (``csrc/w4a8_matmul.cu``), which
-  replaces ``_w4a8_kernel`` / ``_w4a8_kernel_i32``, at every M.  The JAX
-  package sends M >= 8192 to an unpack and an XLA int8 dot instead.  On the
-  H100, K3 beats an unpack to int8 plus ``torch._int_mm`` and its fp32
-  epilogue over a whole DiT step, though not at every shape
-  (``chip_smoke.py`` times both); the int32 accumulators are the same.
+  replaces ``_w4a8_kernel`` / ``_w4a8_kernel_i32``, at every M: a GEMV on
+  the CUDA cores for M <= 16, and above that a TMA + ``wgmma`` int8 GEMM
+  whose weights are unpacked in registers.  The JAX package sends
+  M >= 8192 to an unpack and an XLA int8 dot instead; ``chip_smoke.py``
+  times K3 beside an unpack and ``torch._int_mm`` there; the int32
+  accumulators are the same.
 
 :func:`w4a8_linear` is differentiable in x, straight through the
 activation quantizer, with a zero weight cotangent (the JAX package's
-``custom_vjp``): its backward is K9 :func:`w4_bwd_dx` (``csrc/w4_bwd_dx.cu``),
-which replaces ``_w4_bwd_dx_kernel``, or the dense fp32 fallback where
-``K/2 % 128`` or ``N % 128``.  That is what lets LoRA train over a frozen
-packed-int4 DiT.
+``custom_vjp``): its backward is K9 :func:`w4_bwd_dx` (``csrc/w4_bwd_dx.cu``,
+a TMA + ``wgmma`` bf16 GEMM whose weight planes a producer warpgroup
+unpacks into shared memory), which replaces ``_w4_bwd_dx_kernel``, or the
+dense fp32 fallback where ``K/2 % 128`` or ``N % 128``.  That is what lets
+LoRA train over a frozen packed-int4 DiT.
 
 The K3 and K9 wrappers take their plain PyTorch versions
 (:func:`w4a8_matmul_reference`, :func:`w4_bwd_dx_reference`) for a tensor on
 the CPU.  For a CUDA tensor they launch the kernel or raise; ``LAUNCHES``
-counts the launches.
+counts the launches, and ``REGIME_LAUNCHES`` K3's by regime.
 """
 
 from __future__ import annotations
@@ -52,11 +54,15 @@ DIT_OUTER_KEYS = ("img_in", "txt_in", "time_embed", "norm_out", "proj_out",
                   "txt_norm")
 
 LAUNCHES = {"w4a8_matmul": 0, "w4_bwd_dx": 0}
+# K3's launches by regime: the GEMV (M <= 16) and the tiled GEMM
+REGIME_LAUNCHES = {"gemv": 0, "tiled": 0}
+GEMV_MAX_ROWS = 16
 
 
 def reset_launch_counts() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, REGIME_LAUNCHES):
+        for name in counts:
+            counts[name] = 0
 
 
 # ---------------------------------------------------------------------------
@@ -179,6 +185,7 @@ def w4a8_matmul(xq, w4, xs, w_scale, bias=None, out_dtype=torch.bfloat16,
                   ptr(xq), ptr(w4), ptr(xs), ptr(w_scale), ptr(bias), ptr(out), ptr(acc),
                   m, n, k)
     LAUNCHES["w4a8_matmul"] += 1
+    REGIME_LAUNCHES["gemv" if m <= GEMV_MAX_ROWS else "tiled"] += 1
     return (out, acc) if return_acc else out
 
 

@@ -1,0 +1,120 @@
+"""Time K3 (the W4A8 matmul) and K9 (the W4 input gradient) of two checkouts
+of this repository on one card, in turns: before, after, after, before.
+
+    python -m physicedit_torch.tools.w4_before_after --before DIR [--after DIR]
+
+DIR is the root of a checkout (for example an unpacked ``git archive`` of
+an earlier commit); ``--after`` defaults to the checkout this module is in.
+Each turn is a fresh process that builds that checkout's two kernel sources
+into its own ``build/`` and times every shape of :data:`K3_SHAPES` and
+:data:`K9_SHAPES` with the checkout's public wrappers (``w4a8_matmul``,
+``w4_bwd_dx``): the median of 20 calls between CUDA events after two
+warm-up calls, on operands made on the card from a fixed seed.  One JSON
+line per shape and turn, then one per shape with both checkouts' mean and
+the ratio, on stdout.  Without a card it exits 2.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import statistics
+import subprocess
+import sys
+from pathlib import Path
+
+# name, M, K, N: the DiT image stream at 1024^2 under CFG, the VL prefill's
+# gate_up, the W4 training lane's image and text streams (480x832)
+K3_SHAPES = [("dit_image_qkv", 16384, 3072, 9216), ("dit_image_out", 16384, 3072, 3072),
+             ("dit_image_fc1", 16384, 3072, 12288), ("dit_image_fc2", 16384, 12288, 3072),
+             ("prefill_gate_up", 1536, 3584, 37888),
+             ("train_image_qkv", 3120, 3072, 9216), ("train_image_fc1", 3120, 3072, 12288),
+             ("train_image_fc2", 3120, 12288, 3072), ("train_text_fc1", 384, 3072, 12288)]
+# name, M, N (g's width, the contraction), K (dx's width)
+K9_SHAPES = [("image_qkv", 3120, 9216, 3072), ("image_out", 3120, 3072, 3072),
+             ("image_fc1", 3120, 12288, 3072), ("image_fc2", 3120, 3072, 12288),
+             ("text_qkv", 384, 9216, 3072), ("text_out", 384, 3072, 3072),
+             ("text_fc1", 384, 12288, 3072), ("text_fc2", 384, 3072, 12288)]
+
+# run in a fresh process with the checkout on sys.path: its argument is the
+# JSON of [K3_SHAPES, K9_SHAPES]
+_WORKER = r"""
+import json, statistics, sys
+import torch
+from physicedit_torch.kernels import quant_matmul as qm
+
+def median_ms(fn, iters=20):
+    fn(); fn()
+    ev = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+          for _ in range(iters)]
+    for a, b in ev:
+        a.record(); fn(); b.record()
+    torch.cuda.synchronize()
+    return statistics.median(a.elapsed_time(b) for a, b in ev)
+
+k3_shapes, k9_shapes = json.loads(sys.argv[1])
+dev = torch.device("cuda")
+gen = torch.Generator(dev).manual_seed(0)
+for name, m, k, n in k3_shapes:
+    xq = torch.randint(-127, 128, (m, k), device=dev, dtype=torch.int8, generator=gen)
+    w4 = torch.randint(-128, 128, (n, k // 2), device=dev, dtype=torch.int8, generator=gen)
+    xs = torch.rand(m, 1, device=dev, generator=gen) * 1e-2 + 1e-3
+    ws = torch.rand(n, device=dev, generator=gen) * 1e-2 + 1e-3
+    b = torch.randn(n, device=dev, generator=gen).bfloat16()
+    print(json.dumps({"kernel": "k3", "case": name, "shape": [m, k, n],
+                      "ms": median_ms(lambda: qm.w4a8_matmul(xq, w4, xs, ws, b))}), flush=True)
+    del xq, w4
+for name, m, n, k in k9_shapes:
+    go = torch.randn(m, n, device=dev, generator=gen).bfloat16()
+    w4 = torch.randint(-128, 128, (n, k // 2), device=dev, dtype=torch.int8, generator=gen)
+    ws = torch.rand(n, device=dev, generator=gen) * 1e-2 + 1e-3
+    print(json.dumps({"kernel": "k9", "case": name, "shape": [m, n, k],
+                      "ms": median_ms(lambda: qm.w4_bwd_dx(go, w4, ws))}), flush=True)
+"""
+
+
+def run_turn(checkout: Path, shapes: str) -> list[dict]:
+    """One process in ``checkout``: its kernels built and timed."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(checkout)
+    done = subprocess.run([sys.executable, "-c", _WORKER, shapes], cwd=checkout, env=env,
+                          capture_output=True, text=True, timeout=1200)
+    if done.returncode != 0:
+        raise SystemExit(f"w4_before_after: the turn in {checkout} failed:\n{done.stderr}")
+    return [json.loads(line) for line in done.stdout.splitlines() if line.startswith("{")]
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--before", required=True, type=Path, help="root of the earlier checkout")
+    ap.add_argument("--after", type=Path, default=Path(__file__).resolve().parents[2],
+                    help="root of the later checkout (default: this one)")
+    args = ap.parse_args(argv)
+    import torch
+
+    if not torch.cuda.is_available():
+        print("w4_before_after: no CUDA device; this tool measures the card", file=sys.stderr)
+        return 2
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60).stdout.strip()
+    print(json.dumps({"card": card}), flush=True)
+    shapes = json.dumps([K3_SHAPES, K9_SHAPES])
+    times: dict = {}
+    for turn, side in enumerate(("before", "after", "after", "before")):
+        checkout = (args.before if side == "before" else args.after).resolve()
+        for row in run_turn(checkout, shapes):
+            print(json.dumps({"turn": turn, "side": side, **row}), flush=True)
+            times.setdefault((row["kernel"], row["case"]), {}).setdefault(side, []).append(row)
+    for (kernel, case), sides in times.items():
+        out = {"kernel": kernel, "case": case, "shape": sides["after"][0]["shape"],
+               **{f"{side}_ms": statistics.mean(r["ms"] for r in rows)
+                  for side, rows in sides.items()}}
+        out["after_over_before"] = out["after_ms"] / out["before_ms"]
+        print(json.dumps(out), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -148,6 +148,58 @@ def test_w4a8_kernel_rejects_untileable_layers(cuda):
         tqm.w4a8_matmul(xq, w4, torch.ones(4, 1, device=cuda), torch.ones(128, device=cuda))
 
 
+def _k3_operands(g, m, k, n, bias=True):
+    dev = g.device
+    xq = torch.randint(-127, 128, (m, k), device=dev, dtype=torch.int8, generator=g)
+    w4 = torch.randint(-128, 128, (n, k // 2), device=dev, dtype=torch.int8, generator=g)
+    xs = torch.rand(m, 1, device=dev, generator=g) * 0.01 + 1e-3
+    ws = torch.rand(n, device=dev, generator=g) * 0.01 + 1e-3
+    b = torch.randn(n, device=dev, generator=g).bfloat16() if bias else None
+    return xq, w4, xs, ws, b
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k2", [128, 640, 9472])
+@pytest.mark.parametrize("n", [128, 384])
+@pytest.mark.parametrize("m", [17, 129, 255, 1000, 16384])
+def test_w4a8_tiled_kernel_tile_edges_on_cuda(cuda, m, n, k2):
+    """K3's tiled regime at the edges of its tiles (128 weight rows by 128 x
+    rows; 128 packed bytes of k a stage, one stage at K/2 = 128, five at
+    640, which a 256-byte stage would not divide; more tiles than SMs at
+    M = 16384, so a block walks several): the int32 accumulators exactly and
+    the bf16 outputs bit for bit."""
+    g = torch.Generator(cuda).manual_seed(m + n + k2)
+    xq, w4, xs, ws, b = _k3_operands(g, m, 2 * k2, n)
+    before = dict(tqm.REGIME_LAUNCHES)
+    out, acc = tqm.w4a8_matmul(xq, w4, xs, ws, b, return_acc=True)
+    ref, acc_ref = tqm.w4a8_matmul_reference(xq, w4, xs, ws, b, return_acc=True)
+    assert torch.equal(acc, acc_ref)
+    assert torch.equal(out, ref)
+    assert tqm.REGIME_LAUNCHES == {**before, "tiled": before["tiled"] + 1}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["k3_gemv", "k3_tiled", "k3_tiled_no_bias", "k9"])
+def test_w4_kernels_repeat_bit_for_bit_on_cuda(cuda, kernel):
+    """Three calls give the same bits (no atomics, no order that changes)."""
+    g = torch.Generator(cuda).manual_seed(81)
+    if kernel == "k9":
+        go = torch.randn(700, 384, device=cuda, generator=g).bfloat16()
+        w4 = torch.randint(-128, 128, (384, 640), device=cuda, dtype=torch.int8, generator=g)
+        ws = torch.rand(384, device=cuda, generator=g) * 0.01 + 1e-3
+
+        def fn():
+            return tqm.w4_bwd_dx(go, w4, ws)
+    else:
+        m = 9 if kernel == "k3_gemv" else 700
+        xq, w4, xs, ws, b = _k3_operands(g, m, 1280, 384, bias=kernel != "k3_tiled_no_bias")
+
+        def fn():
+            return tqm.w4a8_matmul(xq, w4, xs, ws, b)
+    first = fn()
+    assert all(torch.equal(first, fn()) for _ in range(2))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("s", [64, 37])
 def test_fused_quant_kernels_match_plain_on_cuda(cuda, s):
@@ -394,16 +446,45 @@ def test_hopper_kernels_raise_on_misaligned_or_strided_inputs(cuda):
         tfa.online_attention(misaligned(shape), ok, ok, bias=nat)
     with pytest.raises(ValueError, match="contiguous"):
         tfa.online_attention(ok, ok, strided, bias=nat)
+    # K3's tiled regime and K9: TMA maps over x / g and w4
+    xq, w4, xs, ws, b = _k3_operands(torch.Generator(cuda).manual_seed(3), 40, 256, 128)
+    buf = torch.zeros(xq.numel() + 1, dtype=torch.int8, device=cuda)
+    x_off = buf[1:].view(xq.shape)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        tqm.w4a8_matmul(x_off, w4, xs, ws, b)
+    with pytest.raises(ValueError, match="contiguous"):
+        tqm.w4a8_matmul(torch.zeros(256, 40, dtype=torch.int8, device=cuda).T, w4, xs, ws, b)
+    with pytest.raises(ValueError, match="contiguous"):
+        tqm.w4a8_matmul(xq, torch.zeros(128, 128, dtype=torch.int8, device=cuda).T, xs, ws, b)
+    go = torch.zeros(40, 128, dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        tqm.w4_bwd_dx(misaligned((40, 128)), w4, ws)
+    with pytest.raises(ValueError, match="contiguous"):
+        tqm.w4_bwd_dx(torch.zeros(128, 40, dtype=torch.bfloat16, device=cuda).T, w4, ws)
+    with pytest.raises(ValueError, match="contiguous"):
+        tqm.w4_bwd_dx(go, torch.zeros(128, 128, dtype=torch.int8, device=cuda).T, ws)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("kernel", ["k1_with_l", "k1prime_prescaled", "k2", "k7",
-                                    "k1prime_scaled", "k8", "k10", "k10b"])
+                                    "k1prime_scaled", "k8", "k10", "k10b", "k3_tiled", "k9"])
 def test_hopper_kernels_in_a_cuda_graph_give_the_eager_bits(cuda, kernel):
     """The tensor maps reach the kernel by value: a CUDA-graph replay gives
     the eager call's bits."""
     g = torch.Generator(cuda).manual_seed(70)
-    if kernel == "k2":
+    if kernel == "k3_tiled":
+        xq, w4, xs, ws, b = _k3_operands(g, 300, 1280, 384)
+
+        def fn():
+            return tqm.w4a8_matmul(xq, w4, xs, ws, b, return_acc=True)
+    elif kernel == "k9":
+        go = torch.randn(300, 384, device=cuda, generator=g).bfloat16()
+        w4 = torch.randint(-128, 128, (384, 640), device=cuda, dtype=torch.int8, generator=g)
+        ws = torch.rand(384, device=cuda, generator=g) * 0.01 + 1e-3
+
+        def fn():
+            return (tqm.w4_bwd_dx(go, w4, ws),)
+    elif kernel == "k2":
         q = torch.randn(2, 300, 14, 128, device=cuda, generator=g).bfloat16()
         k, v = (torch.randn(2, 300, 2, 128, device=cuda, generator=g).bfloat16()
                 for _ in range(2))
@@ -452,7 +533,11 @@ def test_hopper_kernels_in_a_cuda_graph_give_the_eager_bits(cuda, kernel):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("m,k,n", [(1, 3072, 18432), (37, 512, 384), (300, 768, 256)])
+@pytest.mark.parametrize("m,k,n", [(1, 3072, 18432), (37, 512, 384), (300, 768, 256)]
+                         # the edges of the kernel's tiles: 128 dx rows, 128
+                         # packed columns, 64 n a stage
+                         + [(m, k, n) for m in (1, 37, 129, 3120) for n in (128, 3072)
+                            for k in (256, 1280)])
 def test_w4_bwd_kernel_matches_plain_on_cuda(cuda, m, k, n):
     """K9 against its plain version: g2 = bf16(g * w_scale) identically, fp32
     sums in another order, bf16 dx."""

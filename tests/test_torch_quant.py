@@ -117,6 +117,14 @@ LINEAR_ROUTES = {
     "kernel": ((3, 5, 256), 256, 384, True),             # M < 8192: K3, Pallas in JAX
     "kernel_no_bias": ((1, 512), 512, 128, False),       # the decode GEMV shape class
     "int_mm": ((8192, 256), 256, 128, True),             # M >= 8192: K3, an XLA int8 dot in JAX
+    # the edges of the card kernel's tiles (128 weight rows by 128 or 256 x
+    # rows, 128 packed bytes of k a stage): M 17, 129, 255, 1000 and 16384,
+    # K/2 128, 640 and 9472
+    "tile_edge_m17": ((17, 256), 256, 384, True),
+    "tile_edge_m129": ((129, 1280), 1280, 128, True),
+    "tile_edge_m255": ((255, 1280), 1280, 384, False),
+    "tile_edge_m1000": ((1000, 18944), 18944, 128, True),
+    "tile_edge_m16384": ((16384, 256), 256, 384, True),
 }
 
 
@@ -615,3 +623,28 @@ def test_w4_edit_launch_structure(monkeypatch):
     del want["gqa_causal_attention"]            # K2 runs only on the card
     assert calls == want
     assert 0 < calls["w4a8_matmul"] and pipe.timings["decode_tokens"] == 1000
+
+
+def test_w4_edit_regime_launch_structure(monkeypatch):
+    """K3's launches of a W4 edit by regime, as chip_smoke.py demands them:
+    the GEMV where M <= 16, the tiled GEMM above, counted here at the plain
+    version's call site."""
+    import chip_smoke
+
+    calls = {"w4a8_matmul_gemv": 0, "w4a8_matmul_tiled": 0}
+    real = tqm.w4a8_matmul
+
+    def spy(xq, *a, **k):
+        calls["w4a8_matmul_gemv" if xq.shape[0] <= tqm.GEMV_MAX_ROWS
+              else "w4a8_matmul_tiled"] += 1
+        return real(xq, *a, **k)
+
+    monkeypatch.setattr(tqm, "w4a8_matmul", spy)
+    pipe = random_pipeline(W4_DIMS, "cpu", torch.float32,
+                           torch.Generator().manual_seed(1)).quantize_("int4")
+    edit = Image.fromarray(np.random.default_rng(11).integers(0, 255, (64, 64, 3),
+                                                              dtype=np.uint8))
+    pipe("tilt the cup", edit_image=edit, height=64, width=64, seed=2, num_inference_steps=2,
+         edit_image_auto_resize=False)
+    assert calls == chip_smoke.w4_regime_counts(pipe.timings, 2, 2, 2, 2)
+    assert min(calls.values()) > 0

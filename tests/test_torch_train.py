@@ -218,8 +218,14 @@ def test_fixedmax_bwd_wrapper_takes_plain_version_on_cpu():
 # K9: the W4 input gradient
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("shape", [(37, 256, 384), (2, 512, 256), (9, 96, 256)],
-                         ids=["kernel_route", "kernel_route_m2", "dense_fallback"])
+@pytest.mark.parametrize("shape", [(37, 256, 384), (2, 512, 256), (9, 96, 256),
+                                   # the card kernel's tile edges: 128 dx rows, 128
+                                   # packed columns, 64 n a stage
+                                   (17, 256, 384), (129, 1280, 128), (255, 1280, 384),
+                                   (1000, 18944, 128)],
+                         ids=["kernel_route", "kernel_route_m2", "dense_fallback",
+                              "tile_edge_m17", "tile_edge_m129", "tile_edge_m255",
+                              "tile_edge_m1000"])
 def test_w4_bwd_matches_jax(shape):
     """dx of the port's differentiable W4 linear (K9's plain twin, or the
     dense fallback where K/2 % 128) against the JAX package's
@@ -824,3 +830,27 @@ def test_train_launch_structure(monkeypatch, quantize):
                     opt.init(trainable), _torch_batch(_batch(TRAIN_DIT, 32)),
                     *j_fm.adapter_t_range(), use_remat=True)
     assert calls == chip_smoke.train_launch_counts(TRAIN_DIT.num_layers, quantize)
+
+
+def test_train_regime_launch_structure(monkeypatch):
+    """K3's launches of one W4 training step by regime, as chip_smoke.py
+    demands them: the modulations (M = 1) on the GEMV, the streams on the
+    tiled GEMM, counted here at the plain version's call site."""
+    import chip_smoke
+
+    calls = {"w4a8_matmul_gemv": 0, "w4a8_matmul_tiled": 0}
+    real = tqm.w4a8_matmul
+
+    def spy(xq, *a, **k):
+        calls["w4a8_matmul_gemv" if xq.shape[0] <= tqm.GEMV_MAX_ROWS
+              else "w4a8_matmul_tiled"] += 1
+        return real(xq, *a, **k)
+
+    monkeypatch.setattr(tqm, "w4a8_matmul", spy)
+    params = _frozen(True)
+    trainable = trainable_from_jax(_jax_trainable(TRAIN_DIT, 32), TRAIN_DIT, device="cpu")
+    opt = t_ts.make_optimizer(1e-3)
+    t_ts.train_step(trainable, dit_from_jax(params, TRAIN_DIT, device="cpu"), opt,
+                    opt.init(trainable), _torch_batch(_batch(TRAIN_DIT, 32)),
+                    *j_fm.adapter_t_range(), use_remat=True)
+    assert calls == chip_smoke.train_regime_counts(TRAIN_DIT.num_layers, True)

@@ -445,39 +445,69 @@ def k3_phase(report: dict, gen, time_ms) -> None:
     torch.cuda.empty_cache()
 
 
+def fused_quant_ptxas(name: str, shape: tuple) -> dict:
+    """Registers and spills (nvcc's report) of the K4 / K5 / K6 instantiation
+    that takes ``shape``; for K4 and K5 also their row pipeline's launch
+    (ring stages, dynamic shared memory, blocks per SM, grid).  Fails on a
+    spill."""
+    from physicedit_torch.kernels import _build
+    from physicedit_torch.kernels import fused_quant as fq
+
+    if name == "transpose_quant":
+        k, rows = shape[1] * shape[3], shape[0] * shape[2]
+        need = -(-k // 1024)  # 4-element vectors of 256 threads (dispatch_nv4)
+        nv = next(v for v in (1, 2, 3, 4, 6, 8, 12, 16, 24, 32) if v >= need)
+        out, args = {"nv": nv, "threads": 256, "dynamic_smem_bytes": 0, "grid": rows}, (nv,)
+    else:
+        out = fq.row_pipeline_launch(name, shape[0] * shape[1], shape[2])
+        args = (out["warps_per_row"], out["nv"])
+    regs = ptxas_report(f"{_build.library_path('fused_quant')}.log", f"{name}_kernel")
+    out.update(regs.get(args, {}))
+    if "registers" not in out or out.get("spill_store_bytes", 0) or out.get("spill_load_bytes", 0):
+        fail(f"{name}_kernel: ptxas reports spills or no entry: {out}")
+    return out
+
+
 def fused_quant_phase(report: dict, gen, time_ms) -> None:
     """K4, K5 and K6 against their plain versions at the 1024^2 DiT shapes
-    and at a ragged S (1001, which the kernels take though the JAX tiling
-    predicate would send it to the unfused path): int8 codes identical and
-    scales equal."""
+    (the image stream and, at joint 9472, the text stream) and at a ragged S
+    (1001, which the kernels take though the JAX tiling predicate would send
+    it to the unfused path): int8 codes identical and scales equal.  Each
+    case is timed (CUDA events and a CUDA graph, the inputs rotated past the
+    L2) with its bound, GB/s, registers and, for K4 and K5, the row
+    pipeline's launch; the main shape of each also times the plain version."""
     import torch
 
     from physicedit_torch.kernels import fused_quant as fq
+    from physicedit_torch.tools import _bench
+    from physicedit_torch.tools._proto_int8 import l2_copies, rotated
 
     dev = torch.device("cuda")
 
     def randn(*shape, scale=1.0):
         return (torch.randn(*shape, device=dev, generator=gen) * scale).bfloat16()
 
-    cases = [  # kernel, case, shape, timed
-        ("ln_mod_quant", "image_2x8192x3072", (2, 8192, 3072), True),
-        ("ln_mod_quant", "ragged_2x1001x3072", (2, 1001, 3072), False),
-        ("gelu_quant", "image_2x8192x12288", (2, 8192, 12288), True),
-        ("gelu_quant", "ragged_2x1001x12288", (2, 1001, 12288), False),
-        ("transpose_quant", "joint_2x24x8448x128", (2, 24, 8448, 128), True),
-        ("transpose_quant", "ragged_2x24x1001x128", (2, 24, 1001, 128), False)]
-    for name, case, shape, timed in cases:
+    cases = [  # kernel, case, shape; the first case of each kernel is its main shape
+        ("ln_mod_quant", "image_2x8192x3072", (2, 8192, 3072)),
+        ("ln_mod_quant", "text_2x1280x3072", (2, 1280, 3072)),
+        ("ln_mod_quant", "ragged_2x1001x3072", (2, 1001, 3072)),
+        ("gelu_quant", "image_2x8192x12288", (2, 8192, 12288)),
+        ("gelu_quant", "text_2x1280x12288", (2, 1280, 12288)),
+        ("gelu_quant", "ragged_2x1001x12288", (2, 1001, 12288)),
+        ("transpose_quant", "joint_2x24x8448x128", (2, 24, 8448, 128)),
+        ("transpose_quant", "joint_2x24x9472x128", (2, 24, 9472, 128)),
+        ("transpose_quant", "ragged_2x24x1001x128", (2, 24, 1001, 128))]
+    for name, case, shape in cases:
         x = randn(*shape, scale=3.0)
         if name == "ln_mod_quant":
             sh, sc = randn(shape[0], shape[2], scale=0.5), randn(shape[0], shape[2], scale=0.5)
-            run = lambda: fq._ln_mod_quant(x, sh, sc, 1e-6)  # noqa: E731
+            run = lambda t: fq._ln_mod_quant(t, sh, sc, 1e-6)  # noqa: E731
             plain = lambda: fq.ln_mod_quant_reference(x, sh, sc, 1e-6)  # noqa: E731
         elif name == "gelu_quant":
-            run, plain = (lambda: fq._gelu_quant(x)), (lambda: fq.gelu_quant_reference(x))
+            run, plain = fq._gelu_quant, (lambda: fq.gelu_quant_reference(x))
         else:
-            run = lambda: fq._transpose_quant(x)  # noqa: E731
-            plain = lambda: fq.transpose_quant_reference(x)  # noqa: E731
-        (q, s), (q_ref, s_ref) = run(), plain()
+            run, plain = fq._transpose_quant, (lambda: fq.transpose_quant_reference(x))
+        (q, s), (q_ref, s_ref) = run(x), plain()
         torch.cuda.synchronize()
         mismatched = int((q != q_ref).sum().item())
         max_code_diff = (q.int() - q_ref.int()).abs().max().item()
@@ -486,21 +516,32 @@ def fused_quant_phase(report: dict, gen, time_ms) -> None:
                "codes_mismatched": mismatched, "max_code_diff": max_code_diff,
                "scales_equal": scales_equal,
                "max_scale_rel_diff": ((s - s_ref).abs() / s_ref).max().item()}
-        if timed:
-            row["ms"] = time_ms(run, 20)
-            row["device_ms"] = device_ms(run, 20, f"{name}_kernel")
+        del q_ref, s_ref
+        copies = l2_copies(x, 100 << 20)
+        timed = rotated(run, copies)
+        row["ms"] = time_ms(timed, 20)
+        row["graph_ms"] = _bench.graph_ms(timed)
+        row["device_ms"] = device_ms(timed, 20, f"{name}_kernel")
+        row["input_copies"] = len(copies)
+        main = name not in report
+        if main:
             row["plain_ms"] = time_ms(plain, 3)
-            nbytes = x.numel() * 2 + q.numel() + s.numel() * 4
-            if name == "ln_mod_quant":
-                nbytes += (sh.numel() + sc.numel()) * 2
-            row["gb_per_s_device"] = nbytes / (row["device_ms"] or row["ms"]) / 1e6
-            row.update(bound(8 * x.numel(), nbytes, PEAK_FP32))
+            row["library_ms"] = None
+        nbytes = x.numel() * 2 + q.numel() + s.numel() * 4
+        if name == "ln_mod_quant":
+            nbytes += (sh.numel() + sc.numel()) * 2
+        row["gb_per_s_device"] = nbytes / (row["device_ms"] or row["graph_ms"]) / 1e6
+        row.update(bound(8 * x.numel(), nbytes, PEAK_FP32))
+        row["bound_share"] = row["bound_ms"] / row["ms"]
+        row["bound_share_graph"] = row["bound_ms"] / row["graph_ms"]
+        row["ptxas"] = fused_quant_ptxas(name, shape)
+        if main:
             report[name] = row
         report.setdefault(f"{name}_err", []).append(max_code_diff)
         emit(row)
         if mismatched or not scales_equal:
             fail(f"{name} {case} disagrees with its plain version")
-        del x, q, s, q_ref, s_ref
+        del x, q, s, copies, timed
     torch.cuda.empty_cache()
 
 

@@ -95,6 +95,23 @@ def _launch(name: str, argtypes: list, *args) -> None:
     LAUNCHES[name] += 1
 
 
+def row_pipeline_launch(name: str, rows: int, k: int) -> dict:
+    """The launch K4 (``ln_mod_quant``) or K5 (``gelu_quant``) takes over
+    ``rows`` rows of width ``k`` on the current card: threads per block, ring
+    slots per row group, dynamic shared memory, blocks per SM, grid, and the
+    kernel's template arguments: warps per row and ``nv`` (16-element chunks
+    per thread)."""
+    fn = _build.load("fused_quant").row_pipeline_launch
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 7)()
+    rc = fn(("ln_mod_quant", "gelu_quant").index(name), rows, k, ctypes.cast(out, ctypes.c_void_p))
+    if rc != 0:
+        raise RuntimeError(f"row_pipeline_launch: CUDA error {rc}")
+    return dict(zip(("threads", "stages", "dynamic_smem_bytes", "blocks_per_sm", "grid",
+                     "warps_per_row", "nv"), out))
+
+
 def _outputs(x: torch.Tensor, b: int, s: int, k: int):
     return (torch.empty((b, s, k), dtype=torch.int8, device=x.device),
             torch.empty((b, s, 1), dtype=torch.float32, device=x.device))

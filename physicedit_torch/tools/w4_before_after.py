@@ -1,17 +1,24 @@
-"""Time K3 (the W4A8 matmul) and K9 (the W4 input gradient) of two checkouts
-of this repository on one card, in turns: before, after, after, before.
+"""Time the W4 lane's kernels of two checkouts of this repository on one
+card, in turns: before, after, after, before.  K3 (the W4A8 matmul), K9
+(the W4 input gradient) and the fused activation quantizes K4
+(``ln_mod_quant``), K5 (``gelu_quant``) and K6 (``transpose_quant``).
 
     python -m physicedit_torch.tools.w4_before_after --before DIR [--after DIR]
 
 DIR is the root of a checkout (for example an unpacked ``git archive`` of
 an earlier commit); ``--after`` defaults to the checkout this module is in.
-Each turn is a fresh process that builds that checkout's two kernel sources
-into its own ``build/`` and times every shape of :data:`K3_SHAPES` and
-:data:`K9_SHAPES` with the checkout's public wrappers (``w4a8_matmul``,
-``w4_bwd_dx``): the median of 20 calls between CUDA events after two
-warm-up calls, on operands made on the card from a fixed seed.  One JSON
-line per shape and turn, then one per shape with both checkouts' mean and
-the ratio, on stdout.  Without a card it exits 2.
+Each turn is a fresh process that builds that checkout's kernel sources
+into its own ``build/`` and times every shape of :data:`K3_SHAPES`,
+:data:`K9_SHAPES` and :data:`QUANT_SHAPES` with the checkout's wrappers
+(``w4a8_matmul``, ``w4_bwd_dx``, ``_ln_mod_quant``, ``_gelu_quant``,
+``_transpose_quant``): the median of 20 calls between CUDA events after two
+warm-up calls, on operands made on the card from a fixed seed.  The
+quantizes, whose small shapes take a few microseconds, also replay 10 calls
+from a CUDA graph (``graph_ms``), with their inputs rotated over copies of
+at least 100 MB so that no call finds its row in L2 (the checkout's own
+``tools/_bench.graph_ms`` and ``tools/_proto_int8.rotated``).  One JSON line per
+shape and turn, then one per shape with both checkouts' mean and the
+ratio, on stdout.  Without a card it exits 2.
 """
 
 from __future__ import annotations
@@ -36,13 +43,24 @@ K9_SHAPES = [("image_qkv", 3120, 9216, 3072), ("image_out", 3120, 3072, 3072),
              ("image_fc1", 3120, 12288, 3072), ("image_fc2", 3120, 3072, 12288),
              ("text_qkv", 384, 9216, 3072), ("text_out", 384, 3072, 3072),
              ("text_fc1", 384, 12288, 3072), ("text_fc2", 384, 3072, 12288)]
+# kernel, name, input shape: the DiT's image stream at 1024^2 under CFG, its
+# text stream at joint 9472, a ragged S (K6: the joint attention output at
+# joint 8448 and 9472)
+QUANT_SHAPES = [("k4", "image", [2, 8192, 3072]), ("k4", "text", [2, 1280, 3072]),
+                ("k4", "ragged", [2, 1001, 3072]),
+                ("k5", "image", [2, 8192, 12288]), ("k5", "text", [2, 1280, 12288]),
+                ("k5", "ragged", [2, 1001, 12288]),
+                ("k6", "joint_8448", [2, 24, 8448, 128]), ("k6", "joint_9472", [2, 24, 9472, 128]),
+                ("k6", "ragged", [2, 24, 1001, 128])]
 
 # run in a fresh process with the checkout on sys.path: its argument is the
-# JSON of [K3_SHAPES, K9_SHAPES]
+# JSON of [K3_SHAPES, K9_SHAPES, QUANT_SHAPES]
 _WORKER = r"""
 import json, statistics, sys
 import torch
-from physicedit_torch.kernels import quant_matmul as qm
+from physicedit_torch.kernels import _build, fused_quant as fq, quant_matmul as qm
+from physicedit_torch.tools._bench import graph_ms
+from physicedit_torch.tools._proto_int8 import l2_copies, rotated
 
 def median_ms(fn, iters=20):
     fn(); fn()
@@ -53,8 +71,9 @@ def median_ms(fn, iters=20):
     torch.cuda.synchronize()
     return statistics.median(a.elapsed_time(b) for a, b in ev)
 
-k3_shapes, k9_shapes = json.loads(sys.argv[1])
+k3_shapes, k9_shapes, quant_shapes = json.loads(sys.argv[1])
 dev = torch.device("cuda")
+_build.build_all(["w4a8_matmul", "w4_bwd_dx", "fused_quant"])
 gen = torch.Generator(dev).manual_seed(0)
 for name, m, k, n in k3_shapes:
     xq = torch.randint(-127, 128, (m, k), device=dev, dtype=torch.int8, generator=gen)
@@ -71,6 +90,19 @@ for name, m, n, k in k9_shapes:
     ws = torch.rand(n, device=dev, generator=gen) * 1e-2 + 1e-3
     print(json.dumps({"kernel": "k9", "case": name, "shape": [m, n, k],
                       "ms": median_ms(lambda: qm.w4_bwd_dx(go, w4, ws))}), flush=True)
+for kernel, name, shape in quant_shapes:
+    x = (torch.randn(*shape, device=dev, generator=gen) * 3).bfloat16()
+    if kernel == "k4":
+        sh, sc = ((torch.randn(shape[0], shape[2], device=dev, generator=gen) * 0.5).bfloat16()
+                  for _ in range(2))
+        fn = rotated(lambda t: fq._ln_mod_quant(t, sh, sc, 1e-6), l2_copies(x, 100 << 20))
+    else:
+        fn = rotated(fq._gelu_quant if kernel == "k5" else fq._transpose_quant,
+                     l2_copies(x, 100 << 20))
+    print(json.dumps({"kernel": kernel, "case": name, "shape": shape, "ms": median_ms(fn),
+                      "graph_ms": graph_ms(fn)}), flush=True)
+    del x, fn
+    torch.cuda.empty_cache()
 """
 
 
@@ -100,7 +132,7 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60).stdout.strip()
     print(json.dumps({"card": card}), flush=True)
-    shapes = json.dumps([K3_SHAPES, K9_SHAPES])
+    shapes = json.dumps([K3_SHAPES, K9_SHAPES, QUANT_SHAPES])
     times: dict = {}
     for turn, side in enumerate(("before", "after", "after", "before")):
         checkout = (args.before if side == "before" else args.after).resolve()
@@ -108,10 +140,12 @@ def main(argv=None) -> int:
             print(json.dumps({"turn": turn, "side": side, **row}), flush=True)
             times.setdefault((row["kernel"], row["case"]), {}).setdefault(side, []).append(row)
     for (kernel, case), sides in times.items():
-        out = {"kernel": kernel, "case": case, "shape": sides["after"][0]["shape"],
-               **{f"{side}_ms": statistics.mean(r["ms"] for r in rows)
-                  for side, rows in sides.items()}}
-        out["after_over_before"] = out["after_ms"] / out["before_ms"]
+        out = {"kernel": kernel, "case": case, "shape": sides["after"][0]["shape"]}
+        for key in ("ms", "graph_ms"):
+            if key in sides["after"][0]:
+                out.update({f"{side}_{key}": statistics.mean(r[key] for r in rows)
+                            for side, rows in sides.items()})
+                out[f"after_over_before_{key}"] = out[f"after_{key}"] / out[f"before_{key}"]
         print(json.dumps(out), flush=True)
     return 0
 

@@ -179,10 +179,16 @@ def test_w4a8_tiled_kernel_tile_edges_on_cuda(cuda, m, n, k2):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kernel", ["k3_gemv", "k3_tiled", "k3_tiled_no_bias", "k9"])
+@pytest.mark.parametrize("kernel", ["k3_gemv", "k3_tiled", "k3_tiled_no_bias", "k9", "k4",
+                                    "k5"])
 def test_w4_kernels_repeat_bit_for_bit_on_cuda(cuda, kernel):
     """Three calls give the same bits (no atomics, no order that changes)."""
     g = torch.Generator(cuda).manual_seed(81)
+    if kernel in ("k4", "k5"):
+        fn, _ = _row_pipeline_call(kernel, (5, 377, 3072), g)
+        first = fn()
+        assert all(torch.equal(a, b) for _ in range(2) for a, b in zip(first, fn()))
+        return
     if kernel == "k9":
         go = torch.randn(700, 384, device=cuda, generator=g).bfloat16()
         w4 = torch.randint(-128, 128, (384, 640), device=cuda, dtype=torch.int8, generator=g)
@@ -229,6 +235,115 @@ def test_fused_quant_rounds_half_to_even_on_cuda(cuda):
     assert qs[0, 0, 0].item() == 1.0
     q_ref, _ = tfq.transpose_quant_reference(heads.bfloat16())
     assert torch.equal(q, q_ref)
+
+
+# K4 / K5 shapes: the DiT widths (3072, 12288) at ragged and tiling S, batch
+# boundaries (B = 3, S = 37; B = 5, where row groups walk several rows and
+# some walks cross a boundary), the image and text streams, and widths that
+# take other row groups (128: one warp; 5120: two or four; 32768: the block,
+# eight chunks a thread)
+ROW_PIPELINE_SHAPES = [(2, 64, 3072), (2, 1001, 3072), (3, 37, 3072), (5, 1001, 3072),
+                       (2, 8192, 3072), (2, 64, 12288), (2, 1001, 12288), (3, 37, 12288),
+                       (5, 377, 12288), (2, 1280, 12288), (1, 3, 128), (2, 300, 5120),
+                       (1, 5, 32768)]
+
+
+def _row_pipeline_call(kernel, shape, g):
+    """K4 or K5 and its plain twin on random inputs of ``shape``."""
+    dev = g.device
+    x = (torch.randn(*shape, device=dev, generator=g) * 3).bfloat16()
+    if kernel == "k4":
+        sh, sc = ((torch.randn(shape[0], shape[2], device=dev, generator=g) * 0.5).bfloat16()
+                  for _ in range(2))
+        return (lambda: tfq._ln_mod_quant(x, sh, sc, 1e-6),
+                lambda: tfq.ln_mod_quant_reference(x, sh, sc, 1e-6))
+    return lambda: tfq._gelu_quant(x), lambda: tfq.gelu_quant_reference(x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ROW_PIPELINE_SHAPES, ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("kernel", ["k4", "k5"])
+def test_row_pipelines_match_plain_on_cuda(cuda, kernel, shape):
+    """K4 and K5 (persistent blocks over a ring of rows) give their plain
+    twins' int8 codes and scales exactly, at the DiT widths and wherever a
+    block's walk ends off the ring's period or crosses a batch index."""
+    g = torch.Generator(cuda).manual_seed(sum(shape))
+    run, plain = _row_pipeline_call(kernel, shape, g)
+    (q, qs), (q_ref, qs_ref) = run(), plain()
+    assert torch.equal(q, q_ref)
+    assert torch.equal(qs, qs_ref)
+    # each row group walks a contiguous range of the rows
+    rows = shape[0] * shape[1]
+    launch = tfq.row_pipeline_launch("ln_mod_quant" if kernel == "k4" else "gelu_quant", rows,
+                                     shape[2])
+    walks = launch["grid"] * (8 // launch["warps_per_row"])
+    ranges = [(rows * v // walks, rows * (v + 1) // walks) for v in range(walks)]
+    if shape[0] == 5:
+        assert any(r0 // shape[1] != (r1 - 1) // shape[1] for r0, r1 in ranges if r1 > r0)
+    if shape in ((2, 8192, 3072), (2, 1001, 12288)):  # walks that wrap the ring off its period
+        assert any(r1 - r0 > launch["stages"] and (r1 - r0) % launch["stages"]
+                   for r0, r1 in ranges)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["k4", "k5"])
+def test_row_pipelines_round_half_steps_on_cuda(cuda, kernel):
+    """Quotients y / scale exactly at 63.5 and one ulp either side, under
+    scales that are not powers of two: with row max a (bf16) and y = a / 2,
+    y / RN(a / 127) rounds to 63.5 or one of its neighbours, as a decides.
+    K4 with scale = -1 passes shift through as y; K5 passes x >= 16 through
+    (its sigmoid rounds to 1).  Codes and scales equal the twins'."""
+    # bf16 row maxima over eight binades, every mantissa: 1024 scales
+    a = torch.tensor([(128 + m) * 2.0 ** e for e in range(-2, 6) for m in range(128)],
+                     device=cuda)
+    pattern = torch.stack([a, a / 2, -a / 2, a / 2, a / 4, a / 8], 1)  # y per row
+    if kernel == "k4":
+        k = 3072
+        shift = torch.zeros(len(a), k, device=cuda)
+        shift[:, :pattern.shape[1]] = pattern
+        shift, scale = shift.bfloat16(), torch.full_like(shift, -1.0).bfloat16()
+        x = torch.randn(len(a), 3, k, device=cuda).bfloat16()
+        (q, qs), (q_ref, qs_ref) = (tfq._ln_mod_quant(x, shift, scale, 1e-6),
+                                    tfq.ln_mod_quant_reference(x, shift, scale, 1e-6))
+        y = shift.float()
+        codes = q[:, 0, :pattern.shape[1]]
+    else:
+        k = 12288
+        pattern = pattern[:, [0, 1, 3]]  # the positive y: x >= 16 is passed through
+        x = torch.zeros(1, len(a), k, device=cuda)
+        x[0, :, :pattern.shape[1]] = pattern
+        x = x.bfloat16()
+        (q, qs), (q_ref, qs_ref) = tfq._gelu_quant(x), tfq.gelu_quant_reference(x)
+        y = x[0].float()
+        codes = q[0, :, :pattern.shape[1]]
+    assert torch.equal(q, q_ref)
+    assert torch.equal(qs, qs_ref)
+    s = qs.reshape(len(a), -1)[:, :1]
+    assert not torch.equal(s, torch.exp2(torch.log2(s).round()))  # not all powers of two
+    quot = (y[:, 1] / s[:, 0])  # a / 2 over the scale
+    half = torch.tensor(63.5, device=cuda)
+    below = torch.nextafter(half, torch.tensor(0.0, device=cuda))
+    above = torch.nextafter(half, torch.tensor(128.0, device=cuda))
+    for edge, code in ((half, 64), (below, 63), (above, 64)):
+        hit = quot == edge
+        assert hit.any(), f"no quotient at {edge.item()!r}"
+        assert (codes[hit, 1] == code).all()
+
+
+@pytest.mark.cuda
+def test_row_pipelines_raise_on_misaligned_or_strided_inputs(cuda):
+    """K4 and K5 read their rows by bulk copies of 16-byte aligned,
+    contiguous rows: a view one element into a buffer, or a transposed one,
+    raises (no copy)."""
+    buf = torch.zeros(2 * 64 * 768 + 1, dtype=torch.bfloat16, device=cuda)
+    off = buf[1:].view(2, 64, 768)
+    strided = torch.zeros(64, 2, 768, dtype=torch.bfloat16, device=cuda).transpose(0, 1)
+    mod = torch.zeros(2, 768, dtype=torch.bfloat16, device=cuda)
+    for x, match in ((off, "16-byte aligned"), (strided, "contiguous")):
+        with pytest.raises(ValueError, match=match):
+            tfq._ln_mod_quant(x, mod, mod, 1e-6)
+        with pytest.raises(ValueError, match=match):
+            tfq._gelu_quant(x)
 
 
 def _rms(x, scale=1.0):
@@ -467,12 +582,16 @@ def test_hopper_kernels_raise_on_misaligned_or_strided_inputs(cuda):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("kernel", ["k1_with_l", "k1prime_prescaled", "k2", "k7",
-                                    "k1prime_scaled", "k8", "k10", "k10b", "k3_tiled", "k9"])
+                                    "k1prime_scaled", "k8", "k10", "k10b", "k3_tiled", "k9",
+                                    "k4", "k5"])
 def test_hopper_kernels_in_a_cuda_graph_give_the_eager_bits(cuda, kernel):
     """The tensor maps reach the kernel by value: a CUDA-graph replay gives
-    the eager call's bits."""
+    the eager call's bits (K4 and K5: their persistent grids, sized once per
+    card)."""
     g = torch.Generator(cuda).manual_seed(70)
-    if kernel == "k3_tiled":
+    if kernel in ("k4", "k5"):
+        fn, _ = _row_pipeline_call(kernel, (2, 1001, 12288), g)
+    elif kernel == "k3_tiled":
         xq, w4, xs, ws, b = _k3_operands(g, 300, 1280, 384)
 
         def fn():

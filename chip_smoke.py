@@ -12,15 +12,16 @@ Phases, each printed as one JSON line, any failure exits non-zero:
      weights are allocated; K1 also with a key-mask hole across its 128-key
      stages and at a ragged 8513, timed (CUDA events and a CUDA graph)
      beside its ping-pong off, its clamp on, the mma.sync loop it replaced
-     (T2 proto_nobias) and SDPA, with its ptxas report (no spills); K7 also
-     with a key-mask hole across key 128 at a ragged 8513 and with a bias
-     and key mask that change every stage, timed (CUDA events and a CUDA
-     graph) beside K1' scaled (its kernel without the bias) and SDPA, with
-     ptxas's report of its kernel (no spills); then K10 and K10b (online
-     softmax, through the public attention API) and K1' against their plain
-     versions at B = 2, N = 24, S = 8448, K10 also with unbounded logits
-     against an fp32 SDPA, K10b with the EliGen bias, its slim view and a
-     ragged S with a first-tile-blocked row beside fully blocked rows, each
+     (T5 proto_interleave without a bias) and SDPA, with its ptxas report
+     (no spills); K7 also with a key-mask hole across key 128 at a ragged
+     8513 and with a bias and key mask that change every stage, timed (CUDA
+     events and a CUDA graph) beside K1' scaled (its kernel without the
+     bias) and SDPA, with ptxas's report of its kernel (no spills); then K10
+     and K10b (online softmax, through the public attention API) and K1'
+     against their plain versions at B = 2, N = 24, S = 8448, K10 also with
+     unbounded logits against an fp32 SDPA, K10b with the EliGen bias, its
+     slim view and a ragged S with a first-tile-blocked row beside fully
+     blocked rows, each
      timed (K10 and K10b also from a CUDA graph, with their ptxas report:
      no spills) beside SDPA, and two more calls bit for bit;
   4. K2 (VL causal GQA attention) against its plain version, also at
@@ -68,10 +69,14 @@ Phases, each printed as one JSON line, any failure exits non-zero:
      W4 training lane's forward shapes;
  13. the bf16 attention prototypes of tools/ (T1 v1-v4, T2, T3, T5, T7, T8;
      csrc/proto_fixedmax_attention.cu) at B = 2, N = 24, S = 8448, each
-     instantiation against its plain version with its time, registers and
-     spills, and the one SDPA call that computes the same function; rows
-     with no live key (NaN from T7, 0 from T3) at a ragged S; then each
-     ported tool's main() (physicedit_torch/tools/proto_*.py), their path;
+     instantiation against its plain version with its loop, time (CUDA
+     events and a CUDA graph), bound share, registers and spills, and the
+     one SDPA call that computes the same function; those on the Hopper
+     mainloop (T2, T3, T1 v1-v4) also three calls bit for bit with their
+     shared memory (a spill fails the run), T1 v1 also at a ragged 8513
+     with a key bias that changes every stage; rows with no live key (NaN
+     from T7, 0 from T3) at a ragged S; then each ported tool's main()
+     (physicedit_torch/tools/proto_*.py), their path;
  14. the int8, W4 and elementwise-rate probes of tools/ (T9, T10, T12,
      T11, T4, T6; csrc/proto_int8_matmul.cu, proto_int8qk_attention.cu,
      proto_ew_scale.cu) at their tools' shapes, each against its plain
@@ -201,6 +206,25 @@ KERNEL_ROWS = [
           ("proto_ew_scale_bf16", "proto_ew_scale", "tools/proto_ew_rate.py:45"),       # T6
           ("proto_ew_scale_fp32", "proto_ew_scale", "tools/proto_ew_rate.py:45"))),     # T6
 ]
+# the loop each kernel runs: the Hopper attention mainloop of
+# csrc/hopper_attention.cuh, the other TMA + wgmma kernels on
+# csrc/hopper_primitives.cuh, the row pipelines fed by 1-D bulk copies, or a
+# loop without TMA (mma.sync, dp4a, a plain row or elementwise kernel)
+KERNEL_LOOPS = {
+    **dict.fromkeys(("fixedmax_attention", "gqa_causal_attention", "fixedmax_attention_bias",
+                     "online_attention", "online_attention_bias", "fixedmax_bnsd",
+                     "proto_nobias_inscale", "proto_nobias", "proto_nmask", "proto_bf16s",
+                     "proto_expnosum", "proto_noexp"), "hopper_attention"),
+    **dict.fromkeys(("w4a8_matmul_tiled", "fixedmax_attention_bwd", "w4_bwd_dx"), "tma_wgmma"),
+    **dict.fromkeys(("ln_mod_quant", "gelu_quant"), "bulk_copy_rows"),
+    "transpose_quant": "row_block", "w4a8_matmul_gemv": "dp4a_gemv",
+    **dict.fromkeys(("proto_fixedmax", "proto_fixedmax2", "proto_fixedmax2_overlap",
+                     "proto_interleave", "proto_interleave_overlap", "proto_mm_i32",
+                     "proto_mm_f32", "proto_w4_i32", "proto_w4_and", "proto_int8qk"),
+                    "mma_sync"),
+    "proto_w4_gemv_and": "gemv", "proto_ew_scale_bf16": "elementwise",
+    "proto_ew_scale_fp32": "elementwise",
+}
 
 
 def bound(ops: float, nbytes: float, peak: float) -> dict:
@@ -1414,24 +1438,62 @@ def hopper_ptxas(source: str, kernel: str, switches: tuple, smem_symbol=None) ->
     return out
 
 
+def proto_ptxas() -> dict:
+    """ptxas's report of the prototypes' two kernels, keyed by variant name:
+    the Hopper instantiations through :func:`hopper_ptxas` (registers,
+    spills and dynamic shared memory; a spill fails the run), the mma.sync
+    ones (registers and spills) from the same log."""
+    from physicedit_torch.kernels import _build
+    from physicedit_torch.tools import _proto_attention as pa
+
+    switches = ("inscale", "bias", "exp", "row_sum", "norm")
+    hopper = hopper_ptxas(pa.SOURCE, "proto_hopper_kernel", switches,
+                          lambda args: "proto_fixedmax_attention_bias_smem_bytes"
+                          if args[1] == pa.BIAS_CODES["bf16"]
+                          else "proto_fixedmax_attention_smem_bytes")
+    mma_sync = ptxas_report(f"{_build.library_path(pa.SOURCE)}.log")
+    return {name: (hopper[",".join(f"{k}={v}" for k, v in zip(switches, var.template_args()))]
+                   if var.loop == "hopper" else mma_sync.get(var.template_args(), {}))
+            for name, var in pa.VARIANTS.items()}
+
+
+def stage_varying_key_bias(b: int, s: int, device, gen):
+    """A [b, 1, s] fp32 key bias (T1 v1's) that changes from one 128-key
+    stage of the Hopper mainloop to the next: the keys that
+    :func:`stage_varying_mask` masks take -1e30, the others a small graded
+    bias (normal x 0.5), key 0 none: two stages that share a slot of the
+    2-stage ring never carry the same bias."""
+    import torch
+
+    live = stage_varying_mask(b, s, device)
+    bias = torch.where(live, 0.5 * torch.randn(b, s, device=device, generator=gen), -1e30)
+    bias[:, 0] = 0.0
+    return bias[:, None, :]
+
+
 def proto_phase(report: dict, gen, time_ms, compare) -> dict:
     """The bf16 attention prototypes of ``tools/`` (T1 v1-v4, T2, T3, T5,
     T7, T8) at the DiT's joint attention, B = 2, N = 24, S = 8448, RMS-normed
     q and k: each instantiation of ``csrc/proto_fixedmax_attention.cu``
     against its plain version (the normalised ones under the K1 gates, T1 v3
-    and v4 relative to their largest output), timed beside its plain
-    version, the one SDPA call that computes the same function where there
-    is one, and the bound, with its registers and spills; the last 64 keys
-    masked for T3, T7 and T1 v1, keys [200, 256) of the text prefix for T8
-    and T5 (bias_keys 1408, the overlap off and on).  A ragged S where one
-    batch has no live key: NaN rows from T7 (no floor on l), 0 from T3.
-    Then each ported tool's ``main()`` once with the counts at 0: the
-    prototypes' path.  Returns its launches."""
+    and v4 relative to their largest output), timed (CUDA events and a CUDA
+    graph) beside its plain version, the one SDPA call that computes the
+    same function where there is one, and the bound, with its loop, its
+    registers and spills; the last 64 keys masked for T3, T7 and T1 v1,
+    keys [200, 256) of the text prefix for T8 and T5 (bias_keys 1408, the
+    overlap off and on).  The instantiations on the Hopper mainloop (T2,
+    T3, T1 v1-v4) also give the same bits in two more calls, their ptxas
+    report carries their dynamic shared memory (a spill fails the run), and
+    T1 v1 runs again at a ragged S = 8513 with a key bias that changes
+    every stage, under the K1 gates.  A ragged S where one batch has no
+    live key: NaN rows from T7 (no floor on l), 0 from T3.  Then each
+    ported tool's ``main()`` once with the counts at 0: the prototypes'
+    path.  Returns its launches."""
     import torch
     import torch.nn.functional as F
 
-    from physicedit_torch.kernels import _build
     from physicedit_torch.kernels import flash_attention as fa
+    from physicedit_torch.tools import _bench
     from physicedit_torch.tools import _proto_attention as pa
     from physicedit_torch.tools import proto_attn_bf16s as t1
     from physicedit_torch.tools import proto_attn_fast as t23
@@ -1484,7 +1546,7 @@ def proto_phase(report: dict, gen, time_ms, compare) -> dict:
             lambda ov=overlap: t5.attn_interleaved(q, k, v, bias_prefix, bias_keys, ov),
             lambda: t5.attn_interleaved_reference(q, k, v, bias_prefix, bias_keys),
             lambda: sdpa(q, k, v, attn_mask=lib_prefix))
-    registers = ptxas_report(f"{_build.library_path(pa.SOURCE)}.log")
+    registers = proto_ptxas()
     flops = 4 * b * n * s * s * 128
     overlap_off = {}
     for name in pa.VARIANTS:
@@ -1494,6 +1556,7 @@ def proto_phase(report: dict, gen, time_ms, compare) -> dict:
         ref = plain()
         torch.cuda.synchronize()
         row = _attention_row("proto", name, [b, n, s, s], out, ref, compare)
+        row["loop"] = KERNEL_LOOPS[name]
         if var.norm == "none":
             row["max_abs_ref"] = ref.float().abs().max().item()
             row["max_err_over_max_ref"] = row["max_abs_err"] / row["max_abs_ref"]
@@ -1502,6 +1565,9 @@ def proto_phase(report: dict, gen, time_ms, compare) -> dict:
                   and row["rel_l2"] <= ATTN_REL_L2)
         else:
             ok = _attention_ok(row)
+        if var.loop == "hopper":    # two more calls, the same bits
+            row["repeat_bits_equal"] = all(torch.equal(kernel(), out) for _ in range(2))
+            ok = ok and row["repeat_bits_equal"]
         if var.overlap:     # the same arithmetic in the same order: the same bits
             off = overlap_off.pop(name.removesuffix("_overlap"))
             row["equals_overlap_off"] = bool(torch.equal(out, off))
@@ -1509,19 +1575,42 @@ def proto_phase(report: dict, gen, time_ms, compare) -> dict:
             overlap_off[name] = out
         del out, ref
         row["ms"] = time_ms(kernel, 10)
+        row["graph_ms"] = _bench.graph_ms(kernel)
         row["plain_ms"] = time_ms(plain, 2)
         row["library_ms"] = time_ms(library, 10) if library is not None else None
         row["tflops"] = flops / row["ms"] / 1e9
         # q, k and v read, out written (bf16), and the key bias or the mask
         extra = 4 * b * s if var.bias != "none" else (b * s if name == "proto_nmask" else 0)
         row.update(bound(flops, 2 * 4 * q.numel() + extra, PEAK_BF16))
-        row.update(registers.get(var.template_args(), {}))
+        row["bound_share"] = row["bound_ms"] / row["ms"]
+        row.update(registers[name])
         report[name] = row
         report[f"{name}_err"] = [row["max_abs_err"]]
         emit(row)
         if not ok:
             fail(f"prototype {name} disagrees with its plain version")
-    del q, k, v, qs, overlap_off
+    del overlap_off
+
+    # T1 v1 at a ragged S with a key bias that changes every stage: a bias
+    # slot of the ring read after its stage was released would show here
+    sr = 8513
+    qr, kr = (_rms(torch.randn(b, n, sr, 128, device=dev, generator=gen)).bfloat16()
+              for _ in range(2))
+    qr = fa._prescale(qr).contiguous()
+    vr = torch.randn(b, n, sr, 128, device=dev, generator=gen).bfloat16()
+    bias_r = stage_varying_key_bias(b, sr, dev, gen)
+    out = t1.attn_bf16s(qr, kr, vr, bias_r)
+    ref = t1.attn_bf16s_reference(qr, kr, vr, bias_r)
+    torch.cuda.synchronize()
+    row = _attention_row("proto", "proto_bf16s_ragged_8513_stage_varying_bias", [b, n, sr, sr],
+                         out, ref, compare)
+    row["repeat_bits_equal"] = all(torch.equal(t1.attn_bf16s(qr, kr, vr, bias_r), out)
+                                   for _ in range(2))
+    report["proto_bf16s_err"].append(row["max_abs_err"])
+    emit(row)
+    if not (_attention_ok(row) and row["repeat_bits_equal"]):
+        fail("T1 v1 with a key bias that changes every stage disagrees with its plain version")
+    del q, k, v, qs, qr, kr, vr, out, ref
     torch.cuda.empty_cache()
 
     # a ragged S where batch 1 has no live key
@@ -2128,14 +2217,15 @@ def main() -> int:
             row["graph_ms"] = _bench.graph_ms(lambda: fa.fixedmax_attention(q, k, v, mask,
                                                                             clamp))
             # the kernel alone on the prescaled q', and with the clamp on;
-            # the mma.sync loop that K1 ran before its Hopper mainloop (T2
-            # proto_nobias, prescaled, no mask) on the same inputs
+            # the mma.sync loop that K1 ran before its Hopper mainloop (T5
+            # proto_interleave without a bias: exp2, row sums, prescaled, no
+            # mask) on the same inputs
             row["kernel_ms"] = time_ms(
                 lambda: fa._fixedmax_prescaled(qs, k, v, mask, clamp, False), 10)
             row["clamp_on_ms"] = time_ms(
                 lambda: fa._fixedmax_prescaled(qs, k, v, mask, True, False), 10)
-            row["old_loop_ms"] = time_ms(lambda: _proto_attention.run("proto_nobias", qs, k, v),
-                                         10)
+            row["old_loop_ms"] = time_ms(
+                lambda: _proto_attention.run("proto_interleave", qs, k, v), 10)
             row["plain_ms"] = time_ms(
                 lambda: fa.fixedmax_attention_reference(q, k, v, mask, clamp), 3)
             mask4 = mask[:, None, None, :]
@@ -2468,7 +2558,7 @@ def main() -> int:
         launches = path_launches[name]
         timing = report[ms_case] if ms_case else report[name]
         kernels.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
-                        "launches": launches, "max_abs_err": max(report[f"{name}_err"]),
+                        "loop": KERNEL_LOOPS[name], "launches": launches, "max_abs_err": max(report[f"{name}_err"]),
                         "ms": timing["ms"], "plain_ms": timing["plain_ms"],
                         "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"],
                         "library_ms": timing.get("library_ms")})

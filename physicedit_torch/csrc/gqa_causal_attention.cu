@@ -63,6 +63,8 @@ struct GqaCausalPolicy {
     return key < seq && (mask == nullptr || mask[key] != 0);
   }
   __device__ void begin(int, int) const {}
+  static constexpr uint32_t kExtraKBytes = 0;
+  __device__ void read_stage(int) const {}
 
   // One tile of the online softmax on raw scores s: kTest 0 (every key
   // live: a tile below the diagonal whose keys are all live), 1 (the

@@ -88,6 +88,8 @@ struct OnlinePolicy {
   __device__ void begin(int row, int t) {
     if constexpr (kHasBias) bias.begin(q0 + row, t);
   }
+  static constexpr uint32_t kExtraKBytes = 0;   // the bias rides its own cp.async
+  __device__ void read_stage(int) const {}
 
   // One tile of the online softmax on the raw scores s: s becomes x (with a
   // bias) and a masked key kMasked; then the running max, the rescale of l

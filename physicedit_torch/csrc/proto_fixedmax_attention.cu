@@ -1,5 +1,5 @@
-// The bf16 fixed-max attention prototypes of tools/ as one templated kernel,
-// bf16, head_dim 128.
+// The bf16 fixed-max attention prototypes of tools/ as one entry point over
+// two kernels, bf16, head_dim 128.
 //
 // Replaces the Pallas prototypes that the measurement tools in tools/ drive
 // (their ports are physicedit_torch/tools/proto_*.py):
@@ -32,36 +32,61 @@
 // P is rounded to bf16 before the product with V; acc is fp32.  Keys past
 // S_k take no weight and rows past S_q are not written.
 //
-// What bounds it on an H100: the tensor cores, as K1 (at B=2, N=24, S=8448:
-// 4 B N S^2 D = 1.75e12 FLOP, 1.77 ms at 989 TFLOP/s).  Design: K1's (one
-// block of 4 warps per 64-row q tile, the warp's 16 query rows as mma.sync A
-// fragments in registers, K/V tiles of 64 keys staged in shared memory, P
-// kept in registers between the two products).  The key bias of a tile is
-// staged beside it (64 floats); a tile past the bias prefix skips the add.
-// The overlap switch keeps two score tiles in registers and a second K
-// buffer in shared memory (three tiles, 52 KB, as dynamic shared memory): K
-// of tile j + 1 is resident while V of tile j is, so the warp issues the
-// next tile's QK^T mma before this tile's exp2, and the tensor cores work
-// while the exp2 and the row sums do.  Not done: TMA, wgmma, a multi-stage
-// copy pipeline.
-#include "mma_bf16.cuh"
+// What bounds them on an H100: the tensor cores, as K1 (at B=2, N=24,
+// S=8448: 4 B N S^2 D = 1.75e12 FLOP, 1.77 ms at 989 TFLOP/s).
+//
+// Which loop runs which instantiation (the entry point's variant ids):
+//   3-7 (T2 both scales, T3, T1 v1-v4): proto_hopper_kernel, a ProtoPolicy
+//     on K1's Hopper mainloop (hopper_attention.cuh: TMA into a 2-stage ring
+//     of 128-key K and V tiles, wgmma m64n128k16 for both products, a
+//     producer warpgroup and two ping-ponged consumer warpgroups of 64 q
+//     rows, grid (q tiles, heads, batch)).  The softmax of each switch runs
+//     in the consumer's fp32 S registers, as K1's: exp2 is one
+//     ex2.approx.ftz, a tile whose 128 keys are all live skips the liveness
+//     test, and l is reduced across the 4 threads of a row once, in the
+//     epilogue.  Keys past S_k arrive as TMA's zeros and the liveness word
+//     (key < S_k) zeroes them; none of these takes a key mask (T3's masked
+//     keys arrive as zeroed K and V rows).  No clamp and no overlap switch:
+//     none of the five clamps, and the ping-pong already runs one
+//     warpgroup's softmax under the other's products.  T1 v1's key bias is
+//     one float per key, shared by the tile's 128 rows: its 512 bytes ride
+//     each K stage's TMA (one bulk copy on the stage's full barrier, into a
+//     slot past the mainloop's storage; the wrapper pads the bias with zeros
+//     to whole tiles), and each consumer thread reads the 32 keys of its
+//     columns into 16 registers as bf16 pairs (the values are bf16) in the
+//     mainloop's read_stage hook, before its warp releases the stage: read
+//     later, in the softmax, the producer's next copy into that slot could
+//     overtake it.  Numerics against the plain version: p below 2^-126
+//     flushes to 0 (as K1's), and v1's exp(z) is ex2.approx.ftz(z * log2(e))
+//     in fp32, rounded to bf16: within a few fp32 ulps of exp(z) before that
+//     rounding, so a p differs from bf16(exp(z)) by one bf16 ulp only where
+//     exp(z) lies that close to a rounding boundary of bf16.
+//   0-2, 8, 9 (T7, T8, T5): proto_kernel, a mma.sync loop (one block of
+//     4 warps per 64-row q tile, the warp's 16 query rows as
+//     mma.sync A fragments in registers, K/V tiles of 64 keys staged in
+//     shared memory, P kept in registers between the two products).  The
+//     key bias of a tile is staged beside it (64 floats); a tile past the
+//     bias prefix skips the add.  The overlap switch keeps two score tiles
+//     in registers and a second K buffer in shared memory (three tiles, 52
+//     KB, as dynamic shared memory): K of tile j + 1 is resident while V of
+//     tile j is, so the warp issues the next tile's QK^T mma before this
+//     tile's exp2.  Not done for these: TMA, wgmma, a multi-stage pipeline.
+#include "hopper_attention.cuh"
 
 using namespace physicedit;
+namespace hp = physicedit::hopper;
 
 namespace {
 
 constexpr float kClampValue = 100.f;
 constexpr float kLn2Bf16 = 0.69140625f;      // ln 2 rounded to bf16
+constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kTile = kBlockK * kRowStride;  // bf16 per staged K or V tile
 
 // template arguments are ints (not enums) so that they mangle as Li<n>E, which
 // chip_smoke.py reads out of the ptxas report
 constexpr int kNoBias = 0, kBiasF32 = 1, kBiasBf16 = 2;
 constexpr int kRecip = 0, kFloor = 1, kUnnormalised = 2;
-
-__device__ __forceinline__ float round_bf16(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
 
 // The key bias of tile [k0, k0 + 64) in shared memory, 0 from key n_bias on.
 __device__ __forceinline__ void stage_bias(float* bias_s, const float* bb, int k0, int n_bias) {
@@ -84,18 +109,12 @@ __device__ __forceinline__ void scores_to_p(float s[8][4], const float* bias_s, 
     for (int e = 0; e < 4; ++e) {
       const int c = 8 * j + 2 * t + (e & 1);
       float x = s[j][e];
-      if constexpr (kBias == kBiasBf16) {
-        x = round_bf16(x);
-        if (with_bias) x = round_bf16(__fadd_rn(x, bias_s[c]));
-        x = round_bf16(expf(round_bf16(__fmul_rn(x, kLn2Bf16))));
-      } else {
-        if constexpr (kInScale) x = __fmul_rn(x, scale);
-        if constexpr (kBias == kBiasF32) {
-          if (with_bias) x = __fadd_rn(x, bias_s[c]);
-        }
-        if constexpr (kClamp) x = fminf(x, kClampValue);
-        if constexpr (kExp) x = exp2f(x);
+      if constexpr (kInScale) x = __fmul_rn(x, scale);
+      if constexpr (kBias == kBiasF32) {
+        if (with_bias) x = __fadd_rn(x, bias_s[c]);
       }
+      if constexpr (kClamp) x = fminf(x, kClampValue);
+      if constexpr (kExp) x = exp2f(x);
       if (c >= n_live) x = 0.f;
       s[j][e] = x;
       if constexpr (kRowSum) {
@@ -120,8 +139,7 @@ proto_kernel(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
              const uint16_t* __restrict__ v, const float* __restrict__ key_bias,
              const float* __restrict__ n_masked, uint16_t* __restrict__ out, int n_heads,
              int sq, int sk, int bias_keys, float scale) {
-  static_assert(kBias != kBiasBf16 || (!kInScale && !kClamp && kExp && kRowSum),
-                "the bf16 score chain is T1 v1's: prescaled q, no clamp");
+  static_assert(kBias != kBiasBf16, "the bf16 score chain (T1 v1) runs on the Hopper loop");
   extern __shared__ __align__(16) uint16_t smem[];
   uint16_t* const ks0 = smem;
   uint16_t* const ks1 = smem + kTile;  // the overlap's second K buffer
@@ -252,14 +270,200 @@ int launch(const void* q, const void* k, const void* v, const void* key_bias,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---- the Hopper instantiations: a ProtoPolicy on hopper_attention.cuh ----
+
+template <bool kInScale, int kBias, bool kExp, bool kRowSum, int kNorm>
+struct ProtoPolicy {
+  static_assert(kBias != kBiasF32, "the fp32 key bias (T7, T8, T5) runs on the mma.sync loop");
+  static constexpr bool kHasBias = kBias == kBiasBf16;
+  // T1 v1's key bias: the tile's 128 floats, copied beside K into the stage's slot
+  static constexpr uint32_t kExtraKBytes = kHasBias ? hp::kTile * sizeof(float) : 0;
+
+  const CUtensorMap* qmap;
+  const CUtensorMap* kmap;
+  const CUtensorMap* vmap;
+  const float* bias;      // this batch row's key bias, [n_tiles * 128] (kHasBias)
+  uint16_t* out;          // this (batch, head)'s [S_q, 128]
+  int q0, bh, sq, sk, n_tiles;
+  float scale;            // kInScale
+  float n_masked;         // kFloor: the masked-key count of this batch row
+  float l0, l1;           // row-sum partials of the thread's rows
+  uint32_t kb[16];        // kHasBias: the tile's bias at keys 8 n + 2t, + 1 (bf16 pairs)
+
+  __device__ static uint32_t bias_slot(int stage) {
+    return hp::extra_smem_u32() + stage * kExtraKBytes;
+  }
+  __device__ void load_q(uint32_t dst, uint64_t* bar) const {
+    hp::tma_load_3d(dst, qmap, bar, 0, q0, bh);
+    hp::tma_load_3d(dst + hp::kBoxBytes, qmap, bar, 64, q0, bh);
+  }
+  __device__ void load_k(uint32_t dst, int j, uint64_t* bar) const {
+    hp::tma_load_3d(dst, kmap, bar, 0, j * hp::kTile, bh);
+    hp::tma_load_3d(dst + hp::kBoxBytes, kmap, bar, 64, j * hp::kTile, bh);
+    if constexpr (kHasBias)
+      hp::bulk_load_1d(bias_slot(j % hp::kStages), bias + (long)j * hp::kTile, kExtraKBytes, bar);
+  }
+  __device__ void load_v(uint32_t dst, int j, uint64_t* bar) const {
+    hp::tma_load_3d(dst, vmap, bar, 0, j * hp::kTile, bh);
+    hp::tma_load_3d(dst + hp::kBoxBytes, vmap, bar, 64, j * hp::kTile, bh);
+  }
+  __device__ bool live(int key) const { return key < sk; }
+  __device__ void begin(int, int) const {}
+
+  // Keys 8 n + 2t and + 1 of the stage's bias (t = lane % 4), packed: the
+  // values are bf16, so the pack is exact.
+  __device__ void read_stage(int stage) {
+    if constexpr (kHasBias) {
+      const uint32_t at = bias_slot(stage) + 8 * (threadIdx.x % 4);
+#pragma unroll
+      for (int n = 0; n < 16; ++n) {
+        float x, y;
+        asm volatile("ld.shared.v2.f32 {%0, %1}, [%2];\n" : "=f"(x), "=f"(y) : "r"(at + 32 * n));
+        kb[n] = pack_bf16(x, y);
+      }
+    }
+  }
+
+  // S -> P per switch, zero where not live (kTest), the row sums, P packed
+  // to bf16.  Element 4 nb + e is row g (e < 2) or g + 8, key
+  // 8 nb + 2t + (e & 1); elements 2i and 2i + 1 are P's pair p[i].
+  template <bool kTest>
+  __device__ __forceinline__ void p_tile(float (&s)[64], uint4 word, uint32_t (&p)[32], int t) {
+    const uint32_t w[4] = {word.x >> (2 * t), word.y >> (2 * t), word.z >> (2 * t),
+                           word.w >> (2 * t)};
+    if constexpr (kHasBias) {
+      // T1 v1 on the pairs (keys 8 nb + 2t and + 1), each value a bf16:
+      // x = bf16(s); bf16(x + b) and bf16(x * bf16(ln 2)) as packed bf16
+      // ops, which round the exact sum and product once, as the fp32 add
+      // and multiply (exact for two bf16 values, or within far less than
+      // half a bf16 ulp of the larger addend) rounded to bf16 do; the exp
+      // in fp32, rounded to bf16 as P's pair.
+      const __nv_bfloat162 ln2 = __float2bfloat162_rn(kLn2Bf16);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int nb = i / 2;
+        __nv_bfloat162 x = __floats2bfloat162_rn(s[2 * i], s[2 * i + 1]);
+        x = __hmul2(__hadd2(x, *reinterpret_cast<const __nv_bfloat162*>(&kb[nb])), ln2);
+        const uint32_t z = *reinterpret_cast<const uint32_t*>(&x);
+        uint32_t pp = pack_bf16(hp::ex2_ftz(__fmul_rn(__uint_as_float(z << 16), kLog2e)),
+                                hp::ex2_ftz(__fmul_rn(__uint_as_float(z & 0xffff0000u), kLog2e)));
+        if (kTest) {
+          const uint32_t bits = w[nb / 4] >> (8 * (nb % 4));
+          pp &= ((bits & 1u) ? 0x0000ffffu : 0u) | ((bits & 2u) ? 0xffff0000u : 0u);
+        }
+        p[i] = pp;
+        float& l = i % 2 == 0 ? l0 : l1;
+        l += __uint_as_float(pp << 16);
+        l += __uint_as_float(pp & 0xffff0000u);
+      }
+    } else {
+#pragma unroll
+      for (int nb = 0; nb < 16; ++nb) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float x = s[4 * nb + e];
+          if constexpr (kInScale) x = __fmul_rn(x, scale);
+          if constexpr (kExp) x = hp::ex2_ftz(x);
+          if (kTest && !((w[nb / 4] >> (8 * (nb % 4) + (e & 1))) & 1u)) x = 0.f;
+          s[4 * nb + e] = x;
+          if constexpr (kRowSum) {
+            if (e < 2) l0 += x; else l1 += x;
+          }
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 32; ++i) p[i] = pack_bf16(s[2 * i], s[2 * i + 1]);
+    }
+  }
+
+  __device__ void softmax(float (&s)[64], uint4 word, int, float (&)[64], uint32_t (&p)[32], int,
+                          int t) {
+    if (hp::all_live(word)) p_tile<false>(s, word, p, t);
+    else p_tile<true>(s, word, p, t);
+  }
+
+  __device__ void epilogue(const float (&o)[64], int row, int t) const {
+    float f0 = 1.f, f1 = 1.f;
+    if constexpr (kNorm == kFloor) {
+      f0 = fmaxf(__fsub_rn(quad_sum(l0), n_masked), 1e-30f);
+      f1 = fmaxf(__fsub_rn(quad_sum(l1), n_masked), 1e-30f);
+    }
+    const int r0 = q0 + row, r1 = r0 + 8;
+    uint16_t* const o0 = out + (long)r0 * kHeadDim;
+    uint16_t* const o1 = out + (long)r1 * kHeadDim;
+#pragma unroll
+    for (int jd = 0; jd < 16; ++jd) {
+      const int c = 8 * jd + 2 * t;
+      if (r0 < sq)
+        *reinterpret_cast<uint32_t*>(o0 + c) =
+            pack_bf16(finish<kNorm>(o[4 * jd], f0), finish<kNorm>(o[4 * jd + 1], f0));
+      if (r1 < sq)
+        *reinterpret_cast<uint32_t*>(o1 + c) =
+            pack_bf16(finish<kNorm>(o[4 * jd + 2], f1), finish<kNorm>(o[4 * jd + 3], f1));
+    }
+  }
+};
+
+template <bool kInScale, int kBias, bool kExp, bool kRowSum, int kNorm>
+__global__ void __launch_bounds__(hp::kBlockThreads, 1)
+proto_hopper_kernel(const __grid_constant__ CUtensorMap qmap,
+                    const __grid_constant__ CUtensorMap kmap,
+                    const __grid_constant__ CUtensorMap vmap, const float* __restrict__ key_bias,
+                    const float* __restrict__ n_masked, uint16_t* __restrict__ out, int n_heads,
+                    int sq, int sk, float scale) {
+  using Policy = ProtoPolicy<kInScale, kBias, kExp, kRowSum, kNorm>;
+  const int bh = blockIdx.z * n_heads + blockIdx.y;
+  const int n_tiles = (sk + hp::kTile - 1) / hp::kTile;
+  Policy pol{&qmap, &kmap, &vmap,
+             Policy::kHasBias ? key_bias + (long)blockIdx.z * n_tiles * hp::kTile : nullptr,
+             out + (long)bh * sq * kHeadDim,
+             (int)blockIdx.x * hp::kTile, bh, sq, sk, n_tiles, scale,
+             n_masked != nullptr ? n_masked[blockIdx.z] : 0.f, 0.f, 0.f, {}};
+  hp::attention_mainloop<Policy>(pol);
+}
+
+template <bool kInScale, int kBias, bool kExp, bool kRowSum, int kNorm>
+constexpr int hopper_smem_bytes() {
+  return hp::kSmemBytes +
+         hp::kStages * ProtoPolicy<kInScale, kBias, kExp, kRowSum, kNorm>::kExtraKBytes;
+}
+
+// The same arguments as launch(); bias_keys is the wrapper's business here
+// (it zeroes the padded bias from bias_keys on).
+template <bool kInScale, int kBias, bool kExp, bool kRowSum, int kNorm>
+int launch_hopper(const void* q, const void* k, const void* v, const void* key_bias,
+                  const void* n_masked, void* out, int batch, int heads, int sq, int sk, int,
+                  float scale, cudaStream_t stream) {
+  if (batch == 0 || heads == 0 || sq == 0) return 0;
+  if (sk <= 0 || (kBias == kBiasBf16 && key_bias == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap qm, km, vm;
+  if (!hp::make_bnsd_maps(&qm, &km, &vm, q, k, v, batch * heads, sq, sk))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto kernel = proto_hopper_kernel<kInScale, kBias, kExp, kRowSum, kNorm>;
+  constexpr int smem = hopper_smem_bytes<kInScale, kBias, kExp, kRowSum, kNorm>();
+  static const cudaError_t attr =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const dim3 grid((sq + hp::kTile - 1) / hp::kTile, heads, batch);
+  kernel<<<grid, hp::kBlockThreads, smem, stream>>>(
+      qm, km, vm, static_cast<const float*>(key_bias), static_cast<const float*>(n_masked),
+      static_cast<uint16_t*>(out), heads, sq, sk, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
-// q [B, N, Sq, 128], k/v [B, N, Sk, 128], out [B, N, Sq, 128]: bf16, contiguous.
-// key_bias [B, Sk] fp32 (bf16 values for variant 5) or null; n_masked [B] fp32
-// or null; bias_keys: the keys [0, bias_keys) take the bias; scale =
-// log2(e) / sqrt(128) in fp32.  The variant ids are those of
+// q [B, N, Sq, 128], k/v [B, N, Sk, 128], out [B, N, Sq, 128]: bf16, contiguous
+// (and 16-byte aligned for ids 3-7: TMA).  key_bias fp32 or null: for ids
+// 0-2, 8 and 9 [B, Sk], the keys [0, bias_keys) taking it; for id 5 (bf16
+// values, not null) [B, ceil(Sk / 128) * 128], zero from bias_keys on (the
+// Hopper loop reads whole 128-key tiles).  n_masked [B] fp32 or null; scale
+// = log2(e) / sqrt(128) in fp32.  The variant ids are those of
 // physicedit_torch/tools/_proto_attention.py's VARIANTS; the template
-// arguments are <kInScale, kBias, kClamp, kExp, kRowSum, kNorm, kOverlap>.
+// arguments are launch's <kInScale, kBias, kClamp, kExp, kRowSum, kNorm,
+// kOverlap> (the mma.sync loop) and launch_hopper's <kInScale, kBias, kExp,
+// kRowSum, kNorm> (the Hopper mainloop).
 #define PROTO_ARGS q, k, v, key_bias, n_masked, out, batch, heads, sq, sk, bias_keys, scale, s
 extern "C" int proto_fixedmax_attention_bf16(int variant, const void* q, const void* k,
                                              const void* v, const void* key_bias,
@@ -271,14 +475,23 @@ extern "C" int proto_fixedmax_attention_bf16(int variant, const void* q, const v
     case 0: return launch<true, kBiasF32, true, true, true, kRecip, false>(PROTO_ARGS);    // T7
     case 1: return launch<false, kBiasF32, true, true, true, kRecip, false>(PROTO_ARGS);   // T8
     case 2: return launch<false, kBiasF32, true, true, true, kRecip, true>(PROTO_ARGS);    // T8, overlap
-    case 3: return launch<true, kNoBias, false, true, true, kFloor, false>(PROTO_ARGS);    // T2, inscale
-    case 4: return launch<false, kNoBias, false, true, true, kFloor, false>(PROTO_ARGS);   // T2 = T1 v2; T3
-    case 5: return launch<false, kBiasBf16, false, true, true, kFloor, false>(PROTO_ARGS); // T1 v1
-    case 6: return launch<false, kNoBias, false, true, false, kUnnormalised, false>(PROTO_ARGS);  // T1 v3
-    case 7: return launch<false, kNoBias, false, false, false, kUnnormalised, false>(PROTO_ARGS); // T1 v4
+    case 3: return launch_hopper<true, kNoBias, true, true, kFloor>(PROTO_ARGS);           // T2, inscale
+    case 4: return launch_hopper<false, kNoBias, true, true, kFloor>(PROTO_ARGS);          // T2 = T1 v2; T3
+    case 5: return launch_hopper<false, kBiasBf16, true, true, kFloor>(PROTO_ARGS);        // T1 v1
+    case 6: return launch_hopper<false, kNoBias, true, false, kUnnormalised>(PROTO_ARGS);  // T1 v3
+    case 7: return launch_hopper<false, kNoBias, false, false, kUnnormalised>(PROTO_ARGS); // T1 v4
     case 8: return launch<false, kBiasF32, false, true, true, kRecip, false>(PROTO_ARGS);  // T5
     case 9: return launch<false, kBiasF32, false, true, true, kRecip, true>(PROTO_ARGS);   // T5, overlap
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 #undef PROTO_ARGS
+
+// The dynamic shared memory of a Hopper instantiation's block, for the report
+// beside ptxas's: without a key bias (ids 3, 4, 6, 7) and with it (id 5).
+extern "C" int proto_fixedmax_attention_smem_bytes() {
+  return hopper_smem_bytes<false, kNoBias, true, true, kFloor>();
+}
+extern "C" int proto_fixedmax_attention_bias_smem_bytes() {
+  return hopper_smem_bytes<false, kBiasBf16, true, true, kFloor>();
+}

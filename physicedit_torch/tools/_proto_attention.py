@@ -6,12 +6,15 @@ tools that drive them: ``proto_fixedmax`` (T7), ``proto_fixedmax2`` (T8),
 
 Each entry of :data:`VARIANTS` is a launch counter in
 ``kernels/flash_attention.LAUNCHES``, the kernel instantiation it launches
-(T3 shares T2's) and that instantiation's switches, which
-:func:`reference` follows with the kernel's numerics: fp32 scores, exp2,
-P rounded to V's dtype before the product with V, fp32 row sums and
-accumulator, the key tiles walked in the kernel's order.  :func:`run` takes
-the plain version for CPU tensors and launches the kernel for CUDA tensors
-(bf16, head_dim 128, contiguous), or raises; it never falls back.
+(T3 shares T2's), the loop that instantiation runs (:data:`LOOPS`) and its
+switches, which :func:`reference` follows with the kernel's numerics: fp32
+scores, exp2, P rounded to V's dtype before the product with V, fp32 row
+sums and accumulator, the key tiles of its loop walked in the kernel's
+order.  T2, T3 and T1 v1-v4 run on the Hopper mainloop of
+``csrc/hopper_attention.cuh`` (TMA, ``wgmma``), T7, T8 and T5 on the
+``mma.sync`` loop.  :func:`run` takes the plain version for CPU tensors
+and launches the kernel for CUDA tensors (bf16, head_dim 128, contiguous
+and 16-byte aligned), or raises; it never falls back.
 """
 
 from __future__ import annotations
@@ -26,7 +29,9 @@ from physicedit_torch.kernels import _build
 from physicedit_torch.kernels import flash_attention as fa
 
 SOURCE = "proto_fixedmax_attention"
-BLOCK_K = 64        # the kernel's key tile (kBlockK): the plain version sums over the same tiles
+# each loop's key tile (kBlockK of the mma.sync loop, hopper::kTile of the
+# Hopper mainloop): the plain version sums over the same tiles
+LOOPS = {"mma_sync": 64, "hopper": 128}
 BIAS_CODES = {"none": 0, "fp32": 1, "bf16": 2}
 # JAX's exp2 is exp(ln 2 * x) with ln 2 in x's dtype (``lax._exp2_lower``):
 # on T1 v1's bf16 scores, ln 2 rounded to bf16
@@ -47,7 +52,9 @@ class Variant:
     exp2(.), else the score itself.  row_sum: l = sum(p).  norm: "recip" is
     acc * (1 / l) with no floor (NaN where l == 0), "floor" acc / max(l -
     n_masked, 1e-30) (0 there), "none" acc.  overlap: the next tile's QK^T
-    issued before this tile's softmax; it does not change the function."""
+    issued before this tile's softmax; it does not change the function.
+    loop: the kernel that runs it, "hopper" (``proto_hopper_kernel``, no
+    clamp or overlap switch) or "mma_sync" (``proto_kernel``)."""
     kernel_id: int
     inscale: bool = False
     bias: str = "none"
@@ -56,10 +63,19 @@ class Variant:
     row_sum: bool = True
     norm: str = "floor"
     overlap: bool = False
+    loop: str = "mma_sync"
+
+    @property
+    def block_k(self) -> int:
+        return LOOPS[self.loop]
 
     def template_args(self) -> tuple:
-        """The kernel's template arguments <kInScale, kBias, kClamp, kExp,
-        kRowSum, kNorm, kOverlap> as ints."""
+        """The kernel's template arguments as ints: <kInScale, kBias, kExp,
+        kRowSum, kNorm> on the Hopper loop, <kInScale, kBias, kClamp, kExp,
+        kRowSum, kNorm, kOverlap> on the mma.sync loop."""
+        if self.loop == "hopper":
+            return (int(self.inscale), BIAS_CODES[self.bias], int(self.exp), int(self.row_sum),
+                    NORM_CODES[self.norm])
         return (int(self.inscale), BIAS_CODES[self.bias], int(self.clamp), int(self.exp),
                 int(self.row_sum), NORM_CODES[self.norm], int(self.overlap))
 
@@ -71,14 +87,14 @@ VARIANTS = {
     "proto_fixedmax2": Variant(1, bias="fp32", clamp=True, norm="recip"),
     "proto_fixedmax2_overlap": Variant(2, bias="fp32", clamp=True, norm="recip", overlap=True),
     # T2 tools/proto_attn_fast.py::attn_nobias, inscale on and off (off is T1 v2)
-    "proto_nobias_inscale": Variant(3, inscale=True),
-    "proto_nobias": Variant(4),
+    "proto_nobias_inscale": Variant(3, inscale=True, loop="hopper"),
+    "proto_nobias": Variant(4, loop="hopper"),
     # T3 tools/proto_attn_fast.py::attn_nmask: T2's instantiation with n_masked
-    "proto_nmask": Variant(4),
+    "proto_nmask": Variant(4, loop="hopper"),
     # T1 tools/proto_attn_bf16s.py: v1 _bf16s_kernel, v3 _expnosum_kernel, v4 _noexp_kernel
-    "proto_bf16s": Variant(5, bias="bf16"),
-    "proto_expnosum": Variant(6, row_sum=False, norm="none"),
-    "proto_noexp": Variant(7, exp=False, row_sum=False, norm="none"),
+    "proto_bf16s": Variant(5, bias="bf16", loop="hopper"),
+    "proto_expnosum": Variant(6, row_sum=False, norm="none", loop="hopper"),
+    "proto_noexp": Variant(7, exp=False, row_sum=False, norm="none", loop="hopper"),
     # T5 tools/proto_attn_interleave.py::attn_interleaved, sub = 1 and sub > 1
     "proto_interleave": Variant(8, bias="fp32", norm="recip"),
     "proto_interleave_overlap": Variant(9, bias="fp32", norm="recip", overlap=True),
@@ -99,6 +115,18 @@ def _key_bias(var: Variant, key_bias, b: int, sk: int, bias_keys: int):
     return bias.float()
 
 
+def _tile_padded(bias, b: int, sk: int, bias_keys: int, device) -> torch.Tensor:
+    """The Hopper loop's key bias: [B, whole 128-key tiles] fp32, 0 from
+    ``bias_keys`` and from S_k on (adding 0 to T1 v1's bf16 score changes
+    nothing), so each tile's bias is one 512-byte copy that stays in bounds."""
+    width = -(-sk // LOOPS["hopper"]) * LOOPS["hopper"]
+    padded = torch.zeros((b, width), dtype=torch.float32, device=device)
+    if bias is not None:
+        n = min(bias_keys, sk)
+        padded[:, :n] = bias[:, :n]
+    return padded
+
+
 def reference(name: str, q, k, v, key_bias=None, bias_keys: int = 0, n_masked=None):
     """The plain version of instantiation ``name`` with the kernel's numerics.
 
@@ -117,8 +145,8 @@ def reference(name: str, q, k, v, key_bias=None, bias_keys: int = 0, n_masked=No
     qf = q.float()
     l = torch.zeros((b, n, sq), dtype=torch.float32, device=q.device)
     acc = torch.zeros((b, n, sq, d), dtype=torch.float32, device=q.device)
-    for k0 in range(0, sk, BLOCK_K):
-        k1 = min(sk, k0 + BLOCK_K)
+    for k0 in range(0, sk, var.block_k):
+        k1 = min(sk, k0 + var.block_k)
         x = torch.matmul(qf, k[:, :, k0:k1].float().transpose(-1, -2))
         with_bias = bias is not None and k0 < bias_keys
         if var.bias == "bf16":
@@ -159,7 +187,9 @@ def run(name: str, q, k, v, key_bias=None, bias_keys: int = 0, n_masked=None):
     if bias_keys < 0:
         raise ValueError(f"{name}: bias_keys must be >= 0, got {bias_keys}")
     bias = _key_bias(var, key_bias, b, sk, bias_keys)
-    if bias is not None:
+    if var.loop == "hopper" and var.bias != "none":
+        bias = _tile_padded(bias, b, sk, bias_keys, q.device)
+    elif bias is not None:
         bias = bias.to(q.device).contiguous()
     nm = None
     if n_masked is not None:

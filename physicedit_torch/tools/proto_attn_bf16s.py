@@ -9,8 +9,7 @@ sqrt(d))), and runs the two products of attention; they differ in what lies
 between them:
 
   v0  K1′ ``fixedmax_bnsd(prescaled=True, clamp=False)`` with the key mask:
-      the full kernel (fp32 scores, exp2, row sums, normalised) on K1's
-      Hopper mainloop (TMA, wgmma), while v1-v4 run the mma.sync loop
+      the full kernel (fp32 scores, exp2, row sums, normalised)
   v1  :func:`attn_bf16s`: the score, its sum with the bf16 key bias and
       exp2 each rounded to bf16, l = sum(p) in fp32,
       out = (p . v) / max(l, 1e-30)
@@ -21,9 +20,14 @@ between them:
   v4  :func:`attn_noexp`: the products alone, out = bf16(bf16(q' k^T) . v)
 
 v3 and v4 compute no attention: they say how much of the full kernel's
-time the softmax takes.  The kernels are instantiations ``proto_bf16s``,
-``proto_nobias``, ``proto_expnosum`` and ``proto_noexp`` of
-``csrc/proto_fixedmax_attention.cu``.
+time the softmax takes.  All five run on K1's Hopper mainloop
+(``csrc/hopper_attention.cuh``: TMA, ``wgmma``, ping-ponged consumer
+warpgroups): v0 through K1's own policy, v1-v4 as the instantiations
+``proto_bf16s``, ``proto_nobias``, ``proto_expnosum`` and ``proto_noexp``
+of ``csrc/proto_fixedmax_attention.cu``'s policy.  So on one loop v4 is the
+loop's own ceiling, v3 against v2 the cost of the row sum, v2 against v0
+the cost of the key-mask test, and v1 against v2 what the bf16 score
+chain costs or buys.
 """
 
 from __future__ import annotations

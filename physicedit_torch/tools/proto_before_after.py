@@ -1,0 +1,84 @@
+"""Time the attention prototypes that run on the Hopper mainloop (T2 with
+the scale inside and outside the kernel, T3, T1 v1, v3 and v4) in two
+checkouts of this repository on one card, in turns: before, after, after,
+before.
+
+    python -m physicedit_torch.tools.proto_before_after --before DIR [--after DIR]
+
+DIR is the root of a checkout (for example an unpacked ``git archive`` of
+an earlier commit); ``--after`` defaults to the checkout this module is in.
+Each turn is a fresh process (``tools/_turns.py``) that builds the
+checkout's ``csrc/proto_fixedmax_attention.cu`` into its own ``build/``
+and times each instantiation of :data:`NAMES` through the checkout's
+``tools/_proto_attention.run`` at the DiT's joint attention (B2 N24 S8448
+D128, RMS-normed q and k, q prescaled unless the scale is inside; T3's K
+and V zeroed on the last 64 keys beforehand, with the masked count; T1
+v1's key bias -1e30 there): the median of 20 calls between CUDA events
+after two warm-up calls, and 10 calls replayed from a CUDA graph
+(``graph_ms``, the checkout's own ``tools/_bench.graph_ms``).  One JSON
+line per instantiation and turn, then one per instantiation with both
+checkouts' mean and the ratio, on stdout.  Without a card it exits 2.
+"""
+
+from __future__ import annotations
+
+import json
+import sys
+
+from physicedit_torch.tools import _turns
+
+NAMES = ("proto_nobias_inscale", "proto_nobias", "proto_nmask", "proto_bf16s",
+         "proto_expnosum", "proto_noexp")
+SHAPE = (2, 24, 8448)    # B, N, S
+
+# run in a fresh process with the checkout on sys.path: its argument is the
+# JSON of [NAMES, SHAPE]
+_WORKER = r"""
+import json, statistics, sys
+import torch
+from physicedit_torch.kernels import _build, flash_attention as fa
+from physicedit_torch.tools import _proto_attention as pa
+from physicedit_torch.tools._bench import graph_ms
+
+def median_ms(fn, iters=20):
+    fn(); fn()
+    ev = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+          for _ in range(iters)]
+    for a, b in ev:
+        a.record(); fn(); b.record()
+    torch.cuda.synchronize()
+    return statistics.median(a.elapsed_time(b) for a, b in ev)
+
+names, (b, n, s) = json.loads(sys.argv[1])
+dev = torch.device("cuda")
+_build.build_all([pa.SOURCE])
+gen = torch.Generator(dev).manual_seed(0)
+q, k = ((x * torch.rsqrt(x.pow(2).mean(-1, keepdim=True))).bfloat16()
+        for x in (torch.randn(b, n, s, 128, device=dev, generator=gen) for _ in range(2)))
+v = torch.randn(b, n, s, 128, device=dev, generator=gen).bfloat16()
+qs = fa._prescale(q).contiguous()
+live = torch.ones(b, s, dtype=torch.bool, device=dev)
+live[:, -64:] = False
+kz, vz = (torch.where(live[:, None, :, None], x, 0) for x in (k, v))
+nm = (~live).sum(1).float()
+bias = pa.mask_bias(live)
+calls = {"proto_nobias_inscale": lambda: pa.run("proto_nobias_inscale", q, k, v),
+         "proto_nobias": lambda: pa.run("proto_nobias", qs, k, v),
+         "proto_nmask": lambda: pa.run("proto_nmask", qs, kz, vz, n_masked=nm),
+         "proto_bf16s": lambda: pa.run("proto_bf16s", qs, k, v, bias, s),
+         "proto_expnosum": lambda: pa.run("proto_expnosum", qs, k, v),
+         "proto_noexp": lambda: pa.run("proto_noexp", qs, k, v)}
+for name in names:
+    print(json.dumps({"kernel": name, "case": f"b{b}_n{n}_s{s}", "shape": [b, n, s, s],
+                      "ms": median_ms(calls[name]), "graph_ms": graph_ms(calls[name])}),
+          flush=True)
+"""
+
+
+def main(argv=None) -> int:
+    return _turns.main("proto_before_after", __doc__.splitlines()[0], _WORKER,
+                       json.dumps([NAMES, SHAPE]), argv)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

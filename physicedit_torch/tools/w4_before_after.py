@@ -23,13 +23,10 @@ ratio, on stdout.  Without a card it exits 2.
 
 from __future__ import annotations
 
-import argparse
 import json
-import os
-import statistics
-import subprocess
 import sys
-from pathlib import Path
+
+from physicedit_torch.tools import _turns
 
 # name, M, K, N: the DiT image stream at 1024^2 under CFG, the VL prefill's
 # gate_up, the W4 training lane's image and text streams (480x832)
@@ -106,48 +103,9 @@ for kernel, name, shape in quant_shapes:
 """
 
 
-def run_turn(checkout: Path, shapes: str) -> list[dict]:
-    """One process in ``checkout``: its kernels built and timed."""
-    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
-    env["PYTHONPATH"] = str(checkout)
-    done = subprocess.run([sys.executable, "-c", _WORKER, shapes], cwd=checkout, env=env,
-                          capture_output=True, text=True, timeout=1200)
-    if done.returncode != 0:
-        raise SystemExit(f"w4_before_after: the turn in {checkout} failed:\n{done.stderr}")
-    return [json.loads(line) for line in done.stdout.splitlines() if line.startswith("{")]
-
-
 def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--before", required=True, type=Path, help="root of the earlier checkout")
-    ap.add_argument("--after", type=Path, default=Path(__file__).resolve().parents[2],
-                    help="root of the later checkout (default: this one)")
-    args = ap.parse_args(argv)
-    import torch
-
-    if not torch.cuda.is_available():
-        print("w4_before_after: no CUDA device; this tool measures the card", file=sys.stderr)
-        return 2
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60).stdout.strip()
-    print(json.dumps({"card": card}), flush=True)
-    shapes = json.dumps([K3_SHAPES, K9_SHAPES, QUANT_SHAPES])
-    times: dict = {}
-    for turn, side in enumerate(("before", "after", "after", "before")):
-        checkout = (args.before if side == "before" else args.after).resolve()
-        for row in run_turn(checkout, shapes):
-            print(json.dumps({"turn": turn, "side": side, **row}), flush=True)
-            times.setdefault((row["kernel"], row["case"]), {}).setdefault(side, []).append(row)
-    for (kernel, case), sides in times.items():
-        out = {"kernel": kernel, "case": case, "shape": sides["after"][0]["shape"]}
-        for key in ("ms", "graph_ms"):
-            if key in sides["after"][0]:
-                out.update({f"{side}_{key}": statistics.mean(r[key] for r in rows)
-                            for side, rows in sides.items()})
-                out[f"after_over_before_{key}"] = out[f"after_{key}"] / out[f"before_{key}"]
-        print(json.dumps(out), flush=True)
-    return 0
+    return _turns.main("w4_before_after", __doc__.splitlines()[0], _WORKER,
+                       json.dumps([K3_SHAPES, K9_SHAPES, QUANT_SHAPES]), argv)
 
 
 if __name__ == "__main__":

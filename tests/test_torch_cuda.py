@@ -37,6 +37,8 @@ def cuda():
 
 BF16_TOL = 2e-2  # bf16 kernel output against the plain version (fp32 softmax)
 K7_REL_L2 = 5e-3  # and K7's rel-L2 over the whole output
+# the attention prototypes that run on the Hopper loop (T2, T3, T1 v1-v4)
+HOPPER_PROTOS = [name for name, var in tpa.VARIANTS.items() if var.loop == "hopper"]
 
 
 @pytest.mark.cuda
@@ -509,15 +511,21 @@ def test_fixedmax_autograd_matches_plain_k1_k8_on_cuda(cuda, s):
         torch.testing.assert_close(got.float(), want.float(), rtol=BF16_TOL, atol=tol)
 
 
+def _misaligned(shape, device):
+    """A contiguous bf16 view one element into a flat buffer: not 16-byte
+    aligned, as TMA needs."""
+    buf = torch.zeros(math.prod(shape) + 1, dtype=torch.bfloat16, device=device)
+    x = buf[1:].view(shape)
+    assert x.is_contiguous() and x.data_ptr() % 16 == 2
+    return x
+
+
 @pytest.mark.cuda
 def test_hopper_kernels_raise_on_misaligned_or_strided_inputs(cuda):
     """TMA takes 16-byte aligned, contiguous tensors: a contiguous view one
     bf16 element into a flat buffer, or a transposed view, raises (no copy)."""
     def misaligned(shape):
-        buf = torch.zeros(math.prod(shape) + 1, dtype=torch.bfloat16, device=cuda)
-        x = buf[1:].view(shape)
-        assert x.is_contiguous() and x.data_ptr() % 16 == 2
-        return x
+        return _misaligned(shape, cuda)
 
     shape = (1, 2, 130, 128)
     ok = torch.zeros(shape, dtype=torch.bfloat16, device=cuda)
@@ -583,13 +591,19 @@ def test_hopper_kernels_raise_on_misaligned_or_strided_inputs(cuda):
 @pytest.mark.cuda
 @pytest.mark.parametrize("kernel", ["k1_with_l", "k1prime_prescaled", "k2", "k7",
                                     "k1prime_scaled", "k8", "k10", "k10b", "k3_tiled", "k9",
-                                    "k4", "k5"])
+                                    "k4", "k5"] + HOPPER_PROTOS)
 def test_hopper_kernels_in_a_cuda_graph_give_the_eager_bits(cuda, kernel):
     """The tensor maps reach the kernel by value: a CUDA-graph replay gives
     the eager call's bits (K4 and K5: their persistent grids, sized once per
-    card)."""
+    card; the prototypes on the Hopper loop: T1 v1's padded key bias made
+    inside the graph too)."""
     g = torch.Generator(cuda).manual_seed(70)
-    if kernel in ("k4", "k5"):
+    if kernel in HOPPER_PROTOS:
+        call, _ = _hopper_proto_call(kernel, g, 250, 333, [(100, 160), (0, 0)])
+
+        def fn():
+            return (call(),)
+    elif kernel in ("k4", "k5"):
         fn, _ = _row_pipeline_call(kernel, (2, 1001, 12288), g)
     elif kernel == "k3_tiled":
         xq, w4, xs, ws, b = _k3_operands(g, 300, 1280, 384)
@@ -1097,6 +1111,81 @@ def test_proto_attention_raises_on_unsupported_inputs(cuda):
         tpa.run("proto_fixedmax", z, z, z, None, 64)
     with pytest.raises(RuntimeError, match="forward only"):
         tpa.run("proto_noexp", z.clone().requires_grad_(True), z, z)
+
+
+# the Hopper loop's 128-key tiles, as tests/test_torch_proto_attention.py's
+# EDGE_CASES: (S_q, S_k, per batch row the keys that T3 masks and T1 v1's
+# bias blocks)
+PROTO_EDGE_CASES = {
+    "sk_129": (129, 129, [(100, 120), (0, 0)]),
+    "sk_255": (255, 255, [(0, 0), (200, 255)]),
+    "sq_130_lt_sk_385": (130, 385, [(350, 385), (0, 0)]),
+    "hole_across_key_128": (300, 300, [(100, 160), (0, 0)]),
+}
+
+
+def _hopper_proto_call(name, g, sq, sk, spans):
+    """Calls of Hopper instantiation ``name`` and of its plain version on
+    RMS-normed inputs (B 2, N 3) whose key mask (T3) or key bias (T1 v1:
+    -1e30 on the spans, normal x 0.5 elsewhere) holds ``spans``."""
+    var = tpa.VARIANTS[name]
+    q, k, v, _, _ = _k7_inputs(g, 2, 3, sq, sk)
+    mask = torch.ones(2, sk, dtype=torch.bool, device=g.device)
+    for i, (m0, m1) in enumerate(spans):
+        mask[i, m0:m1] = False
+    kwargs = {}
+    if name == "proto_nmask":
+        *args, nm = t_t23._nmask_operands(q, k, v, mask)
+        kwargs = {"n_masked": nm}
+    else:
+        args = [q if var.inscale else tfa._prescale(q).contiguous(), k, v]
+        if var.bias != "none":
+            bias = torch.where(mask, 0.5 * torch.randn(2, sk, device=g.device, generator=g),
+                               -1e30)
+            kwargs = {"key_bias": bias[:, None, :], "bias_keys": sk}
+    return (lambda: tpa.run(name, *args, **kwargs)), (lambda: tpa.reference(name, *args,
+                                                                            **kwargs))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(PROTO_EDGE_CASES))
+@pytest.mark.parametrize("name", HOPPER_PROTOS)
+def test_proto_hopper_tile_edges_on_cuda(cuda, name, case):
+    """T2 (both scales), T3 and T1 v1-v4 on the Hopper loop at its 128-key
+    tile edges, under the card's gates for them (max |err| 4e-3 and rel-L2
+    5e-3; T1 v3 / v4 8e-3 of their largest output), three calls bit for
+    bit."""
+    g = torch.Generator(cuda).manual_seed(80 + tpa.VARIANTS[name].kernel_id)
+    fn, plain = _hopper_proto_call(name, g, *PROTO_EDGE_CASES[case])
+    out = fn()
+    assert all(torch.equal(fn(), out) for _ in range(2))
+    ref = plain()
+    assert torch.isfinite(out).all()
+    err = (out.float() - ref.float()).abs().max().item()
+    if tpa.VARIANTS[name].norm == "none":
+        assert err <= 8e-3 * ref.float().abs().max().item()
+    else:
+        assert err <= 4e-3
+    assert _rel_l2(out, ref) <= K7_REL_L2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", HOPPER_PROTOS)
+def test_proto_hopper_raises_on_misaligned_or_strided_operands(cuda, name):
+    """The Hopper loop reads q, k and v through TMA: a misaligned or a
+    strided operand raises (no copy, no fallback to the plain version)."""
+    shape = (1, 2, 130, 128)
+    ok = torch.zeros(shape, dtype=torch.bfloat16, device=cuda)
+    strided = torch.zeros(1, 130, 2, 128, dtype=torch.bfloat16, device=cuda).transpose(1, 2)
+    kwargs = {"key_bias": torch.zeros(1, 1, 130, device=cuda), "bias_keys": 130} \
+        if tpa.VARIANTS[name].bias != "none" else {}
+    before = tfa.LAUNCHES[name]
+    for args, match in (((_misaligned(shape, cuda), ok, ok), "16-byte aligned"),
+                        ((ok, _misaligned(shape, cuda), ok), "16-byte aligned"),
+                        ((ok, ok, strided), "contiguous"), ((strided, ok, ok), "contiguous")):
+        with pytest.raises(ValueError, match=match):
+            tpa.run(name, *args, **kwargs)
+    assert tfa.LAUNCHES[name] == before
 
 
 def _w4_probe_operands(g, m, k, n):

@@ -66,15 +66,11 @@ DTYPES = {"fp32": (np.float32, torch.float32), "bf16": (jnp.bfloat16, torch.bflo
 CU_SOURCE = Path(pa.__file__).resolve().parents[1] / "csrc" / f"{pa.SOURCE}.cu"
 
 
-@pytest.fixture
-def interpret(monkeypatch):
-    """pallas_call in interpret mode on the CPU, as the JAX tests run it."""
+def _interpret(monkeypatch):
     monkeypatch.setattr(pl, "pallas_call", functools.partial(pl.pallas_call, interpret=True))
 
 
-@pytest.fixture
-def interpret_t3(monkeypatch):
-    """T3's interpret mode: ``InterpretParams()`` and no dimension semantics."""
+def _interpret_t3(monkeypatch):
     real = pltpu.CompilerParams
 
     def without_semantics(**kwargs):
@@ -84,6 +80,18 @@ def interpret_t3(monkeypatch):
     monkeypatch.setattr(pl, "pallas_call", functools.partial(
         pl.pallas_call, interpret=pltpu.InterpretParams()))
     monkeypatch.setattr(pltpu, "CompilerParams", without_semantics)
+
+
+@pytest.fixture
+def interpret(monkeypatch):
+    """pallas_call in interpret mode on the CPU, as the JAX tests run it."""
+    _interpret(monkeypatch)
+
+
+@pytest.fixture
+def interpret_t3(monkeypatch):
+    """T3's interpret mode: ``InterpretParams()`` and no dimension semantics."""
+    _interpret_t3(monkeypatch)
 
 
 @pytest.fixture
@@ -308,36 +316,117 @@ def test_t1_ablations_match_jax(dtype, variant, interpret, no_launch):
 
 
 # ---------------------------------------------------------------------------
+# T2, T3, T1 v1 / v3 / v4 at the Hopper loop's 128-key tile edges
+# ---------------------------------------------------------------------------
+
+# name: (seed, b, n, sq, sk, per batch row the span of keys that T3 masks and
+# T1 v1's bias blocks).  One live key in the last tile, a ragged last tile, a
+# ragged q tile with S_q < S_k, and a hole across key 128.  The JAX tools'
+# grids need S to divide by their blocks, so they take the whole sequence
+# as one block; the port's plain version walks its loop's 128-key tiles.
+EDGE_CASES = {
+    "sk_129": (20, 1, 2, 129, 129, [(100, 120)]),
+    "sk_255": (21, 2, 2, 255, 255, [(0, 0), (200, 255)]),
+    "sq_130_lt_sk_385": (22, 1, 2, 130, 385, [(350, 385)]),
+    "hole_across_key_128": (23, 2, 2, 300, 300, [(100, 160), (0, 0)]),
+}
+EDGE_VARIANTS = ("t2_inscale", "t2_prescaled", "t3", "t1_v1", "t1_v3", "t1_v4")
+
+
+def _edge_jax(variant, jq, jk, jv, mask, bias, sq, sk):
+    if variant.startswith("t2"):
+        return _jax(functools.partial(j_t23.attn_nobias, block_q=sq, block_k=sk,
+                                      inscale=variant == "t2_inscale"), jq, jk, jv)
+    if variant == "t3":
+        return _jax(functools.partial(j_t23.attn_nmask, block_q=sq, block_k=sk), jq, jk, jv,
+                    jnp.asarray(mask))
+    body = {"t1_v1": j_t1._bf16s_kernel, "t1_v3": j_t1._expnosum_kernel,
+            "t1_v4": j_t1._noexp_kernel}[variant]
+    jqs = _prescaled(jq, jq.shape[-1])
+    if variant == "t1_v1":
+        return _jax(lambda q_, k_, v_, b_: j_t1._call(body, q_, k_, v_, (b_,), sq, sk),
+                    jqs, jk, jv, jnp.asarray(bias, jnp.bfloat16))
+    return _jax(lambda q_, k_, v_: j_t1._call(body, q_, k_, v_, (), sq, sk), jqs, jk, jv)
+
+
+def _edge_port(variant, tq, tk, tv, mask, bias):
+    if variant.startswith("t2"):
+        return t_t23.attn_nobias(tq, tk, tv, variant == "t2_inscale")
+    if variant == "t3":
+        return t_t23.attn_nmask(tq, tk, tv, torch.from_numpy(mask))
+    tqs = tfa._prescale(tq)
+    if variant == "t1_v1":
+        return t_t1.attn_bf16s(tqs, tk, tv, torch.from_numpy(bias))
+    return (t_t1.attn_expnosum if variant == "t1_v3" else t_t1.attn_noexp)(tqs, tk, tv)
+
+
+@pytest.mark.parametrize("variant", EDGE_VARIANTS)
+@pytest.mark.parametrize("case", list(EDGE_CASES))
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_hopper_tile_edges_match_jax(dtype, case, variant, monkeypatch, no_launch):
+    """The instantiations that run on the Hopper loop (T2 both scales, T3,
+    T1 v1 / v3 / v4) at its tile edges: the port's plain version against
+    the JAX tool's function, with Pallas in interpret mode (T3's as in
+    ``test_t3_nmask_matches_jax``)."""
+    (_interpret_t3 if variant == "t3" else _interpret)(monkeypatch)
+    seed, b, n, sq, sk, spans = EDGE_CASES[case]
+    rng = np.random.default_rng(seed)
+    q = (rng.normal(size=(b, n, sq, 128)) * 0.5).astype(np.float32)
+    k, v = ((rng.normal(size=(b, n, sk, 128)) * 0.5).astype(np.float32) for _ in range(2))
+    mask = np.ones((b, sk), bool)
+    for i, (m0, m1) in enumerate(spans):
+        mask[i, m0:m1] = False
+    bias = _key_bias(rng, b, sk, spans)
+    (jq, jk, jv), (tq, tk, tv) = _both(dtype, q, k, v)
+    want = _edge_jax(variant, jq, jk, jv, mask, bias, sq, sk)
+    got = _edge_port(variant, tq, tk, tv, mask, bias)
+    assert tuple(got.shape) == (b, n, sq, 128)
+    _check(got, want, dtype, rel_l2_only=variant == "t1_v1",
+           unnormalised=variant in ("t1_v3", "t1_v4"))
+
+
+# ---------------------------------------------------------------------------
 # the kernel source against the switches the plain version follows
 # ---------------------------------------------------------------------------
 
 def test_kernel_instantiations_match_the_variants():
     """Each variant's id selects, in the C entry point, the instantiation
-    whose template arguments are the variant's switches; every variant has
-    its launch counter.  (The source is compiled only on the card.)"""
+    of its loop's kernel (``launch_hopper``: the Hopper mainloop, ``launch``:
+    the mma.sync loop) whose template arguments are the variant's switches;
+    every variant has its launch counter.  (The source is compiled only on
+    the card.)"""
     codes = {"true": 1, "false": 0, "kNoBias": 0, "kBiasF32": 1, "kBiasBf16": 2,
              "kRecip": 0, "kFloor": 1, "kUnnormalised": 2}
-    cases = {int(i): tuple(codes[a.strip()] for a in args.split(","))
-             for i, args in re.findall(r"case (\d+): return launch<([^>]*)>",
-                                       CU_SOURCE.read_text())}
+    loops = {"launch": "mma_sync", "launch_hopper": "hopper"}
+    cases = {int(i): (loops[fn], tuple(codes[a.strip()] for a in args.split(",")))
+             for i, fn, args in re.findall(r"case (\d+): return (launch\w*)<([^>]*)>",
+                                           CU_SOURCE.read_text())}
     assert sorted(cases) == sorted({var.kernel_id for var in pa.VARIANTS.values()})
     for name, var in pa.VARIANTS.items():
-        assert cases[var.kernel_id] == var.template_args(), name
+        assert cases[var.kernel_id] == (var.loop, var.template_args()), name
         assert name in tfa.LAUNCHES
+    assert {name for name, var in pa.VARIANTS.items() if var.loop == "hopper"} == {
+        "proto_nobias_inscale", "proto_nobias", "proto_nmask", "proto_bf16s",
+        "proto_expnosum", "proto_noexp"}
 
 
 def test_chip_smoke_reads_registers_per_instantiation(tmp_path):
     """``chip_smoke.ptxas_report`` keys nvcc's ``-Xptxas -v`` lines by the
-    template arguments of each instantiation, as ``Variant.template_args``
-    gives them."""
+    template arguments of each instantiation of each loop's kernel
+    (``proto_kernel``, ``proto_hopper_kernel``), as ``Variant.template_args``
+    gives them, and keeps the two kernels apart."""
     import chip_smoke
 
-    args = sorted({var.template_args() for var in pa.VARIANTS.values()})
+    # each loop's kernel and the positions of its int (not bool) template arguments
+    kernels = {"mma_sync": "proto_kernel", "hopper": "proto_hopper_kernel"}
+    int_args = {"proto_kernel": (1, 5), "proto_hopper_kernel": (1, 4)}
+    args = sorted({(kernels[var.loop], var.template_args()) for var in pa.VARIANTS.values()})
     lines = ["ptxas info    : 0 bytes gmem"]
-    for i, a in enumerate(args):
+    for i, (kernel, a) in enumerate(args):
         mangled = ("_ZN60_GLOBAL__N__97cb8cc7_27_proto_fixedmax_attention_cu_8eff71d0"
-                   "12proto_kernelI"
-                   + "".join(f"L{'i' if j in (1, 5) else 'b'}{x}E" for j, x in enumerate(a))
+                   f"{len(kernel)}{kernel}I"
+                   + "".join(f"L{'i' if j in int_args[kernel] else 'b'}{x}E"
+                             for j, x in enumerate(a))
                    + "EEvPKtS2_S2_PKfS4_Ptiiiif")
         lines += [f"ptxas info    : Compiling entry function '{mangled}' for 'sm_90a'",
                   f"ptxas info    : Function properties for {mangled}",
@@ -346,6 +435,66 @@ def test_chip_smoke_reads_registers_per_instantiation(tmp_path):
                   "ptxas info    : Compile time = 374.846 ms"]
     log = tmp_path / "proto.so.log"
     log.write_text("\n".join(lines) + "\n")
-    assert chip_smoke.ptxas_report(log) == {
-        a: {"registers": 160 + i, "spill_store_bytes": 4 * i, "spill_load_bytes": 8 * i}
-        for i, a in enumerate(args)}
+    for kernel in int_args:
+        assert chip_smoke.ptxas_report(log, kernel) == {
+            a: {"registers": 160 + i, "spill_store_bytes": 4 * i, "spill_load_bytes": 8 * i}
+            for i, (kern, a) in enumerate(args) if kern == kernel}
+    assert chip_smoke.ptxas_report(log) == chip_smoke.ptxas_report(log, "proto_kernel")
+
+
+def test_chip_smoke_names_each_kernels_loop():
+    """The ``kernels`` line names the loop of every kernel it lists; each
+    prototype's is its variant's."""
+    import chip_smoke
+
+    assert {name for name, *_ in chip_smoke.KERNEL_ROWS} == set(chip_smoke.KERNEL_LOOPS)
+    for name, var in pa.VARIANTS.items():
+        assert chip_smoke.KERNEL_LOOPS[name] == {"hopper": "hopper_attention",
+                                                 "mma_sync": "mma_sync"}[var.loop], name
+
+
+# ---------------------------------------------------------------------------
+# the before / after tools
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("tool", ["proto_before_after", "w4_before_after"])
+def test_before_after_tools_need_a_card(tool, tmp_path, capsys):
+    """Without a card each tool exits 2 and prints no timing."""
+    import importlib
+
+    module = importlib.import_module(f"physicedit_torch.tools.{tool}")
+    assert module.main(["--before", str(tmp_path)]) == 2
+    assert capsys.readouterr().out == ""
+
+
+def test_before_after_turns_summarise_each_case(monkeypatch, tmp_path, capsys):
+    """Four turns, before, after, after, before: each case's line gives
+    both checkouts' means over their two turns and after / before."""
+    import json
+
+    from physicedit_torch.tools import _turns
+
+    turns = []
+
+    def fake_turn(tool, checkout, worker, arg):
+        turns.append(checkout.name)
+        ms = {"old": [4.0, 6.0], "new": [1.0, 3.0]}[checkout.name][
+            turns.count(checkout.name) - 1]
+        return [{"kernel": "proto_nobias", "case": "c", "shape": [1], "ms": ms,
+                 "graph_ms": ms / 2}]
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(_turns, "card", lambda: "a card, 700.00 W")
+    monkeypatch.setattr(_turns, "run_turn", fake_turn)
+    (tmp_path / "old").mkdir()
+    (tmp_path / "new").mkdir()
+    assert _turns.compare("t", tmp_path / "old", tmp_path / "new", "", "") == 0
+    assert turns == ["old", "new", "new", "old"]
+    lines = [json.loads(line) for line in capsys.readouterr().out.splitlines()]
+    assert lines[0] == {"card": "a card, 700.00 W"}
+    assert [(r["turn"], r["side"]) for r in lines[1:5]] == [
+        (0, "before"), (1, "after"), (2, "after"), (3, "before")]
+    assert lines[5] == {"kernel": "proto_nobias", "case": "c", "shape": [1],
+                        "before_ms": 5.0, "after_ms": 2.0, "after_over_before_ms": 0.4,
+                        "before_graph_ms": 2.5, "after_graph_ms": 1.0,
+                        "after_over_before_graph_ms": 0.4}

@@ -64,7 +64,7 @@ struct FixedMaxPolicy {
   __device__ bool live(int key) const { return key < sk && (mask == nullptr || mask[key] != 0); }
   __device__ void begin(int, int) const {}
   static constexpr uint32_t kExtraKBytes = 0;
-  __device__ void read_stage(int) const {}
+  __device__ void read_stage(int, int, float (&)[64]) const {}
 
   // p = exp2(min(s, 100)) where live, else 0; the row sums; P packed to bf16.
   // A tile whose 128 keys are all live skips the liveness test (kTest).

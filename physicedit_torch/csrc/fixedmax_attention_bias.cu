@@ -91,7 +91,7 @@ struct ScaledPolicy {
     if constexpr (kHasBias) bias.begin(q0 + row, t);
   }
   static constexpr uint32_t kExtraKBytes = 0;   // the bias rides its own cp.async
-  __device__ void read_stage(int) const {}
+  __device__ void read_stage(int, int, float (&)[64]) const {}
 
   // p = exp2(min(s * scale + bias, 100)) where live, else 0; the row sums;
   // P packed to bf16.  A tile whose 128 keys are all live skips the liveness

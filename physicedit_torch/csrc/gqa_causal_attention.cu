@@ -64,7 +64,7 @@ struct GqaCausalPolicy {
   }
   __device__ void begin(int, int) const {}
   static constexpr uint32_t kExtraKBytes = 0;
-  __device__ void read_stage(int) const {}
+  __device__ void read_stage(int, int, float (&)[64]) const {}
 
   // One tile of the online softmax on raw scores s: kTest 0 (every key
   // live: a tile below the diagonal whose keys are all live), 1 (the

@@ -1,7 +1,7 @@
 // The Hopper attention mainloop shared by K1 (fixedmax_attention.cu), K2
 // (gqa_causal_attention.cu), K7 / K1' scaled (fixedmax_attention_bias.cu),
-// K10 / K10b (online_attention.cu) and the prototypes T2, T3 and T1 v1-v4
-// (proto_fixedmax_attention.cu): bf16, head_dim 128, fp32 accumulators.
+// K10 / K10b (online_attention.cu) and the prototypes T2, T3, T1 v1-v4 and
+// T5 (proto_fixedmax_attention.cu): bf16, head_dim 128, fp32 accumulators.
 // Its primitives (mbarriers, TMA, wgmma, named barriers, cp.async:
 // hopper_primitives.cuh) also build K8's two backward passes
 // (fixedmax_attention_bwd.cu).
@@ -314,20 +314,31 @@ struct BiasSlots {
 //   void begin(int row, int t);        once per consumer thread before the
 //                                      loop (K1, K2, K10: empty; K7 and K10b
 //                                      start the first bias tile's copies)
-//   static constexpr uint32_t kExtraKBytes;   bytes that load_k copies beside
-//                                      the K tile into the policy's own slot
-//                                      of that stage, past SharedStorage
-//                                      (the prototypes' key bias; 0 for K1,
-//                                      K2, K7 and K10): they complete on
-//                                      k_full with the tile's
-//   void read_stage(int stage);        reads that slot into registers once
-//                                      S(j) is waited for and before the
-//                                      warp releases the stage (K1, K2, K7,
-//                                      K10: empty), so the producer's next
-//                                      copy into it cannot overtake a read
-//                                      made later, in the softmax
+//   static constexpr uint32_t kExtraKBytes;   the size of the policy's own
+//                                      slot per stage, past SharedStorage,
+//                                      that load_k may fill beside the K
+//                                      tile (the prototypes' key bias; 0 for
+//                                      K1, K2, K7 and K10)
+//   uint32_t extra_k_bytes(int j);     the bytes load_k copies into the slot
+//                                      for tile j (0 or kExtraKBytes; asked
+//                                      only where kExtraKBytes > 0): they
+//                                      complete on k_full with the tile's
+//   void read_stage(int stage, int j, float (&s)[64]);
+//                                      reads the slot once S(j) is waited
+//                                      for and before the warp releases the
+//                                      stage, into registers or into S(j)
+//                                      itself (K1, K2, K7, K10: empty), so
+//                                      the producer's next copy into it
+//                                      cannot overtake a read made later, in
+//                                      the softmax
 // where row is the query row of the thread's first accumulator row (the
 // second is row + 8) and t = lane % 4.
+template <class Policy>
+__device__ __forceinline__ uint32_t extra_k_bytes(const Policy& pol, int j) {
+  if constexpr (Policy::kExtraKBytes == 0) return 0;
+  else return pol.extra_k_bytes(j);
+}
+
 template <class Policy>
 __device__ __forceinline__ void attention_mainloop(Policy& pol) {
   SharedStorage& sm = shared_storage();
@@ -358,7 +369,7 @@ __device__ __forceinline__ void attention_mainloop(Policy& pol) {
         const int s = j % kStages;
         const uint32_t ph = (j / kStages) & 1;
         mbar_wait(&sm.k_empty[s], ph ^ 1);
-        mbar_expect_tx(&sm.k_full[s], kTileBytes + Policy::kExtraKBytes);
+        mbar_expect_tx(&sm.k_full[s], kTileBytes + extra_k_bytes(pol, j));
         pol.load_k(smem_u32(sm.k[s]), j, &sm.k_full[s]);
         mbar_wait(&sm.v_empty[s], ph ^ 1);
         mbar_expect_tx(&sm.v_full[s], kTileBytes);
@@ -411,7 +422,7 @@ __device__ __forceinline__ void attention_mainloop(Policy& pol) {
   wgmma_wait_all();
   fence_regs(s);
   uint4 live = *reinterpret_cast<const uint4*>(sm.live[0]);
-  pol.read_stage(0);
+  pol.read_stage(0, 0, s);
   __syncwarp();   // every lane's reads of the stage are done before the warp releases it
   if (signals) mbar_arrive(&sm.k_empty[0]);
   pol.softmax(s, live, 0, o, p, row, t);
@@ -434,7 +445,7 @@ __device__ __forceinline__ void attention_mainloop(Policy& pol) {
     fence_regs(s);
     if (signals) mbar_arrive(&sm.v_empty[sv]);
     live = *reinterpret_cast<const uint4*>(sm.live[sk]);
-    pol.read_stage(sk);
+    pol.read_stage(sk, j, s);
     __syncwarp();
     if (signals) mbar_arrive(&sm.k_empty[sk]);
     pol.softmax(s, live, j, o, p, row, t);

@@ -1,11 +1,13 @@
 // The Hopper primitives that the hand-written kernels share: mbarriers, TMA
-// loads and the tensor maps they read, named barriers, cp.async, the wgmma
-// descriptor, fence, commit and wait, and the register fences that keep the
-// compiler off the registers an issued wgmma still reads or writes.  The
-// attention mainloop (hopper_attention.cuh: K1, K2, K7, K8, K10) and the W4
-// GEMMs (w4a8_matmul.cu: K3, w4_bwd_dx.cu: K9) are built from them; the
-// products that only the GEMMs take (int8 and a 256-wide bf16 wgmma with A
-// from registers) are here too.
+// loads and stores and the tensor maps they use, named barriers, cp.async,
+// the wgmma descriptor, fence, commit and wait, and the register fences that
+// keep the compiler off the registers an issued wgmma still reads or
+// writes.  The
+// attention mainloop (hopper_attention.cuh: K1, K2, K7, K8, K10), the W4
+// GEMMs (w4a8_matmul.cu: K3, w4_bwd_dx.cu: K9) and T9's GEMM
+// (proto_int8_matmul.cu) are built from them; the products that only the
+// GEMMs take (int8 and 256-wide bf16 wgmma, A from registers or from shared
+// memory) are here too.
 //
 // The tensor maps are built on the host each call with
 // cuTensorMapEncodeTiled, reached through cudaGetDriverEntryPointByVersion
@@ -98,6 +100,34 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
       "r"(c3)
       : "memory");
+}
+
+// A TMA store of one box from shared memory (the layout of the map's
+// swizzle) to the tensor at (c0, c1); elements out of bounds are not
+// written.  It joins this thread's current bulk group (bulk_commit).
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, uint32_t src, int c0,
+                                             int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most kPending of this thread's bulk groups still read shared
+// memory (their source may then be written again).
+template <int kPending>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(kPending) : "memory");
+}
+
+// Wait until this thread's bulk groups have completed (their writes done).
+__device__ __forceinline__ void bulk_wait_all() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
 }
 
 // Shared-memory writes of this thread, made by ordinary stores, become
@@ -194,10 +224,16 @@ __device__ __forceinline__ void fence_regs(uint32_t (&a)[16]) {
   for (int i = 0; i < 16; ++i) asm volatile("" : "+r"(a[i])::"memory");
 }
 
-// The GEMMs' accumulators: K3's int32 (64 a thread), K9's fp32 (128).
+// The GEMMs' accumulators: K3's int32 (64 a thread), K9's fp32 (128), T9's
+// int32 or fp32 (128).
 __device__ __forceinline__ void fence_regs(int (&d)[64]) {
 #pragma unroll
   for (int i = 0; i < 64; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+__device__ __forceinline__ void fence_regs(int (&d)[128]) {
+#pragma unroll
+  for (int i = 0; i < 128; ++i) asm volatile("" : "+r"(d[i])::"memory");
 }
 
 __device__ __forceinline__ void fence_regs(float (&d)[128]) {
@@ -253,6 +289,31 @@ __device__ __forceinline__ void wgmma_bf16_rs_n256(float (&d)[128], uint32_t a0,
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(desc_b), "r"(1));
 }
 
+// D[64 x 256] += A[64 x 32] . B[256 x 32]^T in int8 with exact int32 sums,
+// A and B K-major in shared memory (128-byte swizzle, as sw128_desc
+// describes them): T9's i32 GEMM.  Accumulator layout as above, n < 32.
+__device__ __forceinline__ void wgmma_s8_ss_n256(int (&d)[128], uint64_t desc_a,
+                                                 uint64_t desc_b) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 {" PE_REGS128
+      "}, %128, %129, p;\n}\n"
+      : PE_OUT128("r")
+      : "l"(desc_a), "l"(desc_b), "r"(1));
+}
+
+// D[64 x 256] += A[64 x 16] . B[256 x 16]^T in bf16 with fp32 sums, A and B
+// K-major in shared memory: T9's f32 GEMM.
+__device__ __forceinline__ void wgmma_bf16_ss_n256(float (&d)[128], uint64_t desc_a,
+                                                   uint64_t desc_b) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {" PE_REGS128
+      "}, %128, %129, p, 1, 1, 0, 0;\n}\n"
+      : PE_OUT128("f")
+      : "l"(desc_a), "l"(desc_b), "r"(1));
+}
+
 #undef PE_REGS128
 #undef PE_REGS64
 #undef PE_OUT128
@@ -284,6 +345,10 @@ __device__ __forceinline__ uint4 lds128(uint32_t addr) {
 
 __device__ __forceinline__ void sts32(uint32_t addr, uint32_t v) {
   asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(addr), "r"(v) : "memory");
+}
+
+__device__ __forceinline__ void sts64(uint32_t addr, uint32_t lo, uint32_t hi) {
+  asm volatile("st.shared.v2.b32 [%0], {%1, %2};\n" ::"r"(addr), "r"(lo), "r"(hi) : "memory");
 }
 
 __device__ __forceinline__ void sts128(uint32_t addr, uint4 v) {

@@ -89,7 +89,7 @@ struct OnlinePolicy {
     if constexpr (kHasBias) bias.begin(q0 + row, t);
   }
   static constexpr uint32_t kExtraKBytes = 0;   // the bias rides its own cp.async
-  __device__ void read_stage(int) const {}
+  __device__ void read_stage(int, int, float (&)[64]) const {}
 
   // One tile of the online softmax on the raw scores s: s becomes x (with a
   // bias) and a masked key kMasked; then the running max, the rescale of l

@@ -28,7 +28,8 @@
 //              nm the masked-key count of the row's batch (T3; 0 for T1 v1,
 //              T2), so such a row comes out 0; kUnnormalised: out = acc
 //   kOverlap   QK^T of tile j + 1 issued before the softmax of tile j (T8's
-//              and T5's sub-tile split); the function does not change
+//              sub-tile split; the mma.sync loop only); the function does not
+//              change
 // P is rounded to bf16 before the product with V; acc is fp32.  Keys past
 // S_k take no weight and rows past S_q are not written.
 //
@@ -36,41 +37,47 @@
 // S=8448: 4 B N S^2 D = 1.75e12 FLOP, 1.77 ms at 989 TFLOP/s).
 //
 // Which loop runs which instantiation (the entry point's variant ids):
-//   3-7 (T2 both scales, T3, T1 v1-v4): proto_hopper_kernel, a ProtoPolicy
-//     on K1's Hopper mainloop (hopper_attention.cuh: TMA into a 2-stage ring
-//     of 128-key K and V tiles, wgmma m64n128k16 for both products, a
-//     producer warpgroup and two ping-ponged consumer warpgroups of 64 q
-//     rows, grid (q tiles, heads, batch)).  The softmax of each switch runs
-//     in the consumer's fp32 S registers, as K1's: exp2 is one
+//   3-9 (T2 both scales, T3, T1 v1-v4, T5): proto_hopper_kernel, a
+//     ProtoPolicy on K1's Hopper mainloop (hopper_attention.cuh: TMA into a
+//     2-stage ring of 128-key K and V tiles, wgmma m64n128k16 for both
+//     products, a producer warpgroup and two ping-ponged consumer warpgroups
+//     of 64 q rows, grid (q tiles, heads, batch)).  The softmax of each
+//     switch runs in the consumer's fp32 S registers, as K1's: exp2 is one
 //     ex2.approx.ftz, a tile whose 128 keys are all live skips the liveness
 //     test, and l is reduced across the 4 threads of a row once, in the
 //     epilogue.  Keys past S_k arrive as TMA's zeros and the liveness word
 //     (key < S_k) zeroes them; none of these takes a key mask (T3's masked
 //     keys arrive as zeroed K and V rows).  No clamp and no overlap switch:
-//     none of the five clamps, and the ping-pong already runs one
-//     warpgroup's softmax under the other's products.  T1 v1's key bias is
-//     one float per key, shared by the tile's 128 rows: its 512 bytes ride
-//     each K stage's TMA (one bulk copy on the stage's full barrier, into a
-//     slot past the mainloop's storage; the wrapper pads the bias with zeros
-//     to whole tiles), and each consumer thread reads the 32 keys of its
-//     columns into 16 registers as bf16 pairs (the values are bf16) in the
-//     mainloop's read_stage hook, before its warp releases the stage: read
+//     none of them clamps, and the ping-pong already runs one warpgroup's
+//     exp2 under the other's products, so T5's two ids (its JAX tool's
+//     sub = 1 and sub > 1) launch one instantiation.  The key bias (T1 v1,
+//     T5) is one float per key, shared by the tile's 128 rows: its 512 bytes
+//     ride the K stage's TMA (one bulk copy on the stage's full barrier, into
+//     a slot past the mainloop's storage; the wrapper pads the bias with
+//     zeros to whole tiles and from bias_keys on), and it is read in the
+//     mainloop's read_stage hook, before the warp releases the stage: read
 //     later, in the softmax, the producer's next copy into that slot could
-//     overtake it.  Numerics against the plain version: p below 2^-126
-//     flushes to 0 (as K1's), and v1's exp(z) is ex2.approx.ftz(z * log2(e))
-//     in fp32, rounded to bf16: within a few fp32 ulps of exp(z) before that
-//     rounding, so a p differs from bf16(exp(z)) by one bf16 ulp only where
-//     exp(z) lies that close to a rounding boundary of bf16.
-//   0-2, 8, 9 (T7, T8, T5): proto_kernel, a mma.sync loop (one block of
-//     4 warps per 64-row q tile, the warp's 16 query rows as
-//     mma.sync A fragments in registers, K/V tiles of 64 keys staged in
-//     shared memory, P kept in registers between the two products).  The
-//     key bias of a tile is staged beside it (64 floats); a tile past the
-//     bias prefix skips the add.  The overlap switch keeps two score tiles
-//     in registers and a second K buffer in shared memory (three tiles, 52
-//     KB, as dynamic shared memory): K of tile j + 1 is resident while V of
-//     tile j is, so the warp issues the next tile's QK^T mma before this
-//     tile's exp2.  Not done for these: TMA, wgmma, a multi-stage pipeline.
+//     overtake it.  T1 v1 copies every tile's bias and keeps the 32 keys of
+//     a thread's columns in 16 registers as bf16 pairs (the values are
+//     bf16).  T5 copies only the tiles below bias_keys (the stage's expected
+//     bytes are per tile) and adds the bias to S in read_stage itself, in
+//     fp32, so that no bias register stays live into the softmax; its
+//     epilogue multiplies by 1 / l (__frcp_rn) with no floor.  Numerics
+//     against the plain version: p below 2^-126 flushes to 0 (as K1's), and
+//     v1's exp(z) is ex2.approx.ftz(z * log2(e)) in fp32, rounded to bf16:
+//     within a few fp32 ulps of exp(z) before that rounding, so a p differs
+//     from bf16(exp(z)) by one bf16 ulp only where exp(z) lies that close to
+//     a rounding boundary of bf16.
+//   0-2 (T7, T8): proto_kernel, a mma.sync loop (one block of 4 warps per
+//     64-row q tile, the warp's 16 query rows as mma.sync A fragments in
+//     registers, K/V tiles of 64 keys staged in shared memory, P kept in
+//     registers between the two products).  The key bias of a tile is
+//     staged beside it (64 floats); a tile past the bias prefix skips the
+//     add.  The overlap switch keeps two score tiles in registers and a
+//     second K buffer in shared memory (three tiles, 52 KB, as dynamic
+//     shared memory): K of tile j + 1 is resident while V of tile j is, so
+//     the warp issues the next tile's QK^T mma before this tile's exp2.  Not
+//     done for these: TMA, wgmma, a multi-stage pipeline.
 #include "hopper_attention.cuh"
 
 using namespace physicedit;
@@ -168,7 +175,7 @@ proto_kernel(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
 
   const uint16_t* kb = k + bh * sk * kHeadDim;
   const uint16_t* vb = v + bh * sk * kHeadDim;
-  // a null bias (T5 with bias_keys = 0) reads none
+  // a null bias (bias_keys = 0) reads none
   const bool has_bias = kBias != kNoBias && key_bias != nullptr;
   const float* bb = has_bias ? key_bias + (long)blockIdx.z * sk : nullptr;
   const int n_bias = has_bias ? min(bias_keys, sk) : 0;
@@ -274,25 +281,28 @@ int launch(const void* q, const void* k, const void* v, const void* key_bias,
 
 template <bool kInScale, int kBias, bool kExp, bool kRowSum, int kNorm>
 struct ProtoPolicy {
-  static_assert(kBias != kBiasF32, "the fp32 key bias (T7, T8, T5) runs on the mma.sync loop");
-  static constexpr bool kHasBias = kBias == kBiasBf16;
-  // T1 v1's key bias: the tile's 128 floats, copied beside K into the stage's slot
+  // T7's bias follows the in-kernel scale; read_stage adds it to the raw S
+  static_assert(!(kInScale && kBias == kBiasF32), "an fp32 key bias takes a prescaled q");
+  static constexpr bool kHasBias = kBias != kNoBias;
+  // the key bias of a tile: its 128 floats, copied beside K into the stage's slot
   static constexpr uint32_t kExtraKBytes = kHasBias ? hp::kTile * sizeof(float) : 0;
 
   const CUtensorMap* qmap;
   const CUtensorMap* kmap;
   const CUtensorMap* vmap;
-  const float* bias;      // this batch row's key bias, [n_tiles * 128] (kHasBias)
+  const float* bias;      // this batch row's key bias, [n_tiles * 128], or null
+  int n_bias_tiles;       // tiles whose bias is copied: all (T1 v1), below bias_keys (T5)
   uint16_t* out;          // this (batch, head)'s [S_q, 128]
   int q0, bh, sq, sk, n_tiles;
   float scale;            // kInScale
   float n_masked;         // kFloor: the masked-key count of this batch row
   float l0, l1;           // row-sum partials of the thread's rows
-  uint32_t kb[16];        // kHasBias: the tile's bias at keys 8 n + 2t, + 1 (bf16 pairs)
+  uint32_t kb[16];        // kBiasBf16: the tile's bias at keys 8 n + 2t, + 1 (bf16 pairs)
 
   __device__ static uint32_t bias_slot(int stage) {
     return hp::extra_smem_u32() + stage * kExtraKBytes;
   }
+  __device__ uint32_t extra_k_bytes(int j) const { return j < n_bias_tiles ? kExtraKBytes : 0; }
   __device__ void load_q(uint32_t dst, uint64_t* bar) const {
     hp::tma_load_3d(dst, qmap, bar, 0, q0, bh);
     hp::tma_load_3d(dst + hp::kBoxBytes, qmap, bar, 64, q0, bh);
@@ -300,8 +310,11 @@ struct ProtoPolicy {
   __device__ void load_k(uint32_t dst, int j, uint64_t* bar) const {
     hp::tma_load_3d(dst, kmap, bar, 0, j * hp::kTile, bh);
     hp::tma_load_3d(dst + hp::kBoxBytes, kmap, bar, 64, j * hp::kTile, bh);
-    if constexpr (kHasBias)
-      hp::bulk_load_1d(bias_slot(j % hp::kStages), bias + (long)j * hp::kTile, kExtraKBytes, bar);
+    if constexpr (kHasBias) {
+      if (j < n_bias_tiles)
+        hp::bulk_load_1d(bias_slot(j % hp::kStages), bias + (long)j * hp::kTile, kExtraKBytes,
+                         bar);
+    }
   }
   __device__ void load_v(uint32_t dst, int j, uint64_t* bar) const {
     hp::tma_load_3d(dst, vmap, bar, 0, j * hp::kTile, bh);
@@ -310,16 +323,32 @@ struct ProtoPolicy {
   __device__ bool live(int key) const { return key < sk; }
   __device__ void begin(int, int) const {}
 
-  // Keys 8 n + 2t and + 1 of the stage's bias (t = lane % 4), packed: the
-  // values are bf16, so the pack is exact.
-  __device__ void read_stage(int stage) {
-    if constexpr (kHasBias) {
+  // The stage's bias at keys 8 n + 2t and + 1 (t = lane % 4): kBiasBf16
+  // keeps it in kb, packed (the values are bf16, so the pack is exact), for
+  // the softmax's bf16 chain; kBiasF32 adds it to S(j) here, in fp32, on the
+  // tiles below bias_keys (s + b, as the plain version), so no bias register
+  // stays live into the softmax.
+  __device__ void read_stage(int stage, int j, float (&s)[64]) {
+    if constexpr (kBias == kBiasBf16) {
       const uint32_t at = bias_slot(stage) + 8 * (threadIdx.x % 4);
 #pragma unroll
       for (int n = 0; n < 16; ++n) {
         float x, y;
         asm volatile("ld.shared.v2.f32 {%0, %1}, [%2];\n" : "=f"(x), "=f"(y) : "r"(at + 32 * n));
         kb[n] = pack_bf16(x, y);
+      }
+    } else if constexpr (kBias == kBiasF32) {
+      if (j < n_bias_tiles) {
+        const uint32_t at = bias_slot(stage) + 8 * (threadIdx.x % 4);
+#pragma unroll
+        for (int n = 0; n < 16; ++n) {
+          float x, y;
+          asm volatile("ld.shared.v2.f32 {%0, %1}, [%2];\n" : "=f"(x), "=f"(y) : "r"(at + 32 * n));
+          s[4 * n] = __fadd_rn(s[4 * n], x);
+          s[4 * n + 1] = __fadd_rn(s[4 * n + 1], y);
+          s[4 * n + 2] = __fadd_rn(s[4 * n + 2], x);
+          s[4 * n + 3] = __fadd_rn(s[4 * n + 3], y);
+        }
       }
     }
   }
@@ -331,7 +360,7 @@ struct ProtoPolicy {
   __device__ __forceinline__ void p_tile(float (&s)[64], uint4 word, uint32_t (&p)[32], int t) {
     const uint32_t w[4] = {word.x >> (2 * t), word.y >> (2 * t), word.z >> (2 * t),
                            word.w >> (2 * t)};
-    if constexpr (kHasBias) {
+    if constexpr (kBias == kBiasBf16) {
       // T1 v1 on the pairs (keys 8 nb + 2t and + 1), each value a bf16:
       // x = bf16(s); bf16(x + b) and bf16(x * bf16(ln 2)) as packed bf16
       // ops, which round the exact sum and product once, as the fp32 add
@@ -384,6 +413,10 @@ struct ProtoPolicy {
 
   __device__ void epilogue(const float (&o)[64], int row, int t) const {
     float f0 = 1.f, f1 = 1.f;
+    if constexpr (kNorm == kRecip) {   // no floor: a row with l == 0 comes out NaN
+      f0 = __frcp_rn(quad_sum(l0));
+      f1 = __frcp_rn(quad_sum(l1));
+    }
     if constexpr (kNorm == kFloor) {
       f0 = fmaxf(__fsub_rn(quad_sum(l0), n_masked), 1e-30f);
       f1 = fmaxf(__fsub_rn(quad_sum(l1), n_masked), 1e-30f);
@@ -410,13 +443,19 @@ proto_hopper_kernel(const __grid_constant__ CUtensorMap qmap,
                     const __grid_constant__ CUtensorMap kmap,
                     const __grid_constant__ CUtensorMap vmap, const float* __restrict__ key_bias,
                     const float* __restrict__ n_masked, uint16_t* __restrict__ out, int n_heads,
-                    int sq, int sk, float scale) {
+                    int sq, int sk, int bias_keys, float scale) {
   using Policy = ProtoPolicy<kInScale, kBias, kExp, kRowSum, kNorm>;
   const int bh = blockIdx.z * n_heads + blockIdx.y;
   const int n_tiles = (sk + hp::kTile - 1) / hp::kTile;
+  const bool has_bias = Policy::kHasBias && key_bias != nullptr;
+  // T1 v1 reads every tile's bias; T5 those below bias_keys (the wrapper
+  // zeroes the padded bias from bias_keys on inside the last of them)
+  const int n_bias_tiles = !has_bias ? 0
+                           : kBias == kBiasBf16 ? n_tiles
+                           : (min(bias_keys, sk) + hp::kTile - 1) / hp::kTile;
   Policy pol{&qmap, &kmap, &vmap,
-             Policy::kHasBias ? key_bias + (long)blockIdx.z * n_tiles * hp::kTile : nullptr,
-             out + (long)bh * sq * kHeadDim,
+             has_bias ? key_bias + (long)blockIdx.z * n_tiles * hp::kTile : nullptr,
+             n_bias_tiles, out + (long)bh * sq * kHeadDim,
              (int)blockIdx.x * hp::kTile, bh, sq, sk, n_tiles, scale,
              n_masked != nullptr ? n_masked[blockIdx.z] : 0.f, 0.f, 0.f, {}};
   hp::attention_mainloop<Policy>(pol);
@@ -428,12 +467,12 @@ constexpr int hopper_smem_bytes() {
          hp::kStages * ProtoPolicy<kInScale, kBias, kExp, kRowSum, kNorm>::kExtraKBytes;
 }
 
-// The same arguments as launch(); bias_keys is the wrapper's business here
-// (it zeroes the padded bias from bias_keys on).
+// The same arguments as launch(); bias_keys picks the tiles whose bias is
+// copied (the wrapper zeroes the padded bias from bias_keys on).
 template <bool kInScale, int kBias, bool kExp, bool kRowSum, int kNorm>
 int launch_hopper(const void* q, const void* k, const void* v, const void* key_bias,
-                  const void* n_masked, void* out, int batch, int heads, int sq, int sk, int,
-                  float scale, cudaStream_t stream) {
+                  const void* n_masked, void* out, int batch, int heads, int sq, int sk,
+                  int bias_keys, float scale, cudaStream_t stream) {
   if (batch == 0 || heads == 0 || sq == 0) return 0;
   if (sk <= 0 || (kBias == kBiasBf16 && key_bias == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -448,16 +487,16 @@ int launch_hopper(const void* q, const void* k, const void* v, const void* key_b
   const dim3 grid((sq + hp::kTile - 1) / hp::kTile, heads, batch);
   kernel<<<grid, hp::kBlockThreads, smem, stream>>>(
       qm, km, vm, static_cast<const float*>(key_bias), static_cast<const float*>(n_masked),
-      static_cast<uint16_t*>(out), heads, sq, sk, scale);
+      static_cast<uint16_t*>(out), heads, sq, sk, bias_keys, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // q [B, N, Sq, 128], k/v [B, N, Sk, 128], out [B, N, Sq, 128]: bf16, contiguous
-// (and 16-byte aligned for ids 3-7: TMA).  key_bias fp32 or null: for ids
-// 0-2, 8 and 9 [B, Sk], the keys [0, bias_keys) taking it; for id 5 (bf16
-// values, not null) [B, ceil(Sk / 128) * 128], zero from bias_keys on (the
+// (and 16-byte aligned for ids 3-9: TMA).  key_bias fp32 or null: for ids
+// 0-2 [B, Sk], the keys [0, bias_keys) taking it; for ids 5 (bf16 values, not
+// null), 8 and 9 [B, ceil(Sk / 128) * 128], zero from bias_keys on (the
 // Hopper loop reads whole 128-key tiles).  n_masked [B] fp32 or null; scale
 // = log2(e) / sqrt(128) in fp32.  The variant ids are those of
 // physicedit_torch/tools/_proto_attention.py's VARIANTS; the template
@@ -480,15 +519,18 @@ extern "C" int proto_fixedmax_attention_bf16(int variant, const void* q, const v
     case 5: return launch_hopper<false, kBiasBf16, true, true, kFloor>(PROTO_ARGS);        // T1 v1
     case 6: return launch_hopper<false, kNoBias, true, false, kUnnormalised>(PROTO_ARGS);  // T1 v3
     case 7: return launch_hopper<false, kNoBias, false, false, kUnnormalised>(PROTO_ARGS); // T1 v4
-    case 8: return launch<false, kBiasF32, false, true, true, kRecip, false>(PROTO_ARGS);  // T5
-    case 9: return launch<false, kBiasF32, false, true, true, kRecip, true>(PROTO_ARGS);   // T5, overlap
+    case 8: return launch_hopper<false, kBiasF32, true, true, kRecip>(PROTO_ARGS);         // T5
+    case 9: return launch_hopper<false, kBiasF32, true, true, kRecip>(PROTO_ARGS);  // T5, sub > 1
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 #undef PROTO_ARGS
 
 // The dynamic shared memory of a Hopper instantiation's block, for the report
-// beside ptxas's: without a key bias (ids 3, 4, 6, 7) and with it (id 5).
+// beside ptxas's: without a key bias (ids 3, 4, 6, 7) and with one (ids 5, 8
+// and 9: one 512-byte slot per stage, bf16 or fp32 values alike).
+static_assert(hopper_smem_bytes<false, kBiasBf16, true, true, kFloor>() ==
+              hopper_smem_bytes<false, kBiasF32, true, true, kRecip>());
 extern "C" int proto_fixedmax_attention_smem_bytes() {
   return hopper_smem_bytes<false, kNoBias, true, true, kFloor>();
 }

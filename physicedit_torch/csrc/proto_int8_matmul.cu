@@ -1,5 +1,5 @@
-// The int8 and W4 matmul probes of tools/: one templated tiled tensor-core
-// kernel and one decode GEMV.
+// The int8 and W4 matmul probes of tools/: T9's persistent TMA + wgmma GEMM,
+// one templated mma.sync tiled kernel for the W4 forms and one decode GEMV.
 //
 // Replaces the Pallas prototypes that the measurement tools in tools/ drive
 // (their ports are physicedit_torch/tools/proto_*.py):
@@ -22,31 +22,59 @@
 //
 // Layouts (the port's, not the JAX tools'): x [M, K] row-major; T9's w is
 // [N, K] and the W4 weights are K3's w4 [N, K/2] (csrc/mma_int8.cuh), so that
-// one output column's k values are contiguous: B column-major, as mma.sync
-// takes it.  Byte j of column n holds w[n, j] + 8 in its low nibble and
-// w[n, j + K/2] in its high nibble.
+// one output column's k values are contiguous: both operands K-major, as
+// int8 wgmma and mma.sync take them.  Byte j of column n holds w[n, j] + 8 in
+// its low nibble and w[n, j + K/2] in its high nibble.
 //
 // What bounds them on an H100:
-//  - the tiled forms (T9 at M16384 K3072 N12288: 1.24e12 operations over
-//    0.23 GB, T10 / T12 at the VL prefill and DiT image shapes): the tensor
-//    cores, 1,979 TOP/s int8 and 989 TFLOP/s bf16.  Design: the mma.sync
-//    tiling K3's tiled regime ran before its TMA + wgmma GEMM
-//    (w4a8_matmul.cu): 128 x 128 output tiles, 8 warps of 32 x 64,
-//    mma.sync m16n8k32 s8 (or m16n8k16 bf16, which takes the same 32 bytes of
-//    k per product with the same fragment byte offsets); each step stages two
-//    64-byte "planes" of k per row in shared memory (k and k + 64 bytes for
-//    T9, k and k + K/2 for the W4 forms, whose single packed tile is unpacked
-//    into the two planes), the next step's global loads issued before this
-//    step's products.  The AND-only form carries a second accumulator array
-//    (64 more registers).  Not done: wgmma, TMA, a multi-stage pipeline.
+//  - T9 at M16384 K3072 N12288: 1.24e12 operations, 0.63 ms at 1,979 TOP/s
+//    int8 and 1.25 ms at 989 TFLOP/s bf16; it moves 0.89 GB (i32, 0.81 GB of
+//    it the int32 output, 0.27 ms at 3.35 TB/s) or 0.58 GB (f32).  Design
+//    (gemm_wgmma_kernel): a persistent grid, one block of three warpgroups
+//    per SM, walks 128 x 256 output tiles, 16 x-row tiles at a time so that
+//    the operands the running blocks share stay in L2; warpgroup 0, the
+//    producer (setmaxnreg.dec), one thread of which issues per stage two TMA
+//    loads with the 128-byte swizzle, the x box (128 rows x 128 bytes of k)
+//    and the w box (256 rows x 128 bytes), into a ring of 4 stages of 48 KB
+//    that runs on from one tile into the next; warpgroups 1 and 2, the
+//    consumers (setmaxnreg.inc), own 64 x rows each and issue per stage four
+//    wgmma.mma_async m64n256k32 s32.s8.s8 (or m64n256k16 f32.bf16.bf16)
+//    products with A and B both read from shared memory through
+//    descriptors, 128 accumulators a thread; a stage's products run while the
+//    next stage is waited for (wgmma.wait_group 1), and every consumer warp
+//    releases a stage once its products are done.  The two forms differ only
+//    in the product: a stage is 128 bytes of k either way (128 int8 or 64
+//    bf16), the maps are byte maps.  Epilogue, while the producer already
+//    fills the ring for the next tile: each consumer writes its 64 x 256
+//    accumulators in passes into a 16 KB slab of its own with the 128-byte
+//    swizzle (conflict-free), and one of its threads hands each pass to a
+//    TMA store, which drains under the next pass and the next tile's
+//    products; a pass waits only until the previous one has been read out
+//    of the slab.  Against stores from registers (4 bytes a thread for
+//    bf16, half sectors) this took f32 from 1.79 to 1.54 ms on an H100 and
+//    left i32 where it was (PERF.md §6).  Rows past M and w rows past N
+//    arrive as TMA's zeros and are not stored (the output map's bounds).
+//  - the W4 tiled forms (T10 / T12 at the VL prefill and DiT image shapes):
+//    the tensor cores, 1,979 TOP/s int8.  Design: the mma.sync tiling K3's
+//    tiled regime ran before its TMA + wgmma GEMM (w4a8_matmul.cu): 128 x
+//    128 output tiles, 8 warps of 32 x 64, mma.sync m16n8k32 s8; each step
+//    stages two 64-byte "planes" of k per row in shared memory (k and
+//    k + K/2, the single packed tile unpacked into the two planes), the next
+//    step's global loads issued before this step's products.  The AND-only
+//    form carries a second accumulator array (64 more registers).  Not done:
+//    wgmma, TMA, a multi-stage pipeline.
 //  - the GEMV (T11, weights 0.5 byte each, 10-68 MB per call): reading the
 //    weights at 3.35 TB/s.  Design: K3's GEMV regime: one warp per output
 //    column, one 128-bit weight load per lane per step (32 weights), __dp4a
 //    against the x_lo and x_hi halves, two accumulators per row.
+#include <type_traits>
+
+#include "hopper_primitives.cuh"
 #include "mma_bf16.cuh"
 #include "mma_int8.cuh"
 
 using namespace physicedit;
+namespace hp = physicedit::hopper;
 
 namespace {
 
@@ -54,6 +82,185 @@ namespace {
 // chip_smoke.py reads out of the ptxas report
 constexpr int kI8 = 0, kBf16 = 1, kW4Unpack = 2, kW4AndOnly = 3;
 constexpr int kOutF32 = 0, kOutBf16 = 1, kOutI8 = 2;  // the W4 forms' out_code
+
+// ---- T9: the persistent TMA + wgmma GEMM --------------------------------------
+
+constexpr int kGemmBM = 128;                   // x rows (output rows) per tile, 64 a consumer
+constexpr int kGemmBN = 256;                   // w rows (output columns) per tile
+constexpr int kGemmKBytes = 128;               // bytes of k per stage: one swizzled row
+constexpr int kGemmStages = 4;
+constexpr int kGemmXBox = kGemmBM * kGemmKBytes;          // 16 KB
+constexpr int kGemmStageBytes = kGemmXBox + kGemmBN * kGemmKBytes;   // + the w box: 48 KB
+constexpr int kGemmRing = kGemmStages * kGemmStageBytes;
+// The epilogue's slab, one per consumer: boxes of 64 rows x 128 bytes with
+// the 128-byte swizzle, kGemmSlabBoxes of them a pass (i32: 64 columns,
+// bf16: 128 columns of the consumer's 64 x 256)
+constexpr int kGemmBoxBytes = 64 * 128;
+constexpr int kGemmSlabBoxes = 2;
+constexpr int kGemmSlabBytes = kGemmSlabBoxes * kGemmBoxBytes;   // 16 KB
+// the ring, the two slabs, the barriers and room to align the ring to 1 KB
+// (the swizzle's period)
+constexpr int kGemmSmem = kGemmRing + 2 * kGemmSlabBytes + 2 * kGemmStages * 8 + 1024;
+constexpr int kGemmThreads = 384;              // the producer and two consumer warpgroups
+constexpr int kGemmConsumerWarps = 8;
+constexpr int kGemmGroupM = 16;                // x-row tiles per group of the walk
+constexpr int kGemmProducerRegs = 40;
+constexpr int kGemmConsumerRegs = 232;
+
+// Tile t of the walk: groups of kGemmGroupM x-row tiles, within a group the
+// x-row tile fastest, so that the blocks running at once share a few x and w
+// tiles in L2 (16 x 128 rows of x and about 132 / 16 x 256 rows of w).
+__device__ __forceinline__ void gemm_tile(int t, int m_tiles, int n_tiles, int& m0, int& n0) {
+  const int per_group = kGemmGroupM * n_tiles;
+  const int first = t / per_group * kGemmGroupM;
+  const int rows = min(m_tiles - first, kGemmGroupM);
+  const int r = t % per_group;
+  m0 = (first + r % rows) * kGemmBM;
+  n0 = r / rows * kGemmBN;
+}
+
+template <int kKind>
+__global__ void __launch_bounds__(kGemmThreads, 1)
+gemm_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
+                  const __grid_constant__ CUtensorMap wmap,
+                  const __grid_constant__ CUtensorMap omap, int m, int k_bytes, int n_bytes,
+                  int m_tiles, int n_tiles) {
+  using AccT = typename std::conditional<kKind == kI8, int, float>::type;
+  constexpr int kElemBytes = kKind == kI8 ? 4 : 2;   // of the output
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = hp::smem_u32(smem_raw);
+  const uint32_t ring = (raw + 1023u) & ~1023u;
+  const uint32_t slabs = ring + kGemmRing;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem_raw + (ring - raw) + kGemmRing +
+                                               2 * kGemmSlabBytes);
+  uint64_t* empty = full + kGemmStages;
+
+  const int n_tiles_all = m_tiles * n_tiles;
+  const int n_steps = k_bytes / kGemmKBytes;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < kGemmStages; ++s) {
+      hp::mbar_init(&full[s], 1);
+      hp::mbar_init(&empty[s], kGemmConsumerWarps);  // one arrive per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kGemmProducerRegs));
+    if (threadIdx.x == 0) {
+      int it = 0;   // the ring position, continued from tile to tile
+      for (int tile = blockIdx.x; tile < n_tiles_all; tile += gridDim.x) {
+        int m0, n0;
+        gemm_tile(tile, m_tiles, n_tiles, m0, n0);
+        for (int j = 0; j < n_steps; ++j, ++it) {
+          const int s = it % kGemmStages;
+          hp::mbar_wait(&empty[s], ((it / kGemmStages) & 1) ^ 1);
+          hp::mbar_expect_tx(&full[s], kGemmStageBytes);
+          const uint32_t dst = ring + s * kGemmStageBytes;
+          hp::tma_load_2d(dst, &xmap, &full[s], j * kGemmKBytes, m0);
+          hp::tma_load_2d(dst + kGemmXBox, &wmap, &full[s], j * kGemmKBytes, n0);
+        }
+      }
+    }
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kGemmConsumerRegs));
+  const int cw = wg - 1;                  // consumer 0 or 1: x rows 64 cw ..
+  const int warp = (threadIdx.x % 128) / 32;
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const bool signals = lane == 0;         // one arrive per warp
+  const bool leader = threadIdx.x % 128 == 0;   // issues the consumer's TMA stores
+  const uint32_t slab = slabs + cw * kGemmSlabBytes;
+
+  AccT acc[128];
+  int it = 0;             // the ring position of the tile's first stage
+  for (int tile = blockIdx.x; tile < n_tiles_all; tile += gridDim.x) {
+    int m0, n0;
+    gemm_tile(tile, m_tiles, n_tiles, m0, n0);
+#pragma unroll
+    for (int i = 0; i < 128; ++i) acc[i] = 0;
+    for (int j = 0; j < n_steps; ++j) {
+      const int s = (it + j) % kGemmStages;
+      hp::mbar_wait(&full[s], ((it + j) / kGemmStages) & 1);
+      const uint32_t a = ring + s * kGemmStageBytes + cw * 64 * kGemmKBytes;
+      const uint32_t b = ring + s * kGemmStageBytes + kGemmXBox;
+      hp::fence_regs(acc);
+      hp::wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks) {   // 32 bytes of k each: k32 int8, k16 bf16
+        const uint64_t da = hp::sw128_desc(a + 32 * ks, 16, 1024);
+        const uint64_t db = hp::sw128_desc(b + 32 * ks, 16, 1024);
+        if constexpr (kKind == kI8) hp::wgmma_s8_ss_n256(acc, da, db);
+        else hp::wgmma_bf16_ss_n256(acc, da, db);
+      }
+      hp::wgmma_commit();
+      hp::wgmma_wait<1>();   // stage j - 1's products are done
+      hp::fence_regs(acc);
+      if (j > 0) {
+        __syncwarp();
+        if (signals) hp::mbar_arrive(&empty[(it + j - 1) % kGemmStages]);
+      }
+    }
+    hp::wgmma_wait_all();
+    hp::fence_regs(acc);
+    __syncwarp();
+    if (signals) hp::mbar_arrive(&empty[(it + n_steps - 1) % kGemmStages]);
+    it += n_steps;
+
+    // Epilogue, while the producer fills the ring for the next tile: the
+    // consumer's 64 x 256 accumulators go out in passes through its slab,
+    // each pass a TMA store of kGemmSlabBoxes boxes that runs on under the
+    // next pass and the next tile's products.  acc[4 nb + 2 i + e] is row
+    // 16 warp + g + 8 i of the consumer's 64, column 8 nb + 2t + e of the
+    // tile: bytes (8 nb + 2t) * kElemBytes of the tile's row, 16-byte chunk
+    // c of a box row at chunk c ^ (row % 8) = c ^ g, so that a warp's writes
+    // fill whole 128-byte lines of distinct banks.  Rows past M and columns
+    // past N are not stored (the map's bounds).
+    constexpr int kPassBytes = kGemmSlabBoxes * 128;            // of a tile row
+    constexpr int kPasses = kGemmBN * kElemBytes / kPassBytes;  // i32 4, bf16 2
+    constexpr int kBlocksPerPass = 32 / kPasses;                // of the 32 nb
+#pragma unroll
+    for (int p = 0; p < kPasses; ++p) {
+      if (leader) hp::bulk_wait_read<0>();   // the slab's last pass has been read
+      hp::named_sync(1 + cw, 128);
+#pragma unroll
+      for (int i = 0; i < kBlocksPerPass; ++i) {
+        const int nb = p * kBlocksPerPass + i;
+        const int byte = (8 * nb + 2 * t) * kElemBytes - p * kPassBytes;
+        const uint32_t at = slab + byte / 128 * kGemmBoxBytes + (16 * warp + g) * 128 +
+                            ((byte % 128 / 16) ^ g) * 16 + byte % 16;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {   // rows g and g + 8: 1 KB apart, the same swizzle
+          const AccT a0 = acc[4 * nb + 2 * h], a1 = acc[4 * nb + 2 * h + 1];
+          if constexpr (kKind == kI8)
+            hp::sts64(at + h * 1024, static_cast<uint32_t>(a0), static_cast<uint32_t>(a1));
+          else
+            hp::sts32(at + h * 1024, pack_bf16(a0, a1));
+        }
+      }
+      hp::fence_proxy_async();   // the writes are visible to the TMA store
+      hp::named_sync(1 + cw, 128);
+      if (leader) {
+#pragma unroll
+        for (int box = 0; box < kGemmSlabBoxes; ++box) {
+          const int col_byte = n0 * kElemBytes + p * kPassBytes + box * 128;
+          if (col_byte < n_bytes && m0 + 64 * cw < m)
+            hp::tma_store_2d(&omap, slab + box * kGemmBoxBytes, col_byte, m0 + 64 * cw);
+        }
+        hp::bulk_commit();
+      }
+    }
+  }
+  if (leader) hp::bulk_wait_all();   // the stores are done before the block exits
+}
+
+// ---- T10, T12: the mma.sync tiling; T11: the GEMV ------------------------------
 
 constexpr int kBM = 128;
 constexpr int kBN = 128;
@@ -63,16 +270,6 @@ constexpr int kSmemRow = kPlane + 16;  // 80 bytes a row keeps a warp's fragment
                                        // loads on 32 distinct banks
 constexpr int kGemvWarps = 8;
 constexpr int kGemvRows = 8;           // the tool's padded decode rows
-
-template <int kKind> struct Acc { using type = int; };
-template <> struct Acc<kBf16> { using type = float; };
-
-__device__ __forceinline__ void mma(int c[4], const uint32_t a[4], uint32_t b0, uint32_t b1) {
-  mma_s8_16832(c, a, b0, b1);
-}
-__device__ __forceinline__ void mma(float c[4], const uint32_t a[4], uint32_t b0, uint32_t b1) {
-  mma_bf16_16816(c, a, b0, b1);
-}
 
 // The AND-only unpack of four packed bytes: lo + 8 and 16 * hi, each a byte.
 __device__ __forceinline__ void unpack_and_only(uint32_t w, uint32_t& t, uint32_t& h16) {
@@ -96,9 +293,7 @@ tiled_kernel(const int8_t* __restrict__ xq, const int8_t* __restrict__ w,
              const float* __restrict__ xs, const float* __restrict__ wsb,
              const int* __restrict__ rs, void* __restrict__ out, int* __restrict__ acc_out,
              int out_code, int m, int n, int k) {
-  constexpr bool kW4 = kKind == kW4Unpack || kKind == kW4AndOnly;
-  constexpr int kElem = kKind == kBf16 ? 2 : 1;  // bytes per x and w element
-  using AccT = typename Acc<kKind>::type;
+  static_assert(kKind == kW4Unpack || kKind == kW4AndOnly, "T9 runs gemm_wgmma_kernel");
   __shared__ __align__(16) int8_t a_lo[kBM * kSmemRow];
   __shared__ __align__(16) int8_t a_hi[kBM * kSmemRow];
   __shared__ __align__(16) int8_t b_lo[kBN * kSmemRow];
@@ -113,17 +308,17 @@ tiled_kernel(const int8_t* __restrict__ xq, const int8_t* __restrict__ w,
   const int wn = (warp >> 2) * 64;  // and its columns
   const int m0 = blockIdx.y * kBM;
   const int n0 = blockIdx.x * kBN;
-  // bytes: an x row, a w row (w4: K/2), the second plane's offset in an x row,
-  // and the bytes of an x row that one step consumes
-  const long a_pitch = (long)k * kElem;
-  const long b_pitch = kW4 ? k / 2 : (long)k * kElem;
-  const long plane1 = kW4 ? k / 2 : kPlane;
-  const int step = kW4 ? kPlane : 2 * kPlane;
-  const long steps_end = kW4 ? k / 2 : a_pitch;
+  // bytes: an x row, a w4 row, the second plane's offset in an x row, and
+  // the bytes of an x row that one step consumes
+  const long a_pitch = (long)k;
+  const long b_pitch = k / 2;
+  const long plane1 = k / 2;
+  const int step = kPlane;
+  const long steps_end = k / 2;
 
   // Global -> register staging: each thread moves two 16-byte chunks of each
-  // plane of x and of w (of the packed w4 tile for the W4 forms) per step.
-  int4 rx_lo[2], rx_hi[2], rw_lo[2], rw_hi[2];
+  // plane of x and of the packed w4 tile per step.
+  int4 rx_lo[2], rx_hi[2], rw_lo[2];
   auto load_global = [&](long j0) {
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
@@ -140,7 +335,6 @@ tiled_kernel(const int8_t* __restrict__ xq, const int8_t* __restrict__ w,
       }
       const int8_t* wr = w + (n0 + r) * b_pitch + j0 + cc;
       rw_lo[i] = __ldg(reinterpret_cast<const int4*>(wr));
-      if constexpr (!kW4) rw_hi[i] = __ldg(reinterpret_cast<const int4*>(wr + kPlane));
     }
   };
   auto store_smem = [&]() {
@@ -150,25 +344,20 @@ tiled_kernel(const int8_t* __restrict__ xq, const int8_t* __restrict__ w,
       const int off = (c >> 2) * kSmemRow + (c & 3) * 16;
       *reinterpret_cast<int4*>(a_lo + off) = rx_lo[i];
       *reinterpret_cast<int4*>(a_hi + off) = rx_hi[i];
-      if constexpr (kW4) {
-        const uint32_t p[4] = {static_cast<uint32_t>(rw_lo[i].x), static_cast<uint32_t>(rw_lo[i].y),
-                               static_cast<uint32_t>(rw_lo[i].z), static_cast<uint32_t>(rw_lo[i].w)};
-        uint32_t lo[4], hi[4];
+      const uint32_t p[4] = {static_cast<uint32_t>(rw_lo[i].x), static_cast<uint32_t>(rw_lo[i].y),
+                             static_cast<uint32_t>(rw_lo[i].z), static_cast<uint32_t>(rw_lo[i].w)};
+      uint32_t lo[4], hi[4];
 #pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          if constexpr (kKind == kW4Unpack) unpack_w4(p[q], lo[q], hi[q]);
-          else unpack_and_only(p[q], lo[q], hi[q]);
-        }
-        *reinterpret_cast<uint4*>(b_lo + off) = make_uint4(lo[0], lo[1], lo[2], lo[3]);
-        *reinterpret_cast<uint4*>(b_hi + off) = make_uint4(hi[0], hi[1], hi[2], hi[3]);
-      } else {
-        *reinterpret_cast<int4*>(b_lo + off) = rw_lo[i];
-        *reinterpret_cast<int4*>(b_hi + off) = rw_hi[i];
+      for (int q = 0; q < 4; ++q) {
+        if constexpr (kKind == kW4Unpack) unpack_w4(p[q], lo[q], hi[q]);
+        else unpack_and_only(p[q], lo[q], hi[q]);
       }
+      *reinterpret_cast<uint4*>(b_lo + off) = make_uint4(lo[0], lo[1], lo[2], lo[3]);
+      *reinterpret_cast<uint4*>(b_hi + off) = make_uint4(hi[0], hi[1], hi[2], hi[3]);
     }
   };
 
-  AccT acc[2][8][4];
+  int acc[2][8][4];
   int acc16[2][8][4];  // the AND-only form's high plane
 #pragma unroll
   for (int mt = 0; mt < 2; ++mt)
@@ -191,9 +380,7 @@ tiled_kernel(const int8_t* __restrict__ xq, const int8_t* __restrict__ w,
       const int8_t* bs = plane ? b_hi : b_lo;
 #pragma unroll
       for (int ks = 0; ks < kPlane; ks += 32) {
-        // 32 bytes of k: 32 int8 (m16n8k32) or 16 bf16 (m16n8k16), whose A
-        // and B fragments sit at the same byte offsets
-        uint32_t af[2][4];
+        uint32_t af[2][4];   // 32 bytes of k: m16n8k32
 #pragma unroll
         for (int mt = 0; mt < 2; ++mt) {
           const int8_t* r0 = as + (wm + mt * 16 + g) * kSmemRow + ks + 4 * t;
@@ -212,8 +399,8 @@ tiled_kernel(const int8_t* __restrict__ xq, const int8_t* __restrict__ w,
             mma_s8_16832(acc16[0][nt], af[0], b0, b1);
             mma_s8_16832(acc16[1][nt], af[1], b0, b1);
           } else {
-            mma(acc[0][nt], af[0], b0, b1);
-            mma(acc[1][nt], af[1], b0, b1);
+            mma_s8_16832(acc[0][nt], af[0], b0, b1);
+            mma_s8_16832(acc[1][nt], af[1], b0, b1);
           }
         }
       }
@@ -227,41 +414,33 @@ tiled_kernel(const int8_t* __restrict__ xq, const int8_t* __restrict__ w,
     for (int half = 0; half < 2; ++half) {
       const int row = m0 + wm + mt * 16 + g + 8 * half;
       if (row >= m) continue;
-      float xsr = 0.f;
+      const float xsr = xs[row];
       int rsr = 0;
-      if constexpr (kW4) xsr = xs[row];
       if constexpr (kKind == kW4AndOnly) rsr = rs[row];
 #pragma unroll
       for (int nt = 0; nt < 8; ++nt) {
         const int col = n0 + wn + nt * 8 + 2 * t;
         const long o = (long)row * n + col;
-        const AccT a0 = acc[mt][nt][2 * half];
-        const AccT a1 = acc[mt][nt][2 * half + 1];
-        if constexpr (kKind == kI8) {
-          *reinterpret_cast<int2*>(static_cast<int*>(out) + o) = make_int2(a0, a1);
-        } else if constexpr (kKind == kBf16) {
+        const int a0 = acc[mt][nt][2 * half];
+        const int a1 = acc[mt][nt][2 * half + 1];
+        int v0 = a0, v1 = a1;
+        if constexpr (kKind == kW4AndOnly) {
+          v0 = a0 - rsr + (acc16[mt][nt][2 * half] >> 4);
+          v1 = a1 - rsr + (acc16[mt][nt][2 * half + 1] >> 4);
+        }
+        if (acc_out != nullptr) *reinterpret_cast<int2*>(acc_out + o) = make_int2(v0, v1);
+        const float f0 = w4_epilogue(v0, xsr, wsb[col], wsb[n + col]);
+        const float f1 = w4_epilogue(v1, xsr, wsb[col + 1], wsb[n + col + 1]);
+        if (out_code == kOutF32) {
+          *reinterpret_cast<float2*>(static_cast<float*>(out) + o) = make_float2(f0, f1);
+        } else if (out_code == kOutBf16) {
           *reinterpret_cast<__nv_bfloat162*>(static_cast<__nv_bfloat16*>(out) + o) =
-              __floats2bfloat162_rn(a0, a1);
+              __floats2bfloat162_rn(f0, f1);
         } else {
-          int v0 = a0, v1 = a1;
-          if constexpr (kKind == kW4AndOnly) {
-            v0 = a0 - rsr + (acc16[mt][nt][2 * half] >> 4);
-            v1 = a1 - rsr + (acc16[mt][nt][2 * half + 1] >> 4);
-          }
-          if (acc_out != nullptr) *reinterpret_cast<int2*>(acc_out + o) = make_int2(v0, v1);
-          const float f0 = w4_epilogue(v0, xsr, wsb[col], wsb[n + col]);
-          const float f1 = w4_epilogue(v1, xsr, wsb[col + 1], wsb[n + col + 1]);
-          if (out_code == kOutF32) {
-            *reinterpret_cast<float2*>(static_cast<float*>(out) + o) = make_float2(f0, f1);
-          } else if (out_code == kOutBf16) {
-            *reinterpret_cast<__nv_bfloat162*>(static_cast<__nv_bfloat16*>(out) + o) =
-                __floats2bfloat162_rn(f0, f1);
-          } else {
-            char2 pair;
-            pair.x = to_int8_sat(f0);
-            pair.y = to_int8_sat(f1);
-            *reinterpret_cast<char2*>(static_cast<int8_t*>(out) + o) = pair;
-          }
+          char2 pair;
+          pair.x = to_int8_sat(f0);
+          pair.y = to_int8_sat(f1);
+          *reinterpret_cast<char2*>(static_cast<int8_t*>(out) + o) = pair;
         }
       }
     }
@@ -320,6 +499,34 @@ gemv_and_kernel(const int8_t* __restrict__ xq, const int8_t* __restrict__ w4,
   }
 }
 
+// T9 on x [M, K] and w [N, K], both K-major, into out [M, N]: byte maps
+// over the rows' bytes, boxes of 128 bytes x 128 x rows, x 256 w rows and x
+// 64 out rows.
+template <int kKind>
+int launch_gemm(const void* x, const void* w, const void*, const void*, const void*, void* out,
+                void*, int, int m, int n, int k, cudaStream_t stream) {
+  if (m == 0) return 0;
+  const uint64_t k_bytes = static_cast<uint64_t>(k) * (kKind == kBf16 ? 2 : 1);
+  const uint64_t n_bytes = static_cast<uint64_t>(n) * (kKind == kBf16 ? 2 : 4);
+  CUtensorMap xm, wm, om;
+  if (!hp::make_map_2d(&xm, CU_TENSOR_MAP_DATA_TYPE_UINT8, x, k_bytes, m, k_bytes, kGemmKBytes,
+                       kGemmBM, CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !hp::make_map_2d(&wm, CU_TENSOR_MAP_DATA_TYPE_UINT8, w, k_bytes, n, k_bytes, kGemmKBytes,
+                       kGemmBN, CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !hp::make_map_2d(&om, CU_TENSOR_MAP_DATA_TYPE_UINT8, out, n_bytes, m, n_bytes, 128, 64,
+                       CU_TENSOR_MAP_SWIZZLE_128B))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto kernel = gemm_wgmma_kernel<kKind>;
+  static const cudaError_t attr =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kGemmSmem);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const int m_tiles = (m + kGemmBM - 1) / kGemmBM, n_tiles = (n + kGemmBN - 1) / kGemmBN;
+  const int blocks = m_tiles * n_tiles < hp::sm_count() ? m_tiles * n_tiles : hp::sm_count();
+  kernel<<<blocks, kGemmThreads, kGemmSmem, stream>>>(
+      xm, wm, om, m, static_cast<int>(k_bytes), static_cast<int>(n_bytes), m_tiles, n_tiles);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <int kKind>
 int launch_tiled(const void* x, const void* w, const void* xs, const void* wsb, const void* rs,
                  void* out, void* acc_out, int out_code, int m, int n, int k,
@@ -346,23 +553,23 @@ int launch_gemv(const void* x, const void* w, const void*, const void*, const vo
 }  // namespace
 
 // x [M, K] (int8; bf16 for variant 1), w [N, K] (int8; bf16 for variant 1) or
-// w4 [N, K/2] (variants 2-4), all contiguous and 16-byte aligned.  x_scale
-// fp32 [M] and wsb fp32 [2, N] (the W4 tiled forms), rs int32 [M] = 8 *
-// rowsum(x[:, :K/2]) (variants 3 and 4), null otherwise.  out: int32 (0, 4),
-// bf16 (1) or per out_code 0 fp32 / 1 bf16 / 2 int8 (2, 3), [M, N]; acc_out
-// int32 [M, N] or null (2, 3: the combined integer accumulator).  The tiled
-// forms take N % 128 == 0 and K % 128 == 0 (variants 0, 2, 3) or K % 64 == 0
-// (variant 1); the GEMV M <= 8 and K % 32 == 0; the wrappers check it.  The
-// variant ids are those of physicedit_torch/tools/_proto_int8.py's
-// MATMUL_VARIANTS.
+// w4 [N, K/2] (variants 2-4), all contiguous and 16-byte aligned (variants
+// 0 and 1 read x and w through TMA).  x_scale fp32 [M] and wsb fp32 [2, N]
+// (the W4 tiled forms), rs int32 [M] = 8 * rowsum(x[:, :K/2]) (variants 3
+// and 4), null otherwise.  out: int32 (0, 4), bf16 (1) or per out_code 0
+// fp32 / 1 bf16 / 2 int8 (2, 3), [M, N]; acc_out int32 [M, N] or null (2, 3:
+// the combined integer accumulator).  T9 and the W4 tiled forms take
+// N % 128 == 0 and K % 128 == 0 (variants 0, 2, 3) or K % 64 == 0 (variant
+// 1); the GEMV M <= 8 and K % 32 == 0; the wrappers check it.  The variant
+// ids are those of physicedit_torch/tools/_proto_int8.py's VARIANTS.
 #define MM_ARGS x, w, xs, wsb, rs, out, acc_out, out_code, m, n, k, s
 extern "C" int proto_int8_matmul(int variant, const void* x, const void* w, const void* xs,
                                  const void* wsb, const void* rs, void* out, void* acc_out,
                                  int out_code, int m, int n, int k, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (variant) {
-    case 0: return launch_tiled<kI8>(MM_ARGS);         // T9, acc "i32"
-    case 1: return launch_tiled<kBf16>(MM_ARGS);       // T9, acc "f32"
+    case 0: return launch_gemm<kI8>(MM_ARGS);          // T9, acc "i32"
+    case 1: return launch_gemm<kBf16>(MM_ARGS);        // T9, acc "f32"
     case 2: return launch_tiled<kW4Unpack>(MM_ARGS);   // T10
     case 3: return launch_tiled<kW4AndOnly>(MM_ARGS);  // T12
     case 4: return launch_gemv<kGemvRows>(MM_ARGS);    // T11
@@ -370,3 +577,7 @@ extern "C" int proto_int8_matmul(int variant, const void* x, const void* w, cons
   }
 }
 #undef MM_ARGS
+
+// The dynamic shared memory of one block of T9's GEMM, for the report beside
+// ptxas's.
+extern "C" int proto_int8_matmul_gemm_smem_bytes() { return kGemmSmem; }

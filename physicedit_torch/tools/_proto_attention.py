@@ -10,8 +10,8 @@ Each entry of :data:`VARIANTS` is a launch counter in
 switches, which :func:`reference` follows with the kernel's numerics: fp32
 scores, exp2, P rounded to V's dtype before the product with V, fp32 row
 sums and accumulator, the key tiles of its loop walked in the kernel's
-order.  T2, T3 and T1 v1-v4 run on the Hopper mainloop of
-``csrc/hopper_attention.cuh`` (TMA, ``wgmma``), T7, T8 and T5 on the
+order.  T2, T3, T1 v1-v4 and T5 run on the Hopper mainloop of
+``csrc/hopper_attention.cuh`` (TMA, ``wgmma``), T7 and T8 on the
 ``mma.sync`` loop.  :func:`run` takes the plain version for CPU tensors
 and launches the kernel for CUDA tensors (bf16, head_dim 128, contiguous
 and 16-byte aligned), or raises; it never falls back.
@@ -52,9 +52,12 @@ class Variant:
     exp2(.), else the score itself.  row_sum: l = sum(p).  norm: "recip" is
     acc * (1 / l) with no floor (NaN where l == 0), "floor" acc / max(l -
     n_masked, 1e-30) (0 there), "none" acc.  overlap: the next tile's QK^T
-    issued before this tile's softmax; it does not change the function.
-    loop: the kernel that runs it, "hopper" (``proto_hopper_kernel``, no
-    clamp or overlap switch) or "mma_sync" (``proto_kernel``)."""
+    issued before this tile's softmax; it does not change the function, and
+    the Hopper loop has no such switch (its ping-pong already overlaps one
+    warpgroup's exp2 with the other's products), so both of T5's names run
+    one instantiation there.  loop: the kernel that runs it, "hopper"
+    (``proto_hopper_kernel``, no clamp or overlap switch) or "mma_sync"
+    (``proto_kernel``)."""
     kernel_id: int
     inscale: bool = False
     bias: str = "none"
@@ -95,9 +98,11 @@ VARIANTS = {
     "proto_bf16s": Variant(5, bias="bf16", loop="hopper"),
     "proto_expnosum": Variant(6, row_sum=False, norm="none", loop="hopper"),
     "proto_noexp": Variant(7, exp=False, row_sum=False, norm="none", loop="hopper"),
-    # T5 tools/proto_attn_interleave.py::attn_interleaved, sub = 1 and sub > 1
-    "proto_interleave": Variant(8, bias="fp32", norm="recip"),
-    "proto_interleave_overlap": Variant(9, bias="fp32", norm="recip", overlap=True),
+    # T5 tools/proto_attn_interleave.py::attn_interleaved, sub = 1 and sub > 1:
+    # one Hopper instantiation under two ids
+    "proto_interleave": Variant(8, bias="fp32", norm="recip", loop="hopper"),
+    "proto_interleave_overlap": Variant(9, bias="fp32", norm="recip", overlap=True,
+                                        loop="hopper"),
 }
 
 
@@ -118,13 +123,28 @@ def _key_bias(var: Variant, key_bias, b: int, sk: int, bias_keys: int):
 def _tile_padded(bias, b: int, sk: int, bias_keys: int, device) -> torch.Tensor:
     """The Hopper loop's key bias: [B, whole 128-key tiles] fp32, 0 from
     ``bias_keys`` and from S_k on (adding 0 to T1 v1's bf16 score changes
-    nothing), so each tile's bias is one 512-byte copy that stays in bounds."""
+    nothing; T5 copies only the tiles below ``bias_keys``, and the zeros
+    cover the rest of the last of them), so each tile's bias is one
+    512-byte copy that stays in bounds."""
     width = -(-sk // LOOPS["hopper"]) * LOOPS["hopper"]
     padded = torch.zeros((b, width), dtype=torch.float32, device=device)
     if bias is not None:
         n = min(bias_keys, sk)
         padded[:, :n] = bias[:, :n]
     return padded
+
+
+def kernel_key_bias(name: str, key_bias, b: int, sk: int, bias_keys: int, device):
+    """The key bias that instantiation ``name`` reads on the card: None
+    (no bias, or T5 with ``bias_keys`` 0: the kernel then copies none),
+    [B, S_k] fp32 on the ``mma.sync`` loop, or the tile-padded [B, whole
+    128-key tiles] of :func:`_tile_padded` on the Hopper loop (always for
+    T1 v1, whose kernel reads every tile's)."""
+    var = VARIANTS[name]
+    bias = _key_bias(var, key_bias, b, sk, bias_keys)
+    if var.loop == "hopper" and (bias is not None or var.bias == "bf16"):
+        return _tile_padded(bias, b, sk, bias_keys, device)
+    return None if bias is None else bias.to(device).contiguous()
 
 
 def reference(name: str, q, k, v, key_bias=None, bias_keys: int = 0, n_masked=None):
@@ -186,11 +206,7 @@ def run(name: str, q, k, v, key_bias=None, bias_keys: int = 0, n_masked=None):
     b, n, sq, sk = fa._check_qkv(name, q, k, v)
     if bias_keys < 0:
         raise ValueError(f"{name}: bias_keys must be >= 0, got {bias_keys}")
-    bias = _key_bias(var, key_bias, b, sk, bias_keys)
-    if var.loop == "hopper" and var.bias != "none":
-        bias = _tile_padded(bias, b, sk, bias_keys, q.device)
-    elif bias is not None:
-        bias = bias.to(q.device).contiguous()
+    bias = kernel_key_bias(name, key_bias, b, sk, bias_keys, q.device)
     nm = None
     if n_masked is not None:
         if n_masked.shape != (b,):

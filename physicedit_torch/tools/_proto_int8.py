@@ -8,8 +8,9 @@ CUDA source and entry-point switch (``kernel_id``) it launches, and that
 instantiation's kernel function and template arguments as ints, which
 ``chip_smoke.ptxas_report`` keys its registers by:
 
-- ``csrc/proto_int8_matmul.cu``: ``tiled_kernel<kind>`` (T9's int8 and bf16
-  products, T10's and T12's W4 forms) and ``gemv_and_kernel<8>`` (T11);
+- ``csrc/proto_int8_matmul.cu``: ``gemm_wgmma_kernel<kind>`` (T9's int8 and
+  bf16 products: a persistent TMA + ``wgmma`` GEMM), ``tiled_kernel<kind>``
+  (T10's and T12's W4 forms, ``mma.sync``) and ``gemv_and_kernel<8>`` (T11);
 - ``csrc/proto_int8qk_attention.cu``: ``int8qk_kernel`` (T4);
 - ``csrc/proto_ew_scale.cu``: ``ew_scale_kernel<bf16>`` (T6).
 
@@ -22,7 +23,8 @@ in the kernels' order.
 
 Weight layout: the port's own.  T9's w is ``[N, K]`` and the W4 weights are
 K3's ``w4 [N, K/2]`` (``csrc/mma_int8.cuh``): one output column's k values
-are contiguous, B column-major for ``mma.sync``.  The JAX tools hold
+are contiguous, both operands K-major, as int8 ``wgmma`` and ``mma.sync``
+take them.  The JAX tools hold
 ``[K, N]`` and ``[K/2, N]``; the tests transpose them.
 """
 
@@ -46,7 +48,7 @@ EW = "proto_ew_scale"
 SOURCES = (MATMUL, ATTENTION, EW)
 
 L2_BYTES = 50 << 20       # the H100's L2
-TILE_N = 128              # the tiled kernel's output tile width
+TILE_N = 128              # the matmuls take N in whole 128-column tiles
 GEMV_ROWS = 8             # the GEMV's rows (the tools' padded decode)
 ATTN_BLOCK = 64           # T4's q tile and key tile
 OUT_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
@@ -61,8 +63,8 @@ class Variant:
 
 
 VARIANTS = {
-    "proto_mm_i32": Variant(MATMUL, 0, "tiled_kernel", (0,)),       # T9, acc "i32"
-    "proto_mm_f32": Variant(MATMUL, 1, "tiled_kernel", (1,)),       # T9, acc "f32"
+    "proto_mm_i32": Variant(MATMUL, 0, "gemm_wgmma_kernel", (0,)),  # T9, acc "i32"
+    "proto_mm_f32": Variant(MATMUL, 1, "gemm_wgmma_kernel", (1,)),  # T9, acc "f32"
     "proto_w4_i32": Variant(MATMUL, 2, "tiled_kernel", (2,)),       # T10
     "proto_w4_and": Variant(MATMUL, 3, "tiled_kernel", (3,)),       # T12
     "proto_w4_gemv_and": Variant(MATMUL, 4, "gemv_and_kernel", (GEMV_ROWS,)),  # T11
@@ -152,15 +154,20 @@ def launch_matmul(name: str, x, w, x_scale=None, wsb=None, rs=None, out_dtype=No
     ``LAUNCHES[name]``.  x_scale, wsb, ``out_dtype`` and ``return_acc`` are
     T10's and T12's, rs the AND-only forms' (T12, T11).  Returns out ``[M,
     N]`` (int32 for T9 i32 and T11, bf16 for T9 f32), and for T10 / T12 with
-    ``return_acc`` also their int32 accumulators."""
+    ``return_acc`` also their int32 accumulators.  Raises on a shape the
+    kernel cannot take (M < 1, N % 128, K % 128, or K % 64 for T9 f32; the
+    GEMV M > 8 or K % 32) before anything launches."""
     var = VARIANTS[name]
+    if x.dim() != 2 or w.dim() != 2:
+        raise ValueError(f"{name}: x and w must be 2-D, got {tuple(x.shape)} and "
+                         f"{tuple(w.shape)}")
     m, k = x.shape
     n = w.shape[0]
     w4 = name not in ("proto_mm_i32", "proto_mm_f32")
     tiled_w4 = name in ("proto_w4_i32", "proto_w4_and")
     in_dtype = torch.bfloat16 if name == "proto_mm_f32" else torch.int8
     tile_k = 64 if name == "proto_mm_f32" else 128
-    if w.shape[1] * (2 if w4 else 1) != k:
+    if w.shape[1] * (2 if w4 else 1) != k or m < 1:
         raise ValueError(f"{name}: x {tuple(x.shape)} and w {tuple(w.shape)} do not fit")
     if name == "proto_w4_gemv_and":
         if m > GEMV_ROWS or k % 32:

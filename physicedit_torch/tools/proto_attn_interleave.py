@@ -12,13 +12,16 @@ key bias is added only on the text prefix, the keys before ``bias_keys``
     out = (bf16(p) . v) * (1 / l),  l = sum(p) in fp32
 
 A key past the prefix takes no bias whatever the bias holds there; l has
-no floor (a row with l == 0 is NaN).  ``overlap`` is the JAX tool's
-``sub > 1``: the kernel keeps K of the next tile in shared memory and its
-scores in registers so that the tensor cores run QK^T(j + 1) while the
-exp2 of tile j runs (instantiations ``proto_interleave_overlap`` and, off,
-``proto_interleave`` of ``csrc/proto_fixedmax_attention.cu``).  The JAX
-tool swept TPU block shapes, ``sub`` and VMEM limits; this one prints a row
-per overlap and bias setting, beside K1.
+no floor (a row with l == 0 is NaN).  Both names, ``proto_interleave``
+(the JAX tool's ``sub = 1``) and ``proto_interleave_overlap`` (``sub >
+1``, the ``overlap`` argument), launch one kernel: the instantiation of
+``csrc/proto_fixedmax_attention.cu``'s ``proto_hopper_kernel`` with an fp32
+key bias on a prefix and the ``1 / l`` epilogue, on K1's Hopper mainloop,
+whose two consumer warpgroups take turns so that one's exp2 runs under the
+other's products: the overlap the JAX tool wanted, with no switch.  The
+kernel copies and adds the bias only on the 128-key tiles below
+``bias_keys``.  The JAX tool swept TPU block shapes, ``sub`` and VMEM
+limits; this one prints a row per name and bias setting, beside K1.
 """
 
 from __future__ import annotations

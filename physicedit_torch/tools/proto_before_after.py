@@ -1,7 +1,7 @@
 """Time the attention prototypes that run on the Hopper mainloop (T2 with
-the scale inside and outside the kernel, T3, T1 v1, v3 and v4) in two
-checkouts of this repository on one card, in turns: before, after, after,
-before.
+the scale inside and outside the kernel, T3, T1 v1, v3 and v4, T5 under
+both names) and T9's two forms in two checkouts of this repository on one
+card, in turns: before, after, after, before.
 
     python -m physicedit_torch.tools.proto_before_after --before DIR [--after DIR]
 
@@ -9,11 +9,15 @@ DIR is the root of a checkout (for example an unpacked ``git archive`` of
 an earlier commit); ``--after`` defaults to the checkout this module is in.
 Each turn is a fresh process (``tools/_turns.py``) that builds the
 checkout's ``csrc/proto_fixedmax_attention.cu`` into its own ``build/``
-and times each instantiation of :data:`NAMES` through the checkout's
+and ``csrc/proto_int8_matmul.cu`` into its own ``build/`` and times each
+instantiation of :data:`NAMES` through the checkout's
 ``tools/_proto_attention.run`` at the DiT's joint attention (B2 N24 S8448
 D128, RMS-normed q and k, q prescaled unless the scale is inside; T3's K
 and V zeroed on the last 64 keys beforehand, with the masked count; T1
-v1's key bias -1e30 there): the median of 20 calls between CUDA events
+v1's key bias -1e30 there; T5's on keys [200, 256) of its 1408-key prefix)
+and T9 through ``tools/proto_int8_rate.pallas_mm`` at its tool's shape
+(M16384 K3072 N12288, int8 over the whole range or bf16 normal x 0.1):
+the median of 20 calls between CUDA events
 after two warm-up calls, and 10 calls replayed from a CUDA graph
 (``graph_ms``, the checkout's own ``tools/_bench.graph_ms``).  One JSON
 line per instantiation and turn, then one per instantiation with both
@@ -28,8 +32,9 @@ import sys
 from physicedit_torch.tools import _turns
 
 NAMES = ("proto_nobias_inscale", "proto_nobias", "proto_nmask", "proto_bf16s",
-         "proto_expnosum", "proto_noexp")
-SHAPE = (2, 24, 8448)    # B, N, S
+         "proto_expnosum", "proto_noexp", "proto_interleave", "proto_interleave_overlap",
+         "proto_mm_i32", "proto_mm_f32")
+SHAPE = (2, 24, 8448)    # B, N, S of the attention prototypes
 
 # run in a fresh process with the checkout on sys.path: its argument is the
 # JSON of [NAMES, SHAPE]
@@ -37,7 +42,8 @@ _WORKER = r"""
 import json, statistics, sys
 import torch
 from physicedit_torch.kernels import _build, flash_attention as fa
-from physicedit_torch.tools import _proto_attention as pa
+from physicedit_torch.tools import _proto_attention as pa, _proto_int8 as pi
+from physicedit_torch.tools import proto_int8_rate as t9
 from physicedit_torch.tools._bench import graph_ms
 
 def median_ms(fn, iters=20):
@@ -51,7 +57,7 @@ def median_ms(fn, iters=20):
 
 names, (b, n, s) = json.loads(sys.argv[1])
 dev = torch.device("cuda")
-_build.build_all([pa.SOURCE])
+_build.build_all([pa.SOURCE, pi.MATMUL])
 gen = torch.Generator(dev).manual_seed(0)
 q, k = ((x * torch.rsqrt(x.pow(2).mean(-1, keepdim=True))).bfloat16()
         for x in (torch.randn(b, n, s, 128, device=dev, generator=gen) for _ in range(2)))
@@ -62,16 +68,41 @@ live[:, -64:] = False
 kz, vz = (torch.where(live[:, None, :, None], x, 0) for x in (k, v))
 nm = (~live).sum(1).float()
 bias = pa.mask_bias(live)
+prefix = torch.ones(b, s, dtype=torch.bool, device=dev)
+prefix[:, 200:256] = False
+bias_prefix = pa.mask_bias(prefix)
 calls = {"proto_nobias_inscale": lambda: pa.run("proto_nobias_inscale", q, k, v),
          "proto_nobias": lambda: pa.run("proto_nobias", qs, k, v),
          "proto_nmask": lambda: pa.run("proto_nmask", qs, kz, vz, n_masked=nm),
          "proto_bf16s": lambda: pa.run("proto_bf16s", qs, k, v, bias, s),
          "proto_expnosum": lambda: pa.run("proto_expnosum", qs, k, v),
-         "proto_noexp": lambda: pa.run("proto_noexp", qs, k, v)}
+         "proto_noexp": lambda: pa.run("proto_noexp", qs, k, v),
+         "proto_interleave": lambda: pa.run("proto_interleave", qs, k, v, bias_prefix, 1408),
+         "proto_interleave_overlap":
+             lambda: pa.run("proto_interleave_overlap", qs, k, v, bias_prefix, 1408)}
 for name in names:
-    print(json.dumps({"kernel": name, "case": f"b{b}_n{n}_s{s}", "shape": [b, n, s, s],
-                      "ms": median_ms(calls[name]), "graph_ms": graph_ms(calls[name])}),
-          flush=True)
+    if name in calls:
+        print(json.dumps({"kernel": name, "case": f"b{b}_n{n}_s{s}", "shape": [b, n, s, s],
+                          "ms": median_ms(calls[name]), "graph_ms": graph_ms(calls[name])}),
+              flush=True)
+del q, k, v, qs, kz, vz
+torch.cuda.empty_cache()
+m, kk, nn = t9.M, t9.K, t9.N
+operands = {"proto_mm_i32": lambda: (
+                torch.randint(-128, 128, (m, kk), device=dev, generator=gen, dtype=torch.int8),
+                torch.randint(-128, 128, (nn, kk), device=dev, generator=gen, dtype=torch.int8)),
+            "proto_mm_f32": lambda: tuple(
+                (torch.randn(r, kk, device=dev, generator=gen) * 0.1).bfloat16()
+                for r in (m, nn))}
+for name in names:
+    if name in operands:
+        x, w = operands[name]()
+        acc = "i32" if name == "proto_mm_i32" else "f32"
+        fn = lambda: t9.pallas_mm(x, w, acc)
+        print(json.dumps({"kernel": name, "case": f"m{m}_k{kk}_n{nn}", "shape": [m, kk, nn],
+                          "ms": median_ms(fn), "graph_ms": graph_ms(fn)}), flush=True)
+        del x, w, fn
+        torch.cuda.empty_cache()
 """
 
 

@@ -5,14 +5,16 @@ and the tool that pins the card's int8 and bf16 tensor-core rates with it:
 
 :func:`pallas_mm` is ``x [M, K] . w [N, K]^T``: ``acc="i32"`` on int8 x and
 w gives int32, exactly; ``acc="f32"`` on bf16 x and w sums in fp32 and
-returns bf16.  w is ``[N, K]``, the port's layout (B column-major for
-``mma.sync``); the JAX tool's w is ``[K, N]``.  The kernels are
-instantiations ``proto_mm_i32`` and ``proto_mm_f32`` of
-``csrc/proto_int8_matmul.cu``.  The JAX tool swept TPU block shapes; the
-kernel has one tiling (128 x 128), so the tool prints one row per form,
-beside the two PyTorch calls it stands against: ``torch.matmul`` in bf16
-(cuBLAS) and ``torch._int_mm`` (int8 in, int32 out), at the DiT fc1 shape
-M16384 K3072 N12288.
+returns bf16.  w is ``[N, K]``, the port's layout (both operands K-major,
+as int8 ``wgmma`` takes them); the JAX tool's w is ``[K, N]``.  The kernels
+are instantiations ``proto_mm_i32`` and ``proto_mm_f32`` of
+``csrc/proto_int8_matmul.cu``'s ``gemm_wgmma_kernel``: a persistent grid of
+128 x 256 output tiles, both operands copied by TMA into a 4-stage ring and
+read by ``wgmma`` from shared memory.  The JAX tool swept TPU block shapes;
+the kernel has one tiling, so the tool prints one row per form, beside the
+two PyTorch calls it stands against: ``torch.matmul`` in bf16 (cuBLAS) and
+``torch._int_mm`` (int8 in, int32 out), at the DiT fc1 shape M16384 K3072
+N12288.
 """
 
 from __future__ import annotations
@@ -30,8 +32,9 @@ M, K, N = 16384, 3072, 12288
 def pallas_mm(x, w, acc: str):
     """T9 on x ``[M, K]`` and w ``[N, K]``: the kernel for CUDA tensors,
     :func:`pallas_mm_reference` for CPU ones.  On the card ``acc="i32"``
-    takes int8 and ``"f32"`` bf16, with N % 128 == 0 and K % 128 (i32) or
-    64 (f32) == 0."""
+    takes int8 and ``"f32"`` bf16, contiguous and 16-byte aligned, with
+    M >= 1, N % 128 == 0 and K % 128 (i32) or 64 (f32) == 0; any other
+    shape raises before a launch."""
     if x.device.type == "cpu":
         return pallas_mm_reference(x, w, acc)
     return pi.launch_matmul(ACC[acc], x, w)

@@ -19,6 +19,7 @@ from physicedit_torch.tools import _bench as tbench
 from physicedit_torch.tools import _proto_attention as tpa
 from physicedit_torch.tools import _proto_int8 as tpi
 from physicedit_torch.tools import proto_attn_fast as t_t23
+from physicedit_torch.tools import proto_attn_interleave as t_t5
 from physicedit_torch.tools import proto_attn_int8qk as t_t4
 from physicedit_torch.tools import proto_ew_rate as t_t6
 from physicedit_torch.tools import proto_fixedmax as t_t7
@@ -37,7 +38,7 @@ def cuda():
 
 BF16_TOL = 2e-2  # bf16 kernel output against the plain version (fp32 softmax)
 K7_REL_L2 = 5e-3  # and K7's rel-L2 over the whole output
-# the attention prototypes that run on the Hopper loop (T2, T3, T1 v1-v4)
+# the attention prototypes that run on the Hopper loop (T2, T3, T1 v1-v4, T5)
 HOPPER_PROTOS = [name for name, var in tpa.VARIANTS.items() if var.loop == "hopper"]
 
 
@@ -591,14 +592,19 @@ def test_hopper_kernels_raise_on_misaligned_or_strided_inputs(cuda):
 @pytest.mark.cuda
 @pytest.mark.parametrize("kernel", ["k1_with_l", "k1prime_prescaled", "k2", "k7",
                                     "k1prime_scaled", "k8", "k10", "k10b", "k3_tiled", "k9",
-                                    "k4", "k5"] + HOPPER_PROTOS)
+                                    "k4", "k5", "t9_i32", "t9_f32"] + HOPPER_PROTOS)
 def test_hopper_kernels_in_a_cuda_graph_give_the_eager_bits(cuda, kernel):
     """The tensor maps reach the kernel by value: a CUDA-graph replay gives
     the eager call's bits (K4 and K5: their persistent grids, sized once per
-    card; the prototypes on the Hopper loop: T1 v1's padded key bias made
-    inside the graph too)."""
+    card; the prototypes on the Hopper loop: T1 v1's and T5's padded key
+    bias made inside the graph too; T9's persistent GEMM at a ragged M)."""
     g = torch.Generator(cuda).manual_seed(70)
-    if kernel in HOPPER_PROTOS:
+    if kernel.startswith("t9"):
+        x, w = _t9_operands(g, kernel[3:], 300, 384, 640)
+
+        def fn():
+            return (t_t9.pallas_mm(x, w, kernel[3:]),)
+    elif kernel in HOPPER_PROTOS:
         call, _ = _hopper_proto_call(kernel, g, 250, 333, [(100, 160), (0, 0)])
 
         def fn():
@@ -1090,12 +1096,20 @@ def test_proto_attention_overlap_gives_the_same_bits_on_cuda(cuda, name):
 
 @pytest.mark.cuda
 def test_proto_attention_rows_with_no_live_key_on_cuda(cuda):
-    """T7 (no floor on l) gives NaN where a batch has no live key, T3 0."""
+    """T7 and T5 (no floor on l) give NaN where a batch has no live key, T3
+    0."""
     g = torch.Generator(cuda).manual_seed(61)
     q, k, v, _, _ = _k7_inputs(g, 2, 2, 130, 130)
     live = torch.ones(2, 130, dtype=torch.bool, device=cuda)
     live[1] = False
     assert torch.isnan(t_t7.fixedmax_bnsd(q, k, v, tpa.mask_bias(live))[1]).all()
+    for overlap in (False, True):
+        out = t_t5.attn_interleaved(q, k, v, tpa.mask_bias(live), 130, overlap)
+        assert torch.isnan(out[1]).all()
+        torch.testing.assert_close(
+            out[0].float(), t_t5.attn_interleaved_reference(q, k, v, tpa.mask_bias(live),
+                                                            130)[0].float(),
+            rtol=BF16_TOL, atol=4e-3)
     out = t_t23.attn_nmask(q, k, v, live)
     assert torch.equal(out[1], torch.zeros_like(out[1]))
     torch.testing.assert_close(out[0].float(), t_t23.attn_nmask_reference(q, k, v, live)[0].float(),
@@ -1126,8 +1140,9 @@ PROTO_EDGE_CASES = {
 
 def _hopper_proto_call(name, g, sq, sk, spans):
     """Calls of Hopper instantiation ``name`` and of its plain version on
-    RMS-normed inputs (B 2, N 3) whose key mask (T3) or key bias (T1 v1:
-    -1e30 on the spans, normal x 0.5 elsewhere) holds ``spans``."""
+    RMS-normed inputs (B 2, N 3) whose key mask (T3) or key bias (T1 v1 and
+    T5: -1e30 on the spans, normal x 0.5 elsewhere; T5's on a prefix of 200
+    keys, or 100 where S_k <= 200) holds ``spans``."""
     var = tpa.VARIANTS[name]
     q, k, v, _, _ = _k7_inputs(g, 2, 3, sq, sk)
     mask = torch.ones(2, sk, dtype=torch.bool, device=g.device)
@@ -1142,7 +1157,9 @@ def _hopper_proto_call(name, g, sq, sk, spans):
         if var.bias != "none":
             bias = torch.where(mask, 0.5 * torch.randn(2, sk, device=g.device, generator=g),
                                -1e30)
-            kwargs = {"key_bias": bias[:, None, :], "bias_keys": sk}
+            # T5's prefix ends inside a tile (keys it blocks past it stay live)
+            bias_keys = (200 if sk > 200 else 100) if var.bias == "fp32" else sk
+            kwargs = {"key_bias": bias[:, None, :], "bias_keys": bias_keys}
     return (lambda: tpa.run(name, *args, **kwargs)), (lambda: tpa.reference(name, *args,
                                                                             **kwargs))
 
@@ -1151,10 +1168,10 @@ def _hopper_proto_call(name, g, sq, sk, spans):
 @pytest.mark.parametrize("case", list(PROTO_EDGE_CASES))
 @pytest.mark.parametrize("name", HOPPER_PROTOS)
 def test_proto_hopper_tile_edges_on_cuda(cuda, name, case):
-    """T2 (both scales), T3 and T1 v1-v4 on the Hopper loop at its 128-key
-    tile edges, under the card's gates for them (max |err| 4e-3 and rel-L2
-    5e-3; T1 v3 / v4 8e-3 of their largest output), three calls bit for
-    bit."""
+    """T2 (both scales), T3, T1 v1-v4 and T5 (both names) on the Hopper
+    loop at its 128-key tile edges, under the card's gates for them (max
+    |err| 4e-3 and rel-L2 5e-3; T1 v3 / v4 8e-3 of their largest output),
+    three calls bit for bit."""
     g = torch.Generator(cuda).manual_seed(80 + tpa.VARIANTS[name].kernel_id)
     fn, plain = _hopper_proto_call(name, g, *PROTO_EDGE_CASES[case])
     out = fn()
@@ -1200,21 +1217,66 @@ def _w4_probe_operands(g, m, k, n):
     return xq, w4, xs, wsb
 
 
+def _t9_operands(g, acc, m, n, k, values="integers"):
+    """T9's x [m, k] and w [n, k]: int8 over the whole range (i32), bf16
+    integer-valued in [-15, 15] or normal x 0.1 (f32)."""
+    dev = g.device
+    if acc == "i32":
+        return tuple(torch.randint(-128, 128, (r, k), device=dev, generator=g, dtype=torch.int8)
+                     for r in (m, n))
+    if values == "integers":
+        return tuple(torch.randint(-15, 16, (r, k), device=dev, generator=g).bfloat16()
+                     for r in (m, n))
+    return tuple((torch.randn(r, k, device=dev, generator=g) * 0.1).bfloat16() for r in (m, n))
+
+
+# T9's tile edges: M around and under the GEMM's 128-row tile, N one, one
+# and a half and two 256-column tiles, K an odd number of 128-byte stages
+T9_EDGE_MS = [1, 100, 128, 129, 300, 1000]
+T9_EDGE_NS = [128, 384, 512]
+T9_EDGE_K = {"i32": 384, "f32": 448}
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("m", [256, 300])
-def test_probe_int8_mm_matches_plain_on_cuda(cuda, m):
-    """T9: int8 exactly (the whole int8 range); bf16 bit for bit on
-    integer-valued inputs (fp32 sums exact in any order)."""
-    g = torch.Generator(cuda).manual_seed(70)
-    x = torch.randint(-128, 128, (m, 384), device=cuda, generator=g, dtype=torch.int8)
-    w = torch.randint(-128, 128, (256, 384), device=cuda, generator=g, dtype=torch.int8)
-    before = dict(tpi.LAUNCHES)
-    assert torch.equal(t_t9.pallas_mm(x, w, "i32"), t_t9.pallas_mm_reference(x, w, "i32"))
-    xb, wb = (torch.randint(-15, 16, t.shape, device=cuda, generator=g).bfloat16()
-              for t in (x, w))
-    assert torch.equal(t_t9.pallas_mm(xb, wb, "f32"), t_t9.pallas_mm_reference(xb, wb, "f32"))
-    assert tpi.LAUNCHES["proto_mm_i32"] == before["proto_mm_i32"] + 1
-    assert tpi.LAUNCHES["proto_mm_f32"] == before["proto_mm_f32"] + 1
+@pytest.mark.parametrize("n", T9_EDGE_NS)
+@pytest.mark.parametrize("m", T9_EDGE_MS)
+@pytest.mark.parametrize("acc", ["i32", "f32"])
+def test_probe_int8_mm_matches_plain_on_cuda(cuda, acc, m, n):
+    """T9 at its GEMM's tile edges: int8 exactly (the whole int8 range);
+    bf16 bit for bit on integer-valued inputs (fp32 sums exact in any
+    order) and within one bf16 step of the largest output on normal ones;
+    three calls bit for bit, one launch each."""
+    g = torch.Generator(cuda).manual_seed(70 + m + n)
+    x, w = _t9_operands(g, acc, m, n, T9_EDGE_K[acc])
+    name = t_t9.ACC[acc]
+    before = tpi.LAUNCHES[name]
+    out = t_t9.pallas_mm(x, w, acc)
+    assert tpi.LAUNCHES[name] == before + 1
+    assert torch.equal(out, t_t9.pallas_mm_reference(x, w, acc))
+    assert all(torch.equal(t_t9.pallas_mm(x, w, acc), out) for _ in range(2))
+    if acc == "f32":
+        x, w = _t9_operands(g, acc, m, n, T9_EDGE_K[acc], "normal")
+        got, want = t_t9.pallas_mm(x, w, acc).float(), t_t9.pallas_mm_reference(x, w, acc).float()
+        step = 2.0 ** (math.frexp(want.abs().max().item())[1] - 8)
+        assert (got - want).abs().max().item() <= step
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("acc", ["i32", "f32"])
+def test_probe_int8_mm_raises_on_misaligned_or_strided_operands(cuda, acc):
+    """T9's GEMM reads x and w through TMA: a misaligned or a strided
+    operand raises (no copy, no fallback), and nothing is launched."""
+    g = torch.Generator(cuda).manual_seed(75)
+    x, w = _t9_operands(g, acc, 130, 256, 256)
+    buf = torch.zeros(x.numel() + 1, dtype=x.dtype, device=cuda)
+    x_off = buf[1:].view(x.shape)
+    name = t_t9.ACC[acc]
+    before = tpi.LAUNCHES[name]
+    for args, match in (((x_off, w), "16-byte aligned"), ((x, w.T.contiguous().T), "contiguous"),
+                        ((x.T.contiguous().T, w), "contiguous")):
+        with pytest.raises(ValueError, match=match):
+            t_t9.pallas_mm(*args, acc)
+    assert tpi.LAUNCHES[name] == before
 
 
 @pytest.mark.cuda

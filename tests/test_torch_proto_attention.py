@@ -236,6 +236,39 @@ def test_t5_interleaved_bias_on_the_prefix_only(dtype, sub, bias_subs, interpret
     assert pa.max_abs_diff(got, everywhere) > 0.05
 
 
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_t5_bias_keys_inside_a_tile_matches_jax(dtype, interpret, no_launch):
+    """The prefix ends at key 200, inside the Hopper loop's second 128-key
+    tile (the JAX tool: one 400-key block in two sub-tiles, the first
+    biased).  The bias holds -1e30 on keys 150-249: keys 150-199 are
+    blocked, 200-249 stay live on both sides."""
+    b, n, s, d, block_k, sub = 2, 2, 800, 64, 400, 2
+    rng, (q, k, v) = _qkv(30, b, n, s, d)
+    bias = _key_bias(rng, b, s, [(150, 250), (20, 90)])
+    (jq, jk, jv), (tq, tk, tv) = _both(dtype, q, k, v)
+    want = _jax(functools.partial(j_t5.attn_interleaved, block_q=400, block_k=block_k,
+                                  sub=sub, bias_subs=1), jq, jk, jv, jnp.asarray(bias))
+    tbias = torch.from_numpy(bias)
+    got = t_t5.attn_interleaved(tq, tk, tv, tbias, bias_keys=block_k // sub)
+    _check(got, want, dtype)
+    at_tile_edge = t_t5.attn_interleaved_reference(tq, tk, tv, tbias, bias_keys=256)
+    assert pa.max_abs_diff(got[:1], at_tile_edge[:1]) > 0.01
+
+
+def test_t5_row_blocked_on_every_key_is_nan(interpret, no_launch):
+    """A batch whose bias blocks every key (the prefix covering all of S):
+    l == 0 and 1 / l has no floor, so its rows are NaN in JAX
+    (``pl.reciprocal``) and in the port."""
+    b, n, s, d = 2, 2, 256, 64
+    rng, (q, k, v) = _qkv(31, b, n, s, d)
+    bias = _key_bias(rng, b, s, [(0, 0), (0, s)])
+    want = _f32(_jax(functools.partial(j_t5.attn_interleaved, block_q=128, block_k=s, sub=1,
+                                       bias_subs=1), q, k, v, bias))
+    got = _f32(t_t5.attn_interleaved(*map(torch.from_numpy, (q, k, v, bias)), bias_keys=s))
+    assert np.isnan(want[1]).all() and np.isnan(got[1]).all()
+    _check(got[:1], want[:1], "fp32")
+
+
 # ---------------------------------------------------------------------------
 # T2, T3: no bias in the loop
 # ---------------------------------------------------------------------------
@@ -330,7 +363,7 @@ EDGE_CASES = {
     "sq_130_lt_sk_385": (22, 1, 2, 130, 385, [(350, 385)]),
     "hole_across_key_128": (23, 2, 2, 300, 300, [(100, 160), (0, 0)]),
 }
-EDGE_VARIANTS = ("t2_inscale", "t2_prescaled", "t3", "t1_v1", "t1_v3", "t1_v4")
+EDGE_VARIANTS = ("t2_inscale", "t2_prescaled", "t3", "t1_v1", "t1_v3", "t1_v4", "t5")
 
 
 def _edge_jax(variant, jq, jk, jv, mask, bias, sq, sk):
@@ -340,6 +373,9 @@ def _edge_jax(variant, jq, jk, jv, mask, bias, sq, sk):
     if variant == "t3":
         return _jax(functools.partial(j_t23.attn_nmask, block_q=sq, block_k=sk), jq, jk, jv,
                     jnp.asarray(mask))
+    if variant == "t5":   # one k block, biased: the prefix is every key
+        return _jax(functools.partial(j_t5.attn_interleaved, block_q=sq, block_k=sk, sub=1,
+                                      bias_subs=1), jq, jk, jv, jnp.asarray(bias))
     body = {"t1_v1": j_t1._bf16s_kernel, "t1_v3": j_t1._expnosum_kernel,
             "t1_v4": j_t1._noexp_kernel}[variant]
     jqs = _prescaled(jq, jq.shape[-1])
@@ -354,6 +390,8 @@ def _edge_port(variant, tq, tk, tv, mask, bias):
         return t_t23.attn_nobias(tq, tk, tv, variant == "t2_inscale")
     if variant == "t3":
         return t_t23.attn_nmask(tq, tk, tv, torch.from_numpy(mask))
+    if variant == "t5":
+        return t_t5.attn_interleaved(tq, tk, tv, torch.from_numpy(bias), bias_keys=tk.shape[2])
     tqs = tfa._prescale(tq)
     if variant == "t1_v1":
         return t_t1.attn_bf16s(tqs, tk, tv, torch.from_numpy(bias))
@@ -365,7 +403,7 @@ def _edge_port(variant, tq, tk, tv, mask, bias):
 @pytest.mark.parametrize("dtype", list(DTYPES))
 def test_hopper_tile_edges_match_jax(dtype, case, variant, monkeypatch, no_launch):
     """The instantiations that run on the Hopper loop (T2 both scales, T3,
-    T1 v1 / v3 / v4) at its tile edges: the port's plain version against
+    T1 v1 / v3 / v4, T5) at its tile edges: the port's plain version against
     the JAX tool's function, with Pallas in interpret mode (T3's as in
     ``test_t3_nmask_matches_jax``)."""
     (_interpret_t3 if variant == "t3" else _interpret)(monkeypatch)
@@ -407,7 +445,46 @@ def test_kernel_instantiations_match_the_variants():
         assert name in tfa.LAUNCHES
     assert {name for name, var in pa.VARIANTS.items() if var.loop == "hopper"} == {
         "proto_nobias_inscale", "proto_nobias", "proto_nmask", "proto_bf16s",
-        "proto_expnosum", "proto_noexp"}
+        "proto_expnosum", "proto_noexp", "proto_interleave", "proto_interleave_overlap"}
+
+
+def test_t5_ids_reach_one_hopper_instantiation():
+    """T5's two names keep their ids (8 and 9), and both select, in the C
+    entry point, the one Hopper instantiation with the fp32 key bias on a
+    prefix, the in-kernel scale off and the 1 / l epilogue (kRecip); the
+    mma.sync loop keeps T7 and T8 alone."""
+    launches = dict(re.findall(r"case (\d+): return (launch\w*<[^>]*>)", CU_SOURCE.read_text()))
+    assert launches["8"] == launches["9"] == "launch_hopper<false, kBiasF32, true, true, kRecip>"
+    t5 = [pa.VARIANTS["proto_interleave"], pa.VARIANTS["proto_interleave_overlap"]]
+    assert [v.kernel_id for v in t5] == [8, 9]
+    assert t5[0].template_args() == t5[1].template_args() == (
+        0, pa.BIAS_CODES["fp32"], 1, 1, pa.NORM_CODES["recip"])
+    assert {name for name, var in pa.VARIANTS.items() if var.loop == "mma_sync"} == {
+        "proto_fixedmax", "proto_fixedmax2", "proto_fixedmax2_overlap"}
+
+
+@pytest.mark.parametrize("bias_keys", [0, 1, 200, 256, 333, 400])
+@pytest.mark.parametrize("name", ["proto_interleave", "proto_bf16s"])
+def test_padded_key_bias_is_zero_from_bias_keys_and_sk(name, bias_keys):
+    """What the Hopper loop reads as T5's and T1 v1's key bias: whole
+    128-key tiles, the bias (T1 v1's rounded to bf16) on the keys below
+    bias_keys and S_k, 0 from there on, also inside the last tile; T5 with
+    bias_keys 0 passes no bias at all (its kernel then copies none), T1 v1
+    zeros."""
+    b, sk = 2, 333
+    rng = np.random.default_rng(32)
+    bias = torch.from_numpy((rng.normal(size=(b, 1, sk)) * 5).astype(np.float32))
+    got = pa.kernel_key_bias(name, bias, b, sk, bias_keys, "cpu")
+    if name == "proto_interleave" and bias_keys == 0:
+        assert got is None
+        return
+    assert got.shape == (b, 384) and got.dtype == torch.float32 and got.is_contiguous()
+    n = min(bias_keys, sk)
+    want = bias[:, 0, :n]
+    if name == "proto_bf16s":
+        want = want.bfloat16().float()
+    assert torch.equal(got[:, :n], want)
+    assert not got[:, n:].any()
 
 
 def test_chip_smoke_reads_registers_per_instantiation(tmp_path):

@@ -153,6 +153,58 @@ def test_t9_f32_matches_jax(values, interpret, no_launch):
         _within_ulps(got, want, "bf16")
 
 
+@pytest.mark.parametrize("m", [1, 37, 129])
+@pytest.mark.parametrize("acc", ["i32", "f32"])
+def test_t9_ragged_m_matches_jax(acc, m, interpret, no_launch):
+    """M that is no multiple of the card GEMM's 128-row tile (one block of M
+    rows on the JAX side), N 384 (a half-full last 256-column tile): i32
+    exactly; f32 on integer-valued inputs bit for bit."""
+    rng = np.random.default_rng(2)
+    k, n = 256, 384
+    if acc == "i32":
+        x = rng.integers(-128, 128, (m, k)).astype(np.int8)
+        w = rng.integers(-128, 128, (k, n)).astype(np.int8)
+        jx, jw, tx, tw = jnp.asarray(x), jnp.asarray(w), _t(x), _t(w.T)
+    else:
+        x, w = rng.integers(-15, 16, (m, k)), rng.integers(-15, 16, (k, n))
+        jx, jw = jnp.asarray(x, jnp.bfloat16), jnp.asarray(w, jnp.bfloat16)
+        tx, tw = _t(_np(jx)).bfloat16(), _t(_np(jw).T).bfloat16()
+    want = j_t9.pallas_mm(jx, jw, m, 128, 64, acc)
+    got = t_t9.pallas_mm(tx, tw, acc)
+    assert tuple(got.shape) == (m, n)
+    np.testing.assert_array_equal(_np(got), _np(want))
+
+
+# x shape, w shape, the form, what the message names
+T9_REFUSED = [
+    ((256, 256), (100, 256), "i32", "N % 128"),       # N not whole 128-column tiles
+    ((256, 192), (128, 192), "i32", "K % 128"),       # K % 128 for int8
+    ((256, 96), (128, 96), "f32", "K % 64"),          # K % 64 for bf16
+    ((256, 256), (128, 128), "i32", "do not fit"),    # x and w disagree on K
+    ((0, 256), (128, 256), "f32", "do not fit"),      # no rows
+    ((256,), (128, 256), "i32", "2-D"),
+]
+
+
+@pytest.mark.parametrize("x_shape,w_shape,acc,match", T9_REFUSED,
+                         ids=["n_100", "k_192_i32", "k_96_f32", "k_mismatch", "m_0", "x_1d"])
+def test_t9_wrapper_raises_before_any_launch(x_shape, w_shape, acc, match, monkeypatch):
+    """T9's wrapper refuses the shapes its GEMM cannot take while checking
+    them, before it reaches the operands' device or the library: nothing is
+    launched or counted (the checks run first, so CPU tensors show it)."""
+    dtype = torch.int8 if acc == "i32" else torch.bfloat16
+
+    def no_launch(*args):
+        raise AssertionError("launched")
+
+    monkeypatch.setattr(pi._build, "launch", no_launch)
+    before = dict(pi.LAUNCHES)
+    with pytest.raises(ValueError, match=re.escape(match)):
+        pi.launch_matmul(t_t9.ACC[acc], torch.zeros(x_shape, dtype=dtype),
+                         torch.zeros(w_shape, dtype=dtype))
+    assert pi.LAUNCHES == before
+
+
 # ---------------------------------------------------------------------------
 # T10 and T12: the W4A8 tiled forms
 # ---------------------------------------------------------------------------
@@ -354,7 +406,8 @@ def test_kernel_switches_match_the_variants():
     on the card.)"""
     text = (CSRC / f"{pi.MATMUL}.cu").read_text()
     consts = {name: int(v) for name, v in re.findall(r"\b(k\w+) = (\d+)", text)}
-    launchers = {"tiled": "tiled_kernel", "gemv": "gemv_and_kernel"}
+    launchers = {"gemm": "gemm_wgmma_kernel", "tiled": "tiled_kernel",
+                 "gemv": "gemv_and_kernel"}
     mm = {i: (launchers[fn], (consts[arg],)) for i, (fn, arg) in _cases(
         pi.MATMUL, r"case (\d+): return launch_(\w+)<(\w+)>\(MM_ARGS\);").items()}
     ew = {i: ("ew_scale_kernel", (int(arg),)) for i, (arg,) in _cases(
@@ -367,6 +420,9 @@ def test_kernel_switches_match_the_variants():
                 if v.source == source}
         assert mine == table, source
     assert set(pi.LAUNCHES) == set(pi.VARIANTS)
+    # T9's two forms on the TMA + wgmma GEMM, the W4 forms on the mma.sync tiling
+    assert {name for name, v in pi.VARIANTS.items() if v.kernel == "gemm_wgmma_kernel"} == {
+        "proto_mm_i32", "proto_mm_f32"}
 
 
 def test_chip_smoke_rows_and_sources_cover_every_probe():
@@ -388,8 +444,10 @@ def test_chip_smoke_reads_registers_of_the_probe_kernels(tmp_path):
     no template."""
     import chip_smoke
 
-    mangled = {("tiled_kernel", (a,)): f"_ZN12_GLOBAL__N_112tiled_kernelILi{a}EEEvPKaS2_PKfS4_"
-               f"PKiPvPiiiii" for a in range(4)}
+    mangled = {("gemm_wgmma_kernel", (a,)): "_ZN12_GLOBAL__N_117gemm_wgmma_kernelILi"
+               f"{a}EEEv14CUtensorMap_stS1_Pviiiii" for a in range(2)}
+    mangled.update({("tiled_kernel", (a,)): f"_ZN12_GLOBAL__N_112tiled_kernelILi{a}EEEvPKaS2_PKfS4_"
+                    f"PKiPvPiiiii" for a in range(2, 4)})
     mangled[("gemv_and_kernel", (8,))] = "_ZN12_GLOBAL__N_115gemv_and_kernelILi8EEEvPKaS2_PKiPiiii"
     mangled[("int8qk_kernel", ())] = "_ZN12_GLOBAL__N_113int8qk_kernelEPKaS1_PKtPKfS5_S5_Ptiii"
     lines = []
@@ -402,7 +460,8 @@ def test_chip_smoke_reads_registers_of_the_probe_kernels(tmp_path):
     for i, (kernel, args) in enumerate(mangled):
         assert chip_smoke.ptxas_report(log, kernel)[args] == {
             "registers": 100 + i, "spill_store_bytes": i, "spill_load_bytes": 2 * i}
-    assert set(chip_smoke.ptxas_report(log, "tiled_kernel")) == {(0,), (1,), (2,), (3,)}
+    assert set(chip_smoke.ptxas_report(log, "tiled_kernel")) == {(2,), (3,)}
+    assert set(chip_smoke.ptxas_report(log, "gemm_wgmma_kernel")) == {(0,), (1,)}
 
 
 def test_l2_copies_and_their_rotation():

@@ -11,8 +11,7 @@ Phases, each printed as one JSON line, any failure exits non-zero:
      against their plain versions at the main path's shapes, before any
      weights are allocated; K1 also with a key-mask hole across its 128-key
      stages and at a ragged 8513, timed (CUDA events and a CUDA graph)
-     beside its ping-pong off, its clamp on, the mma.sync loop it replaced
-     (T8 proto_fixedmax2 without a bias) and SDPA, with its ptxas report
+     beside its kernel alone, its clamp on and SDPA, with its ptxas report
      (no spills); K7 also with a key-mask hole across key 128 at a ragged
      8513 and with a bias and key mask that change every stage, timed (CUDA
      events and a CUDA graph) beside K1' scaled (its kernel without the
@@ -69,15 +68,16 @@ Phases, each printed as one JSON line, any failure exits non-zero:
      W4 training lane's forward shapes;
  13. the bf16 attention prototypes of tools/ (T1 v1-v4, T2, T3, T5, T7, T8;
      csrc/proto_fixedmax_attention.cu) at B = 2, N = 24, S = 8448, each
-     instantiation against its plain version with its loop, time (CUDA
-     events and a CUDA graph), bound share, registers and spills, and the
-     one SDPA call that computes the same function; those on the Hopper
-     mainloop (T2, T3, T1 v1-v4, T5) also three calls bit for bit with
-     their shared memory (a spill fails the run), T1 v1 also at a ragged
-     8513 with a key bias that changes every stage, T5 (both names) at the
-     edges of its key-bias prefix (a ragged 8513 with a bias that changes
-     every stage, bias_keys 200 and 0, a batch blocked on every key: NaN);
-     rows with no live key (NaN from T7, 0 from T3) at a ragged S; then
+     instantiation (all on the Hopper mainloop) against its plain version
+     with its loop, time (CUDA events and a CUDA graph), bound share,
+     registers, spills and shared memory (a spill fails the run), three
+     calls bit for bit, and the one SDPA call that computes the same
+     function; T1 v1 and T7 also at a ragged 8513 with a key bias that
+     changes every stage, T7 also with logits past its clamp, T5 and T8
+     (both names each) at the edges of their key-bias prefix (a ragged 8513
+     with a bias that changes every stage, bias_keys 200 and 0, a batch
+     blocked on every key: NaN); rows with no live key (NaN from T7, 0 from
+     T3) at a ragged S; then
      each ported tool's main() (physicedit_torch/tools/proto_*.py), their
      path;
  14. the int8, W4 and elementwise-rate probes of tools/ (T9, T10, T12,
@@ -218,6 +218,7 @@ KERNEL_ROWS = [
 KERNEL_LOOPS = {
     **dict.fromkeys(("fixedmax_attention", "gqa_causal_attention", "fixedmax_attention_bias",
                      "online_attention", "online_attention_bias", "fixedmax_bnsd",
+                     "proto_fixedmax", "proto_fixedmax2", "proto_fixedmax2_overlap",
                      "proto_nobias_inscale", "proto_nobias", "proto_nmask", "proto_bf16s",
                      "proto_expnosum", "proto_noexp", "proto_interleave",
                      "proto_interleave_overlap"), "hopper_attention"),
@@ -225,8 +226,7 @@ KERNEL_LOOPS = {
                      "proto_mm_i32", "proto_mm_f32"), "tma_wgmma"),
     **dict.fromkeys(("ln_mod_quant", "gelu_quant"), "bulk_copy_rows"),
     "transpose_quant": "row_block", "w4a8_matmul_gemv": "dp4a_gemv",
-    **dict.fromkeys(("proto_fixedmax", "proto_fixedmax2", "proto_fixedmax2_overlap",
-                     "proto_w4_i32", "proto_w4_and", "proto_int8qk"), "mma_sync"),
+    **dict.fromkeys(("proto_w4_i32", "proto_w4_and", "proto_int8qk"), "mma_sync"),
     "proto_w4_gemv_and": "gemv", "proto_ew_scale_bf16": "elementwise",
     "proto_ew_scale_fp32": "elementwise",
 }
@@ -1392,9 +1392,9 @@ def k1prime_phase(report: dict, gen, time_ms, compare) -> dict:
     return launches
 
 
-def ptxas_report(log_path, kernel: str = "proto_kernel") -> dict:
+def ptxas_report(log_path, kernel: str = "proto_hopper_kernel") -> dict:
     """Registers and spill bytes of each instantiation of the kernel
-    function ``kernel`` (by default ``proto_kernel`` of
+    function ``kernel`` (by default ``proto_hopper_kernel`` of
     ``csrc/proto_fixedmax_attention.cu``) from nvcc's ``-Xptxas -v`` report,
     keyed by its template arguments as ints (``Variant.template_args()``;
     () for a function that is no template)."""
@@ -1444,22 +1444,18 @@ def hopper_ptxas(source: str, kernel: str, switches: tuple, smem_symbol=None) ->
 
 
 def proto_ptxas() -> dict:
-    """ptxas's report of the prototypes' two kernels, keyed by variant name:
-    the Hopper instantiations through :func:`hopper_ptxas` (registers,
-    spills and dynamic shared memory; a spill fails the run), the mma.sync
-    ones (registers and spills) from the same log."""
-    from physicedit_torch.kernels import _build
+    """ptxas's report of the prototypes' kernel through :func:`hopper_ptxas`
+    (registers, spills and dynamic shared memory; a spill fails the run),
+    keyed by variant name."""
     from physicedit_torch.tools import _proto_attention as pa
 
-    switches = ("inscale", "bias", "exp", "row_sum", "norm")
-    # T1 v1's bf16 and T5's fp32 key bias take the same slot per stage
+    switches = ("inscale", "bias", "clamp", "exp", "row_sum", "norm")
+    # T1 v1's bf16 and the fp32 key bias take the same slot per stage
     hopper = hopper_ptxas(pa.SOURCE, "proto_hopper_kernel", switches,
                           lambda args: "proto_fixedmax_attention_bias_smem_bytes"
                           if args[1] != pa.BIAS_CODES["none"]
                           else "proto_fixedmax_attention_smem_bytes")
-    mma_sync = ptxas_report(f"{_build.library_path(pa.SOURCE)}.log")
-    return {name: (hopper[",".join(f"{k}={v}" for k, v in zip(switches, var.template_args()))]
-                   if var.loop == "hopper" else mma_sync.get(var.template_args(), {}))
+    return {name: hopper[",".join(f"{k}={v}" for k, v in zip(switches, var.template_args()))]
             for name, var in pa.VARIANTS.items()}
 
 
@@ -1478,7 +1474,8 @@ def stage_varying_key_bias(b: int, s: int, device, gen):
 
 
 def t5_edge_cases(b: int, device, gen) -> list:
-    """T5's cases at the edges of its key-bias prefix, B = ``b``, N = 24:
+    """T5's and T8's cases at the edges of their key-bias prefix, B = ``b``,
+    N = 24:
     (case, S, key bias [b, 1, S], bias_keys, the batch rows the bias blocks
     on every key or None).  A ragged S whose bias changes every stage over
     every key (two stages that share a ring slot never carry the same
@@ -1505,22 +1502,22 @@ def t5_edge_cases(b: int, device, gen) -> list:
 def proto_phase(report: dict, gen, time_ms, compare) -> dict:
     """The bf16 attention prototypes of ``tools/`` (T1 v1-v4, T2, T3, T5,
     T7, T8) at the DiT's joint attention, B = 2, N = 24, S = 8448, RMS-normed
-    q and k: each instantiation of ``csrc/proto_fixedmax_attention.cu``
-    against its plain version (the normalised ones under the K1 gates, T1 v3
-    and v4 relative to their largest output), timed (CUDA events and a CUDA
-    graph) beside its plain version, the one SDPA call that computes the
-    same function where there is one, and the bound, with its loop, its
-    registers and spills; the last 64 keys masked for T3, T7 and T1 v1,
-    keys [200, 256) of the text prefix for T8 and T5 (bias_keys 1408, the
-    overlap off and on).  The instantiations on the Hopper mainloop (T2,
-    T3, T1 v1-v4, T5) also give the same bits in two more calls, their
-    ptxas report carries their dynamic shared memory (a spill fails the
-    run), and T1 v1 runs again at a ragged S = 8513 with a key bias that
-    changes every stage, under the K1 gates.  T5, both names, also at the
-    edges of its prefix (:func:`t5_edge_cases`), under the K1 gates on live
-    rows, NaN on a batch its bias blocks wholly, three calls bit for bit.
-    A ragged S where one batch has no live key: NaN rows from T7 (no floor
-    on l), 0 from T3.  Then each
+    q and k: each instantiation of ``csrc/proto_fixedmax_attention.cu`` (all
+    on the Hopper mainloop) against its plain version (the normalised ones
+    under the K1 gates, T1 v3 and v4 relative to their largest output),
+    three calls bit for bit, timed (CUDA events and a CUDA graph) beside
+    its plain version, the one SDPA call that computes the same function
+    where there is one, and the bound, with its loop, its registers, spills
+    and dynamic shared memory (a spill fails the run); the last 64 keys
+    masked for T3, T7 and T1 v1, keys [200, 256) of the text prefix for T8
+    and T5 (bias_keys 1408, both names).  T1 v1 and T7 run again at a
+    ragged S = 8513 with a key bias that changes every stage, and T7 with
+    q and k scaled so that many logits pass its clamp, under the K1 gates.
+    T5 and T8, both names each, also at the edges of their prefix
+    (:func:`t5_edge_cases`), under the K1 gates on live rows, NaN on a
+    batch the bias blocks wholly, three calls bit for bit.  A ragged S
+    where one batch has no live key: NaN rows from T7 (no floor on l), 0
+    from T3.  Then each
     ported tool's ``main()`` once with the counts at 0: the prototypes'
     path.  Returns its launches."""
     import torch
@@ -1582,7 +1579,7 @@ def proto_phase(report: dict, gen, time_ms, compare) -> dict:
             lambda: sdpa(q, k, v, attn_mask=lib_prefix))
     registers = proto_ptxas()
     flops = 4 * b * n * s * s * 128
-    overlap_off = {}
+    twins = {}    # the output of each name whose "_overlap" twin follows
     for name in pa.VARIANTS:
         kernel, plain, library = cases[name]
         var = pa.VARIANTS[name]
@@ -1599,14 +1596,13 @@ def proto_phase(report: dict, gen, time_ms, compare) -> dict:
                   and row["rel_l2"] <= ATTN_REL_L2)
         else:
             ok = _attention_ok(row)
-        if var.loop == "hopper":    # two more calls, the same bits
-            row["repeat_bits_equal"] = all(torch.equal(kernel(), out) for _ in range(2))
-            ok = ok and row["repeat_bits_equal"]
-        if var.overlap:     # the same arithmetic in the same order: the same bits
-            off = overlap_off.pop(name.removesuffix("_overlap"))
-            row["equals_overlap_off"] = bool(torch.equal(out, off))
+        row["repeat_bits_equal"] = all(torch.equal(kernel(), out) for _ in range(2))
+        ok = ok and row["repeat_bits_equal"]
+        if name.endswith("_overlap"):   # the same instantiation: the same bits
+            row["equals_overlap_off"] = bool(torch.equal(out, twins.pop(
+                name.removesuffix("_overlap"))))
         elif name + "_overlap" in pa.VARIANTS:
-            overlap_off[name] = out
+            twins[name] = out
         del out, ref
         row["ms"] = time_ms(kernel, 10)
         row["graph_ms"] = _bench.graph_ms(kernel)
@@ -1623,30 +1619,54 @@ def proto_phase(report: dict, gen, time_ms, compare) -> dict:
         emit(row)
         if not ok:
             fail(f"prototype {name} disagrees with its plain version")
-    del overlap_off
+    del twins, q, k, v, qs
+    torch.cuda.empty_cache()
 
-    # T1 v1 at a ragged S with a key bias that changes every stage: a bias
-    # slot of the ring read after its stage was released would show here
+    # T1 v1 and T7 at a ragged S with a key bias that changes every stage: a
+    # bias slot of the ring read after its stage was released would show
+    # here; T7 again with q and k scaled so that many logits pass its clamp
     sr = 8513
     qr, kr = (_rms(torch.randn(b, n, sr, 128, device=dev, generator=gen)).bfloat16()
               for _ in range(2))
-    qr = fa._prescale(qr).contiguous()
     vr = torch.randn(b, n, sr, 128, device=dev, generator=gen).bfloat16()
     bias_r = stage_varying_key_bias(b, sr, dev, gen)
-    out = t1.attn_bf16s(qr, kr, vr, bias_r)
-    ref = t1.attn_bf16s_reference(qr, kr, vr, bias_r)
-    torch.cuda.synchronize()
-    row = _attention_row("proto", "proto_bf16s_ragged_8513_stage_varying_bias", [b, n, sr, sr],
-                         out, ref, compare)
-    row["repeat_bits_equal"] = all(torch.equal(t1.attn_bf16s(qr, kr, vr, bias_r), out)
-                                   for _ in range(2))
-    report["proto_bf16s_err"].append(row["max_abs_err"])
-    emit(row)
-    if not (_attention_ok(row) and row["repeat_bits_equal"]):
-        fail("T1 v1 with a key bias that changes every stage disagrees with its plain version")
-    del q, k, v, qs, qr, kr, vr, out, ref
+    qc, kc = ((x.float() * CLAMP_QK_SCALE).bfloat16() for x in (qr, kr))
+    # share of logits (batch 0, head 0, in exp2 units) past the clamp
+    clamped = ((qc[0, 0].float() @ kc[0, 0].float().T) * (fa.LOG2E / math.sqrt(128))
+               > fa.CLAMP).float().mean().item()
+    qrs = fa._prescale(qr).contiguous()
+    checks = [  # case, the kernel, its plain version, the report's name
+        ("proto_bf16s_ragged_8513_stage_varying_bias",
+         lambda: t1.attn_bf16s(qrs, kr, vr, bias_r),
+         lambda: t1.attn_bf16s_reference(qrs, kr, vr, bias_r), "proto_bf16s"),
+        ("proto_fixedmax_ragged_8513_stage_varying_bias",
+         lambda: t7.fixedmax_bnsd(qr, kr, vr, bias_r),
+         lambda: t7.fixedmax_bnsd_reference(qr, kr, vr, bias_r), "proto_fixedmax"),
+        ("proto_fixedmax_ragged_8513_clamp_binds",
+         lambda: t7.fixedmax_bnsd(qc, kc, vr, bias_r),
+         lambda: t7.fixedmax_bnsd_reference(qc, kc, vr, bias_r), "proto_fixedmax"),
+    ]
+    for case, call, plain, name in checks:
+        out = call()
+        ref = plain()
+        torch.cuda.synchronize()
+        row = _attention_row("proto", case, [b, n, sr, sr], out, ref, compare)
+        row["repeat_bits_equal"] = repeats_equal(call, out)
+        ok = _attention_ok(row) and row["repeat_bits_equal"]
+        if "clamp" in case:
+            row["clamped_logit_share"] = clamped
+            ok = ok and clamped > 0.0
+        report[f"{name}_err"].append(row["max_abs_err"])
+        emit(row)
+        if not ok:
+            fail(f"{case} disagrees with its plain version (or no logit passes the clamp)")
+        del out, ref
+    del qr, kr, vr, qrs, qc, kc, bias_r
     torch.cuda.empty_cache()
 
+    # T5 and T8, both names each, at the edges of their key-bias prefix
+    prefix_tools = {"proto_interleave": (t5.attn_interleaved, t5.attn_interleaved_reference),
+                    "proto_fixedmax2": (t8.fixedmax2_bnsd, t8.fixedmax2_bnsd_reference)}
     for case, s_case, bias_case, bias_keys_case, dead in t5_edge_cases(b, dev, gen):
         qr, kr = (_rms(torch.randn(b, n, s_case, 128, device=dev, generator=gen)).bfloat16()
                   for _ in range(2))
@@ -1654,30 +1674,32 @@ def proto_phase(report: dict, gen, time_ms, compare) -> dict:
         live = torch.ones(b, n, s_case, dtype=torch.bool, device=dev)
         if dead is not None:
             live[dead] = False
-        ref = t5.attn_interleaved_reference(qr, kr, vr, bias_case, bias_keys_case)
-        for overlap in (False, True):
-            name = "proto_interleave" + ("_overlap" if overlap else "")
+        for base, (tool, tool_reference) in prefix_tools.items():
+            ref = tool_reference(qr, kr, vr, bias_case, bias_keys_case)
+            for overlap in (False, True):
+                name = base + ("_overlap" if overlap else "")
 
-            def call():
-                return t5.attn_interleaved(qr, kr, vr, bias_case, bias_keys_case, overlap)
+                def call():
+                    return tool(qr, kr, vr, bias_case, bias_keys_case, overlap)
 
-            out = call()
-            torch.cuda.synchronize()
-            row = _attention_row("proto", f"{name}_{case}", [b, n, s_case, s_case], out, ref,
-                                 compare, live)
-            row["bias_keys"] = bias_keys_case
-            row["repeat_bits_equal"] = repeats_equal(call, out)
-            ok = _attention_ok(row) and row["repeat_bits_equal"]
-            if dead is not None:
-                row["dead_rows_all_nan"] = bool(torch.isnan(out[dead]).all()
-                                                and torch.isnan(ref[dead]).all())
-                ok = ok and row["dead_rows_all_nan"]
-            report[f"{name}_err"].append(row["max_abs_err"])
-            emit(row)
-            if not ok:
-                fail(f"T5 {name} {case} disagrees with its plain version")
-            del out
-        del qr, kr, vr, ref, live
+                out = call()
+                torch.cuda.synchronize()
+                row = _attention_row("proto", f"{name}_{case}", [b, n, s_case, s_case], out,
+                                     ref, compare, live)
+                row["bias_keys"] = bias_keys_case
+                row["repeat_bits_equal"] = repeats_equal(call, out)
+                ok = _attention_ok(row) and row["repeat_bits_equal"]
+                if dead is not None:
+                    row["dead_rows_all_nan"] = bool(torch.isnan(out[dead]).all()
+                                                    and torch.isnan(ref[dead]).all())
+                    ok = ok and row["dead_rows_all_nan"]
+                report[f"{name}_err"].append(row["max_abs_err"])
+                emit(row)
+                if not ok:
+                    fail(f"{name} {case} disagrees with its plain version")
+                del out
+            del ref
+        del qr, kr, vr, live
     torch.cuda.empty_cache()
 
     # a ragged S where batch 1 has no live key
@@ -2274,7 +2296,7 @@ def main() -> int:
 
     from physicedit_torch.kernels import _build
     from physicedit_torch.kernels import flash_attention as fa
-    from physicedit_torch.tools import _bench, _proto_attention
+    from physicedit_torch.tools import _bench
 
     # 1. the card
     card = subprocess.run(
@@ -2376,16 +2398,11 @@ def main() -> int:
             row["ms"] = time_ms(lambda: fa.fixedmax_attention(q, k, v, mask, clamp), 10)
             row["graph_ms"] = _bench.graph_ms(lambda: fa.fixedmax_attention(q, k, v, mask,
                                                                             clamp))
-            # the kernel alone on the prescaled q', and with the clamp on;
-            # the mma.sync loop that K1 ran before its Hopper mainloop (T8
-            # proto_fixedmax2 without a bias: exp2 with the clamp, row sums,
-            # prescaled, no mask) on the same inputs
+            # the kernel alone on the prescaled q', and with the clamp on
             row["kernel_ms"] = time_ms(
                 lambda: fa._fixedmax_prescaled(qs, k, v, mask, clamp, False), 10)
             row["clamp_on_ms"] = time_ms(
                 lambda: fa._fixedmax_prescaled(qs, k, v, mask, True, False), 10)
-            row["old_loop_ms"] = time_ms(
-                lambda: _proto_attention.run("proto_fixedmax2", qs, k, v), 10)
             row["plain_ms"] = time_ms(
                 lambda: fa.fixedmax_attention_reference(q, k, v, mask, clamp), 3)
             mask4 = mask[:, None, None, :]

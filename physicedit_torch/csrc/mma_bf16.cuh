@@ -59,36 +59,6 @@ __device__ __forceinline__ void load_tile(uint16_t* smem, const uint16_t* base,
   }
 }
 
-// The warp's 16 query rows as A fragments for all 8 k chunks of the head dim.
-__device__ __forceinline__ void load_q_fragments(uint32_t qa[8][4], const uint16_t* qs,
-                                                 int warp_row0, int g, int t) {
-#pragma unroll
-  for (int kc = 0; kc < 8; ++kc) {
-    const uint16_t* r0 = qs + (warp_row0 + g) * kRowStride + kc * 16 + 2 * t;
-    const uint16_t* r1 = r0 + 8 * kRowStride;
-    qa[kc][0] = *reinterpret_cast<const uint32_t*>(r0);
-    qa[kc][1] = *reinterpret_cast<const uint32_t*>(r1);
-    qa[kc][2] = *reinterpret_cast<const uint32_t*>(r0 + 8);
-    qa[kc][3] = *reinterpret_cast<const uint32_t*>(r1 + 8);
-  }
-}
-
-// S[16 x 64] = Q[16 x 128] . K_tile^T : 8 n-tiles of 8 keys.
-__device__ __forceinline__ void qk_tile(float s[8][4], const uint32_t qa[8][4],
-                                        const uint16_t* ks, int g, int t) {
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-    const uint16_t* krow = ks + (8 * j + g) * kRowStride + 2 * t;
-#pragma unroll
-    for (int kc = 0; kc < 8; ++kc) {
-      const uint32_t b0 = *reinterpret_cast<const uint32_t*>(krow + kc * 16);
-      const uint32_t b1 = *reinterpret_cast<const uint32_t*>(krow + kc * 16 + 8);
-      mma_bf16_16816(s[j], qa[kc], b0, b1);
-    }
-  }
-}
-
 // acc[16 x 128] += P[16 x 64] (bf16, from registers) . V_tile[64 x 128].
 __device__ __forceinline__ void pv_tile(float acc[16][4], const float p[8][4],
                                         const uint16_t* vs, int g, int t) {

@@ -6,15 +6,14 @@ tools that drive them: ``proto_fixedmax`` (T7), ``proto_fixedmax2`` (T8),
 
 Each entry of :data:`VARIANTS` is a launch counter in
 ``kernels/flash_attention.LAUNCHES``, the kernel instantiation it launches
-(T3 shares T2's), the loop that instantiation runs (:data:`LOOPS`) and its
-switches, which :func:`reference` follows with the kernel's numerics: fp32
-scores, exp2, P rounded to V's dtype before the product with V, fp32 row
-sums and accumulator, the key tiles of its loop walked in the kernel's
-order.  T2, T3, T1 v1-v4 and T5 run on the Hopper mainloop of
-``csrc/hopper_attention.cuh`` (TMA, ``wgmma``), T7 and T8 on the
-``mma.sync`` loop.  :func:`run` takes the plain version for CPU tensors
-and launches the kernel for CUDA tensors (bf16, head_dim 128, contiguous
-and 16-byte aligned), or raises; it never falls back.
+(T3 shares T2's; the two names of T8 and of T5 one each) and its switches,
+which :func:`reference` follows with the kernel's numerics: fp32 scores,
+exp2, P rounded to V's dtype before the product with V, fp32 row sums and
+accumulator, the key tiles walked in the kernel's order (:data:`BLOCK_K`).
+All of them run on the Hopper mainloop of ``csrc/hopper_attention.cuh``
+(TMA, ``wgmma``).  :func:`run` takes the plain version for CPU tensors and
+launches the kernel for CUDA tensors (bf16, head_dim 128, contiguous and
+16-byte aligned), or raises; it never falls back.
 """
 
 from __future__ import annotations
@@ -29,9 +28,9 @@ from physicedit_torch.kernels import _build
 from physicedit_torch.kernels import flash_attention as fa
 
 SOURCE = "proto_fixedmax_attention"
-# each loop's key tile (kBlockK of the mma.sync loop, hopper::kTile of the
-# Hopper mainloop): the plain version sums over the same tiles
-LOOPS = {"mma_sync": 64, "hopper": 128}
+# the Hopper mainloop's key tile (hopper::kTile): the plain version sums over
+# the same tiles
+BLOCK_K = 128
 BIAS_CODES = {"none": 0, "fp32": 1, "bf16": 2}
 # JAX's exp2 is exp(ln 2 * x) with ln 2 in x's dtype (``lax._exp2_lower``):
 # on T1 v1's bf16 scores, ln 2 rounded to bf16
@@ -45,19 +44,13 @@ class Variant:
     entry point.
 
     inscale: s = fp32(q k^T) * log2(e) / sqrt(d) (else q arrives prescaled).
-    bias: "fp32" adds the key bias to s on the keys before ``bias_keys``;
-    "bf16" (T1 v1) rounds the score and its sum with the bias (itself
-    rounded to bf16) to bf16, and takes exp2 as JAX does on bf16:
+    bias: "fp32" adds the key bias to s (after the scale) on the keys before
+    ``bias_keys``; "bf16" (T1 v1) rounds the score and its sum with the bias
+    (itself rounded to bf16) to bf16, and takes exp2 as JAX does on bf16:
     bf16(exp(bf16(x * bf16(ln 2)))).  clamp: min(., 100) before exp2.  exp: p =
     exp2(.), else the score itself.  row_sum: l = sum(p).  norm: "recip" is
     acc * (1 / l) with no floor (NaN where l == 0), "floor" acc / max(l -
-    n_masked, 1e-30) (0 there), "none" acc.  overlap: the next tile's QK^T
-    issued before this tile's softmax; it does not change the function, and
-    the Hopper loop has no such switch (its ping-pong already overlaps one
-    warpgroup's exp2 with the other's products), so both of T5's names run
-    one instantiation there.  loop: the kernel that runs it, "hopper"
-    (``proto_hopper_kernel``, no clamp or overlap switch) or "mma_sync"
-    (``proto_kernel``)."""
+    n_masked, 1e-30) (0 there), "none" acc."""
     kernel_id: int
     inscale: bool = False
     bias: str = "none"
@@ -65,44 +58,35 @@ class Variant:
     exp: bool = True
     row_sum: bool = True
     norm: str = "floor"
-    overlap: bool = False
-    loop: str = "mma_sync"
-
-    @property
-    def block_k(self) -> int:
-        return LOOPS[self.loop]
 
     def template_args(self) -> tuple:
-        """The kernel's template arguments as ints: <kInScale, kBias, kExp,
-        kRowSum, kNorm> on the Hopper loop, <kInScale, kBias, kClamp, kExp,
-        kRowSum, kNorm, kOverlap> on the mma.sync loop."""
-        if self.loop == "hopper":
-            return (int(self.inscale), BIAS_CODES[self.bias], int(self.exp), int(self.row_sum),
-                    NORM_CODES[self.norm])
+        """``proto_hopper_kernel``'s template arguments as ints: <kInScale,
+        kBias, kClamp, kExp, kRowSum, kNorm>."""
         return (int(self.inscale), BIAS_CODES[self.bias], int(self.clamp), int(self.exp),
-                int(self.row_sum), NORM_CODES[self.norm], int(self.overlap))
+                int(self.row_sum), NORM_CODES[self.norm])
 
 
 VARIANTS = {
     # T7 tools/proto_fixedmax.py::fixedmax_bnsd
     "proto_fixedmax": Variant(0, inscale=True, bias="fp32", clamp=True, norm="recip"),
-    # T8 tools/proto_fixedmax2.py::fixedmax2_bnsd, sub = 1 and sub > 1
+    # T8 tools/proto_fixedmax2.py::fixedmax2_bnsd, sub = 1 and sub > 1: one
+    # instantiation under two ids (the ping-pong already overlaps one
+    # warpgroup's exp2 with the other's products)
     "proto_fixedmax2": Variant(1, bias="fp32", clamp=True, norm="recip"),
-    "proto_fixedmax2_overlap": Variant(2, bias="fp32", clamp=True, norm="recip", overlap=True),
+    "proto_fixedmax2_overlap": Variant(2, bias="fp32", clamp=True, norm="recip"),
     # T2 tools/proto_attn_fast.py::attn_nobias, inscale on and off (off is T1 v2)
-    "proto_nobias_inscale": Variant(3, inscale=True, loop="hopper"),
-    "proto_nobias": Variant(4, loop="hopper"),
+    "proto_nobias_inscale": Variant(3, inscale=True),
+    "proto_nobias": Variant(4),
     # T3 tools/proto_attn_fast.py::attn_nmask: T2's instantiation with n_masked
-    "proto_nmask": Variant(4, loop="hopper"),
+    "proto_nmask": Variant(4),
     # T1 tools/proto_attn_bf16s.py: v1 _bf16s_kernel, v3 _expnosum_kernel, v4 _noexp_kernel
-    "proto_bf16s": Variant(5, bias="bf16", loop="hopper"),
-    "proto_expnosum": Variant(6, row_sum=False, norm="none", loop="hopper"),
-    "proto_noexp": Variant(7, exp=False, row_sum=False, norm="none", loop="hopper"),
+    "proto_bf16s": Variant(5, bias="bf16"),
+    "proto_expnosum": Variant(6, row_sum=False, norm="none"),
+    "proto_noexp": Variant(7, exp=False, row_sum=False, norm="none"),
     # T5 tools/proto_attn_interleave.py::attn_interleaved, sub = 1 and sub > 1:
-    # one Hopper instantiation under two ids
-    "proto_interleave": Variant(8, bias="fp32", norm="recip", loop="hopper"),
-    "proto_interleave_overlap": Variant(9, bias="fp32", norm="recip", overlap=True,
-                                        loop="hopper"),
+    # one instantiation under two ids, as T8's
+    "proto_interleave": Variant(8, bias="fp32", norm="recip"),
+    "proto_interleave_overlap": Variant(9, bias="fp32", norm="recip"),
 }
 
 
@@ -121,12 +105,12 @@ def _key_bias(var: Variant, key_bias, b: int, sk: int, bias_keys: int):
 
 
 def _tile_padded(bias, b: int, sk: int, bias_keys: int, device) -> torch.Tensor:
-    """The Hopper loop's key bias: [B, whole 128-key tiles] fp32, 0 from
+    """The kernel's key bias: [B, whole 128-key tiles] fp32, 0 from
     ``bias_keys`` and from S_k on (adding 0 to T1 v1's bf16 score changes
-    nothing; T5 copies only the tiles below ``bias_keys``, and the zeros
-    cover the rest of the last of them), so each tile's bias is one
-    512-byte copy that stays in bounds."""
-    width = -(-sk // LOOPS["hopper"]) * LOOPS["hopper"]
+    nothing; the fp32 bias is copied only for the tiles below
+    ``bias_keys``, and the zeros cover the rest of the last of them), so
+    each tile's bias is one 512-byte copy that stays in bounds."""
+    width = -(-sk // BLOCK_K) * BLOCK_K
     padded = torch.zeros((b, width), dtype=torch.float32, device=device)
     if bias is not None:
         n = min(bias_keys, sk)
@@ -136,15 +120,15 @@ def _tile_padded(bias, b: int, sk: int, bias_keys: int, device) -> torch.Tensor:
 
 def kernel_key_bias(name: str, key_bias, b: int, sk: int, bias_keys: int, device):
     """The key bias that instantiation ``name`` reads on the card: None
-    (no bias, or T5 with ``bias_keys`` 0: the kernel then copies none),
-    [B, S_k] fp32 on the ``mma.sync`` loop, or the tile-padded [B, whole
-    128-key tiles] of :func:`_tile_padded` on the Hopper loop (always for
-    T1 v1, whose kernel reads every tile's)."""
+    (no bias, or an fp32 bias with ``bias_keys`` 0: the kernel then copies
+    none), else the tile-padded [B, whole 128-key tiles] of
+    :func:`_tile_padded` (always for T1 v1, whose kernel reads every
+    tile's)."""
     var = VARIANTS[name]
     bias = _key_bias(var, key_bias, b, sk, bias_keys)
-    if var.loop == "hopper" and (bias is not None or var.bias == "bf16"):
-        return _tile_padded(bias, b, sk, bias_keys, device)
-    return None if bias is None else bias.to(device).contiguous()
+    if bias is None and var.bias != "bf16":
+        return None
+    return _tile_padded(bias, b, sk, bias_keys, device)
 
 
 def reference(name: str, q, k, v, key_bias=None, bias_keys: int = 0, n_masked=None):
@@ -165,8 +149,8 @@ def reference(name: str, q, k, v, key_bias=None, bias_keys: int = 0, n_masked=No
     qf = q.float()
     l = torch.zeros((b, n, sq), dtype=torch.float32, device=q.device)
     acc = torch.zeros((b, n, sq, d), dtype=torch.float32, device=q.device)
-    for k0 in range(0, sk, var.block_k):
-        k1 = min(sk, k0 + var.block_k)
+    for k0 in range(0, sk, BLOCK_K):
+        k1 = min(sk, k0 + BLOCK_K)
         x = torch.matmul(qf, k[:, :, k0:k1].float().transpose(-1, -2))
         with_bias = bias is not None and k0 < bias_keys
         if var.bias == "bf16":

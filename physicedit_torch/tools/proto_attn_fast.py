@@ -22,9 +22,9 @@ are wrapper work (torch ops), as they were XLA ops in the JAX tool.  The
 kernels are instantiations ``proto_nobias_inscale``, ``proto_nobias`` and
 ``proto_nmask`` (T2's with the count) of
 ``csrc/proto_fixedmax_attention.cu``, all three on K1's Hopper mainloop
-(``csrc/hopper_attention.cuh``: TMA, ``wgmma``; the file's T7, T8 and T5
-keep the ``mma.sync`` loop).  The JAX tool swept TPU block shapes and VMEM
-limits; this one prints a row per variant.
+(``csrc/hopper_attention.cuh``: TMA, ``wgmma``), as every instantiation
+of that file.  The JAX tool swept TPU block shapes and VMEM limits; this
+one prints a row per variant.
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
-"""Time the attention prototypes that run on the Hopper mainloop (T2 with
-the scale inside and outside the kernel, T3, T1 v1, v3 and v4, T5 under
-both names) and T9's two forms in two checkouts of this repository on one
+"""Time the attention prototypes (T7, T8 and T5 under both names, T2 with
+the scale inside and outside the kernel, T3, T1 v1, v3 and v4) and T9's
+two forms in two checkouts of this repository on one
 card, in turns: before, after, after, before.
 
     python -m physicedit_torch.tools.proto_before_after --before DIR [--after DIR]
@@ -14,7 +14,8 @@ instantiation of :data:`NAMES` through the checkout's
 ``tools/_proto_attention.run`` at the DiT's joint attention (B2 N24 S8448
 D128, RMS-normed q and k, q prescaled unless the scale is inside; T3's K
 and V zeroed on the last 64 keys beforehand, with the masked count; T1
-v1's key bias -1e30 there; T5's on keys [200, 256) of its 1408-key prefix)
+v1's and T7's key bias -1e30 there; T8's and T5's on keys [200, 256) of
+their 1408-key prefix)
 and T9 through ``tools/proto_int8_rate.pallas_mm`` at its tool's shape
 (M16384 K3072 N12288, int8 over the whole range or bf16 normal x 0.1):
 the median of 20 calls between CUDA events
@@ -31,7 +32,8 @@ import sys
 
 from physicedit_torch.tools import _turns
 
-NAMES = ("proto_nobias_inscale", "proto_nobias", "proto_nmask", "proto_bf16s",
+NAMES = ("proto_fixedmax", "proto_fixedmax2", "proto_fixedmax2_overlap",
+         "proto_nobias_inscale", "proto_nobias", "proto_nmask", "proto_bf16s",
          "proto_expnosum", "proto_noexp", "proto_interleave", "proto_interleave_overlap",
          "proto_mm_i32", "proto_mm_f32")
 SHAPE = (2, 24, 8448)    # B, N, S of the attention prototypes
@@ -71,7 +73,11 @@ bias = pa.mask_bias(live)
 prefix = torch.ones(b, s, dtype=torch.bool, device=dev)
 prefix[:, 200:256] = False
 bias_prefix = pa.mask_bias(prefix)
-calls = {"proto_nobias_inscale": lambda: pa.run("proto_nobias_inscale", q, k, v),
+calls = {"proto_fixedmax": lambda: pa.run("proto_fixedmax", q, k, v, bias, s),
+         "proto_fixedmax2": lambda: pa.run("proto_fixedmax2", qs, k, v, bias_prefix, 1408),
+         "proto_fixedmax2_overlap":
+             lambda: pa.run("proto_fixedmax2_overlap", qs, k, v, bias_prefix, 1408),
+         "proto_nobias_inscale": lambda: pa.run("proto_nobias_inscale", q, k, v),
          "proto_nobias": lambda: pa.run("proto_nobias", qs, k, v),
          "proto_nmask": lambda: pa.run("proto_nmask", qs, kz, vz, n_masked=nm),
          "proto_bf16s": lambda: pa.run("proto_bf16s", qs, k, v, bias, s),

@@ -9,9 +9,10 @@ with c = log2(e) / sqrt(d) in fp32,
     p = exp2(min(fp32(q k^T) * c + key_bias[b, key], 100))
     out = (bf16(p) . v) * (1 / l),  l = sum(p) in fp32
 
-with an fp32 key bias [B, 1, S_k] on every key.  l has no floor: a row whose
-keys all carry -1e30 comes out NaN, as in the JAX tool.  The kernel is
-instantiation ``proto_fixedmax`` of ``csrc/proto_fixedmax_attention.cu``.
+with an fp32 key bias [B, 1, S_k] on every key, added after the scale.  l
+has no floor: a row whose keys all carry -1e30 comes out NaN, as in the JAX
+tool.  The kernel is instantiation ``proto_fixedmax`` of
+``csrc/proto_fixedmax_attention.cu`` on the Hopper mainloop.
 The JAX tool swept TPU block shapes; the kernel has one tiling, so the tool
 prints one row, beside K1′ (the same function with a bool key mask).
 """
@@ -37,7 +38,9 @@ def fixedmax_bnsd_reference(q, k, v, key_bias):
 def main() -> list:
     """On the card: T7 against K1′ (``fixedmax_bnsd`` scaled in the kernel,
     clamp on) and against SDPA at q 512 x k 2816, then its time at the DiT's
-    joint attention (B2 N24 S8448 D128) beside K1′'s."""
+    joint attention (B2 N24 S8448 D128) beside K1′'s, and again with
+    ``bias_keys`` 0 (the same kernel reading no bias: what the bias on every
+    tile costs)."""
     import torch
     import torch.nn.functional as F
 
@@ -62,7 +65,9 @@ def main() -> list:
     return [check,
             _bench.timing_row(NAME, "K1' scaled, clamp", lambda: fa.fixedmax_bnsd(q, k, v),
                               flops),
-            _bench.timing_row(NAME, "T7 fixedmax", lambda: fixedmax_bnsd(q, k, v, bias), flops)]
+            _bench.timing_row(NAME, "T7 fixedmax", lambda: fixedmax_bnsd(q, k, v, bias), flops),
+            _bench.timing_row(NAME, "T7 fixedmax, bias_keys 0",
+                              lambda: pa.run(NAME, q, k, v, bias, 0), flops)]
 
 
 if __name__ == "__main__":

@@ -12,11 +12,13 @@ tool adds it on its first k block, ``bias_keys`` = its ``block_k``):
 
 A key past the prefix takes no bias whatever the bias holds there.  l has
 no floor (a row with l == 0 is NaN).  ``overlap`` is the JAX tool's
-``sub > 1``: the kernel issues the next key tile's QK^T before this tile's
-softmax (instantiation ``proto_fixedmax2_overlap`` of
-``csrc/proto_fixedmax_attention.cu``; ``proto_fixedmax2`` without); it
-does not change the function.  The JAX tool swept TPU block shapes and
-``sub``; this one prints a row per overlap setting.
+``sub > 1``, its next sub-tile's QK^T issued before this one's softmax.
+Both settings launch the same instantiation of
+``csrc/proto_fixedmax_attention.cu`` (on the Hopper mainloop, whose
+ping-pong already runs one warpgroup's exp2 under the other's products),
+counted under ``proto_fixedmax2_overlap`` or ``proto_fixedmax2``.  The JAX
+tool swept TPU block shapes and ``sub``; this one prints a row per overlap
+setting.
 """
 
 from __future__ import annotations

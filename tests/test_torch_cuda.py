@@ -38,8 +38,8 @@ def cuda():
 
 BF16_TOL = 2e-2  # bf16 kernel output against the plain version (fp32 softmax)
 K7_REL_L2 = 5e-3  # and K7's rel-L2 over the whole output
-# the attention prototypes that run on the Hopper loop (T2, T3, T1 v1-v4, T5)
-HOPPER_PROTOS = [name for name, var in tpa.VARIANTS.items() if var.loop == "hopper"]
+# the attention prototypes, all on the Hopper loop (T2, T3, T1 v1-v4, T5, T7, T8)
+HOPPER_PROTOS = list(tpa.VARIANTS)
 
 
 @pytest.mark.cuda
@@ -1087,7 +1087,7 @@ def test_proto_attention_kernel_matches_plain_on_cuda(cuda, name):
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", ["proto_fixedmax2", "proto_interleave"])
 def test_proto_attention_overlap_gives_the_same_bits_on_cuda(cuda, name):
-    """The overlap switch reorders issue, not arithmetic."""
+    """Both names launch one instantiation: the same bits."""
     g = torch.Generator(cuda).manual_seed(60)
     q, k, v, kwargs = _proto_inputs(name, g, 257, 1000)
     assert torch.equal(tpa.run(name, q, k, v, **kwargs),
@@ -1140,9 +1140,9 @@ PROTO_EDGE_CASES = {
 
 def _hopper_proto_call(name, g, sq, sk, spans):
     """Calls of Hopper instantiation ``name`` and of its plain version on
-    RMS-normed inputs (B 2, N 3) whose key mask (T3) or key bias (T1 v1 and
-    T5: -1e30 on the spans, normal x 0.5 elsewhere; T5's on a prefix of 200
-    keys, or 100 where S_k <= 200) holds ``spans``."""
+    RMS-normed inputs (B 2, N 3) whose key mask (T3) or key bias (T1 v1, T5,
+    T7, T8: -1e30 on the spans, normal x 0.5 elsewhere; the fp32 bias on a
+    prefix of 200 keys, or 100 where S_k <= 200) holds ``spans``."""
     var = tpa.VARIANTS[name]
     q, k, v, _, _ = _k7_inputs(g, 2, 3, sq, sk)
     mask = torch.ones(2, sk, dtype=torch.bool, device=g.device)
@@ -1157,7 +1157,8 @@ def _hopper_proto_call(name, g, sq, sk, spans):
         if var.bias != "none":
             bias = torch.where(mask, 0.5 * torch.randn(2, sk, device=g.device, generator=g),
                                -1e30)
-            # T5's prefix ends inside a tile (keys it blocks past it stay live)
+            # the fp32 bias's prefix ends inside a tile (keys it blocks past
+            # it stay live; T7 scales the tiles past it all the same)
             bias_keys = (200 if sk > 200 else 100) if var.bias == "fp32" else sk
             kwargs = {"key_bias": bias[:, None, :], "bias_keys": bias_keys}
     return (lambda: tpa.run(name, *args, **kwargs)), (lambda: tpa.reference(name, *args,
@@ -1168,8 +1169,8 @@ def _hopper_proto_call(name, g, sq, sk, spans):
 @pytest.mark.parametrize("case", list(PROTO_EDGE_CASES))
 @pytest.mark.parametrize("name", HOPPER_PROTOS)
 def test_proto_hopper_tile_edges_on_cuda(cuda, name, case):
-    """T2 (both scales), T3, T1 v1-v4 and T5 (both names) on the Hopper
-    loop at its 128-key tile edges, under the card's gates for them (max
+    """T2 (both scales), T3, T1 v1-v4, T7, and T5 and T8 (both names each)
+    on the Hopper loop at its 128-key tile edges, under the card's gates for them (max
     |err| 4e-3 and rel-L2 5e-3; T1 v3 / v4 8e-3 of their largest output),
     three calls bit for bit."""
     g = torch.Generator(cuda).manual_seed(80 + tpa.VARIANTS[name].kernel_id)

@@ -181,6 +181,35 @@ def test_t7_fixedmax_matches_jax(dtype, interpret, no_launch):
     _check(got, want, dtype)
 
 
+def test_t7_scales_the_keys_past_bias_keys(no_launch):
+    """T7's plain version with bias_keys < S_k, the kernel's path for the
+    tiles past the bias (read_stage scales every tile, adds the bias on
+    those below bias_keys), against numpy in fp32: s * c on every key, the
+    bias on keys < 200 only, the clamp at 100 (binding on keys 5 and 9 of
+    batch 1), exp2, acc * (1 / l).  Keys 150-259 of batch 0 carry -1e30:
+    keys 200-259 stay live, so the bias on every key gives another output,
+    and so does a score left unscaled past the prefix."""
+    b, n, s, d, bias_keys = 2, 2, 300, 128, 200
+    rng, (q, k, v) = _qkv(33, b, n, s, d)
+    bias = _key_bias(rng, b, s, [(150, 260), (0, 0)], big={5: 120.0, 9: 140.0})
+    c = np.float32(tfa.LOG2E / np.sqrt(d))
+
+    def expect(scale_past_prefix=True):
+        x = np.matmul(q, k.swapaxes(-1, -2))
+        x[..., :bias_keys] = x[..., :bias_keys] * c + bias[:, :, None, :bias_keys]
+        if scale_past_prefix:
+            x[..., bias_keys:] = x[..., bias_keys:] * c
+        p = np.exp2(np.minimum(x, np.float32(100.0)))
+        return np.matmul(p, v) * (np.float32(1.0) / p.sum(-1, keepdims=True))
+
+    tq, tk, tv, tbias = map(torch.from_numpy, (q, k, v, bias))
+    got = pa.reference("proto_fixedmax", tq, tk, tv, tbias, bias_keys)
+    _check(got, expect(), "fp32")
+    assert pa.max_abs_diff(got, torch.from_numpy(expect(scale_past_prefix=False))) > 0.01
+    everywhere = pa.reference("proto_fixedmax", tq, tk, tv, tbias, s)
+    assert pa.max_abs_diff(got[:1], everywhere[:1]) > 0.01
+
+
 def test_t7_row_with_no_live_key_is_nan(interpret, no_launch):
     """l == 0 and no floor: acc * (1 / l) = 0 * inf, in JAX and in the port."""
     b, n, s, d = 2, 2, 256, 64
@@ -349,11 +378,11 @@ def test_t1_ablations_match_jax(dtype, variant, interpret, no_launch):
 
 
 # ---------------------------------------------------------------------------
-# T2, T3, T1 v1 / v3 / v4 at the Hopper loop's 128-key tile edges
+# T2, T3, T1 v1 / v3 / v4, T5, T7, T8 at the Hopper loop's 128-key tile edges
 # ---------------------------------------------------------------------------
 
 # name: (seed, b, n, sq, sk, per batch row the span of keys that T3 masks and
-# T1 v1's bias blocks).  One live key in the last tile, a ragged last tile, a
+# the key bias of T1 v1, T5, T7 and T8 blocks).  One live key in the last tile, a ragged last tile, a
 # ragged q tile with S_q < S_k, and a hole across key 128.  The JAX tools'
 # grids need S to divide by their blocks, so they take the whole sequence
 # as one block; the port's plain version walks its loop's 128-key tiles.
@@ -363,7 +392,8 @@ EDGE_CASES = {
     "sq_130_lt_sk_385": (22, 1, 2, 130, 385, [(350, 385)]),
     "hole_across_key_128": (23, 2, 2, 300, 300, [(100, 160), (0, 0)]),
 }
-EDGE_VARIANTS = ("t2_inscale", "t2_prescaled", "t3", "t1_v1", "t1_v3", "t1_v4", "t5")
+EDGE_VARIANTS = ("t2_inscale", "t2_prescaled", "t3", "t1_v1", "t1_v3", "t1_v4", "t5", "t7",
+                 "t8")
 
 
 def _edge_jax(variant, jq, jk, jv, mask, bias, sq, sk):
@@ -376,6 +406,12 @@ def _edge_jax(variant, jq, jk, jv, mask, bias, sq, sk):
     if variant == "t5":   # one k block, biased: the prefix is every key
         return _jax(functools.partial(j_t5.attn_interleaved, block_q=sq, block_k=sk, sub=1,
                                       bias_subs=1), jq, jk, jv, jnp.asarray(bias))
+    if variant == "t7":
+        return _jax(functools.partial(j_t7.fixedmax_bnsd, block_q=sq, block_k=sk), jq, jk, jv,
+                    jnp.asarray(bias))
+    if variant == "t8":   # one k block, biased: the prefix is every key
+        return _jax(functools.partial(j_t8.fixedmax2_bnsd, block_q=sq, block_k=sk, sub=1),
+                    jq, jk, jv, jnp.asarray(bias))
     body = {"t1_v1": j_t1._bf16s_kernel, "t1_v3": j_t1._expnosum_kernel,
             "t1_v4": j_t1._noexp_kernel}[variant]
     jqs = _prescaled(jq, jq.shape[-1])
@@ -392,6 +428,10 @@ def _edge_port(variant, tq, tk, tv, mask, bias):
         return t_t23.attn_nmask(tq, tk, tv, torch.from_numpy(mask))
     if variant == "t5":
         return t_t5.attn_interleaved(tq, tk, tv, torch.from_numpy(bias), bias_keys=tk.shape[2])
+    if variant == "t7":
+        return t_t7.fixedmax_bnsd(tq, tk, tv, torch.from_numpy(bias))
+    if variant == "t8":
+        return t_t8.fixedmax2_bnsd(tq, tk, tv, torch.from_numpy(bias), bias_keys=tk.shape[2])
     tqs = tfa._prescale(tq)
     if variant == "t1_v1":
         return t_t1.attn_bf16s(tqs, tk, tv, torch.from_numpy(bias))
@@ -402,8 +442,8 @@ def _edge_port(variant, tq, tk, tv, mask, bias):
 @pytest.mark.parametrize("case", list(EDGE_CASES))
 @pytest.mark.parametrize("dtype", list(DTYPES))
 def test_hopper_tile_edges_match_jax(dtype, case, variant, monkeypatch, no_launch):
-    """The instantiations that run on the Hopper loop (T2 both scales, T3,
-    T1 v1 / v3 / v4, T5) at its tile edges: the port's plain version against
+    """The instantiations of the Hopper loop (T2 both scales, T3, T1 v1 /
+    v3 / v4, T5, T7, T8) at its tile edges: the port's plain version against
     the JAX tool's function, with Pallas in interpret mode (T3's as in
     ``test_t3_nmask_matches_jax``)."""
     (_interpret_t3 if variant == "t3" else _interpret)(monkeypatch)
@@ -427,55 +467,82 @@ def test_hopper_tile_edges_match_jax(dtype, case, variant, monkeypatch, no_launc
 # the kernel source against the switches the plain version follows
 # ---------------------------------------------------------------------------
 
+def _cases():
+    """The C entry point's ``case`` lines: {id: (launcher, its template
+    arguments as written)}."""
+    return {int(i): (fn, tuple(a.strip() for a in args.split(",")))
+            for i, fn, args in re.findall(r"case (\d+): return (\w+)<([^>]*)>",
+                                          CU_SOURCE.read_text())}
+
+
 def test_kernel_instantiations_match_the_variants():
-    """Each variant's id selects, in the C entry point, the instantiation
-    of its loop's kernel (``launch_hopper``: the Hopper mainloop, ``launch``:
-    the mma.sync loop) whose template arguments are the variant's switches;
+    """Each variant's id selects, in the C entry point, a ``launch_hopper``
+    (the Hopper mainloop; the source defines no other kernel, no
+    ``proto_kernel``) whose template arguments are the variant's switches;
     every variant has its launch counter.  (The source is compiled only on
     the card.)"""
     codes = {"true": 1, "false": 0, "kNoBias": 0, "kBiasF32": 1, "kBiasBf16": 2,
              "kRecip": 0, "kFloor": 1, "kUnnormalised": 2}
-    loops = {"launch": "mma_sync", "launch_hopper": "hopper"}
-    cases = {int(i): (loops[fn], tuple(codes[a.strip()] for a in args.split(",")))
-             for i, fn, args in re.findall(r"case (\d+): return (launch\w*)<([^>]*)>",
-                                           CU_SOURCE.read_text())}
-    assert sorted(cases) == sorted({var.kernel_id for var in pa.VARIANTS.values()})
+    cases = _cases()
+    assert sorted(cases) == sorted({var.kernel_id for var in pa.VARIANTS.values()}) == list(
+        range(10))
+    assert {fn for fn, _ in cases.values()} == {"launch_hopper"}
     for name, var in pa.VARIANTS.items():
-        assert cases[var.kernel_id] == (var.loop, var.template_args()), name
+        assert tuple(codes[a] for a in cases[var.kernel_id][1]) == var.template_args(), name
         assert name in tfa.LAUNCHES
-    assert {name for name, var in pa.VARIANTS.items() if var.loop == "hopper"} == {
-        "proto_nobias_inscale", "proto_nobias", "proto_nmask", "proto_bf16s",
-        "proto_expnosum", "proto_noexp", "proto_interleave", "proto_interleave_overlap"}
+    source = CU_SOURCE.read_text()
+    assert source.count("__global__") == 1
+    assert re.findall(r"^(\w+_kernel)\(", source, re.M) == ["proto_hopper_kernel"]
+    assert not re.search(r"\bproto_kernel\b|\blaunch\(", source)
 
 
 def test_t5_ids_reach_one_hopper_instantiation():
     """T5's two names keep their ids (8 and 9), and both select, in the C
     entry point, the one Hopper instantiation with the fp32 key bias on a
-    prefix, the in-kernel scale off and the 1 / l epilogue (kRecip); the
-    mma.sync loop keeps T7 and T8 alone."""
+    prefix, the in-kernel scale and the clamp off and the 1 / l epilogue
+    (kRecip)."""
     launches = dict(re.findall(r"case (\d+): return (launch\w*<[^>]*>)", CU_SOURCE.read_text()))
-    assert launches["8"] == launches["9"] == "launch_hopper<false, kBiasF32, true, true, kRecip>"
+    assert launches["8"] == launches["9"] == (
+        "launch_hopper<false, kBiasF32, false, true, true, kRecip>")
     t5 = [pa.VARIANTS["proto_interleave"], pa.VARIANTS["proto_interleave_overlap"]]
     assert [v.kernel_id for v in t5] == [8, 9]
     assert t5[0].template_args() == t5[1].template_args() == (
-        0, pa.BIAS_CODES["fp32"], 1, 1, pa.NORM_CODES["recip"])
-    assert {name for name, var in pa.VARIANTS.items() if var.loop == "mma_sync"} == {
-        "proto_fixedmax", "proto_fixedmax2", "proto_fixedmax2_overlap"}
+        0, pa.BIAS_CODES["fp32"], 0, 1, 1, pa.NORM_CODES["recip"])
+
+
+def test_t7_t8_ids_reach_their_hopper_instantiations():
+    """T8's two names keep their ids (1 and 2) and select one instantiation:
+    T5's with the clamp on.  T7 (id 0) is the one with the in-kernel scale,
+    the fp32 key bias, the clamp and kRecip, which the policy no longer
+    forbids; its read_stage scales S before it adds the bias, with no FMA
+    contraction (__fmul_rn, then __fadd_rn)."""
+    cases = _cases()
+    assert cases[1] == cases[2] == (
+        "launch_hopper", ("false", "kBiasF32", "true", "true", "true", "kRecip"))
+    assert cases[0] == ("launch_hopper", ("true", "kBiasF32", "true", "true", "true", "kRecip"))
+    t8 = [pa.VARIANTS["proto_fixedmax2"], pa.VARIANTS["proto_fixedmax2_overlap"]]
+    assert [v.kernel_id for v in t8] == [1, 2]
+    assert t8[0].template_args() == t8[1].template_args() == (
+        0, pa.BIAS_CODES["fp32"], 1, 1, 1, pa.NORM_CODES["recip"])
+    source = CU_SOURCE.read_text()
+    assert "static_assert(!(kInScale && kBias == kBiasF32)" not in source
+    read_stage = source[source.index("void read_stage("):source.index("void p_tile(")]
+    assert read_stage.index("__fmul_rn(s[i], scale)") < read_stage.index("__fadd_rn(s[4 * n]")
 
 
 @pytest.mark.parametrize("bias_keys", [0, 1, 200, 256, 333, 400])
-@pytest.mark.parametrize("name", ["proto_interleave", "proto_bf16s"])
+@pytest.mark.parametrize("name", ["proto_interleave", "proto_bf16s", "proto_fixedmax"])
 def test_padded_key_bias_is_zero_from_bias_keys_and_sk(name, bias_keys):
-    """What the Hopper loop reads as T5's and T1 v1's key bias: whole
+    """What the Hopper loop reads as T5's, T1 v1's and T7's key bias: whole
     128-key tiles, the bias (T1 v1's rounded to bf16) on the keys below
-    bias_keys and S_k, 0 from there on, also inside the last tile; T5 with
-    bias_keys 0 passes no bias at all (its kernel then copies none), T1 v1
-    zeros."""
+    bias_keys and S_k, 0 from there on, also inside the last tile; an fp32
+    bias with bias_keys 0 is passed as none at all (the kernel then copies
+    none), T1 v1's as zeros."""
     b, sk = 2, 333
     rng = np.random.default_rng(32)
     bias = torch.from_numpy((rng.normal(size=(b, 1, sk)) * 5).astype(np.float32))
     got = pa.kernel_key_bias(name, bias, b, sk, bias_keys, "cpu")
-    if name == "proto_interleave" and bias_keys == 0:
+    if pa.VARIANTS[name].bias == "fp32" and bias_keys == 0:
         assert got is None
         return
     assert got.shape == (b, 384) and got.dtype == torch.float32 and got.is_contiguous()
@@ -489,45 +556,51 @@ def test_padded_key_bias_is_zero_from_bias_keys_and_sk(name, bias_keys):
 
 def test_chip_smoke_reads_registers_per_instantiation(tmp_path):
     """``chip_smoke.ptxas_report`` keys nvcc's ``-Xptxas -v`` lines by the
-    template arguments of each instantiation of each loop's kernel
-    (``proto_kernel``, ``proto_hopper_kernel``), as ``Variant.template_args``
-    gives them, and keeps the two kernels apart."""
+    template arguments of each instantiation of ``proto_hopper_kernel`` (its
+    default kernel), as ``Variant.template_args`` gives them, and keeps
+    another kernel of the same log (K1's ``fixedmax_kernel<bool>``) apart."""
     import chip_smoke
 
-    # each loop's kernel and the positions of its int (not bool) template arguments
-    kernels = {"mma_sync": "proto_kernel", "hopper": "proto_hopper_kernel"}
-    int_args = {"proto_kernel": (1, 5), "proto_hopper_kernel": (1, 4)}
-    args = sorted({(kernels[var.loop], var.template_args()) for var in pa.VARIANTS.values()})
-    lines = ["ptxas info    : 0 bytes gmem"]
-    for i, (kernel, a) in enumerate(args):
-        mangled = ("_ZN60_GLOBAL__N__97cb8cc7_27_proto_fixedmax_attention_cu_8eff71d0"
-                   f"{len(kernel)}{kernel}I"
-                   + "".join(f"L{'i' if j in int_args[kernel] else 'b'}{x}E"
-                             for j, x in enumerate(a))
-                   + "EEvPKtS2_S2_PKfS4_Ptiiiif")
-        lines += [f"ptxas info    : Compiling entry function '{mangled}' for 'sm_90a'",
-                  f"ptxas info    : Function properties for {mangled}",
-                  f"    0 bytes stack frame, {4 * i} bytes spill stores, {8 * i} bytes spill loads",
-                  f"ptxas info    : Used {160 + i} registers, used 1 barriers",
-                  "ptxas info    : Compile time = 374.846 ms"]
+    # each kernel's instantiations and the positions of its int (not bool) arguments
+    args = {"proto_hopper_kernel": sorted({var.template_args() for var in pa.VARIANTS.values()}),
+            "fixedmax_kernel": [(0,), (1,)]}
+    int_args = {"proto_hopper_kernel": (1, 5), "fixedmax_kernel": ()}
+    lines, i = ["ptxas info    : 0 bytes gmem"], 0
+    for kernel, instantiations in args.items():
+        for a in instantiations:
+            mangled = ("_ZN60_GLOBAL__N__97cb8cc7_27_proto_fixedmax_attention_cu_8eff71d0"
+                       f"{len(kernel)}{kernel}I"
+                       + "".join(f"L{'i' if j in int_args[kernel] else 'b'}{x}E"
+                                 for j, x in enumerate(a))
+                       + "EEvPKtS2_S2_PKfS4_Ptiiiif")
+            lines += [f"ptxas info    : Compiling entry function '{mangled}' for 'sm_90a'",
+                      f"ptxas info    : Function properties for {mangled}",
+                      f"    0 bytes stack frame, {4 * i} bytes spill stores, "
+                      f"{8 * i} bytes spill loads",
+                      f"ptxas info    : Used {160 + i} registers, used 1 barriers",
+                      "ptxas info    : Compile time = 374.846 ms"]
+            i += 1
     log = tmp_path / "proto.so.log"
     log.write_text("\n".join(lines) + "\n")
-    for kernel in int_args:
+    first = 0
+    for kernel, instantiations in args.items():
         assert chip_smoke.ptxas_report(log, kernel) == {
-            a: {"registers": 160 + i, "spill_store_bytes": 4 * i, "spill_load_bytes": 8 * i}
-            for i, (kern, a) in enumerate(args) if kern == kernel}
-    assert chip_smoke.ptxas_report(log) == chip_smoke.ptxas_report(log, "proto_kernel")
+            a: {"registers": 160 + first + j, "spill_store_bytes": 4 * (first + j),
+                "spill_load_bytes": 8 * (first + j)}
+            for j, a in enumerate(instantiations)}
+        first += len(instantiations)
+    assert len(args["proto_hopper_kernel"]) == 8   # ids 8 / 9, 1 / 2 and T2 / T3 share
+    assert chip_smoke.ptxas_report(log) == chip_smoke.ptxas_report(log, "proto_hopper_kernel")
 
 
 def test_chip_smoke_names_each_kernels_loop():
-    """The ``kernels`` line names the loop of every kernel it lists; each
-    prototype's is its variant's."""
+    """The ``kernels`` line names the loop of every kernel it lists; every
+    prototype's is the Hopper attention mainloop."""
     import chip_smoke
 
     assert {name for name, *_ in chip_smoke.KERNEL_ROWS} == set(chip_smoke.KERNEL_LOOPS)
-    for name, var in pa.VARIANTS.items():
-        assert chip_smoke.KERNEL_LOOPS[name] == {"hopper": "hopper_attention",
-                                                 "mma_sync": "mma_sync"}[var.loop], name
+    for name in pa.VARIANTS:
+        assert chip_smoke.KERNEL_LOOPS[name] == "hopper_attention", name
 
 
 # ---------------------------------------------------------------------------

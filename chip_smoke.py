@@ -81,13 +81,17 @@ Phases, each printed as one JSON line, any failure exits non-zero:
      each ported tool's main() (physicedit_torch/tools/proto_*.py), their
      path;
  14. the int8, W4 and elementwise-rate probes of tools/ (T9, T10, T12,
-     T11, T4, T6; csrc/proto_int8_matmul.cu, proto_int8qk_attention.cu,
-     proto_ew_scale.cu) at their tools' shapes, each against its plain
-     version (integers exact, epilogues and T6 bit for bit, T4 under K1's
-     gates) with its time, bound, registers and the one PyTorch call where
-     there is one, T9's GEMM also three calls bit for bit, from a CUDA
-     graph, at ragged M and under one tile, with its shared memory (a spill
-     fails the run); then each ported tool's main(), their path.
+     T11, T4 with its row quantize, T6; csrc/proto_int8_matmul.cu,
+     proto_int8qk_attention.cu, proto_ew_scale.cu) at their tools' shapes,
+     each against its plain version (integers exact, epilogues, the
+     quantize's codes and scales and T6 bit for bit, T4 under K1's gates,
+     also at S 1088) with its time, bound, registers and the one PyTorch
+     call where there is one; T9's and T12's GEMMs (TMA + wgmma) also three
+     calls bit for bit, from a CUDA graph, at ragged M (T12 also at
+     K = 384) and T9 under one tile; T12, T4 (the Hopper mainloop with an
+     int8 wgmma QK^T, timed with and without its quantize beside K1 on the
+     same inputs) and the quantize with ptxas's report and shared memory (a
+     spill fails the run); then each ported tool's main(), their path.
 The line before the last lists each kernel with its launches on its main
 path, its error against the plain version, its time, the plain version's,
 its bound and the one PyTorch call that computes the same function; the
@@ -208,6 +212,8 @@ KERNEL_ROWS = [
           ("proto_w4_and", "proto_int8_matmul", "tools/proto_w4_unpack.py:72"),         # T12
           ("proto_w4_gemv_and", "proto_int8_matmul", "tools/proto_w4_gemv.py:65"),     # T11
           ("proto_int8qk", "proto_int8qk_attention", "tools/proto_attn_int8qk.py:63"),  # T4
+          # T4's row quantize of q and k: XLA ops in the JAX tool's wrapper
+          ("proto_int8qk_quant", "proto_int8qk_attention", "tools/proto_attn_int8qk.py:63"),
           ("proto_ew_scale_bf16", "proto_ew_scale", "tools/proto_ew_rate.py:45"),       # T6
           ("proto_ew_scale_fp32", "proto_ew_scale", "tools/proto_ew_rate.py:45"))),     # T6
 ]
@@ -221,12 +227,12 @@ KERNEL_LOOPS = {
                      "proto_fixedmax", "proto_fixedmax2", "proto_fixedmax2_overlap",
                      "proto_nobias_inscale", "proto_nobias", "proto_nmask", "proto_bf16s",
                      "proto_expnosum", "proto_noexp", "proto_interleave",
-                     "proto_interleave_overlap"), "hopper_attention"),
+                     "proto_interleave_overlap", "proto_int8qk"), "hopper_attention"),
     **dict.fromkeys(("w4a8_matmul_tiled", "fixedmax_attention_bwd", "w4_bwd_dx",
-                     "proto_mm_i32", "proto_mm_f32"), "tma_wgmma"),
+                     "proto_mm_i32", "proto_mm_f32", "proto_w4_and"), "tma_wgmma"),
     **dict.fromkeys(("ln_mod_quant", "gelu_quant"), "bulk_copy_rows"),
     "transpose_quant": "row_block", "w4a8_matmul_gemv": "dp4a_gemv",
-    **dict.fromkeys(("proto_w4_i32", "proto_w4_and", "proto_int8qk"), "mma_sync"),
+    "proto_w4_i32": "mma_sync", "proto_int8qk_quant": "warp_rows",
     "proto_w4_gemv_and": "gemv", "proto_ew_scale_bf16": "elementwise",
     "proto_ew_scale_fp32": "elementwise",
 }
@@ -1773,6 +1779,10 @@ def graph_equals_eager(fn) -> bool:
     return bool(torch.equal(eager, captured))
 
 
+# T12's edges (M, K, N): ragged M under one, just past one and past several
+# 128-row tiles, and K = 384 at the tool's M and N
+T12_EDGES = [(17, 3072, 12288), (129, 3072, 12288), (1000, 3072, 12288), (16384, 384, 12288)]
+
 # T9's tile edges (M, K, N): a ragged M one row past the tool's, a ragged M of
 # eight tiles, and an M under one 128-row tile with N of one and a half
 # 256-column tiles
@@ -1817,24 +1827,31 @@ def t9_edges(report: dict, randint, randn, max_err) -> None:
 
 def int8_phase(report: dict, gen, time_ms, compare) -> dict:
     """The int8, W4 and elementwise-rate probes of ``tools/`` (T9, T10, T12,
-    T11, T4, T6; ``csrc/proto_int8_matmul.cu``,
+    T11, T4 and its quantize, T6; ``csrc/proto_int8_matmul.cu``,
     ``csrc/proto_int8qk_attention.cu``, ``csrc/proto_ew_scale.cu``) at their
     tools' full shapes: each instantiation against its plain version
-    (integer results exact; the W4 epilogues in fp32, bf16 and int8 and T6
-    in both dtypes bit for bit; T9 f32 bit for bit on integer-valued inputs,
-    whose fp32 sums are exact in any order, and on normal ones within one
-    bf16 step of its largest output, what a flipped rounding moves it; T4
-    under K1's gates), timed beside its plain version and the one PyTorch
-    call that computes the same function where there is one, with its
-    bound, registers and spills.  T9 also three calls bit for bit, from a
-    CUDA graph, at ragged M and under one tile (:data:`T9_EDGES`), with its
-    GEMM's shared memory (a spill fails the run).  Then each
-    ported tool's ``main()`` once with the counts at 0: the probes' path.
-    Returns its launches."""
+    (integer results exact; the W4 epilogues in fp32, bf16 (and T12's in
+    int8), T4's quantized codes and scales and T6 in both dtypes bit for
+    bit; T9 f32 bit for bit on integer-valued inputs, whose fp32 sums are
+    exact in any order, and on normal ones within one bf16 step of its
+    largest output, what a flipped rounding moves it; T4 under K1's gates,
+    also at S 1088), timed beside its plain version and the one PyTorch call
+    that computes the same function where there is one, with its bound,
+    registers and spills.  T9 and T12 also three calls bit for bit, from a
+    CUDA graph, at ragged M (:data:`T9_EDGES`, :data:`T12_EDGES`: T9 also
+    under one tile, T12 also at K = 384), with their GEMMs' shared memory;
+    T12 also timed without the wrapper's row sums and beside K3 on the same
+    operands; T4 three calls bit for bit and from a CUDA graph, with its
+    shared memory, timed with and without its quantize beside K1 on the
+    same inputs (a spill in T9, T12, T4 or the quantize fails the run).  Then
+    each ported tool's ``main()`` once with the counts at 0: the probes'
+    path.  Returns its launches."""
     import torch
     import torch.nn.functional as F
 
     from physicedit_torch.kernels import _build
+    from physicedit_torch.kernels import flash_attention as fa
+    from physicedit_torch.kernels import quant_matmul as qm
     from physicedit_torch.tools import _bench, _proto_int8 as pi
     from physicedit_torch.tools import proto_attn_int8qk as t4
     from physicedit_torch.tools import proto_ew_rate as t6
@@ -1921,32 +1938,75 @@ def int8_phase(report: dict, gen, time_ms, compare) -> dict:
 
     # T10 at the VL prefill gate+up, T12 at the DiT fc1: any byte is a valid
     # packing; a bias row of normal x 100 makes the int8 output saturate
-    for name, fn, plain, (m, k, n) in (
-            ("proto_w4_i32", t10.i32_matmul, t10.i32_matmul_reference, (1536, 3584, 37888)),
-            ("proto_w4_and", t12.w4a8_i8_matmul, t12.w4a8_i8_matmul_reference,
-             (16384, 3072, 12288))):
+    def w4_operands(m, k, n):
         xq, w4 = randint(-127, 128, m, k), randint(-128, 128, n, k // 2)
         xs = torch.rand(m, 1, device=dev, generator=gen) * 1e-2 + 1e-3
         wsb = torch.stack([torch.rand(n, device=dev, generator=gen) * 1e-2 + 1e-3,
                            randn(n) * 100])
-        outs = (torch.float32, torch.bfloat16) + ((torch.int8,) if name == "proto_w4_and" else ())
-        row = {"phase": "int8_probe", "case": name, "shape": [m, k, n]}
+        return xq, w4, xs, wsb
+
+    def w4_compare(row, fn, plain, operands, outs):
+        """Each output dtype against the plain version: the int32
+        accumulators exactly, the output bit for bit."""
         for dt in outs:
-            out, acc = fn(xq, w4, xs, wsb, dt, return_acc=True)
-            ref, acc_ref = plain(xq, w4, xs, wsb, dt, return_acc=True)
+            out, acc = fn(*operands, dt, return_acc=True)
+            ref, acc_ref = plain(*operands, dt, return_acc=True)
             key = str(dt).removeprefix("torch.")
             row[f"acc_exact_{key}"] = bool(torch.equal(acc, acc_ref))
             row[f"out_equal_{key}"] = bool(torch.equal(out, ref))
             row.setdefault("max_abs_err", max_err(out, ref))
+            if dt == torch.int8:
+                row["int8_saturated_share"] = (ref.abs() >= 127).float().mean().item()
+            del out, acc, ref, acc_ref
+        return all(v for key, v in row.items() if key.startswith(("acc_exact", "out_equal")))
+
+    w4_and_ptxas = hopper_ptxas(pi.MATMUL, "w4_and_wgmma_kernel", (),
+                                lambda args: "proto_int8_matmul_w4_and_smem_bytes")
+    w4_outs = (torch.float32, torch.bfloat16, torch.int8)
+    for name, fn, plain, (m, k, n) in (
+            ("proto_w4_i32", t10.i32_matmul, t10.i32_matmul_reference, (1536, 3584, 37888)),
+            ("proto_w4_and", t12.w4a8_i8_matmul, t12.w4a8_i8_matmul_reference,
+             (16384, 3072, 12288))):
+        ops = w4_operands(m, k, n)
+        row = {"phase": "int8_probe", "case": name, "shape": [m, k, n]}
+        ok = w4_compare(row, fn, plain, ops, w4_outs[:2] if name == "proto_w4_i32" else w4_outs)
         if name == "proto_w4_and":
-            row["int8_saturated_share"] = (ref.abs() >= 127).float().mean().item()
-        del out, acc, ref, acc_ref
-        ok = all(v for key, v in row.items() if key.startswith(("acc_exact", "out_equal")))
+            first = fn(*ops, torch.bfloat16)
+            row["repeat_bits_equal"] = repeats_equal(lambda: fn(*ops, torch.bfloat16), first)
+            row["graph_bits_equal"] = graph_equals_eager(lambda: fn(*ops, torch.bfloat16))
+            row["ptxas"] = w4_and_ptxas["w4_and_wgmma_kernel"]
+            ok = ok and row["repeat_bits_equal"] and row["graph_bits_equal"]
+            # the kernel alone, its row sums computed beforehand (the wrapper's
+            # torch op), and K3 on the same operands
+            rs = pi.low_half_rowsum8(ops[0])
+            alone = lambda: pi.launch_matmul(name, *ops, rs, torch.bfloat16)
+            row["kernel_alone_ms"] = time_ms(alone, 10)
+            row["kernel_alone_graph_ms"] = _bench.graph_ms(alone)
+            row["k3_graph_ms_same_inputs"] = _bench.graph_ms(
+                lambda: qm.w4a8_matmul(ops[0], ops[1], ops[2], ops[3][0]))
+            del first, rs, alone
         out_bytes = 2 * m * n     # timed with bf16 out, as K3 writes
-        record(name, row, ok, lambda: fn(xq, w4, xs, wsb, torch.bfloat16),
-               lambda: plain(xq, w4, xs, wsb, torch.bfloat16), None,
+        record(name, row, ok, lambda: fn(*ops, torch.bfloat16),
+               lambda: plain(*ops, torch.bfloat16), None,
                bound(2 * m * k * n, m * k + n * k // 2 + 4 * m + 8 * n + out_bytes, PEAK_INT8))
-        del xq, w4, xs, wsb
+        del ops
+
+    # T12's edges: ragged M (under one, just past one, several 128-row
+    # tiles) and K = 384, whose K/2 = 192 leaves the last 128-byte stage half
+    # empty (TMA's zeros)
+    for m, k, n in T12_EDGES:
+        ops = w4_operands(m, k, n)
+        row = {"phase": "int8_probe", "case": f"proto_w4_and_m{m}_k{k}_n{n}", "shape": [m, k, n]}
+        ok = w4_compare(row, t12.w4a8_i8_matmul, t12.w4a8_i8_matmul_reference, ops, w4_outs)
+        first = t12.w4a8_i8_matmul(*ops, torch.bfloat16)
+        row["repeat_bits_equal"] = repeats_equal(
+            lambda: t12.w4a8_i8_matmul(*ops, torch.bfloat16), first)
+        report["proto_w4_and_err"].append(row["max_abs_err"])
+        emit(row)
+        del ops, first
+        if not (ok and row["repeat_bits_equal"]):
+            fail(f"T12 at M {m} K {k} N {n} disagrees with its plain version")
+    torch.cuda.empty_cache()
 
     # T11 at the VL decode gate+up, weights rotated past the L2
     m, k, n = t11.M_DECODE, 3584, 37888
@@ -1962,25 +2022,77 @@ def int8_phase(report: dict, gen, time_ms, compare) -> dict:
     del xq, w4, got, want, rotated
 
     # T4 at the DiT's joint attention: RMS-normed q and k, a normal key bias
-    # with batch 1's last 64 keys blocked
-    b, n_h, s, d = 2, 24, 8448, 128
-    q, k = (_rms(randn(b, n_h, s, d)).bfloat16() for _ in range(2))
-    v = randn(b, n_h, s, d).bfloat16()
-    bias = randn(b, 1, s) * 0.5
-    bias[1, :, -64:] = -1e30
+    # with batch 1's last 64 keys blocked; first its quantize, codes and
+    # scales against the plain version's bits, then at S 1088 (a partial
+    # last 128-key tile), then at 8448 with and without the quantize, beside
+    # K1 on the same q, k and v
+    t4_ptxas = hopper_ptxas(pi.ATTENTION, "int8qk_hopper_kernel", ())
+    quant_ptxas = ptxas_report(f"{_build.library_path(pi.ATTENTION)}.log",
+                               "int8qk_rowquant_kernel").get((), {})
+    if not quant_ptxas or quant_ptxas.get("spill_store_bytes") or quant_ptxas.get(
+            "spill_load_bytes"):
+        fail(f"int8qk_rowquant_kernel: ptxas reports spills or no entry: {quant_ptxas}")
+
+    def t4_inputs(b, n_h, sq, sk):
+        q, k = _rms(randn(b, n_h, sq, 128)).bfloat16(), _rms(randn(b, n_h, sk, 128)).bfloat16()
+        v = randn(b, n_h, sk, 128).bfloat16()
+        bias = randn(b, 1, sk) * 0.5
+        bias[1, :, -64:] = -1e30
+        return q, k, v, bias
+
+    b, n_h, s, d = 2, 24, 1088, 128
+    q, k, v, bias = t4_inputs(b, n_h, s, s)
+    out, ref = t4.fixedmax_int8qk(q, k, v, bias), t4.fixedmax_int8qk_reference(q, k, v, bias)
+    torch.cuda.synchronize()
+    row = _attention_row("int8_probe", "proto_int8qk_s1088", [b, n_h, s, s], out, ref, compare)
+    row["repeat_bits_equal"] = repeats_equal(lambda: t4.fixedmax_int8qk(q, k, v, bias), out)
+    emit(row)
+    t4_s1088_err = row["max_abs_err"]
+    if not (_attention_ok(row) and row["repeat_bits_equal"]):
+        fail("T4 at S 1088 disagrees with its plain version")
+    del q, k, v, bias, out, ref
+
+    s = 8448
+    q, k, v, bias = t4_inputs(b, n_h, s, s)
+    got, want = pi.launch_rowquant(q, k), pi.rowquant_scaled(q, k)
+    row = {"phase": "int8_probe", "case": "proto_int8qk_quant", "shape": [b, n_h, s, d],
+           "codes_and_scales_equal": all(same_bits(a, w) for a, w in zip(got, want)),
+           "max_abs_err": max(max_err(a, w) for a, w in zip(got, want)),
+           "repeat_bits_equal": all(same_bits(a, w) for a, w in zip(pi.launch_rowquant(q, k),
+                                                                    got)),
+           "ptxas": quant_ptxas}
+    del got, want
+    nbytes = 2 * q.numel() * 2 + 2 * q.numel() + 2 * 4 * q.numel() // d
+    record("proto_int8qk_quant", row,
+           row["codes_and_scales_equal"] and row["repeat_bits_equal"],
+           lambda: pi.launch_rowquant(q, k), lambda: pi.rowquant_scaled(q, k), None,
+           bound(0, nbytes, PEAK_INT8), rate_bytes=nbytes)
     out, ref = t4.fixedmax_int8qk(q, k, v, bias), t4.fixedmax_int8qk_reference(q, k, v, bias)
     torch.cuda.synchronize()
     row = _attention_row("int8_probe", "proto_int8qk", [b, n_h, s, s], out, ref, compare)
+    row["repeat_bits_equal"] = repeats_equal(lambda: t4.fixedmax_int8qk(q, k, v, bias), out)
+    row["graph_bits_equal"] = graph_equals_eager(lambda: t4.fixedmax_int8qk(q, k, v, bias))
+    row["ptxas"] = t4_ptxas["int8qk_hopper_kernel"]
     row["sdpa_ms_context"] = time_ms(lambda: F.scaled_dot_product_attention(q, k, v), 10)
+    mask = torch.ones(b, s, dtype=torch.bool, device=dev)
+    row["k1_ms_same_inputs"] = time_ms(lambda: fa.flash_attention_bnsd(q, k, v, key_mask=mask),
+                                       10)
+    row["k1_graph_ms_same_inputs"] = _bench.graph_ms(
+        lambda: fa.flash_attention_bnsd(q, k, v, key_mask=mask))
     operands = t4._kernel_operands(q, k, v, bias)
+    row["kernel_alone_ms"] = time_ms(lambda: pi.launch_int8qk(*operands), 10)
     row["kernel_alone_graph_ms"] = _bench.graph_ms(lambda: pi.launch_int8qk(*operands))
-    del operands
+    del operands, mask
     qk_ops = pv_ops = 2 * b * n_h * s * s * d
     # the two products at their own peaks: operations / peak in seconds (peak 1)
-    record("proto_int8qk", row, _attention_ok(row), lambda: t4.fixedmax_int8qk(q, k, v, bias),
+    record("proto_int8qk", row,
+           _attention_ok(row) and row["repeat_bits_equal"] and row["graph_bits_equal"],
+           lambda: t4.fixedmax_int8qk(q, k, v, bias),
            lambda: t4.fixedmax_int8qk_reference(q, k, v, bias), None,
            bound(qk_ops / PEAK_INT8 + pv_ops / PEAK_BF16, 4 * 2 * q.numel() + 4 * b * s, 1.0))
-    del q, k, v, out, ref
+    report["proto_int8qk_err"].append(t4_s1088_err)
+    del q, k, v, bias, out, ref
+    torch.cuda.empty_cache()
 
     # T6 at the DiT's [2 x 8448, 9216] QKV activation
     for dtype, name in ((torch.bfloat16, "proto_ew_scale_bf16"),

@@ -1,7 +1,9 @@
 // The Hopper attention mainloop shared by K1 (fixedmax_attention.cu), K2
 // (gqa_causal_attention.cu), K7 / K1' scaled (fixedmax_attention_bias.cu),
-// K10 / K10b (online_attention.cu) and the prototypes T2, T3, T1 v1-v4 and
-// T5 (proto_fixedmax_attention.cu): bf16, head_dim 128, fp32 accumulators.
+// K10 / K10b (online_attention.cu), the prototypes T1-T3, T5, T7 and T8
+// (proto_fixedmax_attention.cu) and T4 (proto_int8qk_attention.cu): head_dim
+// 128, bf16 P and V, fp32 output accumulators; Q K^T in bf16 with fp32 S, or
+// (a Policy whose Score is int: T4) in int8 with exact int32 S.
 // Its primitives (mbarriers, TMA, wgmma, named barriers, cp.async:
 // hopper_primitives.cuh) also build K8's two backward passes
 // (fixedmax_attention_bwd.cu).
@@ -16,7 +18,7 @@
 // A consumer walks the key tiles in phases: phase j issues O += P(j-1) V(j-1)
 // (A = P from registers, B = V from shared memory, MN-major) and
 // S(j) = Q K(j)^T (both operands K-major in shared memory) as wgmma.mma_async
-// m64n128k16 products, waits for both, releases V(j-1) and K(j), and turns
+// m64n128k16 products (int8: m64n128k32), waits for both, releases V(j-1) and K(j), and turns
 // S(j) into P(j) in registers through the kernel's Policy (K1, K7: fixed-max
 // exp2; K2, K10: the online softmax, K2's with the causal mask).  The two consumers
 // take turns (ping-pong) through two named barriers, so one warpgroup's
@@ -25,6 +27,7 @@
 // Shared memory: Q 32 KB + kStages x (K 32 KB + V 32 KB), each tile two TMA
 // boxes of [128 rows x 64 d] bf16 with the 128-byte swizzle that wgmma's
 // descriptors name (layout type 1), so nothing is transposed or re-staged.
+// An int8 Q or K tile is one box of [128 rows x 128 d] bytes (16 KB).
 // Barriers: one mbarrier for Q; per stage a full barrier (the TMA's bytes;
 // K's also the liveness word's arrive) and an empty barrier for K and for V
 // separately, so that K(j+1) can land while V(j) is still read.  Every
@@ -38,6 +41,8 @@
 // and passed as __grid_constant__ kernel parameters.
 #pragma once
 
+#include <type_traits>
+
 #include "hopper_primitives.cuh"
 #include "mma_bf16.cuh"
 
@@ -49,35 +54,43 @@ constexpr int kStages = 2;
 constexpr int kBlockThreads = 384;
 constexpr int kBoxBytes = kTile * 64 * 2;    // one TMA box: 128 rows x 64 d, 16 KB
 constexpr int kTileBytes = 2 * kBoxBytes;    // 128 rows x 128 d, 32 KB
+constexpr int kTileBytesI8 = kTile * 128;    // int8 Q or K: one box, 128 rows x 128 d, 16 KB
 constexpr int kProducerRegs = 40;
 constexpr int kConsumerRegs = 232;           // 40 x 128 + 232 x 256 <= 65536
 constexpr int kConsumerWarps = 8;            // two consumer warpgroups
 
-struct __align__(1024) SharedStorage {
-  uint8_t q[kTileBytes];
-  uint8_t k[kStages][kTileBytes];
+// kQkBytes: the bytes of a Q or K tile, kTileBytes (bf16) or kTileBytesI8.
+template <int kQkBytes>
+struct __align__(1024) SharedStorageT {
+  uint8_t q[kQkBytes];
+  uint8_t k[kStages][kQkBytes];
   uint8_t v[kStages][kTileBytes];
   uint32_t live[kStages][4];                 // bit c of word w: key 32 w + c of the tile
   uint64_t q_full;
   uint64_t k_full[kStages], k_empty[kStages];
   uint64_t v_full[kStages], v_empty[kStages];
 };
+using SharedStorage = SharedStorageT<kTileBytes>;
+using SharedStorageI8 = SharedStorageT<kTileBytesI8>;
 
 // Dynamic shared memory per block: the storage plus room to align it to 1 KB
 // (the 128-byte swizzle repeats every 1024 bytes).
 constexpr int kSmemBytes = static_cast<int>(sizeof(SharedStorage)) + 1024;
+constexpr int kSmemBytesI8 = static_cast<int>(sizeof(SharedStorageI8)) + 1024;
 
-__device__ __forceinline__ SharedStorage& shared_storage() {
+template <class Storage = SharedStorage>
+__device__ __forceinline__ Storage& shared_storage() {
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = smem_u32(smem_raw);
-  return *reinterpret_cast<SharedStorage*>(smem_raw + (((base + 1023u) & ~1023u) - base));
+  return *reinterpret_cast<Storage*>(smem_raw + (((base + 1023u) & ~1023u) - base));
 }
 
-// Dynamic shared memory a Policy asks for beyond SharedStorage (K7's bias
+// Dynamic shared memory a Policy asks for beyond the storage (K7's bias
 // slots): it starts 1 KB-aligned right after the storage, so a kernel that
 // asks for none (K1, K2) keeps kSmemBytes.
+template <class Storage = SharedStorage>
 __device__ __forceinline__ uint32_t extra_smem_u32() {
-  return smem_u32(&shared_storage()) + static_cast<uint32_t>(sizeof(SharedStorage));
+  return smem_u32(&shared_storage<Storage>()) + static_cast<uint32_t>(sizeof(Storage));
 }
 
 #define PE_WGMMA_D64                                                                             \
@@ -160,6 +173,15 @@ __device__ __forceinline__ void qk_product(float (&s)[64], uint32_t q_rows, uint
     wgmma_ss(s, sw128_desc(q_rows + off, 16, 1024), sw128_desc(k_tile + off, 16, 1024),
              ks > 0);
   }
+}
+
+// S = Q K^T over d = 128 in int8, exact in int32: 4 k-steps of 32 bytes along
+// the single 128-byte box row of each tile.
+__device__ __forceinline__ void qk_product(int (&s)[64], uint32_t q_rows, uint32_t k_tile) {
+#pragma unroll
+  for (int ks = 0; ks < 4; ++ks)
+    wgmma_s8_ss(s, sw128_desc(q_rows + 32 * ks, 16, 1024), sw128_desc(k_tile + 32 * ks, 16, 1024),
+                ks > 0);
 }
 
 // O += P V over 128 keys: 8 k-steps of 16 keys (2048 bytes of V each); V is
@@ -303,6 +325,10 @@ struct BiasSlots {
 // ---- the mainloop ----------------------------------------------------------
 
 // Policy supplies, for one block:
+//   using Score = int;                 optional: int8 Q and K tiles, Q K^T in
+//                                      int8 into int32 S (float without it:
+//                                      bf16 tiles, fp32 S); s below is a
+//                                      Score array
 //   int n_tiles;                       key tiles to walk (>= 1)
 //   void load_q(uint32_t dst, uint64_t* bar);   TMA of the q tile (two boxes)
 //   void load_k(uint32_t dst, int j, uint64_t* bar), load_v(...): tile j
@@ -339,9 +365,23 @@ __device__ __forceinline__ uint32_t extra_k_bytes(const Policy& pol, int j) {
   else return pol.extra_k_bytes(j);
 }
 
+// The Policy's Score: float unless it names one.
+template <class Policy, class = void>
+struct ScoreOf {
+  using type = float;
+};
+template <class Policy>
+struct ScoreOf<Policy, std::void_t<typename Policy::Score>> {
+  using type = typename Policy::Score;
+};
+
 template <class Policy>
 __device__ __forceinline__ void attention_mainloop(Policy& pol) {
-  SharedStorage& sm = shared_storage();
+  using Score = typename ScoreOf<Policy>::type;
+  constexpr bool kI8 = std::is_same<Score, int>::value;
+  constexpr int kQkBytes = kI8 ? kTileBytesI8 : kTileBytes;
+  using Storage = SharedStorageT<kQkBytes>;
+  Storage& sm = shared_storage<Storage>();
   const int wg = threadIdx.x / 128;
   const int n = pol.n_tiles;
 
@@ -363,13 +403,13 @@ __device__ __forceinline__ void attention_mainloop(Policy& pol) {
     const int warp = threadIdx.x / 32;
     const int lane = threadIdx.x % 32;
     if (warp == 0 && lane == 0) {
-      mbar_expect_tx(&sm.q_full, kTileBytes);
+      mbar_expect_tx(&sm.q_full, kQkBytes);
       pol.load_q(smem_u32(sm.q), &sm.q_full);
       for (int j = 0; j < n; ++j) {
         const int s = j % kStages;
         const uint32_t ph = (j / kStages) & 1;
         mbar_wait(&sm.k_empty[s], ph ^ 1);
-        mbar_expect_tx(&sm.k_full[s], kTileBytes + extra_k_bytes(pol, j));
+        mbar_expect_tx(&sm.k_full[s], kQkBytes + extra_k_bytes(pol, j));
         pol.load_k(smem_u32(sm.k[s]), j, &sm.k_full[s]);
         mbar_wait(&sm.v_empty[s], ph ^ 1);
         mbar_expect_tx(&sm.v_full[s], kTileBytes);
@@ -403,10 +443,14 @@ __device__ __forceinline__ void attention_mainloop(Policy& pol) {
   const int my_bar = 1 + cw, other_bar = 2 - cw;    // named barriers 1, 2
   const uint32_t q_rows = smem_u32(sm.q) + cw * 64 * 128;   // 64 rows x 128 B per box
 
-  float o[64], s[64];
+  float o[64];
+  Score s[64];
   uint32_t p[32];
 #pragma unroll
-  for (int i = 0; i < 64; ++i) o[i] = s[i] = 0.f;
+  for (int i = 0; i < 64; ++i) {
+    o[i] = 0.f;
+    s[i] = Score(0);
+  }
 
   pol.begin(row, t);
   if (cw == 1) named_arrive(1, 256);   // consumer 0 goes first
@@ -470,17 +514,19 @@ __device__ __forceinline__ void attention_mainloop(Policy& pol) {
 
 // ---- host: tensor maps -----------------------------------------------------
 
-// A bf16 tensor map of `rank` dims (innermost first: d = 128, then the
-// others), strides in bytes for dims 1.., and boxes of 64 d x box_rows rows
-// along `row_dim` (1 elsewhere), 128-byte swizzle, zero fill out of bounds.
+// A bf16 (or uint8) tensor map of `rank` dims (innermost first: d = 128,
+// then the others), strides in bytes for dims 1.., and boxes of 128 bytes
+// of d (64 bf16, 128 bytes) x box_rows rows along `row_dim` (1 elsewhere),
+// 128-byte swizzle, zero fill out of bounds.
 inline bool make_map(CUtensorMap* map, const void* base, int rank, const cuuint64_t* dims,
-                     const cuuint64_t* strides, int row_dim, int box_rows = kTile) {
+                     const cuuint64_t* strides, int row_dim, int box_rows = kTile,
+                     CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
   EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return false;
-  cuuint32_t box[5] = {64, 1, 1, 1, 1};
+  cuuint32_t box[5] = {type == CU_TENSOR_MAP_DATA_TYPE_UINT8 ? 128u : 64u, 1, 1, 1, 1};
   cuuint32_t elem[5] = {1, 1, 1, 1, 1};
   box[row_dim] = static_cast<cuuint32_t>(box_rows);
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base), dims, strides,
+  return fn(map, type, rank, const_cast<void*>(base), dims, strides,
             box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;

@@ -4,10 +4,10 @@
 // keep the compiler off the registers an issued wgmma still reads or
 // writes.  The
 // attention mainloop (hopper_attention.cuh: K1, K2, K7, K8, K10), the W4
-// GEMMs (w4a8_matmul.cu: K3, w4_bwd_dx.cu: K9) and T9's GEMM
+// GEMMs (w4a8_matmul.cu: K3, w4_bwd_dx.cu: K9) and T9's and T12's GEMMs
 // (proto_int8_matmul.cu) are built from them; the products that only the
-// GEMMs take (int8 and 256-wide bf16 wgmma, A from registers or from shared
-// memory) are here too.
+// GEMMs and T4's int8 Q K^T take (int8 and 256-wide bf16 wgmma, A from
+// registers or from shared memory) are here too.
 //
 // The tensor maps are built on the host each call with
 // cuTensorMapEncodeTiled, reached through cudaGetDriverEntryPointByVersion
@@ -274,6 +274,19 @@ __device__ __forceinline__ void wgmma_s8_rs(int (&d)[64], uint32_t a0, uint32_t 
       "}, {%64, %65, %66, %67}, %68, p;\n}\n"
       : PE_OUT64("r")
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(desc_b), "r"(1));
+}
+
+// D[64 x 128] (+)= A[64 x 32] . B[128 x 32]^T in int8 with exact int32 sums,
+// A and B K-major in shared memory (128-byte swizzle): T4's int8 Q K^T.
+// scale_d 0 overwrites D.  Accumulator layout as wgmma_s8_rs's.
+__device__ __forceinline__ void wgmma_s8_ss(int (&d)[64], uint64_t desc_a, uint64_t desc_b,
+                                            int scale_d) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {" PE_REGS64
+      "}, %64, %65, p;\n}\n"
+      : PE_OUT64("r")
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 
 // D[64 x 256] += A[64 x 16] . B[16 x 256] in bf16 with fp32 sums, A from

@@ -9,13 +9,18 @@ instantiation's kernel function and template arguments as ints, which
 ``chip_smoke.ptxas_report`` keys its registers by:
 
 - ``csrc/proto_int8_matmul.cu``: ``gemm_wgmma_kernel<kind>`` (T9's int8 and
-  bf16 products: a persistent TMA + ``wgmma`` GEMM), ``tiled_kernel<kind>``
-  (T10's and T12's W4 forms, ``mma.sync``) and ``gemv_and_kernel<8>`` (T11);
-- ``csrc/proto_int8qk_attention.cu``: ``int8qk_kernel`` (T4);
+  bf16 products: a persistent TMA + ``wgmma`` GEMM), ``w4_and_wgmma_kernel``
+  (T12: K3's TMA + ``wgmma`` loop with the AND-only unpack and two
+  accumulators), ``tiled_kernel<2>`` (T10, ``mma.sync``) and
+  ``gemv_and_kernel<8>`` (T11);
+- ``csrc/proto_int8qk_attention.cu``: ``int8qk_hopper_kernel`` (T4 on the
+  Hopper attention mainloop, an int8 ``wgmma`` QK^T) and
+  ``int8qk_rowquant_kernel`` (T4's row quantize of q and k, one launch);
 - ``csrc/proto_ew_scale.cu``: ``ew_scale_kernel<bf16>`` (T6).
 
-:func:`launch_matmul`, :func:`launch_int8qk` and :func:`launch_ew_scale`
-check what the kernels take and launch them; the tools' wrappers take
+:func:`launch_matmul`, :func:`launch_int8qk`, :func:`launch_rowquant` and
+:func:`launch_ew_scale` check what the kernels take and launch them; the
+tools' wrappers take
 their plain versions for CPU tensors and call these for CUDA ones, which
 launch or raise and never fall back.  The plain versions' integer results
 are exact (``kernels/quant_matmul._exact_mm``), their fp32 steps rounded
@@ -50,7 +55,7 @@ SOURCES = (MATMUL, ATTENTION, EW)
 L2_BYTES = 50 << 20       # the H100's L2
 TILE_N = 128              # the matmuls take N in whole 128-column tiles
 GEMV_ROWS = 8             # the GEMV's rows (the tools' padded decode)
-ATTN_BLOCK = 64           # T4's q tile and key tile
+ATTN_BLOCK = 64           # T4's shape rule: S_q and S_k multiples of it
 OUT_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
 
@@ -66,9 +71,10 @@ VARIANTS = {
     "proto_mm_i32": Variant(MATMUL, 0, "gemm_wgmma_kernel", (0,)),  # T9, acc "i32"
     "proto_mm_f32": Variant(MATMUL, 1, "gemm_wgmma_kernel", (1,)),  # T9, acc "f32"
     "proto_w4_i32": Variant(MATMUL, 2, "tiled_kernel", (2,)),       # T10
-    "proto_w4_and": Variant(MATMUL, 3, "tiled_kernel", (3,)),       # T12
+    "proto_w4_and": Variant(MATMUL, 3, "w4_and_wgmma_kernel", ()),  # T12
     "proto_w4_gemv_and": Variant(MATMUL, 4, "gemv_and_kernel", (GEMV_ROWS,)),  # T11
-    "proto_int8qk": Variant(ATTENTION, 0, "int8qk_kernel", ()),     # T4
+    "proto_int8qk": Variant(ATTENTION, 0, "int8qk_hopper_kernel", ()),          # T4
+    "proto_int8qk_quant": Variant(ATTENTION, 1, "int8qk_rowquant_kernel", ()),  # T4's quantize
     "proto_ew_scale_fp32": Variant(EW, 0, "ew_scale_kernel", (0,)),  # T6
     "proto_ew_scale_bf16": Variant(EW, 1, "ew_scale_kernel", (1,)),  # T6
 }
@@ -131,6 +137,22 @@ def rowquant(x: torch.Tensor):
     xf = x.float()
     s = qm.true_div(xf.abs().amax(-1), 127.0).clamp_min(1e-8)
     return (xf / s[..., None]).round().clamp(-127, 127).to(torch.int8), s
+
+
+def int8qk_half_scale(d: int) -> torch.Tensor:
+    """fp32(sqrt(log2(e) / sqrt(d))), the factor each of T4's q and k scales
+    carries (a Python float in the JAX tool, so rounded to fp32 once; a 0-dim
+    CPU tensor, which a CUDA graph can capture)."""
+    return torch.tensor((math.log2(math.e) / d ** 0.5) ** 0.5, dtype=torch.float32)
+
+
+def rowquant_scaled(q: torch.Tensor, k: torch.Tensor):
+    """The plain version of T4's quantize kernel: q's and k's codes and
+    scales by :func:`rowquant`, each scale times :func:`int8qk_half_scale`."""
+    half_scale = int8qk_half_scale(q.shape[-1])
+    qq, qs = rowquant(q)
+    kq, ks = rowquant(k)
+    return qq, kq, qs * half_scale, ks * half_scale
 
 
 # ---------------------------------------------------------------------------
@@ -199,15 +221,44 @@ def launch_matmul(name: str, x, w, x_scale=None, wsb=None, rs=None, out_dtype=No
     return (out, acc) if return_acc else out
 
 
+def launch_rowquant(q, k):
+    """T4's quantize kernel on bf16 q ``[B, N, S_q, 128]`` and k ``[B, N,
+    S_k, 128]`` in one launch: their int8 codes and their fp32 scales ``[B, N,
+    S]`` times :func:`int8qk_half_scale` (:func:`rowquant_scaled`'s bits),
+    counted in ``LAUNCHES["proto_int8qk_quant"]``."""
+    if q.shape[-1] != 128 or k.shape[-1] != 128:
+        raise ValueError(f"proto_int8qk_quant: rows of 128 only, got q {tuple(q.shape)} and k "
+                         f"{tuple(k.shape)}")
+    _check_card("proto_int8qk_quant", {"q": (q, torch.bfloat16), "k": (k, torch.bfloat16)})
+    qq, kq = torch.empty_like(q, dtype=torch.int8), torch.empty_like(k, dtype=torch.int8)
+    qs = torch.empty(q.shape[:-1], dtype=torch.float32, device=q.device)
+    ks = torch.empty(k.shape[:-1], dtype=torch.float32, device=k.device)
+    ptr = _build.ptr
+    _build.launch(ATTENTION, "proto_int8qk_rowquant",
+                  [ctypes.c_void_p] * 6 + [ctypes.c_long] * 2 + [ctypes.c_float],
+                  ptr(q), ptr(k), ptr(qq), ptr(kq), ptr(qs), ptr(ks), qs.numel(), ks.numel(),
+                  float(int8qk_half_scale(q.shape[-1])))
+    LAUNCHES["proto_int8qk_quant"] += 1
+    return qq, kq, qs, ks
+
+
 def launch_int8qk(qq, kq, v, q_scale, k_scale, key_bias):
     """T4's kernel on int8 codes ``[B, N, S, 128]``, bf16 v, fp32 scales
     ``[B, N, S]`` (times sqrt(log2(e) / sqrt(d))) and an fp32 key bias ``[B,
-    S_k]``; bf16 out, counted in ``LAUNCHES["proto_int8qk"]``."""
+    S_k]``; bf16 out, counted in ``LAUNCHES["proto_int8qk"]``.  Raises on S_q
+    or S_k not a multiple of 64 before anything launches."""
     b, n, sq, d = qq.shape
     sk = kq.shape[2]
     if d != 128 or kq.shape != (b, n, sk, d) or v.shape != kq.shape:
         raise ValueError(f"proto_int8qk: q {tuple(qq.shape)}, k {tuple(kq.shape)}, v "
                          f"{tuple(v.shape)} are not [B, N, S, 128] of one B and N")
+    if sq % ATTN_BLOCK or sk % ATTN_BLOCK or sk == 0:
+        raise ValueError(f"proto_int8qk: S_q {sq} and S_k {sk} must be multiples of the "
+                         f"{ATTN_BLOCK}-row tile")
+    if q_scale.shape != (b, n, sq) or k_scale.shape != (b, n, sk) or key_bias.shape != (b, sk):
+        raise ValueError(f"proto_int8qk: scales {tuple(q_scale.shape)}, "
+                         f"{tuple(k_scale.shape)} and key bias {tuple(key_bias.shape)} do not "
+                         f"fit q {tuple(qq.shape)} and k {tuple(kq.shape)}")
     _check_card("proto_int8qk", {"q": (qq, torch.int8), "k": (kq, torch.int8),
                                  "v": (v, torch.bfloat16), "q_scale": (q_scale, torch.float32),
                                  "k_scale": (k_scale, torch.float32),

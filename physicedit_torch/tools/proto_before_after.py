@@ -1,24 +1,27 @@
 """Time the attention prototypes (T7, T8 and T5 under both names, T2 with
-the scale inside and outside the kernel, T3, T1 v1, v3 and v4) and T9's
-two forms in two checkouts of this repository on one
-card, in turns: before, after, after, before.
+the scale inside and outside the kernel, T3, T1 v1, v3 and v4, T4), T9's
+two forms and T12 in two checkouts of this repository on one card, in
+turns: before, after, after, before.
 
     python -m physicedit_torch.tools.proto_before_after --before DIR [--after DIR]
 
 DIR is the root of a checkout (for example an unpacked ``git archive`` of
 an earlier commit); ``--after`` defaults to the checkout this module is in.
 Each turn is a fresh process (``tools/_turns.py``) that builds the
-checkout's ``csrc/proto_fixedmax_attention.cu`` into its own ``build/``
-and ``csrc/proto_int8_matmul.cu`` into its own ``build/`` and times each
-instantiation of :data:`NAMES` through the checkout's
-``tools/_proto_attention.run`` at the DiT's joint attention (B2 N24 S8448
-D128, RMS-normed q and k, q prescaled unless the scale is inside; T3's K
-and V zeroed on the last 64 keys beforehand, with the masked count; T1
-v1's and T7's key bias -1e30 there; T8's and T5's on keys [200, 256) of
-their 1408-key prefix)
-and T9 through ``tools/proto_int8_rate.pallas_mm`` at its tool's shape
-(M16384 K3072 N12288, int8 over the whole range or bf16 normal x 0.1):
-the median of 20 calls between CUDA events
+checkout's ``csrc/proto_fixedmax_attention.cu``,
+``csrc/proto_int8qk_attention.cu`` and ``csrc/proto_int8_matmul.cu`` into
+its own ``build/`` and times each instantiation of :data:`NAMES` through
+the checkout's ``tools/_proto_attention.run`` at the DiT's joint attention
+(B2 N24 S8448 D128, RMS-normed q and k, q prescaled unless the scale is
+inside; T3's K and V zeroed on the last 64 keys beforehand, with the masked
+count; T1 v1's and T7's key bias -1e30 there; T8's and T5's on keys [200,
+256) of their 1408-key prefix), T4 through
+``tools/proto_attn_int8qk.fixedmax_int8qk`` (its row quantize included)
+with that key bias, T9 through ``tools/proto_int8_rate.pallas_mm`` at its
+tool's shape (M16384 K3072 N12288, int8 over the whole range or bf16
+normal x 0.1) and T12 through ``tools/proto_w4_unpack.w4a8_i8_matmul`` at
+the same shape (bf16 out, int8 x over [-127, 127], any byte a packed
+weight, uniform scales): the median of 20 calls between CUDA events
 after two warm-up calls, and 10 calls replayed from a CUDA graph
 (``graph_ms``, the checkout's own ``tools/_bench.graph_ms``).  One JSON
 line per instantiation and turn, then one per instantiation with both
@@ -35,7 +38,7 @@ from physicedit_torch.tools import _turns
 NAMES = ("proto_fixedmax", "proto_fixedmax2", "proto_fixedmax2_overlap",
          "proto_nobias_inscale", "proto_nobias", "proto_nmask", "proto_bf16s",
          "proto_expnosum", "proto_noexp", "proto_interleave", "proto_interleave_overlap",
-         "proto_mm_i32", "proto_mm_f32")
+         "proto_int8qk", "proto_mm_i32", "proto_mm_f32", "proto_w4_and")
 SHAPE = (2, 24, 8448)    # B, N, S of the attention prototypes
 
 # run in a fresh process with the checkout on sys.path: its argument is the
@@ -45,7 +48,9 @@ import json, statistics, sys
 import torch
 from physicedit_torch.kernels import _build, flash_attention as fa
 from physicedit_torch.tools import _proto_attention as pa, _proto_int8 as pi
+from physicedit_torch.tools import proto_attn_int8qk as t4
 from physicedit_torch.tools import proto_int8_rate as t9
+from physicedit_torch.tools import proto_w4_unpack as t12
 from physicedit_torch.tools._bench import graph_ms
 
 def median_ms(fn, iters=20):
@@ -59,7 +64,7 @@ def median_ms(fn, iters=20):
 
 names, (b, n, s) = json.loads(sys.argv[1])
 dev = torch.device("cuda")
-_build.build_all([pa.SOURCE, pi.MATMUL])
+_build.build_all([pa.SOURCE, pi.ATTENTION, pi.MATMUL])
 gen = torch.Generator(dev).manual_seed(0)
 q, k = ((x * torch.rsqrt(x.pow(2).mean(-1, keepdim=True))).bfloat16()
         for x in (torch.randn(b, n, s, 128, device=dev, generator=gen) for _ in range(2)))
@@ -85,7 +90,8 @@ calls = {"proto_fixedmax": lambda: pa.run("proto_fixedmax", q, k, v, bias, s),
          "proto_noexp": lambda: pa.run("proto_noexp", qs, k, v),
          "proto_interleave": lambda: pa.run("proto_interleave", qs, k, v, bias_prefix, 1408),
          "proto_interleave_overlap":
-             lambda: pa.run("proto_interleave_overlap", qs, k, v, bias_prefix, 1408)}
+             lambda: pa.run("proto_interleave_overlap", qs, k, v, bias_prefix, 1408),
+         "proto_int8qk": lambda: t4.fixedmax_int8qk(q, k, v, bias)}
 for name in names:
     if name in calls:
         print(json.dumps({"kernel": name, "case": f"b{b}_n{n}_s{s}", "shape": [b, n, s, s],
@@ -99,12 +105,21 @@ operands = {"proto_mm_i32": lambda: (
                 torch.randint(-128, 128, (nn, kk), device=dev, generator=gen, dtype=torch.int8)),
             "proto_mm_f32": lambda: tuple(
                 (torch.randn(r, kk, device=dev, generator=gen) * 0.1).bfloat16()
-                for r in (m, nn))}
+                for r in (m, nn)),
+            "proto_w4_and": lambda: (
+                torch.randint(-127, 128, (m, kk), device=dev, generator=gen, dtype=torch.int8),
+                torch.randint(-128, 128, (nn, kk // 2), device=dev, generator=gen,
+                              dtype=torch.int8))}
 for name in names:
     if name in operands:
         x, w = operands[name]()
-        acc = "i32" if name == "proto_mm_i32" else "f32"
-        fn = lambda: t9.pallas_mm(x, w, acc)
+        if name == "proto_w4_and":
+            xs = torch.rand(m, 1, device=dev, generator=gen) * 1e-2 + 1e-3
+            wsb = torch.rand(2, nn, device=dev, generator=gen) * 1e-2 + 1e-3
+            fn = lambda: t12.w4a8_i8_matmul(x, w, xs, wsb, torch.bfloat16)
+        else:
+            acc = "i32" if name == "proto_mm_i32" else "f32"
+            fn = lambda: t9.pallas_mm(x, w, acc)
         print(json.dumps({"kernel": name, "case": f"m{m}_k{kk}_n{nn}", "shape": [m, kk, nn],
                           "ms": median_ms(fn), "graph_ms": graph_ms(fn)}), flush=True)
         del x, w, fn

@@ -18,12 +18,15 @@ rounded, written as fp32, bf16 or int8.  int8 is JAX's conversion, truncate
 toward 0 and saturate (300 -> 127, 127.6 -> 127, -128.7 -> -128), which the
 kernel and the plain version both do (``Tensor.to(torch.int8)`` would wrap).
 The row sum is a torch op in the wrapper, as it is an XLA op outside the
-JAX kernel.  The kernel is instantiation ``proto_w4_and`` of
-``csrc/proto_int8_matmul.cu``; T10 (``proto_prefill_blocks``) is the same
-function with the sign-extending unpack.  The JAX tool swept TPU block
-sizes against the package's W4 kernel; the kernel has one tiling, so the
-tool prints a row per form: K3 (bf16 out, its only), T10 and T12 in bf16,
-and T12 in int8 as the JAX tool's loop wrote it.
+JAX kernel.  The kernel is ``w4_and_wgmma_kernel`` of
+``csrc/proto_int8_matmul.cu`` (``proto_w4_and``): K3's TMA + ``wgmma``
+loop with the AND-only unpack and the two accumulators; T10
+(``proto_prefill_blocks``) is the same function with the sign-extending
+unpack.  The JAX tool swept TPU block sizes against the package's W4
+kernel; the kernel has one tiling, so the tool prints a row per form: K3
+(bf16 out, its only), T10 in bf16, and T12 in bf16, in int8 as the JAX
+tool's loop wrote it, and in fp32 (the three outputs' bytes, 2, 1 and 4 a
+value, show what the epilogue's stores cost).
 """
 
 from __future__ import annotations
@@ -92,7 +95,9 @@ def main() -> list:
             _bench.timing_row(NAME, f"{label} T12 bf16",
                           lambda: w4a8_i8_matmul(x0, w4, xs, wsb, torch.bfloat16), ops),
             _bench.timing_row(NAME, f"{label} T12 int8",
-                          lambda: w4a8_i8_matmul(x0, w4, xs, wsb, torch.int8), ops)]
+                          lambda: w4a8_i8_matmul(x0, w4, xs, wsb, torch.int8), ops),
+            _bench.timing_row(NAME, f"{label} T12 fp32",
+                              lambda: w4a8_i8_matmul(x0, w4, xs, wsb, torch.float32), ops)]
     return rows
 
 

@@ -592,18 +592,30 @@ def test_hopper_kernels_raise_on_misaligned_or_strided_inputs(cuda):
 @pytest.mark.cuda
 @pytest.mark.parametrize("kernel", ["k1_with_l", "k1prime_prescaled", "k2", "k7",
                                     "k1prime_scaled", "k8", "k10", "k10b", "k3_tiled", "k9",
-                                    "k4", "k5", "t9_i32", "t9_f32"] + HOPPER_PROTOS)
+                                    "k4", "k5", "t9_i32", "t9_f32", "t12", "t4"]
+                         + HOPPER_PROTOS)
 def test_hopper_kernels_in_a_cuda_graph_give_the_eager_bits(cuda, kernel):
     """The tensor maps reach the kernel by value: a CUDA-graph replay gives
     the eager call's bits (K4 and K5: their persistent grids, sized once per
     card; the prototypes on the Hopper loop: T1 v1's and T5's padded key
-    bias made inside the graph too; T9's persistent GEMM at a ragged M)."""
+    bias made inside the graph too; T9's persistent GEMM at a ragged M; T12
+    at a ragged M and K = 384; T4 with its quantize launch, at S 1088)."""
     g = torch.Generator(cuda).manual_seed(70)
     if kernel.startswith("t9"):
         x, w = _t9_operands(g, kernel[3:], 300, 384, 640)
 
         def fn():
             return (t_t9.pallas_mm(x, w, kernel[3:]),)
+    elif kernel == "t12":
+        xq, w4, xs, wsb = _w4_probe_operands(g, 300, 384, 384)
+
+        def fn():
+            return t_t12.w4a8_i8_matmul(xq, w4, xs, wsb, torch.bfloat16, return_acc=True)
+    elif kernel == "t4":
+        q, k, v, bias = _t4_inputs(g, 2, 3, 1088, 1088)
+
+        def fn():
+            return (t_t4.fixedmax_int8qk(q, k, v, bias),)
     elif kernel in HOPPER_PROTOS:
         call, _ = _hopper_proto_call(kernel, g, 250, 333, [(100, 160), (0, 0)])
 
@@ -1297,6 +1309,55 @@ def test_probe_w4_tiled_matches_plain_on_cuda(cuda, form, out_dtype):
     assert torch.equal(out, ref)
 
 
+# T12's shapes (M, K, N): ragged M (17, 129, 1000: under one, just past one
+# and past several 128-row tiles), K = 384 (K/2 = 192, a half-empty last
+# stage read from TMA's zeros) and the tool's M16384 K3072 N12288
+T12_SHAPES = [(17, 3072, 384), (129, 3072, 384), (1000, 3072, 384), (300, 384, 384),
+              (16384, 3072, 12288)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", T12_SHAPES, ids=lambda v: str(v))
+def test_probe_w4_and_wgmma_matches_plain_on_cuda(cuda, m, k, n):
+    """T12 on K3's TMA + wgmma loop: the int32 accumulators exactly and every
+    output dtype bit for bit (int8 saturating), one launch each; bf16 three
+    calls bit for bit."""
+    g = torch.Generator(cuda).manual_seed(76 + m + k)
+    xq, w4, xs, wsb = _w4_probe_operands(g, m, k, n)
+    acc_ref = None
+    for dt in (torch.float32, torch.bfloat16, torch.int8):
+        before = tpi.LAUNCHES["proto_w4_and"]
+        out, acc = t_t12.w4a8_i8_matmul(xq, w4, xs, wsb, dt, return_acc=True)
+        assert tpi.LAUNCHES["proto_w4_and"] == before + 1
+        ref, acc_ref = t_t12.w4a8_i8_matmul_reference(xq, w4, xs, wsb, dt, return_acc=True)
+        assert torch.equal(acc, acc_ref), dt
+        assert out.dtype == dt and torch.equal(out, ref), dt
+        del out, acc, ref
+    assert torch.equal(acc_ref, tqm._exact_acc(xq, w4))
+    first = t_t12.w4a8_i8_matmul(xq, w4, xs, wsb, torch.bfloat16)
+    assert all(torch.equal(t_t12.w4a8_i8_matmul(xq, w4, xs, wsb, torch.bfloat16), first)
+               for _ in range(2))
+
+
+@pytest.mark.cuda
+def test_probe_w4_and_raises_on_misaligned_or_strided_operands(cuda):
+    """T12 reads x and w4 through TMA: a misaligned or strided operand, or a
+    shape off its tiles, raises before anything launches."""
+    g = torch.Generator(cuda).manual_seed(77)
+    xq, w4, xs, wsb = _w4_probe_operands(g, 130, 512, 256)
+    buf = torch.zeros(xq.numel() + 1, dtype=torch.int8, device=cuda)
+    x_off = buf[1:].view(xq.shape)
+    before = tpi.LAUNCHES["proto_w4_and"]
+    for args, match in (((x_off, w4), "16-byte aligned"),
+                        ((xq, w4.T.contiguous().T), "contiguous"),
+                        ((xq[:, :448], w4[:, :224]), "K % 128"),
+                        ((xq, w4[:200]), "N % 128")):
+        with pytest.raises(ValueError, match=match):
+            t_t12.w4a8_i8_matmul(*args, xs, wsb[:, :args[1].shape[0]].contiguous(),
+                                 torch.bfloat16)
+    assert tpi.LAUNCHES["proto_w4_and"] == before
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("m", [8, 3, 1])
 def test_probe_w4_gemv_matches_plain_on_cuda(cuda, m):
@@ -1305,22 +1366,69 @@ def test_probe_w4_gemv_matches_plain_on_cuda(cuda, m):
     assert torch.equal(t_t11.gemv_and_only(xq, w4), t_t11.gemv_and_only_reference(xq, w4))
 
 
-@pytest.mark.cuda
-def test_probe_int8qk_attention_matches_plain_on_cuda(cuda):
-    """T4 under K1's gates (max |err| 4e-3, rel-L2 5e-3), with a normal key
-    bias and one batch's last 64 keys blocked."""
-    g = torch.Generator(cuda).manual_seed(73)
-    q, k = (_rms(torch.randn(2, 3, 320, 128, device=cuda, generator=g)).bfloat16()
-            for _ in range(2))
-    v = torch.randn(2, 3, 320, 128, device=cuda, generator=g).bfloat16()
-    bias = torch.randn(2, 1, 320, device=cuda, generator=g) * 0.5
+def _t4_inputs(g, b, n, sq, sk):
+    """RMS-normed bf16 q and k, normal v, a normal key bias with batch 1's
+    last 64 keys blocked."""
+    dev = g.device
+    q = _rms(torch.randn(b, n, sq, 128, device=dev, generator=g))
+    k = _rms(torch.randn(b, n, sk, 128, device=dev, generator=g))
+    v = torch.randn(b, n, sk, 128, device=dev, generator=g).bfloat16()
+    bias = torch.randn(b, 1, sk, device=dev, generator=g) * 0.5
     bias[1, :, -64:] = -1e30
+    return q, k, v, bias
+
+
+# S_q, S_k: whole 128-key tiles plus a half tile (320), a partial last tile
+# (1088 = 8.5 x 128), S_q != S_k, and batch 0 blocked on every key
+T4_CASES = {"s320": (320, 320), "s1088": (1088, 1088), "sq1152_sk1088": (1152, 1088),
+            "blocked_batch": (1088, 1088)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(T4_CASES))
+def test_probe_int8qk_attention_matches_plain_on_cuda(cuda, case):
+    """T4 on the Hopper loop under K1's gates (max |err| 4e-3, rel-L2 5e-3),
+    with a normal key bias and one batch's last 64 keys blocked; a batch
+    blocked on every key gives 0; one quantize and one attention launch."""
+    g = torch.Generator(cuda).manual_seed(73)
+    q, k, v, bias = _t4_inputs(g, 2, 3, *T4_CASES[case])
+    if case == "blocked_batch":
+        bias[0] = -1e30
+    before = {name: tpi.LAUNCHES[name] for name in ("proto_int8qk", "proto_int8qk_quant")}
     out = t_t4.fixedmax_int8qk(q, k, v, bias)
+    assert all(tpi.LAUNCHES[name] == n + 1 for name, n in before.items())
     ref = t_t4.fixedmax_int8qk_reference(q, k, v, bias)
     torch.testing.assert_close(out.float(), ref.float(), rtol=0, atol=4e-3)
     assert _rel_l2(out, ref) <= K7_REL_L2
+    if case == "blocked_batch":
+        assert not out[0].any()
+    assert torch.equal(t_t4.fixedmax_int8qk(q, k, v, bias), out)
     with pytest.raises(ValueError, match="64-row tile"):
         t_t4.fixedmax_int8qk(q[:, :, :100], k, v, bias)
+
+
+@pytest.mark.cuda
+def test_probe_int8qk_quantize_matches_rowquant_on_cuda(cuda):
+    """T4's quantize kernel gives ``rowquant_scaled``'s codes and scales bit
+    for bit: normal rows, a zero row (the 1e-8 floor), rows whose amax 127
+    makes s exactly 1 with ties at +-0.5 and +-2.5 (half to even: 0, 2), and
+    values at the scale's extremes."""
+    g = torch.Generator(cuda).manual_seed(78)
+    q = torch.randn(2, 3, 1088, 128, device=cuda, generator=g).bfloat16()
+    k = (torch.randn(2, 3, 320, 128, device=cuda, generator=g) * 1e3).bfloat16()
+    q[0, 0, 3] = 0.0
+    q[0, 1, 5] = 0.0
+    q[0, 1, 5, :8] = torch.tensor([127.0, 2.5, -2.5, 1.5, 0.5, -0.5, -127.0, 126.5])
+    k[1, 2, 7] = 0.0
+    k[1, 2, 7, :3] = torch.tensor([-127.0, 3.5, -0.5])
+    before = tpi.LAUNCHES["proto_int8qk_quant"]
+    got = tpi.launch_rowquant(q, k)
+    assert tpi.LAUNCHES["proto_int8qk_quant"] == before + 1
+    want = tpi.rowquant_scaled(q, k)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    assert got[0][0, 1, 5, :8].tolist() == [127, 2, -2, 2, 0, 0, -127, 126]
+    assert not got[0][0, 0, 3].any()
 
 
 @pytest.mark.cuda

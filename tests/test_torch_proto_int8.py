@@ -250,6 +250,26 @@ def test_t12_and_only_matches_jax(out_dtype, scales, interpret, no_launch):
                      acc.double().numpy() * xs * wsb[0])
 
 
+@pytest.mark.parametrize("out_dtype", ["float32", "bfloat16", "int8"])
+def test_t12_and_only_k384_matches_jax(out_dtype, interpret, no_launch):
+    """K = 384: K/2 = 192 is no multiple of the card kernel's 128-byte stage
+    (its last stage reads TMA's zeros past K/2), and the JAX kernel walks it
+    in three 64-row blocks.  Integers exactly; unit scales, so every output
+    dtype compares exactly (int8 with wsb[0] = 1/64, a power of two)."""
+    m, k, n = 64, 384, 256
+    xq, wq, packed, xs, wsb = _w4_operands(10, m, k, n, "unit")
+    if out_dtype == "int8":
+        wsb[0] = 1.0 / 64
+    want = j_t12.w4a8_i8_matmul(jnp.asarray(xq), jnp.asarray(packed), jnp.asarray(xs),
+                                jnp.asarray(wsb), getattr(jnp, out_dtype),
+                                block_m=32, block_n=128, block_k2=64)
+    got, acc = t_t12.w4a8_i8_matmul(_t(xq), _t(packed.T), _t(xs), _t(wsb),
+                                    getattr(torch, out_dtype), return_acc=True)
+    np.testing.assert_array_equal(acc.numpy(), xq.astype(np.int64) @ wq.astype(np.int64))
+    assert got.dtype == getattr(torch, out_dtype)
+    np.testing.assert_array_equal(_np(got), _np(want))
+
+
 def test_t12_int8_out_saturates_as_jax(interpret, no_launch):
     """A zero scale row leaves the bias row as the output: 300 -> 127, -300
     -> -128, 127.6 -> 127, -128.7 -> -128 in JAX and in the port
@@ -324,7 +344,12 @@ def test_t4_int8qk_matches_jax(dtype, interpret, no_launch):
     want = _np(j_t4.fixedmax_int8qk(jq, jk, jv, jnp.asarray(bias), 128, 128))
     got = t_t4.fixedmax_int8qk(*(_t(_np(a)).to(tdt) for a in (jq, jk, jv)), _t(bias))
     assert got.dtype == tdt
-    got = _np(got)
+    _t4_compare(_np(got), want, dtype)
+
+
+def _t4_compare(got, want, dtype):
+    """fp32 inputs within 1e-5 of the largest output, bf16 ones under the
+    card's gates (max |err| 4e-3, rel-L2 5e-3)."""
     err = np.abs(got - want).max()
     if dtype == "fp32":
         assert err <= 1e-5 * np.abs(want).max(), err
@@ -332,14 +357,52 @@ def test_t4_int8qk_matches_jax(dtype, interpret, no_launch):
         assert err <= 4e-3 and np.linalg.norm(got - want) / np.linalg.norm(want) <= 5e-3, err
 
 
+# S_q, S_k and JAX's blocks: a partial last 128-key tile of the port's walk
+# (1088 = 8.5 x 128), S_q != S_k, and batch 0 blocked on every key
+T4_TILE_CASES = {"s1088": (1088, 1088, 1088, 544), "sq1152_sk1088": (1152, 1088, 576, 544),
+                 "blocked_batch": (1088, 1088, 1088, 544)}
+
+
+@pytest.mark.parametrize("case", list(T4_TILE_CASES))
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+def test_t4_int8qk_key_tiles_match_jax(dtype, case, interpret, no_launch):
+    """The plain version walks the card kernel's 128-key tiles, the last one
+    partial at S_k 1088, against JAX's kernel in blocks that divide S; a
+    batch blocked on every key gives 0 in both."""
+    sq, sk, block_q, block_k = T4_TILE_CASES[case]
+    rng = np.random.default_rng(11)
+    q = rng.normal(size=(2, 1, sq, 128)).astype(np.float32)
+    k, v = (rng.normal(size=(2, 1, sk, 128)).astype(np.float32) for _ in range(2))
+    bias = (rng.normal(size=(2, 1, sk)) * 0.5).astype(np.float32)
+    bias[1, :, -64:] = -1e30
+    if case == "blocked_batch":
+        bias[0] = -1e30
+    jdt, tdt = (np.float32, torch.float32) if dtype == "fp32" else (jnp.bfloat16, torch.bfloat16)
+    jq, jk, jv = (jnp.asarray(a, jdt) for a in (q, k, v))
+    want = _np(j_t4.fixedmax_int8qk(jq, jk, jv, jnp.asarray(bias), block_q, block_k))
+    got = _np(t_t4.fixedmax_int8qk(*(_t(_np(a)).to(tdt) for a in (jq, jk, jv)), _t(bias)))
+    _t4_compare(got, want, dtype)
+    if case == "blocked_batch":
+        assert not got[0].any() and not want[0].any()
+
+
 @pytest.mark.parametrize("dtype", ["fp32", "bf16"])
 def test_t4_row_quantizer_codes_equal_jax(dtype, interpret, monkeypatch):
     """The int8 codes and scales that reach JAX's kernel (caught at its
-    ``pallas_call``, run eagerly) against the port's wrapper work."""
+    ``pallas_call``, run eagerly) against the port's wrapper work (on the
+    CPU, the plain version of the card's quantize kernel), with ties at
+    +-0.5, +-1.5, +-2.5 and 3.5 (half to even), zero rows and rows whose
+    amax makes s exactly 1, in q and in k, and a row of small values whose
+    scale is the 1e-8 floor."""
     q, k, _, _ = _t4_inputs(8, s=128)
     q[0, 0, 3] = 0.0                     # a zero row: the 1e-8 floor
     q[0, 1, 5] = 0.0                     # amax 127, so s = 1: ties half to even
     q[0, 1, 5, :6] = [127.0, 2.5, -2.5, 1.5, 0.5, -0.5]
+    k[1, 0, 9] = 0.0
+    k[1, 1, 2] = 0.0
+    k[1, 1, 2, :7] = [-127.0, -1.5, 3.5, -0.5, 0.5, 2.5, -2.5]
+    q[1, 0, 4] = 2.0 ** -24              # amax / 127 under 1e-8: codes x / 1e-8
+    q[1, 0, 4, :2] = [2.0 ** -23, -(2.0 ** -22)]
     seen = []
     run = pl.pallas_call
 
@@ -407,22 +470,33 @@ def test_kernel_switches_match_the_variants():
     text = (CSRC / f"{pi.MATMUL}.cu").read_text()
     consts = {name: int(v) for name, v in re.findall(r"\b(k\w+) = (\d+)", text)}
     launchers = {"gemm": "gemm_wgmma_kernel", "tiled": "tiled_kernel",
-                 "gemv": "gemv_and_kernel"}
-    mm = {i: (launchers[fn], (consts[arg],)) for i, (fn, arg) in _cases(
-        pi.MATMUL, r"case (\d+): return launch_(\w+)<(\w+)>\(MM_ARGS\);").items()}
+                 "w4_and": "w4_and_wgmma_kernel", "gemv": "gemv_and_kernel"}
+    mm = {i: (launchers[fn], (consts[arg],) if arg else ()) for i, (fn, arg) in _cases(
+        pi.MATMUL, r"case (\d+): return launch_(\w+)(?:<(\w+)>)?\(MM_ARGS\);").items()}
     ew = {i: ("ew_scale_kernel", (int(arg),)) for i, (arg,) in _cases(
         pi.EW, r"case (\d+): return launch<(\d)>").items()}
+    # T4's source: two kernels, neither a template, each behind its own entry
     attention = (CSRC / f"{pi.ATTENTION}.cu").read_text()
-    assert re.search(r"\)\nint8qk_kernel\(", attention) and "template" not in attention
-    tables = {pi.MATMUL: mm, pi.EW: ew, pi.ATTENTION: {0: ("int8qk_kernel", ())}}
+    entries = {"int8qk_hopper_kernel": "proto_int8qk_attention_bf16",
+               "int8qk_rowquant_kernel": "proto_int8qk_rowquant"}
+    for kernel, entry in entries.items():
+        assert re.search(rf"\)\n{kernel}\(", attention), kernel
+        assert re.search(rf"extern \"C\" int {entry}\((?:.|\n)*?{kernel}<<<", attention), entry
+    assert not re.search(r"template <[^\n]*>\n__global__", attention)
+    tables = {pi.MATMUL: mm, pi.EW: ew,
+              pi.ATTENTION: {0: ("int8qk_hopper_kernel", ()), 1: ("int8qk_rowquant_kernel", ())}}
     for source, table in tables.items():
         mine = {v.kernel_id: (v.kernel, v.template_args) for v in pi.VARIANTS.values()
                 if v.source == source}
         assert mine == table, source
     assert set(pi.LAUNCHES) == set(pi.VARIANTS)
-    # T9's two forms on the TMA + wgmma GEMM, the W4 forms on the mma.sync tiling
-    assert {name for name, v in pi.VARIANTS.items() if v.kernel == "gemm_wgmma_kernel"} == {
-        "proto_mm_i32", "proto_mm_f32"}
+    # T9's two forms and T12 on TMA + wgmma GEMMs, T10 on the mma.sync tiling
+    wgmma = {name for name, v in pi.VARIANTS.items() if "wgmma" in v.kernel}
+    assert wgmma == {"proto_mm_i32", "proto_mm_f32", "proto_w4_and"}
+    assert {name for name, v in pi.VARIANTS.items() if v.kernel == "tiled_kernel"} == {
+        "proto_w4_i32"}
+    # T4 is an instantiation of the Hopper attention mainloop with an int8 Q K^T
+    assert "hp::attention_mainloop(pol)" in attention and "using Score = int;" in attention
 
 
 def test_chip_smoke_rows_and_sources_cover_every_probe():
@@ -436,6 +510,10 @@ def test_chip_smoke_rows_and_sources_cover_every_probe():
         assert lines[0].startswith("def ") and any("pl.pallas_call(" in ln for ln in lines[:40])
     assert set(pi.SOURCES) <= set(chip_smoke.KERNEL_SOURCES)
     assert pi in chip_smoke._counter_modules()
+    loops = {name: chip_smoke.KERNEL_LOOPS[name] for name in pi.VARIANTS}
+    assert loops["proto_w4_and"] == loops["proto_mm_i32"] == "tma_wgmma"
+    assert loops["proto_int8qk"] == "hopper_attention"
+    assert loops["proto_w4_i32"] == "mma_sync"
 
 
 def test_chip_smoke_reads_registers_of_the_probe_kernels(tmp_path):
@@ -446,10 +524,14 @@ def test_chip_smoke_reads_registers_of_the_probe_kernels(tmp_path):
 
     mangled = {("gemm_wgmma_kernel", (a,)): "_ZN12_GLOBAL__N_117gemm_wgmma_kernelILi"
                f"{a}EEEv14CUtensorMap_stS1_Pviiiii" for a in range(2)}
-    mangled.update({("tiled_kernel", (a,)): f"_ZN12_GLOBAL__N_112tiled_kernelILi{a}EEEvPKaS2_PKfS4_"
-                    f"PKiPvPiiiii" for a in range(2, 4)})
+    mangled[("tiled_kernel", (2,))] = ("_ZN12_GLOBAL__N_112tiled_kernelILi2EEEvPKaS2_PKfS4_PvPiiiii")
+    mangled[("w4_and_wgmma_kernel", ())] = ("_ZN12_GLOBAL__N_119w4_and_wgmma_kernelE14CUtensorMap_st"
+                                           "S0_PKfS2_PKiPvPiiiiiiii")
     mangled[("gemv_and_kernel", (8,))] = "_ZN12_GLOBAL__N_115gemv_and_kernelILi8EEEvPKaS2_PKiPiiii"
-    mangled[("int8qk_kernel", ())] = "_ZN12_GLOBAL__N_113int8qk_kernelEPKaS1_PKtPKfS5_S5_Ptiii"
+    mangled[("int8qk_hopper_kernel", ())] = ("_ZN12_GLOBAL__N_120int8qk_hopper_kernelE14CUtensor"
+                                            "Map_stS0_S0_PKfS2_S2_Ptiii")
+    mangled[("int8qk_rowquant_kernel", ())] = ("_ZN12_GLOBAL__N_122int8qk_rowquant_kernelEPKtS1_"
+                                              "PaS2_PfS3_llf")
     lines = []
     for i, name in enumerate(mangled.values()):
         lines += [f"ptxas info    : Compiling entry function '{name}' for 'sm_90a'",
@@ -460,8 +542,9 @@ def test_chip_smoke_reads_registers_of_the_probe_kernels(tmp_path):
     for i, (kernel, args) in enumerate(mangled):
         assert chip_smoke.ptxas_report(log, kernel)[args] == {
             "registers": 100 + i, "spill_store_bytes": i, "spill_load_bytes": 2 * i}
-    assert set(chip_smoke.ptxas_report(log, "tiled_kernel")) == {(2,), (3,)}
+    assert set(chip_smoke.ptxas_report(log, "tiled_kernel")) == {(2,)}
     assert set(chip_smoke.ptxas_report(log, "gemm_wgmma_kernel")) == {(0,), (1,)}
+    assert set(chip_smoke.ptxas_report(log, "int8qk_hopper_kernel")) == {()}
 
 
 def test_l2_copies_and_their_rotation():

@@ -32,7 +32,7 @@ Phases, each printed as one JSON line, any failure exits non-zero:
      spills), and at the DiT image-stream shapes beside an unpack to int8
      and torch._int_mm (the JAX package's route at M >= 8192),
      torch._int_mm alone on weights unpacked beforehand and T10's
-     proto_w4_i32 (the mma.sync tiling K3 ran before);
+     proto_w4_i32 (the same product on T12's loop);
   6. K4-K6 (fused activation quantize) against their plain versions;
   7. a small head_dim-128 pipeline on the card (kernels) against the same
      weights on the CPU (plain versions), in bf16 and then quantized int4,
@@ -86,11 +86,14 @@ Phases, each printed as one JSON line, any failure exits non-zero:
      each against its plain version (integers exact, epilogues, the
      quantize's codes and scales and T6 bit for bit, T4 under K1's gates,
      also at S 1088) with its time, bound, registers and the one PyTorch
-     call where there is one; T9's and T12's GEMMs (TMA + wgmma) also three
-     calls bit for bit, from a CUDA graph, at ragged M (T12 also at
-     K = 384) and T9 under one tile; T12, T4 (the Hopper mainloop with an
-     int8 wgmma QK^T, timed with and without its quantize beside K1 on the
-     same inputs) and the quantize with ptxas's report and shared memory (a
+     call where there is one; T9's, T10's and T12's GEMMs (TMA + wgmma) also
+     three calls bit for bit, from a CUDA graph, at ragged M (T10 and T12
+     also at K = 384) and T9 under one tile, T10 and T12 beside K3 on the
+     same operands; T11's GEMV (TMA + mma.sync, K split over a cluster) at its
+     tool's three shapes, three calls bit for bit, beside K3's GEMV at m8 on
+     the same rotated weights; T9-T12, T4 (the Hopper mainloop with an int8
+     wgmma QK^T, timed with and without its quantize beside K1 on the same
+     inputs) and the quantize with ptxas's report and shared memory (a
      spill fails the run); then each ported tool's main(), their path.
 The line before the last lists each kernel with its launches on its main
 path, its error against the plain version, its time, the plain version's,
@@ -220,7 +223,8 @@ KERNEL_ROWS = [
 # the loop each kernel runs: the Hopper attention mainloop of
 # csrc/hopper_attention.cuh, the other TMA + wgmma kernels on
 # csrc/hopper_primitives.cuh, the row pipelines fed by 1-D bulk copies, or a
-# loop without TMA (mma.sync, dp4a, a plain row or elementwise kernel)
+# loop without TMA (dp4a, a plain row or elementwise kernel), or T11's TMA-fed
+# mma.sync GEMV
 KERNEL_LOOPS = {
     **dict.fromkeys(("fixedmax_attention", "gqa_causal_attention", "fixedmax_attention_bias",
                      "online_attention", "online_attention_bias", "fixedmax_bnsd",
@@ -229,11 +233,12 @@ KERNEL_LOOPS = {
                      "proto_expnosum", "proto_noexp", "proto_interleave",
                      "proto_interleave_overlap", "proto_int8qk"), "hopper_attention"),
     **dict.fromkeys(("w4a8_matmul_tiled", "fixedmax_attention_bwd", "w4_bwd_dx",
-                     "proto_mm_i32", "proto_mm_f32", "proto_w4_and"), "tma_wgmma"),
+                     "proto_mm_i32", "proto_mm_f32", "proto_w4_i32", "proto_w4_and"),
+                    "tma_wgmma"),
     **dict.fromkeys(("ln_mod_quant", "gelu_quant"), "bulk_copy_rows"),
     "transpose_quant": "row_block", "w4a8_matmul_gemv": "dp4a_gemv",
-    "proto_w4_i32": "mma_sync", "proto_int8qk_quant": "warp_rows",
-    "proto_w4_gemv_and": "gemv", "proto_ew_scale_bf16": "elementwise",
+    "proto_int8qk_quant": "warp_rows", "proto_w4_gemv_and": "tma_mma_gemv",
+    "proto_ew_scale_bf16": "elementwise",
     "proto_ew_scale_fp32": "elementwise",
 }
 
@@ -405,11 +410,11 @@ def k3_phase(report: dict, gen, time_ms) -> None:
     (``k3_check``), with ptxas's report of the tiled regime (no spills).
     Then the DiT image-stream shapes (M = 16384): K3 exact against its plain
     version, timed (CUDA events and a CUDA graph) with its bound, beside what
-    the PyTorch calls and the old design take there, each a measurement
+    the PyTorch calls and T10 take there, each a measurement
     only: the route the JAX package takes at M >= 8192 (unpack to int8,
     torch._int_mm and the fp32 epilogue), torch._int_mm alone on weights
-    unpacked beforehand, and T10's ``proto_w4_i32`` (K3's mma.sync tiling
-    before it moved to wgmma)."""
+    unpacked beforehand, and T10's ``proto_w4_i32`` (the same product on
+    T12's TMA + wgmma loop, one commit group a plane)."""
     import torch
 
     from physicedit_torch.kernels import quant_matmul as qm
@@ -460,12 +465,12 @@ def k3_phase(report: dict, gen, time_ms) -> None:
                "library_ms": None,
                "int_mm_route_ms": time_ms(lambda: int_mm_route(xq, w4, xs, ws, b), 10),
                "int_mm_preunpacked_ms": time_ms(lambda: torch._int_mm(xq, w8t), 10),
-               "old_design_ms": time_ms(
+               "t10_ms": time_ms(
                    lambda: t10.i32_matmul(xq, w4, xs, wsb, torch.bfloat16), 10)}
         row.update(bound(2 * m * n * k, n * k // 2 + m * k + 4 * m + 4 * n + 2 * m * n + 2 * n,
                          PEAK_INT8))
         row["bound_share"] = row["bound_ms"] / row["ms"]
-        for key in ("ms", "int_mm_route_ms", "int_mm_preunpacked_ms", "old_design_ms"):
+        for key in ("ms", "int_mm_route_ms", "int_mm_preunpacked_ms", "t10_ms"):
             row[key.replace("ms", "tops")] = 2 * m * n * k / row[key] / 1e9
         if name == "fc1":
             row["ptxas"] = ptxas
@@ -1782,6 +1787,8 @@ def graph_equals_eager(fn) -> bool:
 # T12's edges (M, K, N): ragged M under one, just past one and past several
 # 128-row tiles, and K = 384 at the tool's M and N
 T12_EDGES = [(17, 3072, 12288), (129, 3072, 12288), (1000, 3072, 12288), (16384, 384, 12288)]
+# T10's: K = 384 at its tool's M and N, and a ragged M
+T10_EDGES = [(1536, 384, 37888), (1000, 3584, 37888)]
 
 # T9's tile edges (M, K, N): a ragged M one row past the tool's, a ragged M of
 # eight tiles, and an M under one 128-row tile with N of one and a half
@@ -1837,15 +1844,17 @@ def int8_phase(report: dict, gen, time_ms, compare) -> dict:
     largest output, what a flipped rounding moves it; T4 under K1's gates,
     also at S 1088), timed beside its plain version and the one PyTorch call
     that computes the same function where there is one, with its bound,
-    registers and spills.  T9 and T12 also three calls bit for bit, from a
-    CUDA graph, at ragged M (:data:`T9_EDGES`, :data:`T12_EDGES`: T9 also
-    under one tile, T12 also at K = 384), with their GEMMs' shared memory;
-    T12 also timed without the wrapper's row sums and beside K3 on the same
-    operands; T4 three calls bit for bit and from a CUDA graph, with its
-    shared memory, timed with and without its quantize beside K1 on the
-    same inputs (a spill in T9, T12, T4 or the quantize fails the run).  Then
-    each ported tool's ``main()`` once with the counts at 0: the probes'
-    path.  Returns its launches."""
+    registers and spills.  T9, T10 and T12 also three calls bit for bit,
+    from a CUDA graph, at ragged M (:data:`T9_EDGES`, :data:`T10_EDGES`,
+    :data:`T12_EDGES`: T9 also under one tile, T10 and T12 also at K = 384),
+    with their GEMMs' shared memory; T10 and T12 beside K3 on the same
+    operands, T12 also timed without the wrapper's row sums; T11 at its
+    tool's three shapes, three calls bit for bit, with its shared memory,
+    beside K3's GEMV at m8 on the same rotated weights; T4 three calls bit
+    for bit and from a CUDA graph, with its shared memory, timed with and
+    without its quantize beside K1 on the same inputs (a spill in T9-T12, T4
+    or the quantize fails the run).  Then each ported tool's ``main()`` once
+    with the counts at 0: the probes' path.  Returns its launches."""
     import torch
     import torch.nn.functional as F
 
@@ -1960,66 +1969,99 @@ def int8_phase(report: dict, gen, time_ms, compare) -> dict:
             del out, acc, ref, acc_ref
         return all(v for key, v in row.items() if key.startswith(("acc_exact", "out_equal")))
 
-    w4_and_ptxas = hopper_ptxas(pi.MATMUL, "w4_and_wgmma_kernel", (),
-                                lambda args: "proto_int8_matmul_w4_and_smem_bytes")
+    w4_ptxas = hopper_ptxas(pi.MATMUL, "w4_wgmma_kernel", ("unpack",),
+                            lambda args: "proto_int8_matmul_w4_smem_bytes")
     w4_outs = (torch.float32, torch.bfloat16, torch.int8)
     for name, fn, plain, (m, k, n) in (
             ("proto_w4_i32", t10.i32_matmul, t10.i32_matmul_reference, (1536, 3584, 37888)),
             ("proto_w4_and", t12.w4a8_i8_matmul, t12.w4a8_i8_matmul_reference,
              (16384, 3072, 12288))):
+        var = pi.VARIANTS[name]
         ops = w4_operands(m, k, n)
         row = {"phase": "int8_probe", "case": name, "shape": [m, k, n]}
         ok = w4_compare(row, fn, plain, ops, w4_outs[:2] if name == "proto_w4_i32" else w4_outs)
+        first = fn(*ops, torch.bfloat16)
+        row["repeat_bits_equal"] = repeats_equal(lambda: fn(*ops, torch.bfloat16), first)
+        row["graph_bits_equal"] = graph_equals_eager(lambda: fn(*ops, torch.bfloat16))
+        row["ptxas"] = w4_ptxas[f"unpack={var.template_args[0]}"]
+        ok = ok and row["repeat_bits_equal"] and row["graph_bits_equal"]
+        # K3 on the same operands; T12 also without the wrapper's row sums
+        # (the torch op, computed beforehand)
+        row["k3_graph_ms_same_inputs"] = _bench.graph_ms(
+            lambda: qm.w4a8_matmul(ops[0], ops[1], ops[2], ops[3][0]))
         if name == "proto_w4_and":
-            first = fn(*ops, torch.bfloat16)
-            row["repeat_bits_equal"] = repeats_equal(lambda: fn(*ops, torch.bfloat16), first)
-            row["graph_bits_equal"] = graph_equals_eager(lambda: fn(*ops, torch.bfloat16))
-            row["ptxas"] = w4_and_ptxas["w4_and_wgmma_kernel"]
-            ok = ok and row["repeat_bits_equal"] and row["graph_bits_equal"]
-            # the kernel alone, its row sums computed beforehand (the wrapper's
-            # torch op), and K3 on the same operands
             rs = pi.low_half_rowsum8(ops[0])
             alone = lambda: pi.launch_matmul(name, *ops, rs, torch.bfloat16)
             row["kernel_alone_ms"] = time_ms(alone, 10)
             row["kernel_alone_graph_ms"] = _bench.graph_ms(alone)
-            row["k3_graph_ms_same_inputs"] = _bench.graph_ms(
-                lambda: qm.w4a8_matmul(ops[0], ops[1], ops[2], ops[3][0]))
-            del first, rs, alone
+            del rs, alone
+        del first
         out_bytes = 2 * m * n     # timed with bf16 out, as K3 writes
         record(name, row, ok, lambda: fn(*ops, torch.bfloat16),
                lambda: plain(*ops, torch.bfloat16), None,
                bound(2 * m * k * n, m * k + n * k // 2 + 4 * m + 8 * n + out_bytes, PEAK_INT8))
         del ops
 
-    # T12's edges: ragged M (under one, just past one, several 128-row
-    # tiles) and K = 384, whose K/2 = 192 leaves the last 128-byte stage half
-    # empty (TMA's zeros)
-    for m, k, n in T12_EDGES:
+    # T10's and T12's edges: ragged M (under one, just past one, several
+    # 128-row tiles) and K = 384, whose K/2 = 192 leaves the last 128-byte
+    # stage half empty (TMA's zeros in the packed box and in both halves of x:
+    # T10 unpacks a zero byte to lo = -8)
+    for name, fn, plain, (m, k, n) in (
+            *(("proto_w4_and", t12.w4a8_i8_matmul, t12.w4a8_i8_matmul_reference, shape)
+              for shape in T12_EDGES),
+            *(("proto_w4_i32", t10.i32_matmul, t10.i32_matmul_reference, shape)
+              for shape in T10_EDGES)):
         ops = w4_operands(m, k, n)
-        row = {"phase": "int8_probe", "case": f"proto_w4_and_m{m}_k{k}_n{n}", "shape": [m, k, n]}
-        ok = w4_compare(row, t12.w4a8_i8_matmul, t12.w4a8_i8_matmul_reference, ops, w4_outs)
-        first = t12.w4a8_i8_matmul(*ops, torch.bfloat16)
-        row["repeat_bits_equal"] = repeats_equal(
-            lambda: t12.w4a8_i8_matmul(*ops, torch.bfloat16), first)
-        report["proto_w4_and_err"].append(row["max_abs_err"])
+        row = {"phase": "int8_probe", "case": f"{name}_m{m}_k{k}_n{n}", "shape": [m, k, n]}
+        ok = w4_compare(row, fn, plain, ops, w4_outs[:2] if name == "proto_w4_i32" else w4_outs)
+        first = fn(*ops, torch.bfloat16)
+        row["repeat_bits_equal"] = repeats_equal(lambda: fn(*ops, torch.bfloat16), first)
+        report[f"{name}_err"].append(row["max_abs_err"])
         emit(row)
         del ops, first
         if not (ok and row["repeat_bits_equal"]):
-            fail(f"T12 at M {m} K {k} N {n} disagrees with its plain version")
+            fail(f"{name} at M {m} K {k} N {n} disagrees with its plain version")
     torch.cuda.empty_cache()
 
-    # T11 at the VL decode gate+up, weights rotated past the L2
-    m, k, n = t11.M_DECODE, 3584, 37888
-    xq, w4 = randint(-127, 128, m, k), randint(-128, 128, n, k // 2)
-    got, want = t11.gemv_and_only(xq, w4), t11.gemv_and_only_reference(xq, w4)
-    rotated = pi.rotated(lambda w: t11.gemv_and_only(xq, w), pi.l2_copies(w4))
-    row = {"phase": "int8_probe", "case": "proto_w4_gemv_and", "shape": [m, k, n],
-           "exact": bool(torch.equal(got, want)), "max_abs_err": max_err(got, want)}
-    record("proto_w4_gemv_and", row, row["exact"], rotated,
-           lambda: t11.gemv_and_only_reference(xq, w4), None,
-           bound(2 * m * k * n, n * k // 2 + m * k + 4 * m + 4 * m * n, PEAK_INT8),
-           rate_bytes=n * k // 2)
-    del xq, w4, got, want, rotated
+    # T11 at its tool's three decode shapes (gate+up first, the kernels
+    # line's), weights rotated past the L2, each exact and three calls bit
+    # for bit, beside K3's GEMV at m8 on the same rotated weights (bf16 out,
+    # unit scales); the GEMV's registers, spills and shared memory (a spill
+    # fails the run)
+    gemv_ptxas = hopper_ptxas(pi.MATMUL, "gemv_mma_kernel", (),
+                              lambda args: "proto_int8_matmul_gemv_smem_bytes")
+    m = t11.M_DECODE
+    for label, k, n in t11.SHAPES:
+        xq, w4 = randint(-127, 128, m, k), randint(-128, 128, n, k // 2)
+        got, want = t11.gemv_and_only(xq, w4), t11.gemv_and_only_reference(xq, w4)
+        copies = pi.l2_copies(w4)
+        rotated = pi.rotated(lambda w: t11.gemv_and_only(xq, w), copies)
+        xs, ws = torch.ones(m, 1, device=dev), torch.ones(n, device=dev)
+        row = {"phase": "int8_probe", "case": "proto_w4_gemv_and" + (
+                   "" if k == 3584 and n == 37888 else f"_k{k}_n{n}"),
+               "shape": [m, k, n], "tool_shape": label, "weight_copies": len(copies),
+               "exact": bool(torch.equal(got, want)), "max_abs_err": max_err(got, want),
+               "repeat_bits_equal": repeats_equal(lambda: t11.gemv_and_only(xq, w4), got),
+               "ptxas": gemv_ptxas["gemv_mma_kernel"],
+               "k3_gemv_graph_ms_same_inputs": _bench.graph_ms(
+                   pi.rotated(lambda w: qm.w4a8_matmul(xq, w, xs, ws), copies))}
+        ok = row["exact"] and row["repeat_bits_equal"]
+        nbytes = n * k // 2 + m * k + 4 * m * n
+        if row["case"] == "proto_w4_gemv_and":
+            record("proto_w4_gemv_and", row, ok, rotated,
+                   lambda: t11.gemv_and_only_reference(xq, w4), None,
+                   bound(2 * m * k * n, nbytes, PEAK_INT8), rate_bytes=n * k // 2)
+        else:
+            row["ms"] = time_ms(rotated, 10)
+            row["graph_ms"] = _bench.graph_ms(rotated)
+            row["gb_per_s_graph"] = n * k // 2 / row["graph_ms"] / 1e6
+            row.update(bound(2 * m * k * n, nbytes, PEAK_INT8))
+            report["proto_w4_gemv_and_err"].append(row["max_abs_err"])
+            emit(row)
+            if not ok:
+                fail(f"T11 at K {k} N {n} disagrees with its plain version")
+        del xq, w4, got, want, copies, rotated
+        torch.cuda.empty_cache()
 
     # T4 at the DiT's joint attention: RMS-normed q and k, a normal key bias
     # with batch 1's last 64 keys blocked; first its quantize, codes and

@@ -1,13 +1,13 @@
 // The Hopper primitives that the hand-written kernels share: mbarriers, TMA
-// loads and stores and the tensor maps they use, named barriers, cp.async,
-// the wgmma descriptor, fence, commit and wait, and the register fences that
-// keep the compiler off the registers an issued wgmma still reads or
-// writes.  The
-// attention mainloop (hopper_attention.cuh: K1, K2, K7, K8, K10), the W4
-// GEMMs (w4a8_matmul.cu: K3, w4_bwd_dx.cu: K9) and T9's and T12's GEMMs
-// (proto_int8_matmul.cu) are built from them; the products that only the
-// GEMMs and T4's int8 Q K^T take (int8 and 256-wide bf16 wgmma, A from
-// registers or from shared memory) are here too.
+// loads and stores and the tensor maps they use, a cluster's barrier and
+// shared-memory reads, named barriers, cp.async, the wgmma descriptor,
+// fence, commit and wait, and the register fences that keep the compiler off
+// the registers an issued wgmma still reads or writes.  The attention
+// mainloop (hopper_attention.cuh: K1, K2, K7, K8, K10), the W4 GEMMs
+// (w4a8_matmul.cu: K3, w4_bwd_dx.cu: K9) and T9's, T10's and T12's GEMMs and
+// T11's GEMV (proto_int8_matmul.cu) are built from them; the products that
+// only the GEMMs and T4's int8 Q K^T take (int8 and 256-wide bf16 wgmma, A
+// from registers or from shared memory) are here too.
 //
 // The tensor maps are built on the host each call with
 // cuTensorMapEncodeTiled, reached through cudaGetDriverEntryPointByVersion
@@ -135,6 +135,32 @@ __device__ __forceinline__ void bulk_wait_all() {
 // later lets at them.
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// ---- thread-block clusters ---------------------------------------------------
+
+// This block's rank in its cluster (0 for a launch without clusters).
+__device__ __forceinline__ uint32_t cluster_ctarank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// Every thread of every block of the cluster arrives and waits: shared-memory
+// writes before it are visible to the cluster's reads after it.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// The 32-bit word at this block's shared address addr in the shared memory of
+// the cluster's block of rank `rank` (distributed shared memory).
+__device__ __forceinline__ uint32_t ld_cluster_u32(uint32_t addr, uint32_t rank) {
+  uint32_t remote, v;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(remote) : "r"(addr), "r"(rank));
+  asm volatile("ld.shared::cluster.u32 %0, [%1];\n" : "=r"(v) : "r"(remote) : "memory");
+  return v;
 }
 
 // ---- named barriers (the consumers' ping-pong) -------------------------------

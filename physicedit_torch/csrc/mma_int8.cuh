@@ -1,5 +1,6 @@
-// Helpers for the packed-int4 matmul (K3): one warp-level int8 tensor-core
-// product (mma.sync m16n8k32, int32 accumulators) and the nibble unpack.
+// Helpers for the packed-int4 matmuls: one warp-level int8 tensor-core
+// product (mma.sync m16n8k32, int32 accumulators; T11's GEMV) and the nibble
+// unpack (K3, T10).
 //
 // Fragment layout of m16n8k32 .s8 (g = lane / 4, t = lane % 4; each register
 // holds four int8 along k, the lowest byte first):

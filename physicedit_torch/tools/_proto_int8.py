@@ -9,10 +9,12 @@ instantiation's kernel function and template arguments as ints, which
 ``chip_smoke.ptxas_report`` keys its registers by:
 
 - ``csrc/proto_int8_matmul.cu``: ``gemm_wgmma_kernel<kind>`` (T9's int8 and
-  bf16 products: a persistent TMA + ``wgmma`` GEMM), ``w4_and_wgmma_kernel``
-  (T12: K3's TMA + ``wgmma`` loop with the AND-only unpack and two
-  accumulators), ``tiled_kernel<2>`` (T10, ``mma.sync``) and
-  ``gemv_and_kernel<8>`` (T11);
+  bf16 products: a persistent TMA + ``wgmma`` GEMM), ``w4_wgmma_kernel<2>``
+  and ``<3>`` (T10 and T12: K3's TMA + ``wgmma`` loop, with the
+  sign-extending unpack into one accumulator, and with the AND-only unpack
+  into two) and ``gemv_mma_kernel`` (T11: the weights as the A operand of
+  int8 ``mma.sync`` against x's 8 rows, fed by TMA, K split over a
+  cluster);
 - ``csrc/proto_int8qk_attention.cu``: ``int8qk_hopper_kernel`` (T4 on the
   Hopper attention mainloop, an int8 ``wgmma`` QK^T) and
   ``int8qk_rowquant_kernel`` (T4's row quantize of q and k, one launch);
@@ -70,9 +72,9 @@ class Variant:
 VARIANTS = {
     "proto_mm_i32": Variant(MATMUL, 0, "gemm_wgmma_kernel", (0,)),  # T9, acc "i32"
     "proto_mm_f32": Variant(MATMUL, 1, "gemm_wgmma_kernel", (1,)),  # T9, acc "f32"
-    "proto_w4_i32": Variant(MATMUL, 2, "tiled_kernel", (2,)),       # T10
-    "proto_w4_and": Variant(MATMUL, 3, "w4_and_wgmma_kernel", ()),  # T12
-    "proto_w4_gemv_and": Variant(MATMUL, 4, "gemv_and_kernel", (GEMV_ROWS,)),  # T11
+    "proto_w4_i32": Variant(MATMUL, 2, "w4_wgmma_kernel", (2,)),    # T10
+    "proto_w4_and": Variant(MATMUL, 3, "w4_wgmma_kernel", (3,)),    # T12
+    "proto_w4_gemv_and": Variant(MATMUL, 4, "gemv_mma_kernel", ()),    # T11
     "proto_int8qk": Variant(ATTENTION, 0, "int8qk_hopper_kernel", ()),          # T4
     "proto_int8qk_quant": Variant(ATTENTION, 1, "int8qk_rowquant_kernel", ()),  # T4's quantize
     "proto_ew_scale_fp32": Variant(EW, 0, "ew_scale_kernel", (0,)),  # T6
@@ -104,7 +106,8 @@ def pack_offset(w_q: torch.Tensor) -> torch.Tensor:
 def low_half_rowsum8(x_q: torch.Tensor) -> torch.Tensor:
     """``8 * rowsum(x_q[:, :K/2])`` int32 ``[M]``: the AND-only form's
     correction for the +8 of the low nibble (``rs`` of the JAX tools, an XLA
-    op outside their kernels)."""
+    op outside their kernels; T12's input, and computed inside T11's
+    kernel)."""
     return x_q[:, :x_q.shape[1] // 2].sum(1, dtype=torch.int32) * 8
 
 
@@ -174,11 +177,11 @@ def launch_matmul(name: str, x, w, x_scale=None, wsb=None, rs=None, out_dtype=No
     """Instantiation ``name`` of ``csrc/proto_int8_matmul.cu`` on x ``[M,
     K]`` and w ``[N, K]`` (T9) or w4 ``[N, K/2]`` (the W4 forms), counted in
     ``LAUNCHES[name]``.  x_scale, wsb, ``out_dtype`` and ``return_acc`` are
-    T10's and T12's, rs the AND-only forms' (T12, T11).  Returns out ``[M,
-    N]`` (int32 for T9 i32 and T11, bf16 for T9 f32), and for T10 / T12 with
-    ``return_acc`` also their int32 accumulators.  Raises on a shape the
-    kernel cannot take (M < 1, N % 128, K % 128, or K % 64 for T9 f32; the
-    GEMV M > 8 or K % 32) before anything launches."""
+    T10's and T12's, rs T12's alone (T11's kernel computes its own).
+    Returns out ``[M, N]`` (int32 for T9 i32 and T11, bf16 for T9 f32), and
+    for T10 / T12 with ``return_acc`` also their int32 accumulators.  Raises
+    on a shape the kernel cannot take (M < 1, N % 128, K % 128, or K % 64 for
+    T9 f32; the GEMV M > 8 or K % 32) before anything launches."""
     var = VARIANTS[name]
     if x.dim() != 2 or w.dim() != 2:
         raise ValueError(f"{name}: x and w must be 2-D, got {tuple(x.shape)} and "
@@ -197,8 +200,8 @@ def launch_matmul(name: str, x, w, x_scale=None, wsb=None, rs=None, out_dtype=No
     elif n % TILE_N or k % tile_k:
         raise ValueError(f"{name}: takes N % {TILE_N} == 0 and K % {tile_k} == 0, "
                          f"got N {n} K {k}")
-    if (rs is None) == (name in ("proto_w4_and", "proto_w4_gemv_and")):
-        raise ValueError(f"{name}: rs is the AND-only forms' input, and theirs only")
+    if (rs is None) == (name == "proto_w4_and"):
+        raise ValueError(f"{name}: rs is T12's input, and T12's only")
     if not tiled_w4:
         x_scale = wsb = None
         out_dtype = torch.bfloat16 if name == "proto_mm_f32" else torch.int32

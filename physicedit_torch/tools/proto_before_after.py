@@ -1,7 +1,7 @@
 """Time the attention prototypes (T7, T8 and T5 under both names, T2 with
 the scale inside and outside the kernel, T3, T1 v1, v3 and v4, T4), T9's
-two forms and T12 in two checkouts of this repository on one card, in
-turns: before, after, after, before.
+two forms, T12, T10 and T11 in two checkouts of this repository on one
+card, in turns: before, after, after, before.
 
     python -m physicedit_torch.tools.proto_before_after --before DIR [--after DIR]
 
@@ -19,9 +19,15 @@ count; T1 v1's and T7's key bias -1e30 there; T8's and T5's on keys [200,
 ``tools/proto_attn_int8qk.fixedmax_int8qk`` (its row quantize included)
 with that key bias, T9 through ``tools/proto_int8_rate.pallas_mm`` at its
 tool's shape (M16384 K3072 N12288, int8 over the whole range or bf16
-normal x 0.1) and T12 through ``tools/proto_w4_unpack.w4a8_i8_matmul`` at
+normal x 0.1), T12 through ``tools/proto_w4_unpack.w4a8_i8_matmul`` at
 the same shape (bf16 out, int8 x over [-127, 127], any byte a packed
-weight, uniform scales): the median of 20 calls between CUDA events
+weight, uniform scales), T10 through ``tools/proto_prefill_blocks.i32_matmul``
+at its tool's two shapes (M1536 K3584 N37888 and M1536 K18944 N3584, the
+same operands' kind) and T11 through ``tools/proto_w4_gemv.gemv_and_only``
+at its tool's three (m8 K3584 N37888, K18944 N3584, K3584 N5632; the
+wrapper's row sums included where the checkout's wrapper takes them), its
+weights rotated past the L2 (``_proto_int8.l2_copies``): the median of 20
+calls between CUDA events
 after two warm-up calls, and 10 calls replayed from a CUDA graph
 (``graph_ms``, the checkout's own ``tools/_bench.graph_ms``).  One JSON
 line per instantiation and turn, then one per instantiation with both
@@ -38,7 +44,8 @@ from physicedit_torch.tools import _turns
 NAMES = ("proto_fixedmax", "proto_fixedmax2", "proto_fixedmax2_overlap",
          "proto_nobias_inscale", "proto_nobias", "proto_nmask", "proto_bf16s",
          "proto_expnosum", "proto_noexp", "proto_interleave", "proto_interleave_overlap",
-         "proto_int8qk", "proto_mm_i32", "proto_mm_f32", "proto_w4_and")
+         "proto_int8qk", "proto_mm_i32", "proto_mm_f32", "proto_w4_and", "proto_w4_i32",
+         "proto_w4_gemv_and")
 SHAPE = (2, 24, 8448)    # B, N, S of the attention prototypes
 
 # run in a fresh process with the checkout on sys.path: its argument is the
@@ -50,6 +57,8 @@ from physicedit_torch.kernels import _build, flash_attention as fa
 from physicedit_torch.tools import _proto_attention as pa, _proto_int8 as pi
 from physicedit_torch.tools import proto_attn_int8qk as t4
 from physicedit_torch.tools import proto_int8_rate as t9
+from physicedit_torch.tools import proto_prefill_blocks as t10
+from physicedit_torch.tools import proto_w4_gemv as t11
 from physicedit_torch.tools import proto_w4_unpack as t12
 from physicedit_torch.tools._bench import graph_ms
 
@@ -100,27 +109,35 @@ for name in names:
 del q, k, v, qs, kz, vz
 torch.cuda.empty_cache()
 m, kk, nn = t9.M, t9.K, t9.N
-operands = {"proto_mm_i32": lambda: (
-                torch.randint(-128, 128, (m, kk), device=dev, generator=gen, dtype=torch.int8),
-                torch.randint(-128, 128, (nn, kk), device=dev, generator=gen, dtype=torch.int8)),
-            "proto_mm_f32": lambda: tuple(
-                (torch.randn(r, kk, device=dev, generator=gen) * 0.1).bfloat16()
-                for r in (m, nn)),
-            "proto_w4_and": lambda: (
-                torch.randint(-127, 128, (m, kk), device=dev, generator=gen, dtype=torch.int8),
-                torch.randint(-128, 128, (nn, kk // 2), device=dev, generator=gen,
-                              dtype=torch.int8))}
+def w4_operands(m, k, n):
+    return (torch.randint(-127, 128, (m, k), device=dev, generator=gen, dtype=torch.int8),
+            torch.randint(-128, 128, (n, k // 2), device=dev, generator=gen, dtype=torch.int8))
+operands = {"proto_mm_i32": lambda m, k, n: tuple(
+                torch.randint(-128, 128, (r, k), device=dev, generator=gen, dtype=torch.int8)
+                for r in (m, n)),
+            "proto_mm_f32": lambda m, k, n: tuple(
+                (torch.randn(r, k, device=dev, generator=gen) * 0.1).bfloat16() for r in (m, n)),
+            "proto_w4_and": w4_operands, "proto_w4_i32": w4_operands,
+            "proto_w4_gemv_and": w4_operands}
+shapes = {"proto_mm_i32": [(m, kk, nn)], "proto_mm_f32": [(m, kk, nn)],
+          "proto_w4_and": [(m, kk, nn)],
+          "proto_w4_i32": [(1536, 3584, 37888), (1536, 18944, 3584)],
+          "proto_w4_gemv_and": [(t11.M_DECODE, k_, n_) for _, k_, n_ in t11.SHAPES]}
 for name in names:
-    if name in operands:
-        x, w = operands[name]()
+    for mm, k_, n_ in shapes.get(name, ()):
+        x, w = operands[name](mm, k_, n_)
+        xs = torch.rand(mm, 1, device=dev, generator=gen) * 1e-2 + 1e-3
+        wsb = torch.rand(2, n_, device=dev, generator=gen) * 1e-2 + 1e-3
         if name == "proto_w4_and":
-            xs = torch.rand(m, 1, device=dev, generator=gen) * 1e-2 + 1e-3
-            wsb = torch.rand(2, nn, device=dev, generator=gen) * 1e-2 + 1e-3
             fn = lambda: t12.w4a8_i8_matmul(x, w, xs, wsb, torch.bfloat16)
+        elif name == "proto_w4_i32":
+            fn = lambda: t10.i32_matmul(x, w, xs, wsb, torch.bfloat16)
+        elif name == "proto_w4_gemv_and":
+            fn = pi.rotated(lambda w_: t11.gemv_and_only(x, w_), pi.l2_copies(w))
         else:
             acc = "i32" if name == "proto_mm_i32" else "f32"
             fn = lambda: t9.pallas_mm(x, w, acc)
-        print(json.dumps({"kernel": name, "case": f"m{m}_k{kk}_n{nn}", "shape": [m, kk, nn],
+        print(json.dumps({"kernel": name, "case": f"m{mm}_k{k_}_n{n_}", "shape": [mm, k_, n_],
                           "ms": median_ms(fn), "graph_ms": graph_ms(fn)}), flush=True)
         del x, w, fn
         torch.cuda.empty_cache()

@@ -11,8 +11,9 @@ tool's is ``[K/2, N]``), each byte unpacked as ``lo = (b & 15) - 8`` against
 int32 accumulator, then the epilogue in fp32, each step rounded, with an
 fp32 bias row (K3's is bf16).  The JAX tool's kernel writes bf16; the port
 also writes fp32.  The kernel is instantiation ``proto_w4_i32`` of
-``csrc/proto_int8_matmul.cu``; it gives the same integers as T12
-(``proto_w4_unpack``), which unpacks with ANDs only.  The JAX tool swept TPU
+``csrc/proto_int8_matmul.cu``, on T12's TMA + ``wgmma`` loop (K3's); it
+gives the same integers as T12 (``proto_w4_unpack``), which unpacks with
+ANDs only.  The JAX tool swept TPU
 block sizes; the kernel has one tiling, so the tool prints a row per form:
 K3 (``kernels/quant_matmul.w4a8_matmul``), T10 and T12, at M1536 K3584
 N37888 (gate+up) and M1536 K18944 N3584 (down).

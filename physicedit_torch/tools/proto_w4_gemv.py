@@ -9,9 +9,12 @@ few padded decode rows (int8 x_q ``[m, K]``, m <= 8 on the card; packed
 ``[N, K/2]``, K3's layout, where the JAX tool's is ``[K/2, N]``), computed as
 T12 computes it, with no scales: ``acc - 8 rowsum(x[:, :K/2]) + (acc16 >>
 4)`` over the planes ``b & 0x0F`` and ``b & 0xF0``.  The kernel is
-instantiation ``proto_w4_gemv_and`` of ``csrc/proto_int8_matmul.cu``, K3's
-GEMV regime with that unpack.  Beside it, per shape: K3 at M = 8 (its GEMV
-regime, bf16 out), the "XLA unpack + dot" analogue (``_unpack_w4_int8``
+instantiation ``proto_w4_gemv_and`` of ``csrc/proto_int8_matmul.cu``: the
+weights as the A operand of int8 ``mma.sync`` m16n8k32 against x's rows as
+its 8-wide B, fed by TMA, K split over a cluster of blocks, the row sums
+taken from the x it stages; the wrapper launches nothing else.  Beside it, per
+shape: K3 at M = 8 (its GEMV regime, bf16 out), the "XLA unpack + dot"
+analogue (``_unpack_w4_int8``
 then ``torch._int_mm``, x padded to 32 rows because ``_int_mm`` takes M >
 16) and the W8 baseline (``torch._int_mm`` on int8 weights).  A decode
 reads 28 layers of weights per token, each once, and the qkv (10 MB) and
@@ -39,7 +42,7 @@ def gemv_and_only(x_q, packed):
     :func:`gemv_and_only_reference` for CPU ones."""
     if x_q.device.type == "cpu":
         return gemv_and_only_reference(x_q, packed)
-    return pi.launch_matmul("proto_w4_gemv_and", x_q, packed, rs=pi.low_half_rowsum8(x_q))
+    return pi.launch_matmul("proto_w4_gemv_and", x_q, packed)
 
 
 def gemv_and_only_reference(x_q, packed):

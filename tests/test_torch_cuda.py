@@ -592,14 +592,15 @@ def test_hopper_kernels_raise_on_misaligned_or_strided_inputs(cuda):
 @pytest.mark.cuda
 @pytest.mark.parametrize("kernel", ["k1_with_l", "k1prime_prescaled", "k2", "k7",
                                     "k1prime_scaled", "k8", "k10", "k10b", "k3_tiled", "k9",
-                                    "k4", "k5", "t9_i32", "t9_f32", "t12", "t4"]
+                                    "k4", "k5", "t9_i32", "t9_f32", "t12", "t4", "t10", "t11"]
                          + HOPPER_PROTOS)
 def test_hopper_kernels_in_a_cuda_graph_give_the_eager_bits(cuda, kernel):
     """The tensor maps reach the kernel by value: a CUDA-graph replay gives
     the eager call's bits (K4 and K5: their persistent grids, sized once per
     card; the prototypes on the Hopper loop: T1 v1's and T5's padded key
-    bias made inside the graph too; T9's persistent GEMM at a ragged M; T12
-    at a ragged M and K = 384; T4 with its quantize launch, at S 1088)."""
+    bias made inside the graph too; T9's persistent GEMM at a ragged M; T10
+    and T12 at a ragged M and K = 384; T11's cluster launch at m 3, K 544 and
+    N 1000; T4 with its quantize launch, at S 1088)."""
     g = torch.Generator(cuda).manual_seed(70)
     if kernel.startswith("t9"):
         x, w = _t9_operands(g, kernel[3:], 300, 384, 640)
@@ -611,6 +612,16 @@ def test_hopper_kernels_in_a_cuda_graph_give_the_eager_bits(cuda, kernel):
 
         def fn():
             return t_t12.w4a8_i8_matmul(xq, w4, xs, wsb, torch.bfloat16, return_acc=True)
+    elif kernel == "t10":
+        xq, w4, xs, wsb = _w4_probe_operands(g, 300, 384, 384)
+
+        def fn():
+            return t_t10.i32_matmul(xq, w4, xs, wsb, torch.bfloat16, return_acc=True)
+    elif kernel == "t11":
+        xq, w4, _, _ = _w4_probe_operands(g, 3, 544, 1000)
+
+        def fn():
+            return (t_t11.gemv_and_only(xq, w4),)
     elif kernel == "t4":
         q, k, v, bias = _t4_inputs(g, 2, 3, 1088, 1088)
 
@@ -1358,12 +1369,87 @@ def test_probe_w4_and_raises_on_misaligned_or_strided_operands(cuda):
     assert tpi.LAUNCHES["proto_w4_and"] == before
 
 
+# T10's shapes (M, K, N): ragged M (17, 129, 1000), K = 384 (K/2 = 192: the
+# last stage's packed bytes and both halves of x are TMA's zeros past K/2,
+# and a zero byte unpacks to lo = -8) at a ragged M and at the tool's M and
+# N, and the smoke's M1536 K3584 N37888
+T10_SHAPES = [(17, 3072, 384), (129, 3072, 384), (1000, 1024, 384), (300, 384, 384),
+              (1536, 384, 37888), (1536, 3584, 37888)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", T10_SHAPES, ids=lambda v: str(v))
+def test_probe_w4_i32_wgmma_matches_plain_on_cuda(cuda, m, k, n):
+    """T10 on T12's TMA + wgmma loop: the int32 accumulators exactly (also
+    against the exact product), fp32 and bf16 out bit for bit, one launch
+    each; bf16 three calls bit for bit."""
+    g = torch.Generator(cuda).manual_seed(78 + m + k)
+    xq, w4, xs, wsb = _w4_probe_operands(g, m, k, n)
+    for dt in (torch.float32, torch.bfloat16):
+        before = tpi.LAUNCHES["proto_w4_i32"]
+        out, acc = t_t10.i32_matmul(xq, w4, xs, wsb, dt, return_acc=True)
+        assert tpi.LAUNCHES["proto_w4_i32"] == before + 1
+        ref, acc_ref = t_t10.i32_matmul_reference(xq, w4, xs, wsb, dt, return_acc=True)
+        assert torch.equal(acc, acc_ref), dt
+        assert out.dtype == dt and torch.equal(out, ref), dt
+        del out, ref
+    assert torch.equal(acc_ref, tqm._exact_acc(xq, w4))
+    first = t_t10.i32_matmul(xq, w4, xs, wsb, torch.bfloat16)
+    assert all(torch.equal(t_t10.i32_matmul(xq, w4, xs, wsb, torch.bfloat16), first)
+               for _ in range(2))
+
+
+def _t11_exact_once(xq, w4, monkeypatch):
+    """T11's output, checked exactly against the plain version: one launch,
+    no torch op for the row sums (the wrapper never calls
+    ``low_half_rowsum8``), three calls bit for bit."""
+    monkeypatch.setattr(tpi, "low_half_rowsum8", lambda x: pytest.fail("rs by a torch op"))
+    before = tpi.LAUNCHES["proto_w4_gemv_and"]
+    got = t_t11.gemv_and_only(xq, w4)
+    assert tpi.LAUNCHES["proto_w4_gemv_and"] == before + 1
+    monkeypatch.undo()
+    assert got.dtype == torch.int32 and got.shape == (xq.shape[0], w4.shape[0])
+    assert torch.equal(got, t_t11.gemv_and_only_reference(xq, w4))
+    assert all(torch.equal(t_t11.gemv_and_only(xq, w4), got) for _ in range(2))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("m", [8, 3, 1])
-def test_probe_w4_gemv_matches_plain_on_cuda(cuda, m):
+def test_probe_w4_gemv_matches_plain_on_cuda(cuda, m, monkeypatch):
+    """T11 at N = 1000 (the last 128-row tile ragged) and K = 3584."""
     g = torch.Generator(cuda).manual_seed(72)
     xq, w4, _, _ = _w4_probe_operands(g, m, 3584, 1000)
-    assert torch.equal(t_t11.gemv_and_only(xq, w4), t_t11.gemv_and_only_reference(xq, w4))
+    _t11_exact_once(xq, w4, monkeypatch)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [8, 3, 1])
+@pytest.mark.parametrize("k,n", [(k, n) for _, k, n in t_t11.SHAPES] + [(544, 1000), (32, 128)],
+                         ids=lambda v: str(v))
+def test_probe_w4_gemv_tool_shapes_match_plain_on_cuda(cuda, k, n, m, monkeypatch):
+    """T11 at its tool's three shapes (gate+up, down: K split over a cluster
+    of 8, qkv), at K = 544 (K/2 = 272 ends inside a stage) with N = 1000, and
+    at the smallest K (one 16-byte stage)."""
+    g = torch.Generator(cuda).manual_seed(79 + k + m)
+    xq, w4, _, _ = _w4_probe_operands(g, m, k, n)
+    _t11_exact_once(xq, w4, monkeypatch)
+
+
+@pytest.mark.cuda
+def test_probe_w4_gemv_raises_on_misaligned_or_strided_operands(cuda):
+    """T11 reads x and w4 through TMA: a misaligned or strided operand, or
+    more than 8 rows, raises before anything launches."""
+    g = torch.Generator(cuda).manual_seed(80)
+    xq, w4, _, _ = _w4_probe_operands(g, 8, 512, 256)
+    buf = torch.zeros(xq.numel() + 1, dtype=torch.int8, device=cuda)
+    x_off = buf[1:].view(xq.shape)
+    before = tpi.LAUNCHES["proto_w4_gemv_and"]
+    for args, match in (((x_off, w4), "16-byte aligned"),
+                        ((xq, w4.T.contiguous().T), "contiguous"),
+                        ((torch.cat([xq, xq]), w4), "M <= 8")):
+        with pytest.raises(ValueError, match=match):
+            t_t11.gemv_and_only(*args)
+    assert tpi.LAUNCHES["proto_w4_gemv_and"] == before
 
 
 def _t4_inputs(g, b, n, sq, sk):

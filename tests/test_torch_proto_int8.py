@@ -229,6 +229,27 @@ def test_t10_i32_unpack_matches_jax(scales, interpret, no_launch):
         _within_ulps(got, want, "bf16", exact * xs * wsb[0])
 
 
+@pytest.mark.parametrize("scales", ["unit", "random"])
+def test_t10_i32_unpack_k384_matches_jax(scales, interpret, no_launch):
+    """K = 384: K/2 = 192 ends half-way through the card kernel's last
+    128-byte stage, where a zero packed byte unpacks to lo = -8 and must meet
+    zeros of x (the kernel's map of x's low half is K/2 wide); the JAX kernel
+    takes the whole K/2 as one block.  The accumulators exactly, the bf16
+    output exactly with unit scales, else within one bf16 ulp."""
+    m, k, n = 64, 384, 256
+    xq, wq, packed, xs, wsb = _w4_operands(11, m, k, n, scales)
+    want = j_t10.i32_matmul(jnp.asarray(xq), jnp.asarray(packed), jnp.asarray(xs),
+                            jnp.asarray(wsb), 32, 128, 192)
+    got, acc = t_t10.i32_matmul(_t(xq), _t(packed.T), _t(xs), _t(wsb), return_acc=True)
+    exact = xq.astype(np.int64) @ wq.astype(np.int64)
+    np.testing.assert_array_equal(acc.numpy(), exact)
+    assert got.dtype == torch.bfloat16
+    if scales == "unit":
+        np.testing.assert_array_equal(_np(got), _np(want))
+    else:
+        _within_ulps(got, want, "bf16", exact * xs * wsb[0])
+
+
 @pytest.mark.parametrize("out_dtype,scales", [("float32", "unit"), ("float32", "random"),
                                               ("bfloat16", "random"), ("int8", "unit")])
 def test_t12_and_only_matches_jax(out_dtype, scales, interpret, no_launch):
@@ -303,6 +324,24 @@ def test_and_only_planes_give_the_exact_product():
 def test_t11_gemv_matches_jax_exactly(m, interpret, no_launch):
     rng = np.random.default_rng(5)
     k, n = 512, 256
+    xq = rng.integers(-128, 128, (m, k)).astype(np.int8)
+    wq = rng.integers(-7, 8, (k, n)).astype(np.int8)
+    packed = j_t11.pack_offset(wq)
+    want = np.asarray(j_t11.gemv_and_only(jnp.asarray(xq), jnp.asarray(packed), block_n=128))
+    got = t_t11.gemv_and_only(_t(xq), _t(packed.T))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(want, xq.astype(np.int64) @ wq.astype(np.int64))
+
+
+@pytest.mark.parametrize("m,k", [(3, 512), (8, 544), (3, 544)])
+def test_t11_gemv_edges_match_jax_exactly(m, k, interpret, no_launch):
+    """m = 3 (x rows past m arrive as zeros on the card) and K = 544, whose
+    K/2 = 272 is no multiple of the card kernel's 128-byte stage (its last
+    stage reads zeros past K/2 in the packed box and in both halves of x,
+    and its row sums take only x's low half)."""
+    rng = np.random.default_rng(12 + k + m)
+    n = 256
     xq = rng.integers(-128, 128, (m, k)).astype(np.int8)
     wq = rng.integers(-7, 8, (k, n)).astype(np.int8)
     packed = j_t11.pack_offset(wq)
@@ -469,8 +508,8 @@ def test_kernel_switches_match_the_variants():
     on the card.)"""
     text = (CSRC / f"{pi.MATMUL}.cu").read_text()
     consts = {name: int(v) for name, v in re.findall(r"\b(k\w+) = (\d+)", text)}
-    launchers = {"gemm": "gemm_wgmma_kernel", "tiled": "tiled_kernel",
-                 "w4_and": "w4_and_wgmma_kernel", "gemv": "gemv_and_kernel"}
+    launchers = {"gemm": "gemm_wgmma_kernel", "w4": "w4_wgmma_kernel",
+                 "gemv": "gemv_mma_kernel"}
     mm = {i: (launchers[fn], (consts[arg],) if arg else ()) for i, (fn, arg) in _cases(
         pi.MATMUL, r"case (\d+): return launch_(\w+)(?:<(\w+)>)?\(MM_ARGS\);").items()}
     ew = {i: ("ew_scale_kernel", (int(arg),)) for i, (arg,) in _cases(
@@ -490,11 +529,19 @@ def test_kernel_switches_match_the_variants():
                 if v.source == source}
         assert mine == table, source
     assert set(pi.LAUNCHES) == set(pi.VARIANTS)
-    # T9's two forms and T12 on TMA + wgmma GEMMs, T10 on the mma.sync tiling
+    # T9's two forms, T10 and T12 on TMA + wgmma GEMMs, T11 a TMA-fed
+    # mma.sync GEMV; no variant runs the mma.sync tiling, and no source has
+    # it: T11's kernel is the one user of mma.sync
     wgmma = {name for name, v in pi.VARIANTS.items() if "wgmma" in v.kernel}
-    assert wgmma == {"proto_mm_i32", "proto_mm_f32", "proto_w4_and"}
-    assert {name for name, v in pi.VARIANTS.items() if v.kernel == "tiled_kernel"} == {
-        "proto_w4_i32"}
+    assert wgmma == {"proto_mm_i32", "proto_mm_f32", "proto_w4_i32", "proto_w4_and"}
+    assert pi.VARIANTS["proto_w4_gemv_and"].kernel == "gemv_mma_kernel"
+    assert not {name for name, v in pi.VARIANTS.items() if v.kernel == "tiled_kernel"}
+    users = {src.name for src in CSRC.glob("*.cu") if "mma_s8_16832(" in src.read_text()}
+    assert users == {f"{pi.MATMUL}.cu"}
+    for source in CSRC.glob("*.cu*"):
+        assert "tiled_kernel" not in source.read_text(), source.name
+    gemv = text[text.index("gemv_mma_kernel("):]
+    assert text.count("mma_s8_16832(") == gemv.count("mma_s8_16832(") == 2
     # T4 is an instantiation of the Hopper attention mainloop with an int8 Q K^T
     assert "hp::attention_mainloop(pol)" in attention and "using Score = int;" in attention
 
@@ -511,9 +558,9 @@ def test_chip_smoke_rows_and_sources_cover_every_probe():
     assert set(pi.SOURCES) <= set(chip_smoke.KERNEL_SOURCES)
     assert pi in chip_smoke._counter_modules()
     loops = {name: chip_smoke.KERNEL_LOOPS[name] for name in pi.VARIANTS}
-    assert loops["proto_w4_and"] == loops["proto_mm_i32"] == "tma_wgmma"
+    assert loops["proto_w4_and"] == loops["proto_w4_i32"] == loops["proto_mm_i32"] == "tma_wgmma"
     assert loops["proto_int8qk"] == "hopper_attention"
-    assert loops["proto_w4_i32"] == "mma_sync"
+    assert loops["proto_w4_gemv_and"] == "tma_mma_gemv"
 
 
 def test_chip_smoke_reads_registers_of_the_probe_kernels(tmp_path):
@@ -524,10 +571,10 @@ def test_chip_smoke_reads_registers_of_the_probe_kernels(tmp_path):
 
     mangled = {("gemm_wgmma_kernel", (a,)): "_ZN12_GLOBAL__N_117gemm_wgmma_kernelILi"
                f"{a}EEEv14CUtensorMap_stS1_Pviiiii" for a in range(2)}
-    mangled[("tiled_kernel", (2,))] = ("_ZN12_GLOBAL__N_112tiled_kernelILi2EEEvPKaS2_PKfS4_PvPiiiii")
-    mangled[("w4_and_wgmma_kernel", ())] = ("_ZN12_GLOBAL__N_119w4_and_wgmma_kernelE14CUtensorMap_st"
-                                           "S0_PKfS2_PKiPvPiiiiiiii")
-    mangled[("gemv_and_kernel", (8,))] = "_ZN12_GLOBAL__N_115gemv_and_kernelILi8EEEvPKaS2_PKiPiiii"
+    mangled.update({("w4_wgmma_kernel", (a,)): "_ZN12_GLOBAL__N_115w4_wgmma_kernelILi"
+                    f"{a}EEEv14CUtensorMap_stS1_S1_PKfS3_PKiPvPiiiiiiiii" for a in (2, 3)})
+    mangled[("gemv_mma_kernel", ())] = ("_ZN12_GLOBAL__N_115gemv_mma_kernelE14CUtensorMap_st"
+                                       "S0_S0_Piiiii")
     mangled[("int8qk_hopper_kernel", ())] = ("_ZN12_GLOBAL__N_120int8qk_hopper_kernelE14CUtensor"
                                             "Map_stS0_S0_PKfS2_S2_Ptiii")
     mangled[("int8qk_rowquant_kernel", ())] = ("_ZN12_GLOBAL__N_122int8qk_rowquant_kernelEPKtS1_"
@@ -542,7 +589,8 @@ def test_chip_smoke_reads_registers_of_the_probe_kernels(tmp_path):
     for i, (kernel, args) in enumerate(mangled):
         assert chip_smoke.ptxas_report(log, kernel)[args] == {
             "registers": 100 + i, "spill_store_bytes": i, "spill_load_bytes": 2 * i}
-    assert set(chip_smoke.ptxas_report(log, "tiled_kernel")) == {(2,)}
+    assert set(chip_smoke.ptxas_report(log, "w4_wgmma_kernel")) == {(2,), (3,)}
+    assert set(chip_smoke.ptxas_report(log, "gemv_mma_kernel")) == {()}
     assert set(chip_smoke.ptxas_report(log, "gemm_wgmma_kernel")) == {(0,), (1,)}
     assert set(chip_smoke.ptxas_report(log, "int8qk_hopper_kernel")) == {()}
 

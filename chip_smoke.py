@@ -95,6 +95,25 @@ Phases, each printed as one JSON line, any failure exits non-zero:
      wgmma QK^T, timed with and without its quantize beside K1 on the same
      inputs) and the quantize with ptxas's report and shared memory (a
      spill fails the run); then each ported tool's main(), their path.
+ 15. the serving surface: (a) on the load phase's tree (7b), the sweep CLIs'
+     serving path (``add_serving_args`` with --batch_size 2
+     --cfg_truncate_step 30 and a --prompt_rewriter_cmd, ``build_pipeline``,
+     ``make_prompt_preprocessor``), ``eval.sweep.BucketBatcher`` in uniform
+     mode over two 1024^2 items and in mixed mode over 1024^2 and 768x512,
+     reasoner on (decode cut to 100 tokens), 32 steps: every image bit for
+     bit the direct ``edit_batch`` / ``edit_batch_mixed`` call's, the
+     rewriter's prompts,
+     exact K1 and K2 launches; (b) the W8A8 lane at full width
+     (``quantize_("int8")`` of phase 8's weights built again): the first
+     single edit of phase 8's serving part within rel-L2 0.05 of its bf16
+     image, one ``torch._int_mm`` per quantized DiT linear a step, then the
+     edit with the reasoner on (decode capped at 50 tokens, one
+     ``torch._int_mm`` per text linear a token), memory and times; (c) the
+     prompt refiners at their published widths with random weights
+     (BeautifulPrompt's BLOOM, QwenPrompt's Qwen2-1.5B in bf16 with K2 once
+     per layer in its prefill, the Translator's Marian in fp32) against the
+     same weights in fp32 on the CPU: logits, 16 greedy tokens
+     teacher-forced, each public call timed, BLOOM's sampling repeatable.
 The line before the last lists each kernel with its launches on its main
 path, its error against the plain version, its time, the plain version's,
 its bound and the one PyTorch call that computes the same function; the
@@ -105,6 +124,7 @@ it exits 2.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import math
 import os
@@ -158,6 +178,13 @@ def emit(obj: dict) -> None:
 
 def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
+
+
+@functools.cache
+def card_name() -> str:
+    """The card's name and power limit as nvidia-smi gives them (asked once)."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True, timeout=60).stdout.strip()
 
 
 # name, source, the TPU kernel it replaces, the report entry of its times
@@ -608,6 +635,19 @@ def w4_launch_counts(tm: dict, steps: int, n_blocks: int, n_layers: int,
             "ln_mod_quant": steps * (4 * (n_blocks - 1) + 3),
             "gelu_quant": steps * (2 * (n_blocks - 1) + 1),
             "transpose_quant": steps * n_blocks}
+
+
+def w8a8_int_mm_per_step(dit) -> int:
+    """The torch._int_mm calls of one W8A8 DiT forward, one denoise step (the
+    CFG rows run as one batch): one per quantized linear, less those of the
+    slim last block's text stream (to_add_out, txt_mlp fc1 and fc2), which
+    it skips."""
+    from physicedit_torch.ops.quant import Int8Linear
+
+    last = dit.blocks[-1]
+    skipped = (last.attn["to_add_out"], last.txt_mlp["fc1"], last.txt_mlp["fc2"])
+    return (sum(isinstance(m, Int8Linear) for m in dit.modules())
+            - sum(isinstance(m, Int8Linear) for m in skipped))
 
 
 def w4_regime_counts(tm: dict, steps: int, n_blocks: int, n_layers: int,
@@ -2170,7 +2210,7 @@ LOAD_DEPTH = (6, 4, 8)
 LOAD_REL_L2 = 1e-3       # the CLI's image against the direct call's, same weights
 
 
-def load_phase(gen, steps: int, image) -> dict:
+def load_phase(gen, steps: int, image, sweep_images=None) -> dict:
     """Checkpoint loading at full width, the depth cut to LOAD_DEPTH (about
     10 GB): a random bf16 pipeline written by
     ``tools/make_synthetic_checkpoint`` into a temporary directory (with a
@@ -2180,8 +2220,9 @@ def load_phase(gen, steps: int, image) -> dict:
     steps and the reasoner off: its PNG against the direct ``__call__`` on
     the in-memory pipeline; again with ``--lora_path`` against the in-memory
     pipeline's live LoRA; again with ``--quantize int4`` against the bf16
-    call.  Rates in GB/s of tensor data; the directory is removed at the end.
-    Returns the CLI run's launches."""
+    call.  Rates in GB/s of tensor data.  With ``sweep_images`` (two 1024^2
+    and one 768x512) phase 15(a) runs on the tree, ``sweep_phase``.  The
+    directory is removed at the end.  Returns the CLI run's launches."""
     import dataclasses
     import gc
     import shutil
@@ -2301,6 +2342,9 @@ def load_phase(gen, steps: int, image) -> dict:
             if min(run_launches[k] for k in kernels) == 0:
                 fail(f"load {name}: the CLI's edit launched no {kernels}: {run_launches}")
             launches = launches or run_launches
+        if sweep_images is not None:
+            # 15(a): the sweep's serving path on this tree, with the fake tokenizer
+            sweep_phase(base, sweep_images, dev)
         PhysicEditPipeline.load_tokenizer = real_load_tokenizer
     finally:
         shutil.rmtree(base, ignore_errors=True)
@@ -2433,6 +2477,474 @@ def serving_phase(pipe, images: dict, steps: int, n_blocks: int, edit):
     return singles[0]
 
 
+# ---------------------------------------------------------------------------
+# 15. the serving surface
+# ---------------------------------------------------------------------------
+
+SWEEP_STEPS = 32          # past --cfg_truncate_step 30: the last two steps run positives only
+SWEEP_DECODE_TOKENS = 100  # the sweep's reasoner decode, cut for time (random weights never stop)
+SWEEP_PROMPTS = ["make the glass fall off the table and shatter",
+                 "melt the ice cube on the warm stove top"]
+# The W8A8 edit against the same edit in bf16 (1024^2, 4 steps, reasoner off):
+# the W4 lane's budget.  W8A8's codes are finer than W4's, but it also
+# quantizes the DiT's outer layers (the JAX package's quantize_tree), which
+# the W4 lane keeps in bf16 because they carry most of its divergence
+W8A8_REL_L2 = 0.05
+W8A8_DECODE_TOKENS = 50   # the W8A8 reasoner's decode cap (random weights never emit EOS)
+W8A8_PROMPT = "make the glass fall off the table and shatter"
+REFINER_PROMPT = "一只猫 sits on a red chair by the open window at dusk"
+REFINER_TOKENS = 16       # greedy tokens held against the CPU, teacher-forced there
+BLOOM_REPEAT_TOKENS = 32  # sampled tokens drawn twice under one seed
+QWEN_REFINER_TOKENS = 64  # QwenPrompt's public call, cut from its 512 for time
+# bf16 on the card against fp32 on the CPU, the same weights: rel-L2 over the
+# compared logit rows (BLOOM, Qwen2); Marian runs fp32 on both (the
+# Translator's dtype), TF32 off
+REFINER_BF16_REL_L2 = 0.05
+REFINER_FP32_REL_L2 = 1e-4
+
+
+def sweep_phase(base: str, images: list, dev) -> None:
+    """15(a). The sweep's serving path on the load phase's full-width tree:
+    the port's ``add_serving_args`` with ``--batch_size 2
+    --cfg_truncate_step 30 --prompt_rewriter_cmd <a local executable>``,
+    ``build_pipeline`` and ``make_prompt_preprocessor``, then
+    ``BucketBatcher`` (reasoner on, its decode cut to SWEEP_DECODE_TOKENS;
+    SWEEP_STEPS steps) in uniform mode over two 1024^2 items and in mixed
+    mode over 1024^2 and 768x512.  Each image
+    must equal, bit for bit, a direct ``edit_batch`` / ``edit_batch_mixed``
+    call with the rewritten prompts, the same seeds and kwargs; each batch
+    must launch K1 SWEEP_STEPS x blocks times per denoise and K2 once per
+    layer for each reasoner prefill row and each 4-row prompt-encode chunk."""
+    import argparse
+    import gc
+
+    import numpy as np
+    import torch
+
+    from physicedit_torch.cli import serving
+    from physicedit_torch.eval.sweep import BucketBatcher
+
+    p = argparse.ArgumentParser()
+    p.add_argument("--base_model_path")
+    p.add_argument("--lora_path", default=None)
+    p.add_argument("--tokenizer_path", default=None)
+    serving.add_serving_args(p, with_rewriter=True)
+    rewriter = (f"{sys.executable} -c \"import sys; "
+                f"print('serving: ' + sys.stdin.read().strip())\"")
+    args = p.parse_args(["--base_model_path", base, "--batch_size", "2", "--cfg_truncate_step",
+                         "30", "--prompt_rewriter_cmd", rewriter, "--attn_impl", "kernels",
+                         "--device", str(dev)])
+    t0 = time.perf_counter()
+    pipe = serving.build_pipeline(args)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    real_reason = pipe.reason_physical_batch
+    pipe.reason_physical_batch = (lambda prompts, ims, max_new_tokens=1000, **kw:
+                                  real_reason(prompts, ims, SWEEP_DECODE_TOKENS, **kw))
+    preprocess = serving.make_prompt_preprocessor(args)
+    prompts = [preprocess(q) for q in SWEEP_PROMPTS]
+    if prompts != ["serving: " + q for q in SWEEP_PROMPTS]:
+        fail(f"the prompt rewriter gave {prompts}")
+    n_blocks, n_layers = pipe.dit.cfg.num_layers, pipe.text.cfg.num_layers
+    seed = SEED + 12
+    kw = dict(num_inference_steps=SWEEP_STEPS, cfg_truncate_step=args.cfg_truncate_step)
+    for mode, ims in (("uniform", images[:2]), ("mixed", [images[0], images[2]])):
+        batcher = BucketBatcher(pipe, args.batch_size, seed, SWEEP_STEPS,
+                                pipe_kwargs={"cfg_truncate_step": args.cfg_truncate_step},
+                                mixed=mode == "mixed")
+        done = {}
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        for i, (q, im) in enumerate(zip(prompts, ims)):
+            batcher.add(q, im, i, lambda out, key: done.__setitem__(key, out))
+        batcher.flush_all()
+        torch.cuda.synchronize()
+        batch_ms = (time.perf_counter() - t0) * 1e3
+        launches = counts()
+        tm = dict(pipe.timings)
+        seeds = [seed] * len(ims)
+        if mode == "mixed":
+            direct = pipe.edit_batch_mixed(prompts, ims, heights=[im.size[1] for im in ims],
+                                           widths=[im.size[0] for im in ims], seeds=seeds, **kw)
+        else:
+            direct = pipe.edit_batch(prompts, ims, height=ims[0].size[1],
+                                     width=ims[0].size[0], seeds=seeds, **kw)
+        outs = [np.asarray(done[i]) for i in range(len(ims))]
+        equal = [bool(np.array_equal(o, np.asarray(d))) for o, d in zip(outs, direct)]
+        groups = 2 if mode == "mixed" else 1
+        k1_want = groups * SWEEP_STEPS * n_blocks
+        k2_want = n_layers * (len(ims) + 1)     # a prefill per row; 2N encodes in one chunk
+        emit({"card": card_name(), "phase": "serving_sweep", "mode": mode,
+              "depth_cut": list(LOAD_DEPTH),
+              "sizes": [list(im.size) for im in ims], "steps": SWEEP_STEPS,
+              "cfg_truncate_step": args.cfg_truncate_step, "batch_size": args.batch_size,
+              "decode_cap": SWEEP_DECODE_TOKENS,
+              "build_pipeline_s": load_s, "batch_ms": batch_ms,
+              "denoise_ms": tm.get("denoise"), "decode_tokens": tm.get("decode_tokens"),
+              "reasoner_decode_ms": tm.get("reasoner_decode"),
+              "prompts": prompts, "bit_equal_to_direct": equal,
+              "image_std": [float(o.std()) for o in outs], "launches": launches,
+              "k1_expected": k1_want, "k2_expected": k2_want})
+        if not all(equal) or [o.shape[:2] for o in outs] != [im.size[::-1] for im in ims]:
+            fail(f"BucketBatcher ({mode}) images differ from the direct call: {equal}")
+        if not all(np.isfinite(o).all() and o.std() > 0 for o in outs):
+            fail(f"BucketBatcher ({mode}) made a constant image")
+        if (launches["fixedmax_attention"] != k1_want
+                or launches["gqa_causal_attention"] != k2_want):
+            fail(f"the {mode} sweep launched K1 {launches['fixedmax_attention']} / K2 "
+                 f"{launches['gqa_causal_attention']} times, wanted {k1_want} / {k2_want}")
+    del pipe
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def w8a8_phase(gen_state, bf16_img, image, steps: int, dev) -> None:
+    """15(b). The W8A8 lane at full width: the pipeline of phase 8 built
+    again from its generator state (the same random bf16 weights),
+    ``quantize_("int8")`` in place (the DiT and the VL text model; the ViT
+    and the KV cache stay bf16), then phase 8's first single edit (1024^2,
+    SEED + 4, reasoner off) within W8A8_REL_L2 of its bf16 image, with one
+    ``torch._int_mm`` per quantized DiT linear a forward
+    (``w8a8_int_mm_per_step``); then the same edit with the reasoner on, its
+    decode capped at W8A8_DECODE_TOKENS, one ``torch._int_mm`` per quantized
+    text linear a decode token."""
+    import gc
+
+    import numpy as np
+    import torch
+    from torch import nn
+
+    from physicedit_torch.kernels import flash_attention as fa
+    from physicedit_torch.ops import quant as q8
+    from physicedit_torch.pipeline.testing import build_random_pipeline
+
+    gen = torch.Generator(dev)
+    gen.set_state(gen_state)
+    t0 = time.perf_counter()
+    pipe = build_random_pipeline("full", device=dev, generator=gen)
+    torch.cuda.synchronize()
+    bf16_gb = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    pipe.quantize_("int8")
+    torch.cuda.synchronize()
+
+    def kinds(m):
+        return {"int8": sum(isinstance(x, q8.Int8Linear) for x in m.modules()),
+                "float": sum(isinstance(x, nn.Linear) for x in m.modules())}
+
+    n = {name: kinds(getattr(pipe, name)) for name in ("dit", "text", "vision")}
+    emit({"card": card_name(), "phase": "w8a8_quantize", "build_s": t1 - t0,
+          "quantize_s": time.perf_counter() - t1,
+          "bf16_resident_gb": bf16_gb, "resident_gb": torch.cuda.memory_allocated() / 1e9,
+          "peak_gb_during_quantize": torch.cuda.max_memory_allocated() / 1e9,
+          "linears": n, "kv_int8": pipe.kv_int8})
+    # at full width every DiT and text linear is over the 65,536-element threshold
+    if n["dit"]["float"] or n["text"]["float"] or n["vision"]["int8"] or pipe.kv_int8:
+        fail(f"quantize_('int8') left {n} (kv_int8 {pipe.kv_int8})")
+
+    per_denoise = []
+    real_denoise = pipe._run_denoise
+
+    def spy(*a, **kw):
+        before = q8.CALLS["int_mm"]
+        out = real_denoise(*a, **kw)
+        per_denoise.append(q8.CALLS["int_mm"] - before)
+        return out
+
+    pipe._run_denoise = spy
+    per_step = w8a8_int_mm_per_step(pipe.dit)
+    n_blocks = pipe.dit.cfg.num_layers
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    q8.reset_call_counts()
+    t0 = time.perf_counter()
+    out = pipe(W8A8_PROMPT, edit_image=image, cfg_scale=4.0, height=1024, width=1024,
+               seed=SEED + 4, num_inference_steps=steps, have_text_reasoning=False)
+    torch.cuda.synchronize()
+    total = (time.perf_counter() - t0) * 1e3
+    arr = np.asarray(out, np.float32)
+    rel = float(np.linalg.norm(arr - bf16_img) / np.linalg.norm(bf16_img - 127.5))
+    tm = pipe.timings
+    launches = counts()
+    emit({"card": card_name(), "phase": "w8a8_edit_vs_bf16", "size": [1024, 1024], "steps": steps,
+          "reasoning": False, "total_ms": total, "denoise_ms_per_step": tm["denoise"] / steps,
+          "prompt_encode_ms": tm["prompt_encode"], "rel_l2": rel, "limit": W8A8_REL_L2,
+          "int_mm_per_denoise": per_denoise, "int_mm_per_step_expected": per_step,
+          "int8_dit_linears": n["dit"]["int8"], "int_mm_calls": q8.CALLS["int_mm"],
+          "k1_launches": launches["fixedmax_attention"], "k1_expected": steps * n_blocks,
+          "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "image_std": float(arr.std())})
+    if not rel <= W8A8_REL_L2:
+        fail(f"the W8A8 edit is {rel:.4f} rel-L2 from the bf16 edit (limit {W8A8_REL_L2})")
+    if per_denoise != [steps * per_step] or launches["fixedmax_attention"] != steps * n_blocks:
+        fail(f"W8A8 denoise: {per_denoise} torch._int_mm calls (wanted {steps * per_step}), "
+             f"K1 {launches['fixedmax_attention']} (wanted {steps * n_blocks})")
+
+    real_reason = pipe.reason_physical_batch
+    pipe.reason_physical_batch = (lambda prompts, ims, max_new_tokens=1000, **kw:
+                                  real_reason(prompts, ims, W8A8_DECODE_TOKENS, **kw))
+    decode_calls = []
+    real_decode = pipe.text.greedy_decode
+
+    def decode_spy(*a, **kw):
+        before = q8.CALLS["int_mm"]
+        toks, n_steps = real_decode(*a, **kw)
+        decode_calls.append((q8.CALLS["int_mm"] - before, n_steps))
+        return toks, n_steps
+
+    pipe.text.greedy_decode = decode_spy
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    out = pipe(W8A8_PROMPT, edit_image=image, cfg_scale=4.0, height=1024, width=1024,
+               seed=SEED + 4, num_inference_steps=steps, have_text_reasoning=True)
+    torch.cuda.synchronize()
+    total = (time.perf_counter() - t0) * 1e3
+    arr = np.asarray(out, np.float32)
+    tm = pipe.timings
+    (dec_calls, dec_steps), = decode_calls
+    launches = counts()
+    n_layers = pipe.text.cfg.num_layers
+    emit({"card": card_name(), "phase": "w8a8_edit", "size": [1024, 1024], "steps": steps,
+          "reasoning": True,
+          "decode_cap": W8A8_DECODE_TOKENS, "total_ms": total,
+          "reasoner_prefill_ms": tm["reasoner_prefill"], "decode_tokens": tm["decode_tokens"],
+          "decode_ms": tm["reasoner_decode"],
+          "decode_ms_per_token": tm["reasoner_decode"] / max(1, tm["decode_tokens"]),
+          "denoise_ms_per_step": tm["denoise"] / steps,
+          "int_mm_per_decode_token": dec_calls / max(1, dec_steps),
+          "int8_text_linears": n["text"]["int8"], "kv_int8": pipe.kv_int8,
+          "k1_launches": launches["fixedmax_attention"],
+          "k2_launches": launches["gqa_causal_attention"], "k2_expected": 2 * n_layers,
+          "resident_gb": torch.cuda.memory_allocated() / 1e9,
+          "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "image_std": float(arr.std())})
+    if out.size != (1024, 1024) or not np.isfinite(arr).all() or arr.std() == 0.0:
+        fail("the W8A8 edit with the reasoner is not finite, is constant or the wrong size")
+    if (dec_steps < 1 or dec_steps > W8A8_DECODE_TOKENS
+            or dec_calls != dec_steps * n["text"]["int8"]
+            or launches["gqa_causal_attention"] != 2 * n_layers):
+        fail(f"W8A8 decode: {dec_calls} torch._int_mm calls over {dec_steps} tokens "
+             f"({n['text']['int8']} a token wanted), K2 {launches['gqa_causal_attention']}")
+    del pipe, out
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _cpu_twin(make, model):
+    """``make(torch.float32)`` materialised on the CPU with ``model``'s
+    weights (the card's bf16 values, exactly, in fp32)."""
+    import torch
+
+    from physicedit_torch.core.params import materialize
+
+    cpu = materialize(make(torch.float32), "cpu")
+    cpu.load_state_dict({k: v.float().cpu() for k, v in model.state_dict().items()})
+    return cpu.eval()
+
+
+def _tokens_vs_cpu(card_toks, cpu_logits, max_err: float, stop=None) -> dict:
+    """The card's greedy tokens against the CPU's argmax, teacher-forced on
+    the card's sequence (up to ``stop``, EOS, when it comes): the leading
+    run of equal tokens, and whether every other token is a near-tie (its
+    CPU logit within twice the measured logit error of the CPU's best)."""
+    toks = card_toks.cpu().long()
+    if stop is not None and (toks == stop).any():
+        toks = toks[:int((toks == stop).nonzero()[0]) + 1]
+    logits = cpu_logits[:len(toks)].double()
+    equal = logits.argmax(-1) == toks
+    gap = logits.max(-1).values - logits.gather(1, toks[:, None])[:, 0]
+    return {"tokens": len(toks), "tokens_equal": int(equal.sum()),
+            "equal_prefix": int(equal.long().cumprod(0).sum()),
+            "worst_gap": float(gap.max()), "near_tie_limit": 2 * max_err,
+            "ok": len(toks) > 0 and bool((equal | (gap <= 2 * max_err)).all())}
+
+
+def _logit_row(card, cpu, limit: float) -> dict:
+    card = card.float().cpu()
+    err = (card - cpu).abs().max().item()
+    return {"logits_rel_l2": rel_l2(card, cpu), "logits_max_abs_err": err,
+            "logits_max_abs": cpu.abs().max().item(), "limit": limit}
+
+
+def refiner_phase(gen) -> None:
+    """15(c). The three prompt refiners at their published widths with
+    random weights (nothing is fetched): BLOOM as
+    alibaba-pai/pai-bloom-1b1-text2prompt-sd and QwenPrompt as
+    Qwen/Qwen2-1.5B-Instruct in bf16, Marian as Helsinki-NLP/opus-mt-zh-en in
+    fp32 (each refiner's dtype), each against the same weights in fp32 on
+    the CPU: logits within REFINER_BF16_REL_L2 / REFINER_FP32_REL_L2, and
+    REFINER_TOKENS greedy tokens equal to the CPU's argmax (teacher-forced on
+    the card's sequence) but for near-ties.  QwenPrompt's prefill must
+    launch K2 exactly once per layer.  Then each refiner's public call, timed,
+    and BLOOM's sampling drawn twice under one seed (the same tokens)."""
+    import gc
+
+    import torch
+
+    from physicedit_torch.core.params import init_random_, materialize
+    from physicedit_torch.kernels import flash_attention as fa
+    from physicedit_torch.models import bloom, marian
+    from physicedit_torch.models.qwen_vl import QwenVLText
+    from physicedit_torch.pipeline import prompt_refiners as pr
+    from physicedit_torch.pipeline.testing import FakeTokenizer
+
+    dev = gen.device
+    tok = FakeTokenizer()
+    n_new = REFINER_TOKENS
+
+    def random(make, dtype, std=0.02):
+        model = init_random_(materialize(make(dtype), dev), gen)
+        model.embed.normal_(0.0, std, generator=gen)
+        return model.eval()
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    # BLOOM (BeautifulPrompt)
+    cfg = bloom.PAI_BLOOM_1B1_TEXT2PROMPT
+    card = random(lambda dt: bloom.Bloom(cfg, dt), torch.bfloat16).reset_alibi_()
+    cpu = _cpu_twin(lambda dt: bloom.Bloom(cfg, dt), card)
+    ref = pr.BeautifulPrompt(card, tok)
+    ids = tok.encode(ref.template.format(raw_prompt=REFINER_PROMPT))
+    pad = pr._bucket(len(ids))
+    input_ids = torch.full((1, pad), cfg.pad_token_id, dtype=torch.long, device=dev)
+    mask = torch.zeros((1, pad), dtype=torch.long, device=dev)
+    input_ids[0, pad - len(ids):] = torch.tensor(ids, device=dev)
+    mask[0, pad - len(ids):] = 1
+    toks, greedy_ms = timed(lambda: bloom.bloom_generate(card, input_ids, mask,
+                                                         max_new_tokens=n_new))
+    seq = torch.cat([input_ids, toks], 1)
+    seq_mask = torch.cat([mask, torch.ones_like(toks)], 1)
+    rows = slice(pad - 1, pad - 1 + n_new)
+    card_logits = bloom.bloom_logits(card, seq, seq_mask)[0, rows]
+    cpu_logits = bloom.bloom_logits(cpu, seq.cpu(), seq_mask.cpu())[0, rows]
+    row = {"card": card_name(), "phase": "refiner", "refiner": "BeautifulPrompt", "model": "bloom",
+           "widths": "alibaba-pai/pai-bloom-1b1-text2prompt-sd",
+           "config": dict(vars(cfg)), "card_dtype": "bfloat16", "prompt_tokens": len(ids),
+           "greedy_ms_per_token": greedy_ms / n_new,
+           **_logit_row(card_logits, cpu_logits, REFINER_BF16_REL_L2)}
+    row.update(_tokens_vs_cpu(toks[0], cpu_logits, row["logits_max_abs_err"],
+                              cfg.eos_token_id))
+    del cpu
+    out, sample_ms = timed(lambda: ref(REFINER_PROMPT, seed=SEED))
+    draws = [bloom.bloom_generate(card, input_ids, mask, BLOOM_REPEAT_TOKENS, do_sample=True,
+                                  temperature=0.9, top_k=50, top_p=0.95, repetition_penalty=1.1,
+                                  generator=torch.Generator(dev).manual_seed(SEED))
+             for _ in range(2)]
+    row.update({"call_new_tokens": 384, "call_ms": sample_ms,
+                "call_words": len(out.split()) - len(REFINER_PROMPT.split()),
+                "sampled_repeat_tokens": BLOOM_REPEAT_TOKENS,
+                "sampled_repeatable": bool(torch.equal(*draws))})
+    emit(row)
+    if (not row["logits_rel_l2"] <= REFINER_BF16_REL_L2 or not row["ok"]
+            or not row["sampled_repeatable"] or not out.startswith(REFINER_PROMPT + ", ")):
+        fail(f"BeautifulPrompt on the card disagrees with the CPU: {row}")
+    del card, ref
+
+    # Marian (Translator), fp32 as the Translator loads it
+    cfg = marian.OPUS_MT_ZH_EN
+
+    def make_marian(dt):
+        return marian.Marian(cfg, dt)
+
+    card = random(make_marian, torch.float32)
+    with torch.no_grad():
+        card.pos.copy_(torch.from_numpy(marian.sinusoidal_table(cfg.max_positions,
+                                                                 cfg.d_model)))
+        card.final_logits_bias.zero_()
+    cpu = _cpu_twin(make_marian, card)
+    tr = pr.Translator(card, tok)
+    ids = tok.encode(REFINER_PROMPT)
+    pad = pr._bucket(len(ids))
+    src = torch.full((1, pad), cfg.pad_token_id, dtype=torch.long, device=dev)
+    src_mask = torch.zeros((1, pad), dtype=torch.long, device=dev)
+    src[0, :len(ids)] = torch.tensor(ids, device=dev)
+    src_mask[0, :len(ids)] = 1
+    toks, greedy_ms = timed(lambda: marian.marian_greedy_generate(card, src, src_mask, n_new))
+    dec = torch.cat([torch.full((1, 1), cfg.decoder_start_token_id, device=dev),
+                     toks[:, :-1]], 1)
+    card_logits = marian.marian_decode_logits(
+        card, dec, marian.marian_encode(card, src, src_mask), src_mask)[0]
+    cpu_src, cpu_mask = src.cpu(), src_mask.cpu()
+    cpu_logits = marian.marian_decode_logits(
+        cpu, dec.cpu(), marian.marian_encode(cpu, cpu_src, cpu_mask), cpu_mask)[0]
+    row = {"card": card_name(), "phase": "refiner", "refiner": "Translator", "model": "marian",
+           "widths": "Helsinki-NLP/opus-mt-zh-en", "config": dict(vars(cfg)),
+           "card_dtype": "float32", "prompt_tokens": len(ids),
+           "greedy_ms_per_token": greedy_ms / n_new,
+           **_logit_row(card_logits, cpu_logits, REFINER_FP32_REL_L2)}
+    row.update(_tokens_vs_cpu(toks[0], cpu_logits, row["logits_max_abs_err"],
+                              cfg.eos_token_id))
+    del cpu
+    out, call_ms = timed(lambda: tr(REFINER_PROMPT))
+    row.update({"call_new_tokens": 512, "call_ms": call_ms, "call_words": len(out.split())})
+    emit(row)
+    if not row["logits_rel_l2"] <= REFINER_FP32_REL_L2 or not row["ok"]:
+        fail(f"the Translator on the card disagrees with the CPU: {row}")
+    del card, tr
+
+    # Qwen2 (QwenPrompt): the VL text decoder, K2 in its prefill
+    cfg = pr.qwen_text_cfg_from_hf(pr.QWEN2_1_5B_INSTRUCT)
+
+    def make_qwen(dt):
+        return QwenVLText(cfg, dt)
+
+    card = random(make_qwen, torch.bfloat16)
+    with torch.no_grad():
+        card.lm_head.weight.copy_(card.embed)          # tied embeddings
+    cpu = _cpu_twin(make_qwen, card)
+    q = pr.QwenPrompt(card, tok)
+    ids, embeds, pos, mask = q.inputs(REFINER_PROMPT)
+    pad = mask.shape[1]
+    reset_counts()
+    (logits, caches, _), prefill_ms = timed(lambda: card.prefill(embeds, pos, mask,
+                                                                 pad + n_new))
+    k2 = fa.LAUNCHES["gqa_causal_attention"]
+    key_mask = torch.cat([mask, torch.zeros((1, n_new), dtype=torch.bool, device=dev)], 1)
+    (toks, steps), decode_ms = timed(lambda: card.greedy_decode(
+        caches, logits.argmax(-1), pad, torch.tensor([len(ids)], device=dev), n_new,
+        key_mask=key_mask))
+    # the CPU teacher-forced over the prompt and the card's tokens
+    gen_toks = toks[0, :n_new - 1].cpu()
+    emb = torch.cat([embeds.float().cpu(), cpu.embed_tokens(gen_toks)[None]], 1)
+    cpu_pos = torch.cat([pos.cpu(), (len(ids) + torch.arange(n_new - 1)).expand(3, 1, -1)], 2)
+    cpu_mask = torch.cat([mask.cpu(), torch.ones((1, n_new - 1), dtype=torch.bool)], 1)
+    hidden = cpu.text_forward(emb, cpu_pos, cpu_mask)
+    with torch.no_grad():
+        cpu_logits = cpu.lm_head(hidden[0, pad - 1:pad - 1 + n_new])
+    row = {"card": card_name(), "phase": "refiner", "refiner": "QwenPrompt", "model": "qwen2",
+           "widths": "Qwen/Qwen2-1.5B-Instruct",
+           "config": {k: list(v) if isinstance(v, tuple) else v for k, v in vars(cfg).items()},
+           "card_dtype": "bfloat16", "prompt_tokens": len(ids), "prefill_len": pad,
+           "prefill_ms": prefill_ms, "decode_ms_per_token": decode_ms / max(1, steps),
+           "k2_prefill_launches": k2, "k2_expected": cfg.num_layers,
+           **_logit_row(logits[0], cpu_logits[0], REFINER_BF16_REL_L2)}
+    row.update(_tokens_vs_cpu(toks[0, :n_new], cpu_logits, row["logits_max_abs_err"],
+                              cfg.eos_token_id))
+    del cpu, caches
+    reset_counts()
+    out, call_ms = timed(lambda: q(REFINER_PROMPT, max_new_tokens=QWEN_REFINER_TOKENS))
+    row.update({"call_new_tokens": QWEN_REFINER_TOKENS, "call_ms": call_ms,
+                "call_k2_launches": fa.LAUNCHES["gqa_causal_attention"],
+                "call_words": len(out.split())})
+    emit(row)
+    if k2 != cfg.num_layers or row["call_k2_launches"] != cfg.num_layers:
+        fail(f"QwenPrompt's prefill launched K2 {k2} / {row['call_k2_launches']} times, "
+             f"wanted {cfg.num_layers}")
+    if not row["logits_rel_l2"] <= REFINER_BF16_REL_L2 or not row["ok"] or not out:
+        fail(f"QwenPrompt on the card disagrees with the CPU: {row}")
+    del card, q
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=4, help="denoise steps per edit")
@@ -2453,9 +2965,7 @@ def main() -> int:
     from physicedit_torch.tools import _bench
 
     # 1. the card
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    card = card_name()
     print(card, flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2658,7 +3168,7 @@ def main() -> int:
 
     rng = np.random.default_rng(SEED)
 
-    def image(w, h):
+    def image(w, h, rng=rng):
         # a smooth random picture: low-resolution noise, upsampled
         small = rng.integers(0, 256, (h // 32, w // 32, 3), dtype=np.uint8)
         return Image.fromarray(small).resize((w, h), Image.BILINEAR)
@@ -2712,10 +3222,14 @@ def main() -> int:
     # 10. a small training step: kernels on the card against plain versions on the CPU
     small_training_phase(small, gen, dev)
 
-    # 7b. checkpoint loading at full width (depth cut): write, from_pretrained, the CLI
-    load_phase(gen, args.steps, image(1024, 1024))
+    # 7b. checkpoint loading at full width (depth cut): write, from_pretrained, the CLI;
+    # and 15(a), the sweep's serving path on that tree (images of their own stream)
+    sweep_rng = np.random.default_rng(SEED + 15)
+    load_phase(gen, args.steps, image(1024, 1024),
+               [image(w, h, sweep_rng) for w, h in ((1024, 1024), (1024, 1024), (768, 512))])
 
-    # 8. the full-width slice
+    # 8. the full-width slice (its generator state kept: 15(b) builds the same weights)
+    full_gen_state = gen.get_state()
     t0 = time.perf_counter()
     pipe = build_random_pipeline("full", device=dev, generator=gen)
     torch.cuda.synchronize()
@@ -2872,6 +3386,11 @@ def main() -> int:
 
     # 14. the int8, W4 and elementwise-rate probes, and their tools
     int8_launches = int8_phase(report, gen, time_ms, compare)
+
+    # 15(b). the W8A8 lane at full width, against the serving phase's first
+    # single edit; 15(c). the three prompt refiners at their published widths
+    w8a8_phase(full_gen_state, bf16_img, edit_images[(1024, 1024)], args.steps, dev)
+    refiner_phase(gen)
 
     # each kernel's launches on its own path: K1 and K2 in the bf16 edits,
     # K3-K6 in the W4 edit, K8 and K9 in the training lanes, K7 in the

@@ -4,7 +4,7 @@ reference's ``scripts/inference/validate.py``):
     python -m physicedit_torch.cli.validate --prompt "..." --image_path in.png \\
         --save_path out.png --base_model_path <Qwen-Image-Edit-2509 tree> \\
         [--lora_path physicedit_checkpoint.safetensors] [--attn_impl kernels|dense] \\
-        [--quantize int4] [--device cuda|cpu]
+        [--quantize int4|int8] [--device cuda|cpu]
 
 The input is resized to about 1024² (each side a multiple of 32), the model
 files are found in the HF/ModelScope layout under ``--base_model_path``, the
@@ -79,7 +79,7 @@ def main(argv=None):
                              "kernels where CUDA is present, else dense")
     parser.add_argument("--quantize", type=str, default=None, choices=["int8", "int4"],
                         help="int4: the W4A8 lane (packed-int4 DiT, VL and ViT); "
-                             "int8 (W8A8) is not ported and raises")
+                             "int8: the W8A8 lane (int8 DiT and VL text model)")
     parser.add_argument("--device", type=str, default="cuda",
                         help="cuda (default) or cpu (the kernels' plain versions)")
     args = parser.parse_args(argv)

@@ -17,6 +17,7 @@ import torch
 from torch import nn
 
 from physicedit_torch.kernels.quant_matmul import W4Linear
+from physicedit_torch.ops.quant import Int8Linear
 
 
 class Leaf(nn.Module):
@@ -80,24 +81,27 @@ def _tensor(arr, like: torch.Tensor) -> torch.Tensor:
 @torch.no_grad()
 def load_linear_(lin: nn.Module, p: dict) -> None:
     """Copy a JAX ``{"w": [in, out], "b": [out]}`` leaf into an ``nn.Linear``,
-    or a packed-int4 ``{"w4": [in/2, out], "w_scale": [out], "b"}`` leaf into
-    a :class:`W4Linear` (``w4``
-    transposed to the port's ``[out, in/2]``, the bytes unchanged).
-
-    The W8A8 leaves of the JAX package (``w_q``) belong to a lane that is
-    not ported yet."""
-    if "w_q" in p:
-        raise NotImplementedError(
-            "W8A8 linear leaves (w_q) are not ported; carry the float or "
-            "packed-int4 weights instead")
-    if isinstance(lin, W4Linear) != ("w4" in p):
+    a packed-int4 ``{"w4": [in/2, out], "w_scale": [out], "b"}`` leaf into
+    a :class:`W4Linear` (``w4`` transposed to the port's ``[out, in/2]``, the
+    bytes unchanged), or a W8A8 ``{"w_q": [in, out], "w_scale": [out], "b"}``
+    leaf into an :class:`Int8Linear` (``w_q`` transposed to ``[out, in]``)."""
+    kind = "w4" if "w4" in p else "w_q" if "w_q" in p else "w"
+    want = {"w4": W4Linear, "w_q": Int8Linear, "w": nn.Linear}[kind]
+    if not isinstance(lin, want):
         raise ValueError(f"a leaf with keys {sorted(p)} does not fit {type(lin).__name__}")
-    if "w4" in p:
+    if kind == "w4":
         w4 = np.asarray(p["w4"]).astype(np.int8)
         if w4.shape != (lin.in_features // 2, lin.out_features):
             raise ValueError(f"w4 leaf {w4.shape} does not fit "
                              f"[{lin.in_features // 2}, {lin.out_features}]")
         lin.w4.copy_(torch.from_numpy(np.ascontiguousarray(w4.T)))
+        lin.w_scale.copy_(torch.from_numpy(np.array(p["w_scale"], np.float32)))
+    elif kind == "w_q":
+        w_q = np.asarray(p["w_q"]).astype(np.int8)
+        if w_q.shape != (lin.in_features, lin.out_features):
+            raise ValueError(f"w_q leaf {w_q.shape} does not fit "
+                             f"[{lin.in_features}, {lin.out_features}]")
+        lin.w_q.copy_(torch.from_numpy(np.ascontiguousarray(w_q.T)))
         lin.w_scale.copy_(torch.from_numpy(np.array(p["w_scale"], np.float32)))
     else:
         w = np.asarray(p["w"], np.float32)

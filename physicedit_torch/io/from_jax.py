@@ -7,6 +7,8 @@ children after the tree's keys, so one walk loads any model:
 - ``{"w": [in, out], "b"}`` -> ``nn.Linear`` (transposed to ``[out, in]``),
 - ``{"w4": [in/2, out], "w_scale", "b"}`` -> ``W4Linear`` (the packed int4
   lane; it takes the ``nn.Linear``'s place),
+- ``{"w_q": [in, out], "w_scale", "b"}`` -> ``Int8Linear`` (the W8A8 lane,
+  ``ops/quant.py``; likewise),
 - ``{"w": HWIO, "b"}`` -> ``nn.Conv2d`` (to OIHW),
 - stacked layer trees (leaves ``[L, ...]`` under ``blocks`` / ``layers``)
   -> ``nn.ModuleList`` (unstacked),
@@ -19,8 +21,9 @@ quantized lane.  The configs are rebuilt from the JAX config dataclasses by
 field name.
 
 The training surface comes across the same way (the LoRA tree, the
-adapters, DINOv2), and :func:`to_jax_tree` walks back: a module's
-parameters, or their gradients, as a JAX-layout tree, for the tests.
+adapters, DINOv2), as do the prompt refiners' BLOOM and Marian, and
+:func:`to_jax_tree` walks back: a module's parameters, or their gradients,
+as a JAX-layout tree, for the tests.
 """
 
 from __future__ import annotations
@@ -42,6 +45,7 @@ from physicedit_torch.models.qwen_vl import (Int8Embedding, QwenVLText, QwenVLTe
                                              fuse_decode_projections)
 from physicedit_torch.models.qwen_vl_vision import QwenVLVision, QwenVLVisionConfig
 from physicedit_torch.models.vae import VAE, VAEConfig
+from physicedit_torch.ops.quant import Int8Linear
 
 
 def config_from_jax(cfg, cls):
@@ -67,14 +71,15 @@ def load_tree_(module: nn.Module, tree: dict) -> int:
             if len(subs) != len(target):
                 raise ValueError(f"{key}: {len(subs)} entries for {len(target)} modules")
             n += sum(load_tree_(m, t) for m, t in zip(target, subs))
-        elif isinstance(target, (nn.Linear, W4Linear)):
-            if "w4" in val and isinstance(target, nn.Linear):
-                target = W4Linear(target.in_features, target.out_features,
-                                  bias=target.bias is not None, dtype=target.weight.dtype,
-                                  device=target.weight.device)
+        elif isinstance(target, (nn.Linear, W4Linear, Int8Linear)):
+            quantized = W4Linear if "w4" in val else Int8Linear if "w_q" in val else None
+            if quantized is not None and isinstance(target, nn.Linear):
+                target = quantized(target.in_features, target.out_features,
+                                   bias=target.bias is not None, dtype=target.weight.dtype,
+                                   device=target.weight.device)
                 setattr(module, key, target)
             load_linear_(target, val)
-            n += 1 + isinstance(target, W4Linear) + (target.bias is not None)
+            n += 1 + (not isinstance(target, nn.Linear)) + (target.bias is not None)
         elif isinstance(target, nn.Conv2d):
             load_conv_(target, val)
             n += 2
@@ -176,6 +181,20 @@ def trainable_from_jax(trainable: dict, dit_cfg, dtype=torch.float32, device="cu
                                        np.shape(ad["vae_time_embed"])[1], dtype), ad, device)
     return Trainable(lora_from_jax(trainable["lora"], dit_cfg, dtype, device),
                      adapters).requires_grad_(True)
+
+
+def bloom_from_jax(params: dict, cfg, dtype=torch.float32, device="cuda"):
+    """A JAX ``models/bloom.py`` tree (``bloom_from_torch``) -> ``Bloom``."""
+    from physicedit_torch.models.bloom import Bloom, BloomConfig
+
+    return _carry(Bloom(config_from_jax(cfg, BloomConfig), dtype), params, device)
+
+
+def marian_from_jax(params: dict, cfg, dtype=torch.float32, device="cuda"):
+    """A JAX ``models/marian.py`` tree (``marian_from_torch``) -> ``Marian``."""
+    from physicedit_torch.models.marian import Marian, MarianConfig
+
+    return _carry(Marian(config_from_jax(cfg, MarianConfig), dtype), params, device)
 
 
 def to_jax_tree(module: nn.Module, grads: bool = False) -> dict:

@@ -22,7 +22,8 @@ a device synchronise, in ``self.timings`` (milliseconds), beside the token
 counts that set the stages' shapes.
 
 :meth:`PhysicEditPipeline.quantize_` turns a loaded pipeline into the JAX
-package's ``quantize="int4"`` serving lane, in place.
+package's ``quantize="int4"`` (W4A8) or ``quantize="int8"`` (W8A8) serving
+lane, in place.
 :meth:`PhysicEditPipeline.from_pretrained` builds a pipeline from checkpoint
 files in the reference's torch layout (``io/convert.py``), identified by the
 hash of their keys, with an optional finetuned PhysicEdit export or LoRA file
@@ -55,6 +56,7 @@ from physicedit_torch.models.qwen_vl import (QwenVLText, fuse_decode_projections
                                              quantize_embedding_int8)
 from physicedit_torch.models.qwen_vl_vision import QwenVLVision
 from physicedit_torch.ops import rope as m_rope
+from physicedit_torch.ops.quant import quantize_module_int8
 from physicedit_torch.ops.patchify import patchify
 from physicedit_torch.pipeline import eligen as EL
 from physicedit_torch.pipeline import prompt as P
@@ -124,7 +126,8 @@ class PhysicEditPipeline:
         closed.  ``finetuned_path``: a PhysicEdit training export, its DiT
         LoRA merged into the DiT weights (fp32 merge, then the cast) and its
         ``pipe.*`` adapter groups loaded in fp32; else ``lora_path``: a LoRA
-        file merged alike.  ``quantize="int4"`` applies :meth:`quantize_`;
+        file merged alike.  ``quantize`` ("int4" or "int8") applies
+        :meth:`quantize_`;
         ``attn_impl`` defaults to ``ops.attention.default_impl()``.  The
         text model's and the ViT's configs come from the ``config.json``
         beside the text-encoder files (else Qwen2.5-VL-7B's at the
@@ -249,11 +252,17 @@ class PhysicEditPipeline:
         ``"int4"`` / ``"w4"``: the DiT blocks packed int4 (the outer leaves
         ``DIT_OUTER_KEYS`` stay in the working dtype); the VL text model
         packed int4 with fused qkv / gate_up projections and an int8 token
-        table, and the reasoner's KV cache int8; the ViT packed int4.  The
-        adapter and the VAE stay as they are.  ``"int8"`` (W8A8) is not
-        ported."""
+        table, and the reasoner's KV cache int8; the ViT packed int4.
+        ``"int8"`` (W8A8, ``ops/quant.py``): every large linear of the DiT and
+        of the VL text model (``lm_head`` included) int8 per output channel,
+        the activations int8 per row at run time; the ViT, the KV cache, the
+        token table, the adapter and the VAE stay as they are (a model the
+        pipeline was loaded without is skipped, as in the JAX package)."""
         if mode == "int8":
-            raise NotImplementedError("quantize='int8' (W8A8, ops/quant.py) is not ported")
+            for model in (self.dit, self.text):
+                if model is not None:
+                    quantize_module_int8(model)
+            return self
         if mode not in ("int4", "w4"):
             raise ValueError(f"unknown quantize mode: {mode!r}")
         quantize_module_int4(self.dit, skip_top=DIT_OUTER_KEYS)
@@ -413,6 +422,11 @@ class PhysicEditPipeline:
             out = self._vl_hidden_batch(rows)
         return [hidden[self.t2i_drop_idx:] for _, hidden in out]
 
+    def encode_prompt(self, prompt: str):
+        """One text-to-image prompt encode (no image, ``t2i_drop_idx``):
+        (prompt_emb [S, D], None), as the JAX package's ``encode_prompt``."""
+        return self.encode_prompt_batch([prompt])[0], None
+
     def encode_prompt_edit_multi(self, prompt: str, edit_images: list, feats=None, grids=None):
         """Multi-image edit prompt ("Picture i:" per image, no special
         tokens): (prompt_emb [S, D], None).  ``feats`` / ``grids`` reuse the
@@ -430,6 +444,11 @@ class PhysicEditPipeline:
             text, [edit_image], None if feats is None else [feats],
             None if feats is None else [grid])
         return embeds, pos, len(ids)
+
+    def reason_physical(self, prompt: str, edit_image, max_new_tokens: int = 1000) -> str:
+        """The physical reasoner for one edit: one row of
+        :meth:`reason_physical_batch`."""
+        return self.reason_physical_batch([prompt], [edit_image], max_new_tokens)[0]
 
     def reason_physical_batch(self, prompts: list, edit_images: list,
                               max_new_tokens: int = 1000, vl_feats=None,

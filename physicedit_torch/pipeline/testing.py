@@ -68,6 +68,15 @@ class FakeTokenizer:
         # across processes where str hash is salted
         return [300 + (zlib.crc32(w.encode()) % 150) for w in chunk.split()]
 
+    def encode(self, text):
+        return list(self(text).input_ids)
+
+    def apply_chat_template(self, messages, tokenize=False, add_generation_prompt=True):
+        """The Qwen chat layout with this vocabulary's specials, as text (the
+        prompt refiners' QwenPrompt asks for text)."""
+        text = "".join(f"<|im_start|>{m['role']} {m['content']}<|im_end|>" for m in messages)
+        return text + "<|im_start|>assistant" if add_generation_prompt else text
+
     def decode(self, ids, skip_special_tokens=True):
         return " ".join(f"tok{i}" for i in ids)
 

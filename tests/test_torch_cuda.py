@@ -1563,3 +1563,32 @@ def test_probe_l2_rotation_on_cuda(cuda):
     assert len({o.data_ptr() for o in outs}) == 10
     row = tbench.timing_row("test", "gemv rotating", run, nbytes=128 * 512)
     assert row["ms"] > 0 and row["graph_ms"] > 0 and row["gb_per_s"] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [1, 5, 16, 17, 300])
+def test_w8a8_int_mm_rows_on_cuda(cuda, rows):
+    """W8A8's torch._int_mm on the card: fewer than 17 rows are padded with
+    zero rows, and the accumulators equal the CPU's exactly; the layer's
+    output equals the same layer's on the CPU bit for bit in fp32."""
+    from physicedit_torch.ops import quant as tq8
+
+    g = torch.Generator().manual_seed(rows)
+    lin = tq8.Int8Linear.from_linear(torch.nn.Linear(3584, 512))
+    x = torch.randn(rows, 3584, generator=g)
+    xq, _ = tq8.quantize_rows(x)
+    want = tq8.int_mm(xq, lin.w_q)
+    got = tq8.int_mm(xq.to(cuda), lin.w_q.to(cuda))
+    assert got.shape == (rows, 512) and torch.equal(got.cpu(), want)
+    assert torch.equal(lin.to(cuda)(x.to(cuda)).cpu(), lin.cpu()(x))
+
+
+@pytest.mark.cuda
+def test_w8a8_refuses_widths_int_mm_cannot_take(cuda):
+    """A layer whose widths are not multiples of 8 raises on the card; no
+    float product stands in."""
+    from physicedit_torch.ops import quant as tq8
+
+    lin = tq8.Int8Linear.from_linear(torch.nn.Linear(36, 64)).to(cuda)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        lin(torch.randn(20, 36, device=cuda))

@@ -583,8 +583,10 @@ def test_to_keeps_quantized_buffers():
 
 def test_quantize_modes():
     pipe = build_random_pipeline("tiny", device="cpu")
-    with pytest.raises(NotImplementedError, match="W8A8"):
-        pipe.quantize_("int8")
+    w8 = random_pipeline(W4_DIMS, "cpu", torch.float32,
+                         torch.Generator().manual_seed(0)).quantize_("int8")
+    assert type(w8.dit.blocks[0].attn["img_qkv"]).__name__ == "Int8Linear"
+    assert not w8.kv_int8
     with pytest.raises(ValueError, match="unknown quantize mode"):
         pipe.quantize_("fp8")
     assert pipe.quantize_("w4").kv_int8

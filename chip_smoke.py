@@ -104,16 +104,22 @@ Phases, each printed as one JSON line, any failure exits non-zero:
      bit the direct ``edit_batch`` / ``edit_batch_mixed`` call's, the
      rewriter's prompts,
      exact K1 and K2 launches; (b) the W8A8 lane at full width
-     (``quantize_("int8")`` of phase 8's weights built again): the first
-     single edit of phase 8's serving part within rel-L2 0.05 of its bf16
-     image, one ``torch._int_mm`` per quantized DiT linear a step, then the
-     edit with the reasoner on (decode capped at 50 tokens, one
-     ``torch._int_mm`` per text linear a token), memory and times; (c) the
+     (``quantize_("int8")`` of phase 8's weights built again, whose bf16
+     edit must equal phase 8's bit for bit): the first single edit of
+     phase 8's serving part within rel-L2 0.05 of its bf16 image, one
+     ``torch._int_mm`` per quantized DiT linear a step, the linears of the
+     DiT's first block, its outer layers and the text model's first layer
+     bit for bit against the CPU on 256 rows each, then the edit with the
+     reasoner on (decode capped at 50 tokens, one ``torch._int_mm`` per
+     text linear a token), memory and times; then the edit with the DiT's
+     outer layers in bf16 and with two activation-side faults (read), and
+     a control that must exceed the limit (an int4 weight grid); (c) the
      prompt refiners at their published widths with random weights
      (BeautifulPrompt's BLOOM, QwenPrompt's Qwen2-1.5B in bf16 with K2 once
      per layer in its prefill, the Translator's Marian in fp32) against the
-     same weights in fp32 on the CPU: logits, 16 greedy tokens
-     teacher-forced, each public call timed, BLOOM's sampling repeatable.
+     same weights in fp32 on the CPU: logits (QwenPrompt's through its KV
+     cache), 16 greedy tokens teacher-forced, each public call timed,
+     BLOOM's sampling repeatable.
 The line before the last lists each kernel with its launches on its main
 path, its error against the plain version, its time, the plain version's,
 its bound and the one PyTorch call that computes the same function; the
@@ -2210,7 +2216,7 @@ LOAD_DEPTH = (6, 4, 8)
 LOAD_REL_L2 = 1e-3       # the CLI's image against the direct call's, same weights
 
 
-def load_phase(gen, steps: int, image, sweep_images=None) -> dict:
+def load_phase(gen, steps: int, image, sweep_images: list) -> dict:
     """Checkpoint loading at full width, the depth cut to LOAD_DEPTH (about
     10 GB): a random bf16 pipeline written by
     ``tools/make_synthetic_checkpoint`` into a temporary directory (with a
@@ -2220,8 +2226,8 @@ def load_phase(gen, steps: int, image, sweep_images=None) -> dict:
     steps and the reasoner off: its PNG against the direct ``__call__`` on
     the in-memory pipeline; again with ``--lora_path`` against the in-memory
     pipeline's live LoRA; again with ``--quantize int4`` against the bf16
-    call.  Rates in GB/s of tensor data.  With ``sweep_images`` (two 1024^2
-    and one 768x512) phase 15(a) runs on the tree, ``sweep_phase``.  The
+    call.  Rates in GB/s of tensor data.  Then phase 15(a) on the tree,
+    ``sweep_phase`` over ``sweep_images`` (two 1024^2 and one 768x512).  The
     directory is removed at the end.  Returns the CLI run's launches."""
     import dataclasses
     import gc
@@ -2342,9 +2348,8 @@ def load_phase(gen, steps: int, image, sweep_images=None) -> dict:
             if min(run_launches[k] for k in kernels) == 0:
                 fail(f"load {name}: the CLI's edit launched no {kernels}: {run_launches}")
             launches = launches or run_launches
-        if sweep_images is not None:
-            # 15(a): the sweep's serving path on this tree, with the fake tokenizer
-            sweep_phase(base, sweep_images, dev)
+        # 15(a): the sweep's serving path on this tree, with the fake tokenizer
+        sweep_phase(base, sweep_images, dev)
         PhysicEditPipeline.load_tokenizer = real_load_tokenizer
     finally:
         shutil.rmtree(base, ignore_errors=True)
@@ -2486,10 +2491,13 @@ SWEEP_DECODE_TOKENS = 100  # the sweep's reasoner decode, cut for time (random w
 SWEEP_PROMPTS = ["make the glass fall off the table and shatter",
                  "melt the ice cube on the warm stove top"]
 # The W8A8 edit against the same edit in bf16 (1024^2, 4 steps, reasoner off):
-# the W4 lane's budget.  W8A8's codes are finer than W4's, but it also
-# quantizes the DiT's outer layers (the JAX package's quantize_tree), which
-# the W4 lane keeps in bf16 because they carry most of its divergence
+# between the sound readings (about 0.04) and the control with every weight
+# code on an int4 grid (about twice that; PERF.md section 6, PR 18).
+# Activation-side faults (per-tensor scales, truncated codes) read within a
+# tenth of the sound edit, which no image limit can tell apart, so the route
+# is also held layer by layer against the CPU, bit for bit (W8A8_ROUTE_ROWS)
 W8A8_REL_L2 = 0.05
+W8A8_ROUTE_ROWS = 256     # rows of each checked linear's input, evenly spaced
 W8A8_DECODE_TOKENS = 50   # the W8A8 reasoner's decode cap (random weights never emit EOS)
 W8A8_PROMPT = "make the glass fall off the table and shatter"
 REFINER_PROMPT = "一只猫 sits on a red chair by the open window at dusk"
@@ -2599,23 +2607,120 @@ def sweep_phase(base: str, images: list, dev) -> None:
     torch.cuda.empty_cache()
 
 
+def _per_tensor_rows(x):
+    """A W8A8 control: one activation scale for the whole [M, K] tensor in
+    place of one a row."""
+    import torch
+
+    xf = x.float()
+    scale = (xf.abs().amax() / torch.full((), 127.0, device=x.device)).clamp_min(1e-8)
+    return (xf / scale).round().clamp(-127, 127).to(torch.int8), scale.expand(x.shape[0], 1)
+
+
+def _truncated_rows(x):
+    """A W8A8 control: activation codes truncated toward zero, not rounded."""
+    import torch
+
+    xf = x.float()
+    scale = (xf.abs().amax(-1, keepdim=True)
+             / torch.full((), 127.0, device=x.device)).clamp_min(1e-8)
+    return (xf / scale).clamp(-127, 127).to(torch.int8), scale
+
+
+def _int4_grid_(model) -> None:
+    """A W8A8 control, in place: every int8 weight code moved to the nearest
+    of 15 levels (a per-channel int4 grid, scale times 127 / 7)."""
+    import torch
+
+    from physicedit_torch.ops.quant import Int8Linear
+
+    for m in model.modules():
+        if isinstance(m, Int8Linear):
+            step = torch.full((), 127.0 / 7.0, device=m.w_q.device)
+            m.w_q.copy_((m.w_q.float() / step).round().clamp(-7, 7).to(torch.int8))
+            m.w_scale.mul_(step)
+
+
+def w8a8_route_vs_cpu(pipe, image, outer_bf16: dict) -> None:
+    """15(b)'s route check: one 1-step W8A8 edit with hooks on every
+    quantized linear of the DiT's first block, its outer layers and the text
+    model's first layer, each keeping W8A8_ROUTE_ROWS evenly spaced rows of
+    its input and output; then the CPU's ``int8_linear`` on those rows with
+    the same codes and scales must give the card's outputs bit for bit, and
+    the CPU's ``quantize_weight`` of the outer layers' bf16 weights
+    (``outer_bf16``) the card's codes and scales."""
+    import copy
+
+    import torch
+    from torch import nn
+
+    from physicedit_torch.ops import quant as q8
+
+    mods = {f"dit.{k}.{n}".rstrip("."): m for k in outer_bf16
+            for n, m in getattr(pipe.dit, k).named_modules()}
+    mods.update({f"dit.blocks.0.{n}": m for n, m in pipe.dit.blocks[0].named_modules()})
+    mods.update({f"text.layers.0.{n}": m for n, m in pipe.text.layers[0].named_modules()})
+    mods = {n: m for n, m in mods.items() if isinstance(m, q8.Int8Linear)}
+    got = {}
+
+    def keep(name):
+        def hook(m, inp, out):
+            if name not in got:
+                x, y = inp[0].reshape(-1, m.in_features), out.reshape(-1, m.out_features)
+                rows = torch.arange(0, len(x), max(1, len(x) // W8A8_ROUTE_ROWS),
+                                    device=x.device)
+                got[name] = (x[rows].cpu(), y[rows].cpu())
+        return hook
+
+    hooks = [m.register_forward_hook(keep(n)) for n, m in mods.items()]
+    pipe(W8A8_PROMPT, negative_prompt="", edit_image=image, cfg_scale=4.0, height=1024,
+         width=1024, seed=SEED + 4, num_inference_steps=1, have_text_reasoning=False)
+    for h in hooks:
+        h.remove()
+    unequal = [n for n, (x, y) in got.items()
+               if not torch.equal(q8.int8_linear(copy.deepcopy(mods[n]).cpu(), x), y)]
+    codes_unequal = []
+    for k, bf16 in outer_bf16.items():
+        for n, lin in bf16.named_modules():
+            if isinstance(lin, nn.Linear):
+                card = mods[f"dit.{k}.{n}".rstrip(".")]
+                w_q, w_scale = q8.quantize_weight(lin.weight.cpu())
+                if not (torch.equal(w_q, card.w_q.cpu())
+                        and torch.equal(w_scale, card.w_scale.cpu())):
+                    codes_unequal.append(k + n)
+    emit({"card": card_name(), "phase": "w8a8_route_vs_cpu", "linears": len(mods),
+          "linears_run": len(got), "rows_each": W8A8_ROUTE_ROWS,
+          "outputs_unequal": unequal, "codes_checked": sum(
+              isinstance(m, nn.Linear) for b in outer_bf16.values() for m in b.modules()),
+          "codes_unequal": codes_unequal})
+    if len(got) != len(mods) or unequal or codes_unequal:
+        fail(f"the W8A8 route on the card differs from the CPU's: {len(got)} of {len(mods)} "
+             f"linears run, outputs {unequal}, codes {codes_unequal}")
+
+
 def w8a8_phase(gen_state, bf16_img, image, steps: int, dev) -> None:
     """15(b). The W8A8 lane at full width: the pipeline of phase 8 built
-    again from its generator state (the same random bf16 weights),
-    ``quantize_("int8")`` in place (the DiT and the VL text model; the ViT
-    and the KV cache stay bf16), then phase 8's first single edit (1024^2,
-    SEED + 4, reasoner off) within W8A8_REL_L2 of its bf16 image, with one
-    ``torch._int_mm`` per quantized DiT linear a forward
-    (``w8a8_int_mm_per_step``); then the same edit with the reasoner on, its
-    decode capped at W8A8_DECODE_TOKENS, one ``torch._int_mm`` per quantized
-    text linear a decode token."""
+    again from its generator state, whose bf16 edit (phase 8's first single
+    edit: 1024^2, SEED + 4, reasoner off) must equal ``bf16_img`` bit for
+    bit; then ``quantize_("int8")`` in place (the DiT and the VL text model;
+    the ViT and the KV cache stay bf16) and the same edit within
+    W8A8_REL_L2 of ``bf16_img``, with one ``torch._int_mm`` per quantized
+    DiT linear a forward (``w8a8_int_mm_per_step``); then the edit with the
+    reasoner on, its decode capped at W8A8_DECODE_TOKENS, one
+    ``torch._int_mm`` per quantized text linear a decode token.  The route
+    is held against the CPU layer by layer (``w8a8_route_vs_cpu``).  Then,
+    read and not gated, the edit with the DiT's outer layers
+    (DIT_OUTER_KEYS) back in bf16, and with two activation-side faults
+    (scales per tensor, codes truncated); last, in place, the control that
+    must land above W8A8_REL_L2: every weight code on an int4 grid."""
+    import copy
     import gc
 
     import numpy as np
     import torch
     from torch import nn
 
-    from physicedit_torch.kernels import flash_attention as fa
+    from physicedit_torch.kernels.quant_matmul import DIT_OUTER_KEYS
     from physicedit_torch.ops import quant as q8
     from physicedit_torch.pipeline.testing import build_random_pipeline
 
@@ -2625,6 +2730,25 @@ def w8a8_phase(gen_state, bf16_img, image, steps: int, dev) -> None:
     pipe = build_random_pipeline("full", device=dev, generator=gen)
     torch.cuda.synchronize()
     bf16_gb = torch.cuda.memory_allocated() / 1e9
+    build_s = time.perf_counter() - t0
+
+    def edit_vs_bf16():
+        t0 = time.perf_counter()
+        out = pipe(W8A8_PROMPT, negative_prompt="", edit_image=image, cfg_scale=4.0,
+                   height=1024, width=1024, seed=SEED + 4, num_inference_steps=steps,
+                   have_text_reasoning=False)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        arr = np.asarray(out, np.float32)
+        return arr, float(np.linalg.norm(arr - bf16_img) / np.linalg.norm(bf16_img - 127.5)), ms
+
+    arr, rel, _ = edit_vs_bf16()
+    emit({"card": card_name(), "phase": "w8a8_bf16_rebuilt", "build_s": build_s,
+          "bit_equal_to_phase_8": bool(np.array_equal(arr, bf16_img)), "rel_l2": rel})
+    if not np.array_equal(arr, bf16_img):
+        fail(f"the rebuilt bf16 pipeline's edit is {rel:.3e} rel-L2 from phase 8's, not equal")
+    outer_bf16 = {k: copy.deepcopy(getattr(pipe.dit, k)) for k in DIT_OUTER_KEYS}
+    real_rows = q8.quantize_rows
     torch.cuda.reset_peak_memory_stats()
     t1 = time.perf_counter()
     pipe.quantize_("int8")
@@ -2635,8 +2759,7 @@ def w8a8_phase(gen_state, bf16_img, image, steps: int, dev) -> None:
                 "float": sum(isinstance(x, nn.Linear) for x in m.modules())}
 
     n = {name: kinds(getattr(pipe, name)) for name in ("dit", "text", "vision")}
-    emit({"card": card_name(), "phase": "w8a8_quantize", "build_s": t1 - t0,
-          "quantize_s": time.perf_counter() - t1,
+    emit({"card": card_name(), "phase": "w8a8_quantize", "quantize_s": time.perf_counter() - t1,
           "bf16_resident_gb": bf16_gb, "resident_gb": torch.cuda.memory_allocated() / 1e9,
           "peak_gb_during_quantize": torch.cuda.max_memory_allocated() / 1e9,
           "linears": n, "kv_int8": pipe.kv_int8})
@@ -2659,13 +2782,7 @@ def w8a8_phase(gen_state, bf16_img, image, steps: int, dev) -> None:
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     q8.reset_call_counts()
-    t0 = time.perf_counter()
-    out = pipe(W8A8_PROMPT, edit_image=image, cfg_scale=4.0, height=1024, width=1024,
-               seed=SEED + 4, num_inference_steps=steps, have_text_reasoning=False)
-    torch.cuda.synchronize()
-    total = (time.perf_counter() - t0) * 1e3
-    arr = np.asarray(out, np.float32)
-    rel = float(np.linalg.norm(arr - bf16_img) / np.linalg.norm(bf16_img - 127.5))
+    arr, rel, total = edit_vs_bf16()
     tm = pipe.timings
     launches = counts()
     emit({"card": card_name(), "phase": "w8a8_edit_vs_bf16", "size": [1024, 1024], "steps": steps,
@@ -2681,6 +2798,7 @@ def w8a8_phase(gen_state, bf16_img, image, steps: int, dev) -> None:
     if per_denoise != [steps * per_step] or launches["fixedmax_attention"] != steps * n_blocks:
         fail(f"W8A8 denoise: {per_denoise} torch._int_mm calls (wanted {steps * per_step}), "
              f"K1 {launches['fixedmax_attention']} (wanted {steps * n_blocks})")
+    w8a8_route_vs_cpu(pipe, image, outer_bf16)
 
     real_reason = pipe.reason_physical_batch
     pipe.reason_physical_batch = (lambda prompts, ims, max_new_tokens=1000, **kw:
@@ -2728,6 +2846,31 @@ def w8a8_phase(gen_state, bf16_img, image, steps: int, dev) -> None:
             or launches["gqa_causal_attention"] != 2 * n_layers):
         fail(f"W8A8 decode: {dec_calls} torch._int_mm calls over {dec_steps} tokens "
              f"({n['text']['int8']} a token wanted), K2 {launches['gqa_causal_attention']}")
+
+    # read, not gated: the DiT's outer layers back in bf16 (the W4 lane's spec)
+    outer_int8 = {k: getattr(pipe.dit, k) for k in DIT_OUTER_KEYS}
+    for k, m in outer_bf16.items():
+        setattr(pipe.dit, k, m)
+    _, rel_outer, _ = edit_vs_bf16()
+    for k, m in outer_int8.items():
+        setattr(pipe.dit, k, m)
+    # faults on the activation side, read (the route check above catches them)
+    blind = {}
+    for name, rows in (("per_tensor_activation_scale", _per_tensor_rows),
+                       ("truncated_activation_codes", _truncated_rows)):
+        q8.quantize_rows = rows
+        blind[name] = edit_vs_bf16()[1]
+        q8.quantize_rows = real_rows
+    # the control the limit must catch, last (it rewrites the codes in place)
+    _int4_grid_(pipe.dit)
+    _int4_grid_(pipe.text)
+    control = edit_vs_bf16()[1]
+    emit({"card": card_name(), "phase": "w8a8_divergence", "steps": steps, "rel_l2": rel,
+          "limit": W8A8_REL_L2, "rel_l2_dit_outer_bf16": rel_outer,
+          "control_int4_weight_grid": control, "activation_faults_not_gated": blind})
+    if not control > W8A8_REL_L2:
+        fail(f"the W8A8 control (an int4 weight grid) reads {control:.4f}, inside the limit "
+             f"{W8A8_REL_L2}")
     del pipe, out
     gc.collect()
     torch.cuda.empty_cache()
@@ -2745,13 +2888,13 @@ def _cpu_twin(make, model):
     return cpu.eval()
 
 
-def _tokens_vs_cpu(card_toks, cpu_logits, max_err: float, stop=None) -> dict:
+def _tokens_vs_cpu(card_toks, cpu_logits, max_err: float, stop: int) -> dict:
     """The card's greedy tokens against the CPU's argmax, teacher-forced on
     the card's sequence (up to ``stop``, EOS, when it comes): the leading
     run of equal tokens, and whether every other token is a near-tie (its
     CPU logit within twice the measured logit error of the CPU's best)."""
     toks = card_toks.cpu().long()
-    if stop is not None and (toks == stop).any():
+    if (toks == stop).any():
         toks = toks[:int((toks == stop).nonzero()[0]) + 1]
     logits = cpu_logits[:len(toks)].double()
     equal = logits.argmax(-1) == toks
@@ -2775,9 +2918,11 @@ def refiner_phase(gen) -> None:
     alibaba-pai/pai-bloom-1b1-text2prompt-sd and QwenPrompt as
     Qwen/Qwen2-1.5B-Instruct in bf16, Marian as Helsinki-NLP/opus-mt-zh-en in
     fp32 (each refiner's dtype), each against the same weights in fp32 on
-    the CPU: logits within REFINER_BF16_REL_L2 / REFINER_FP32_REL_L2, and
-    REFINER_TOKENS greedy tokens equal to the CPU's argmax (teacher-forced on
-    the card's sequence) but for near-ties.  QwenPrompt's prefill must
+    the CPU: logits within REFINER_BF16_REL_L2 / REFINER_FP32_REL_L2 (BLOOM
+    and Marian teacher-forced on the card, QwenPrompt's prefill row and
+    each step of its decode through the KV cache, against the CPU's forward
+    teacher-forced on the card's tokens), and REFINER_TOKENS greedy tokens
+    equal to the CPU's argmax but for near-ties.  QwenPrompt's prefill must
     launch K2 exactly once per layer.  Then each refiner's public call, timed,
     and BLOOM's sampling drawn twice under one seed (the same tokens)."""
     import gc
@@ -2908,9 +3053,14 @@ def refiner_phase(gen) -> None:
                                                                  pad + n_new))
     k2 = fa.LAUNCHES["gqa_causal_attention"]
     key_mask = torch.cat([mask, torch.zeros((1, n_new), dtype=torch.bool, device=dev)], 1)
+    decode_logits = []      # each decode step's logits, through the card's KV cache
+    hook = card.lm_head.register_forward_hook(lambda m, i, o: decode_logits.append(o))
     (toks, steps), decode_ms = timed(lambda: card.greedy_decode(
         caches, logits.argmax(-1), pad, torch.tensor([len(ids)], device=dev), n_new,
         key_mask=key_mask))
+    hook.remove()
+    # the prefill's last row, then each decode step's (the last step's token is not kept)
+    card_logits = torch.cat([logits, *decode_logits])[:n_new]
     # the CPU teacher-forced over the prompt and the card's tokens
     gen_toks = toks[0, :n_new - 1].cpu()
     emb = torch.cat([embeds.float().cpu(), cpu.embed_tokens(gen_toks)[None]], 1)
@@ -2925,10 +3075,10 @@ def refiner_phase(gen) -> None:
            "card_dtype": "bfloat16", "prompt_tokens": len(ids), "prefill_len": pad,
            "prefill_ms": prefill_ms, "decode_ms_per_token": decode_ms / max(1, steps),
            "k2_prefill_launches": k2, "k2_expected": cfg.num_layers,
-           **_logit_row(logits[0], cpu_logits[0], REFINER_BF16_REL_L2)}
+           **_logit_row(card_logits, cpu_logits[:len(card_logits)], REFINER_BF16_REL_L2)}
     row.update(_tokens_vs_cpu(toks[0, :n_new], cpu_logits, row["logits_max_abs_err"],
                               cfg.eos_token_id))
-    del cpu, caches
+    del cpu, caches, decode_logits
     reset_counts()
     out, call_ms = timed(lambda: q(REFINER_PROMPT, max_new_tokens=QWEN_REFINER_TOKENS))
     row.update({"call_new_tokens": QWEN_REFINER_TOKENS, "call_ms": call_ms,

@@ -77,24 +77,32 @@ def true_div(x: torch.Tensor, d: float) -> torch.Tensor:
     return x / torch.full((), d, dtype=x.dtype, device=x.device)
 
 
+def quantized_row_chunks(w: torch.Tensor, qmax: int):
+    """Quantize an ``[N, K]`` weight per output row, symmetric to
+    ``[-qmax, qmax]`` with ``scale = max(amax / qmax, 1e-8)``; yields
+    ``(r0, codes int8 [rows, K], scale fp32 [rows])`` a chunk of rows at a
+    time, so a large layer needs only a few hundred MB of fp32 scratch."""
+    k = w.shape[1]
+    step = max(1, (1 << 26) // k)
+    for r0 in range(0, w.shape[0], step):
+        wf = w[r0:r0 + step].float()
+        scale = true_div(wf.abs().amax(1, keepdim=True), float(qmax)).clamp_min(1e-8)
+        yield r0, (wf / scale).round().clamp(-qmax, qmax).to(torch.int8), scale[:, 0]
+
+
 @torch.no_grad()
 def quantize_weight_int4(w: torch.Tensor):
     """``[N, K]`` weight (torch's ``[out, in]``) -> ``(w4 int8 [N, K/2],
     w_scale fp32 [N])``, the bytes of ``quantize_weight_int4`` in the JAX
-    package.  Rows are quantized in chunks, so a large layer needs only a
-    few hundred MB of fp32 scratch."""
+    package."""
     n, k = w.shape
     if k % 2:
         raise ValueError(f"contraction dim {k} must be even for nibble packing")
     w4 = torch.empty((n, k // 2), dtype=torch.int8, device=w.device)
     w_scale = torch.empty((n,), dtype=torch.float32, device=w.device)
-    step = max(1, (1 << 26) // k)
-    for r0 in range(0, n, step):
-        wf = w[r0:r0 + step].float()
-        scale = true_div(wf.abs().amax(1, keepdim=True), 7.0).clamp_min(1e-8)
-        q = (wf / scale).round().clamp(-7, 7).to(torch.int8)
-        w4[r0:r0 + step] = (q[:, k // 2:] << 4) | ((q[:, :k // 2] + 8) & 0xF)
-        w_scale[r0:r0 + step] = scale[:, 0]
+    for r0, q, scale in quantized_row_chunks(w, 7):
+        w4[r0:r0 + len(q)] = (q[:, k // 2:] << 4) | ((q[:, :k // 2] + 8) & 0xF)
+        w_scale[r0:r0 + len(q)] = scale
     return w4, w_scale
 
 
@@ -334,26 +342,33 @@ def _w4a8_from_q(lin: W4Linear, xq, xs, lead, out_dtype) -> torch.Tensor:
 
 
 @torch.no_grad()
-def quantize_module_int4(module: nn.Module, min_size: int = 1 << 16,
-                         skip_top: tuple = ()) -> nn.Module:
-    """Swap every large ``nn.Linear`` of ``module`` for a :class:`W4Linear`,
-    in place, one layer at a time (``quantize_tree_int4`` of the JAX
-    package).  A layer is large when its weight, counted over the layers of
-    every enclosing ``nn.ModuleList`` (the JAX package's stacked ``[L, ...]``
-    leaves), has at least ``min_size`` elements.  Children of ``module``
-    named in ``skip_top`` stay as they are."""
-    _quantize_children(module, min_size, set(skip_top), 1)
+def swap_linears_(module: nn.Module, make, min_size: int, skip_top: tuple = ()) -> nn.Module:
+    """Replace every large ``nn.Linear`` of ``module`` by ``make(linear)``,
+    in place, one layer at a time (the JAX package's ``quantize_tree`` /
+    ``quantize_tree_int4`` walk).  A layer is large when its weight, counted
+    over the layers of every enclosing ``nn.ModuleList`` (the JAX package's
+    stacked ``[L, ...]`` leaves), has at least ``min_size`` elements.
+    Children of ``module`` named in ``skip_top`` stay as they are."""
+    _swap_children(module, make, min_size, set(skip_top), 1)
     return module
 
 
-def _quantize_children(module: nn.Module, min_size: int, skip: set, stacked: int) -> None:
+def _swap_children(module: nn.Module, make, min_size: int, skip: set, stacked: int) -> None:
     for name, child in list(module.named_children()):
         if name in skip:
             continue
         if isinstance(child, nn.Linear):
             if child.weight.numel() * stacked >= min_size:
-                setattr(module, name, W4Linear.from_linear(child))
+                setattr(module, name, make(child))
         elif isinstance(child, nn.ModuleList):
-            _quantize_children(child, min_size, set(), stacked * len(child))
+            _swap_children(child, make, min_size, set(), stacked * len(child))
         else:
-            _quantize_children(child, min_size, set(), stacked)
+            _swap_children(child, make, min_size, set(), stacked)
+
+
+def quantize_module_int4(module: nn.Module, min_size: int = 1 << 16,
+                         skip_top: tuple = ()) -> nn.Module:
+    """Swap the large ``nn.Linear`` layers of ``module`` for
+    :class:`W4Linear` in place (``quantize_tree_int4`` of the JAX package;
+    :func:`swap_linears_`)."""
+    return swap_linears_(module, W4Linear.from_linear, min_size, skip_top)

@@ -27,7 +27,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from physicedit_torch.kernels.quant_matmul import quantize_rows, true_div
+from physicedit_torch.kernels.quant_matmul import (quantize_rows, quantized_row_chunks,
+                                                   swap_linears_)
 
 __all__ = ["CALLS", "Int8Linear", "int8_linear", "int_mm", "quantize_module_int8",
            "quantize_rows", "quantize_weight", "reset_call_counts"]
@@ -44,17 +45,13 @@ def reset_call_counts() -> None:
 def quantize_weight(w: torch.Tensor):
     """``[N, K]`` float weight -> ``(w_q int8 [N, K], w_scale fp32 [N])``:
     per-output-channel symmetric int8, the JAX package's ``quantize_weight``
-    of the ``[K, N]`` transpose.  Rows are quantized in chunks, so a large
-    layer needs only its chunk in fp32."""
+    of the ``[K, N]`` transpose."""
     n, k = w.shape
     w_q = torch.empty((n, k), dtype=torch.int8, device=w.device)
     w_scale = torch.empty((n,), dtype=torch.float32, device=w.device)
-    step = max(1, (1 << 26) // k)
-    for r0 in range(0, n, step):
-        wf = w[r0:r0 + step].float()
-        scale = true_div(wf.abs().amax(1, keepdim=True), 127.0).clamp_min(1e-8)
-        w_q[r0:r0 + step] = (wf / scale).round().clamp(-127, 127).to(torch.int8)
-        w_scale[r0:r0 + step] = scale[:, 0]
+    for r0, q, scale in quantized_row_chunks(w, 127):
+        w_q[r0:r0 + len(q)] = q
+        w_scale[r0:r0 + len(q)] = scale
     return w_q, w_scale
 
 
@@ -119,25 +116,10 @@ class Int8Linear(nn.Module):
                 f"bias={self.bias is not None}")
 
 
-@torch.no_grad()
 def quantize_module_int8(module: nn.Module, min_size: int = 1 << 16) -> nn.Module:
-    """Swap every large ``nn.Linear`` of ``module`` for an
-    :class:`Int8Linear`, in place, one layer at a time (the JAX package's
-    ``quantize_tree``).  A layer is large when its weight, counted over the
-    layers of every enclosing ``nn.ModuleList`` (the JAX package's stacked
-    ``[L, K, N]`` leaves, whose scales are per layer and output channel),
-    has at least ``min_size`` elements.  Each layer's float weight is freed
-    as soon as its int8 copy exists."""
-    _quantize_children(module, min_size, 1)
-    return module
-
-
-def _quantize_children(module: nn.Module, min_size: int, stacked: int) -> None:
-    for name, child in list(module.named_children()):
-        if isinstance(child, nn.Linear):
-            if child.weight.numel() * stacked >= min_size:
-                setattr(module, name, Int8Linear.from_linear(child))
-        elif isinstance(child, nn.ModuleList):
-            _quantize_children(child, min_size, stacked * len(child))
-        else:
-            _quantize_children(child, min_size, stacked)
+    """Swap the large ``nn.Linear`` layers of ``module`` for
+    :class:`Int8Linear` in place (the JAX package's ``quantize_tree``;
+    :func:`swap_linears_`).  A stacked leaf's scales are per layer and
+    output channel, one :class:`Int8Linear` a layer; each layer's float
+    weight is freed as soon as its int8 copy exists."""
+    return swap_linears_(module, Int8Linear.from_linear, min_size)

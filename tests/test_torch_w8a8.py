@@ -405,3 +405,31 @@ def test_validate_cli_int8_matches_jax(tree, tmp_path, monkeypatch, impl):
     assert type(pipe.dit.blocks[0].attn["img_qkv"]).__name__ == "Int8Linear"
     assert outs["port"].shape == outs["jax"].shape == (64, 64, 3) and outs["jax"].std() > 0
     assert np.abs(outs["port"] - outs["jax"]).max() <= 2
+
+
+def test_chip_smoke_w8a8_faults_differ_from_the_route():
+    """The faults ``chip_smoke.py`` runs beside the W8A8 edit are faults: on
+    the same seeded activations the per-tensor scale and the truncated
+    codes give codes other than ``quantize_rows``'s (and JAX's), and the
+    int4-grid control leaves each channel 15 levels whose dequantized
+    weights lie within half a step of the int8 ones."""
+    import chip_smoke
+
+    rng = np.random.default_rng(21)
+    x = (rng.normal(size=(64, 256)) * np.geomspace(0.1, 10, 64)[:, None]).astype(np.float32)
+    want, want_s = jq.quantize_rows(jnp.asarray(x))
+    codes, scales = tq.quantize_rows(torch.from_numpy(x))
+    np.testing.assert_array_equal(codes.numpy(), np.asarray(want))
+    np.testing.assert_array_equal(scales.numpy(), np.asarray(want_s))
+    for fault in (chip_smoke._per_tensor_rows, chip_smoke._truncated_rows):
+        f_codes, f_scales = fault(torch.from_numpy(x))
+        assert f_codes.dtype == torch.int8 and f_scales.shape == (64, 1)
+        assert not torch.equal(f_codes, codes)
+    lin = torch.nn.Linear(256, 32)
+    model = tq.quantize_module_int8(torch.nn.Sequential(lin), min_size=1)
+    w8 = model[0].w_q.float() * model[0].w_scale[:, None]
+    chip_smoke._int4_grid_(model)
+    assert model[0].w_q.abs().max() <= 7
+    assert all(len(row.unique()) <= 15 for row in model[0].w_q)
+    w4 = model[0].w_q.float() * model[0].w_scale[:, None]
+    assert bool(((w4 - w8).abs() <= model[0].w_scale[:, None] / 2 * (1 + 1e-6)).all())

@@ -39,7 +39,8 @@ Phases, each printed as one JSON line, any failure exits non-zero:
      each with a plain edit and an EliGen edit (K7, with K3-K6 in int4);
   8. the full-width pipeline (Qwen-Image-Edit-2509 widths, random bf16
      weights): three edits through ``PhysicEditPipeline.__call__`` with the
-     reasoner on and CFG 4, with stage times, kernel launch counts and
+     reasoner on and CFG 4 (the first decoding the full 1000 tokens, the
+     others EDIT_DECODE_CUT), with stage times, kernel launch counts and
      peak memory; then two EliGen edits at 1024^2 (two entities, CFG 4,
      reasoner off; full CFG and ``cfg_truncate_step``) with exact K7 / K1 /
      K2 launch counts; then batched serving: ``edit_batch`` of two edits
@@ -47,8 +48,9 @@ Phases, each printed as one JSON line, any failure exits non-zero:
      reasoner's decode at N = 1 and N = 2 rows;
   9. the W4 serving lane at full width: ``quantize_("int4")`` in place, the
      serving phase's first single edit on the W4 pipeline (image rel-L2
-     against bf16), then an edit with the reasoner on and the int8 KV
-     cache, with exact K1-K6 launch counts and the decode profile;
+     against bf16), then an edit with the reasoner on (EDIT_DECODE_CUT
+     tokens) and the int8 KV cache, with exact K1-K6 launch counts and the
+     decode profile;
  10. a small head_dim-128 training step on the card against the same
      weights and batch on the CPU (loss and gradients), in bf16 and with the
      frozen DiT packed int4, and a few steps at lr 1e-3 whose loss must drop;
@@ -120,6 +122,22 @@ Phases, each printed as one JSON line, any failure exits non-zero:
      same weights in fp32 on the CPU: logits (QwenPrompt's through its KV
      cache), 16 greedy tokens teacher-forced, each public call timed,
      BLOOM's sampling repeatable.
+ 16. training through its CLI: (a)-(f) ``physicedit_torch.cli.train.main``
+     on the load phase's tree (7b) with a DINOv2-B/14 written beside it,
+     over a PhysicTran-layout folder of 4 videos (49 frames, 480x832; a
+     fifth dropped by the filter file; mp4 through imageio where the machine
+     has it, else the stand-in reader of ``train/synthetic.py``, as the line
+     says): the data-process mode (the first bundle bit for bit a direct
+     ``Trainer.preprocess``), raw-video training with two loader threads,
+     saves and evals every 2 steps (exact K1 / K8 launches a step, exact K1
+     / K2 an eval; s/step, peak GB), resume from a mid-epoch checkpoint (the
+     trainable equal to the file bit for bit, exactly the remaining items
+     trained), training from the bundles (noise drawn anew), Adafactor with
+     accumulation 2 (the trainable moving on even calls only; the optimizer
+     state's bytes) and the W4 lane (exact K1 / K8 / K3 / K9 a step); and,
+     after phase 10 on its small model, ``direct_distill_loss`` through a
+     4-step unroll against the CPU (exact K1 / K8) and deviation D1's drift
+     over 50 steps, bf16 against fp32 activations (read, not gated).
 The line before the last lists each kernel with its launches on its main
 path, its error against the plain version, its time, the plain version's,
 its bound and the one PyTorch call that computes the same function; the
@@ -130,6 +148,7 @@ it exits 2.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import functools
 import json
 import math
@@ -169,6 +188,10 @@ PEAK_INT8 = 1979e12
 PEAK_FP32 = 67e12       # outside the tensor cores
 PEAK_BYTES = 3.35e12
 SEED = 0             # of the random weights and inputs
+# the reasoner's decode in phase 8's second and third edits and in phase 9's
+# reasoner edit, cut for time (random weights never emit EOS); phase 8's
+# first edit keeps the reference's 1000-token budget
+EDIT_DECODE_CUT = 100
 # K1 clamp cases scale the RMS-normed q and k by this, so that a logit
 # (exp2 units) has a spread of ~90 and many pass fa.CLAMP: the clamp binds
 CLAMP_QK_SCALE = 8.0
@@ -312,6 +335,18 @@ def stage_varying_bias(b: int, sq: int, sk: int, device, gen):
     bias = torch.where(blocked, -1e30, 0.5 * torch.randn(b, sq, sk, device=device, generator=gen))
     bias[:, :, 0] = 0.0
     return bias * LOG2E
+
+
+@contextlib.contextmanager
+def decode_cut(pipe, tokens: int):
+    """``pipe``'s reasoner decodes ``tokens`` at most in the block."""
+    real = pipe.reason_physical_batch
+    pipe.reason_physical_batch = (lambda prompts, ims, max_new_tokens=1000, **kw:
+                                  real(prompts, ims, tokens, **kw))
+    try:
+        yield
+    finally:
+        del pipe.reason_physical_batch
 
 
 def rel_l2(got, want) -> float:
@@ -2350,6 +2385,8 @@ def load_phase(gen, steps: int, image, sweep_images: list) -> dict:
             launches = launches or run_launches
         # 15(a): the sweep's serving path on this tree, with the fake tokenizer
         sweep_phase(base, sweep_images, dev)
+        # 16: training through its CLI on this tree, with the fake tokenizer
+        train_cli_phase(base, dev)
         PhysicEditPipeline.load_tokenizer = real_load_tokenizer
     finally:
         shutil.rmtree(base, ignore_errors=True)
@@ -2357,6 +2394,449 @@ def load_phase(gen, steps: int, image, sweep_images: list) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     return launches
+
+
+# 16. training through its CLI on the load phase's tree; the cuts: 4 videos
+# (a fifth filtered out) of 49 frames at 480x832, one epoch a run, (c)
+# resumes mid-epoch, (d)-(f) train from (a)'s bundles, (f) on two of them
+TRAIN_CLI_VIDEOS = 4
+TRAIN_CLI_FRAMES = 49
+TRAIN_CLI_HW = (480, 832)
+EVAL_STEPS = 40          # Trainer.evaluate's default, as the training loop calls it
+DISTILL_STEPS = 4        # the distillation loss's denoise unroll
+# its LoRA gradients, all together, card against CPU (rel-L2): 4x the H100
+# reading (2.5e-3) and 3x the spread between two bf16 attentions on the CPU
+# (the plain fixed-max and the dense softmax, 3.0e-3): every gradient here
+# passes through bf16 DiT activations 4 times (bf16 against fp32: 0.13), so
+# TRAIN_GRAD_REL, set where the adapters' gradients dominate, is below the
+# noise of any bf16 implementation; the loss and each leaf keep TRAIN_*'s
+DISTILL_GRAD_REL = 1e-2
+D1_STEPS = 50            # the bf16 / fp32 drift run (read, not gated)
+D1_LR = 1e-4
+
+
+def write_dinov2(base: str, dev, gen) -> str:
+    """A random DINOv2-B/14 (the port's ``DINOV2_BASE``: hidden 768, 12
+    layers, 12 heads, patch 14, 4 registers, a 37 x 37 position table) in
+    the reference layout with its config.json under ``base/dinov2``."""
+    import torch
+
+    from physicedit_torch.core.params import materialize
+    from physicedit_torch.io import convert as C
+    from physicedit_torch.io.safetensors_io import save_safetensors
+    from physicedit_torch.models.dinov2 import (DINOV2_BASE, DINOV2_BASE_POS_GRID, DinoV2,
+                                                init_dinov2_)
+
+    dino = init_dinov2_(materialize(DinoV2(DINOV2_BASE, DINOV2_BASE_POS_GRID, torch.float32),
+                                    dev), gen)
+    folder = os.path.join(base, "dinov2")
+    os.makedirs(folder, exist_ok=True)
+    path = os.path.join(folder, "model.safetensors")
+    save_safetensors(C.dinov2_to_state_dict(dino), path)
+    with open(os.path.join(folder, "config.json"), "w") as f:
+        json.dump(C.dinov2_hf_config(dino.cfg), f)
+    return path
+
+
+class TrainProbe:
+    """Records, while it is entered, what each ``Trainer.step`` launched
+    (and, with ``watch_moves``, whether the trainable moved), each
+    ``Trainer.evaluate``'s launches, each step's batch noise (the first
+    kept), and whether ``Trainer.resume`` left the trainable equal to the
+    checkpoint's tensors bit for bit."""
+
+    def __init__(self, want_step: dict):
+        self.want_step, self.watch_moves = want_step, False
+        self.steps, self.evals, self.resumes, self.first_noise = [], [], [], None
+
+    def __enter__(self):
+        import numpy as np
+        import torch
+
+        from physicedit_torch.io.safetensors_io import load_state_dict
+        from physicedit_torch.train import checkpoint as ckpt
+        from physicedit_torch.train.trainer import Trainer
+
+        self.real = Trainer.step, Trainer.evaluate, Trainer.resume
+        real_step, real_eval, real_resume = self.real
+        probe = self
+
+        def step(trainer, batch):
+            if probe.first_noise is None:
+                probe.first_noise = batch["noise"].float().cpu()
+            before = [p.detach().clone() for p in trainer.trainable.parameters()] \
+                if probe.watch_moves else None
+            c0 = counts()
+            m = real_step(trainer, batch)
+            c1 = counts()
+            row = {"step": trainer.global_step, "position": trainer._epoch_pos,
+                   "loss": m["loss"], "seconds": m["seconds"],
+                   "launches": {k: c1[k] - c0[k] for k in probe.want_step}}
+            if before is not None:
+                row["moved"] = any(not torch.equal(a, p)
+                                   for a, p in zip(before, trainer.trainable.parameters()))
+            probe.steps.append(row)
+            return m
+
+        def evaluate(trainer, *a, **kw):
+            c0 = counts()
+            out = real_eval(trainer, *a, **kw)
+            c1 = counts()
+            probe.evals.append({k: c1[k] - c0[k] for k in ("fixedmax_attention",
+                                                            "gqa_causal_attention")})
+            return out
+
+        def resume(trainer, resume_from):
+            real_resume(trainer, resume_from)
+            from physicedit_torch.train.checkpoint import export_trainable_state_dict
+
+            want = load_state_dict(ckpt.resolve_resume(resume_from)[0])
+            got = export_trainable_state_dict(trainer.trainable)
+            probe.resumes.append(sorted(got) == sorted(want) and all(
+                np.array_equal(got[k], want[k].float().numpy()) for k in want))
+
+        Trainer.step, Trainer.evaluate, Trainer.resume = step, evaluate, resume
+        return self
+
+    def __exit__(self, *exc):
+        from physicedit_torch.train.trainer import Trainer
+
+        Trainer.step, Trainer.evaluate, Trainer.resume = self.real
+
+    def take(self) -> tuple:
+        out = self.steps, self.evals, self.resumes
+        self.steps, self.evals, self.resumes, self.first_noise = [], [], [], None
+        return out
+
+
+def train_cli_phase(base: str, dev) -> None:
+    """16. ``physicedit_torch.cli.train.main`` on the load phase's tree at
+    ``LOAD_DEPTH`` (full widths, random weights) with a DINOv2-B/14 beside
+    it, over a PhysicTran-layout folder of 4 videos (49 frames, 480x832; a
+    fifth in the filter file), with the fake tokenizer (the caller's): (a)
+    the data-process mode, whose first bundle must equal a direct
+    ``Trainer.preprocess`` bit for bit; (b) raw-video training with two
+    loader threads, saves and evals every 2 steps: exact K1 / K8 launches a
+    step, exact K1 / K2 launches an eval; (c) resume from (b)'s step-2
+    checkpoint: the trainable equal to the file's tensors bit for bit,
+    exactly the epoch's two remaining items trained; (d) training from
+    (a)'s bundles, whose noise is drawn anew; (e) Adafactor with
+    accumulation 2, the trainable moving on even calls only; (f) the W4
+    lane, exact K1 / K8 / K3 / K9 launches a step.  Videos are mp4 through
+    imageio where it can write and read them, else the stand-in reader of
+    ``train/synthetic.py`` (the line says which)."""
+    import gc
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from physicedit_torch.cli import train as cli
+    from physicedit_torch.train import synthetic
+    from physicedit_torch.train.train_step import optimizer_state_bytes
+    from physicedit_torch.train.trainer import bundle_array
+
+    t_phase = time.perf_counter()
+    n_blocks, n_text = LOAD_DEPTH[0], LOAD_DEPTH[1]
+    h, w = TRAIN_CLI_HW
+    dino_path = write_dinov2(base, dev, torch.Generator(dev).manual_seed(SEED + 16))
+    data = os.path.join(base, "physictran")
+    decoder, why = "imageio", None
+    try:
+        paths = synthetic.write_physictran_tree(data, TRAIN_CLI_VIDEOS, 1, TRAIN_CLI_FRAMES, w,
+                                                h, SEED, encode="imageio")
+        import imageio
+
+        reader = imageio.get_reader(paths[0])
+        first = next(iter(reader))
+        reader.close()
+        if first.shape != (h, w, 3):
+            raise ValueError(f"imageio read back a frame of {first.shape}")
+    except Exception as e:  # noqa: BLE001 -- no imageio or no mp4 backend: the stand-in
+        decoder, why = "stand-in", f"{type(e).__name__}: {e}"[:200]
+        shutil.rmtree(data, ignore_errors=True)
+        synthetic.write_physictran_tree(data, TRAIN_CLI_VIDEOS, 1, TRAIN_CLI_FRAMES, w, h, SEED)
+    common = ["--dataset_base_path", data, "--base_model_path", base, "--dinov2_path",
+              dino_path, "--height", str(h), "--width", str(w), "--num_frames",
+              str(TRAIN_CLI_FRAMES), "--num_epochs", "1", "--attn_impl", "kernels",
+              "--device", str(dev), "--seed", str(SEED + 16), "--loader_workers", "0"]
+    out = {name: os.path.join(base, "train_" + name) for name in "abcdef"}
+    want = {False: {**train_launch_counts(n_blocks, False),
+                    **train_regime_counts(n_blocks, False)},
+            True: {**train_launch_counts(n_blocks, True), **train_regime_counts(n_blocks, True)}}
+    want_eval = {"fixedmax_attention": EVAL_STEPS * n_blocks, "gqa_causal_attention": n_text}
+    reader_ctx = contextlib.nullcontext() if decoder == "imageio" else synthetic.stand_in_reader()
+
+    def run(argv):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        trainer = cli.main(common + argv)
+        torch.cuda.synchronize()
+        return trainer, time.perf_counter() - t0
+
+    def release(trainer):
+        del trainer.pipe, trainer.trainable, trainer.opt_state
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def check_steps(name, steps, quantized, n):
+        bad = [r for r in steps if r["launches"] != want[quantized]]
+        if len(steps) != n or bad:
+            fail(f"train_cli ({name}): {len(steps)} steps (wanted {n}); launches {bad[:1]} "
+                 f"differ from {want[quantized]}")
+        if not all(math.isfinite(r["loss"]) for r in steps):
+            fail(f"train_cli ({name}): a loss is not finite: {[r['loss'] for r in steps]}")
+
+    with reader_ctx, TrainProbe(want[False]) as probe:
+        # (a) the data-process mode
+        trainer, seconds = run(["--data_process_output", out["a"]])
+        bundles = sorted(os.listdir(out["a"]))
+        trainer.rng = np.random.default_rng(trainer.cfg.seed)
+        direct = trainer.preprocess(trainer.dataset[0])
+        with np.load(os.path.join(out["a"], bundles[0])) as z:
+            equal = sorted(z.files) == sorted(direct) and all(
+                np.array_equal(z[k], bundle_array(k, v)) for k, v in direct.items())
+            bundle_noise = torch.from_numpy(z["noise"])
+        emit({"card": card_name(), "phase": "train_cli_process", "decoder": decoder,
+              "decoder_note": why, "videos_kept": len(trainer.dataset), "bundles": len(bundles),
+              "first_bundle_bit_equal": equal, "seconds": seconds,
+              "joint_tokens": int(direct["prompt_emb"].shape[1]
+                                  + 2 * direct["edit_tokens"].shape[1])})
+        del direct
+        release(trainer)
+        if len(bundles) != TRAIN_CLI_VIDEOS or not equal:
+            fail(f"train_cli (a): {len(bundles)} bundles, first bit-equal {equal}")
+
+        # (b) raw videos, loader threads, saves and evals every 2 steps
+        trainer, seconds = run(["--output_path", out["b"], "--loader_workers", "2",
+                                     "--save_every_n_steps", "2", "--eval_every_n_steps", "2"])
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        steps, evals, _ = probe.take()
+        files = sorted(os.listdir(out["b"]))
+        emit({"card": card_name(), "phase": "train_cli_raw", "seconds": seconds,
+              "s_per_step": [r["seconds"] for r in steps], "losses": [r["loss"] for r in steps],
+              "launches_per_step": steps[0]["launches"], "launches_expected": want[False],
+              "eval_launches": evals, "eval_expected": want_eval, "eval_steps": EVAL_STEPS,
+              "peak_gb": peak, "files": files})
+        check_steps("b", steps, False, TRAIN_CLI_VIDEOS)
+        for f in ("step-2.safetensors", "step-4.safetensors", "eval-step-2.jpg",
+                  "eval-step-4.jpg"):
+            if f not in files:
+                fail(f"train_cli (b) wrote no {f}: {files}")
+        if evals != [want_eval, want_eval]:
+            fail(f"train_cli (b): eval launches {evals}, wanted two of {want_eval}")
+        release(trainer)
+
+        # (c) resume from (b)'s mid-epoch checkpoint
+        trainer, seconds = run(["--output_path", out["c"], "--resume_from",
+                                     os.path.join(out["b"], "step-2.safetensors")])
+        steps, _, resumes = probe.take()
+        row = {"card": card_name(), "phase": "train_cli_resume", "seconds": seconds,
+               "trainable_equal_to_checkpoint": resumes,
+               "start": [trainer.start_epoch, trainer.skip_batches],
+               "positions_trained": [r["position"] for r in steps],
+               "global_step": trainer.global_step}
+        emit(row)
+        check_steps("c", steps, False, TRAIN_CLI_VIDEOS - 2)
+        if resumes != [True] or row["positions_trained"] != [3, 4] or trainer.global_step != 4:
+            fail(f"train_cli (c): resume {row}")
+        release(trainer)
+
+        # (d) training from (a)'s bundles: the noise is drawn anew
+        trainer, seconds = run(["--output_path", out["d"], "--cached_inputs_path",
+                                     out["a"]])
+        noise = probe.first_noise
+        steps, evals, _ = probe.take()
+        redrawn = noise.shape == bundle_noise.shape and not torch.equal(noise, bundle_noise)
+        emit({"card": card_name(), "phase": "train_cli_cached", "seconds": seconds,
+              "s_per_step": [r["seconds"] for r in steps], "losses": [r["loss"] for r in steps],
+              "noise_redrawn": redrawn})
+        check_steps("d", steps, False, TRAIN_CLI_VIDEOS)
+        if not redrawn:
+            fail("train_cli (d): the cached run trained on the bundle's noise")
+        release(trainer)
+
+        # (e) Adafactor, accumulation 2: the trainable moves on even calls only
+        probe.watch_moves = True
+        trainer, seconds = run(["--output_path", out["e"], "--cached_inputs_path",
+                                     out["a"], "--optimizer", "adafactor",
+                                     "--gradient_accumulation_steps", "2"])
+        probe.watch_moves = False
+        steps, _, _ = probe.take()
+        moved = [r["moved"] for r in steps]
+        trainable_bytes = sum(p.numel() * p.element_size()
+                              for p in trainer.trainable.parameters())
+        emit({"card": card_name(), "phase": "train_cli_adafactor", "seconds": seconds,
+              "s_per_step": [r["seconds"] for r in steps], "moved": moved,
+              "optimizer_state_bytes": optimizer_state_bytes(trainer.opt_state),
+              "accumulator_bytes": sum(t.numel() * t.element_size()
+                                       for t in trainer.opt_state.acc.values()),
+              "trainable_bytes": trainable_bytes,
+              "adamw_fp32_state_bytes": 2 * trainable_bytes})
+        check_steps("e", steps, False, TRAIN_CLI_VIDEOS)
+        if moved != [i % 2 == 1 for i in range(TRAIN_CLI_VIDEOS)]:
+            fail(f"train_cli (e): the trainable moved on calls {moved}")
+        release(trainer)
+
+        # (f) the W4 lane, on two of the bundles
+        two = os.path.join(base, "train_bundles_2")
+        os.makedirs(two, exist_ok=True)
+        for name in bundles[:2]:
+            shutil.copy(os.path.join(out["a"], name), two)
+        probe.want_step = want[True]
+        trainer, seconds = run(["--output_path", out["f"], "--cached_inputs_path", two,
+                                     "--quantize_frozen", "w4"])
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        steps, _, _ = probe.take()
+        emit({"card": card_name(), "phase": "train_cli_w4", "seconds": seconds,
+              "s_per_step": [r["seconds"] for r in steps], "losses": [r["loss"] for r in steps],
+              "launches_per_step": steps[0]["launches"] if steps else None,
+              "launches_expected": want[True], "peak_gb": peak})
+        check_steps("f", steps, True, 2)
+        release(trainer)
+    emit({"card": card_name(), "phase": "train_cli", "seconds": time.perf_counter() - t_phase,
+          "depth_cut": LOAD_DEPTH, "videos": TRAIN_CLI_VIDEOS, "frames": TRAIN_CLI_FRAMES,
+          "size": list(TRAIN_CLI_HW), "eval_steps": EVAL_STEPS,
+          "cuts": "one epoch a run; (c) resumes mid-epoch; (d)-(f) train from (a)'s "
+                  "bundles, (f) from two"})
+
+
+def distill_phase(small, dev) -> None:
+    """16, the distillation loss on the card: ``direct_distill_loss``
+    through a DISTILL_STEPS-step unroll of phase 10's small head_dim-128
+    DiT in bf16 with a rank-8 LoRA (K1 forward, K8 backward at every step)
+    against the same weights and inputs on the CPU (plain versions): the
+    loss within TRAIN_LOSS_REL, all LoRA gradients together within
+    DISTILL_GRAD_REL and each leaf within TRAIN_LEAF_REL; exact K1 / K8
+    launches.  Beside it, read: the same gradients on the CPU through the
+    dense softmax instead of K1's plain version (two bf16 attentions)."""
+    import copy
+
+    import torch
+
+    from physicedit_torch.lora import init_dit_lora
+    from physicedit_torch.ops import rope as m_rope
+    from physicedit_torch.pipeline.testing import random_pipeline
+    from physicedit_torch.sampling import flow_match as fm
+    from physicedit_torch.train.loss import direct_distill_loss
+
+    gen = torch.Generator(dev).manual_seed(SEED + 17)
+    dit = random_pipeline(small, dev, torch.bfloat16, gen).dit
+    lora = init_dit_lora(dit.cfg, 8, torch.float32, dev, gen)
+    with torch.no_grad():
+        for leaf in lora.children():
+            leaf.B.normal_(0.0, 0.02, generator=gen)
+    lora.requires_grad_(True)
+    s_t, hw = 64, 16
+    mask = torch.ones(1, s_t, dtype=torch.bool, device=dev)
+    mask[0, 50:] = False
+    inputs = {"latents0": torch.randn(1, hw, hw, 16, device=dev, generator=gen),
+              "extra": torch.randn(1, (hw // 2) ** 2, 64, device=dev, generator=gen),
+              "emb": torch.randn(1, s_t, dit.cfg.txt_in_dim, device=dev,
+                                 generator=gen).bfloat16(),
+              "mask": mask,
+              "target": torch.randn(1, hw, hw, 16, device=dev, generator=gen)}
+    ropes = [torch.as_tensor(r, dtype=torch.float32) for r in m_rope.build_rope_tables(
+        [(1, hw // 2, hw // 2), (1, hw // 2, hw // 2)], s_t, axes_dim=small.rope_axes)]
+    sched = fm.build_schedule(DISTILL_STEPS, fm.QWEN_IMAGE_CONFIG,
+                              dynamic_shift_len=(hw // 2) ** 2)
+
+    def loss_and_grads(dit, lora, device, attn_impl="kernels"):
+        x = {k: v.to(device) for k, v in inputs.items()}
+        for p in lora.parameters():
+            p.grad = None
+        loss = direct_distill_loss(dit, x["latents0"], x["extra"], x["emb"], x["mask"],
+                                   [r.to(device) for r in ropes], sched, x["target"], lora=lora,
+                                   attn_impl=attn_impl)
+        loss.backward()
+        return loss.item(), {n: p.grad.detach().float().cpu().clone()
+                             for n, p in lora.named_parameters()}
+
+    reset_counts()
+    loss_c, grads_c = loss_and_grads(dit, lora, dev)
+    launches = counts()
+    dit_h, lora_h = copy.deepcopy(dit).cpu(), copy.deepcopy(lora).cpu()
+    loss_h, grads_h = loss_and_grads(dit_h, lora_h, "cpu")
+    _, grads_d = loss_and_grads(dit_h, lora_h, "cpu", "dense")
+
+    def flat(grads):
+        return torch.cat([g.reshape(-1) for g in grads.values()])
+
+    per_leaf = {n: rel_l2(grads_c[n], grads_h[n]) for n in grads_c}
+    worst = max(per_leaf, key=per_leaf.get)
+    want = {"fixedmax_attention": DISTILL_STEPS * dit.cfg.num_layers,
+            "fixedmax_attention_bwd": DISTILL_STEPS * dit.cfg.num_layers}
+    row = {"card": card_name(), "phase": "train_distill_vs_cpu", "steps": DISTILL_STEPS,
+           "loss_card": loss_c, "loss_cpu": loss_h, "loss_rel": abs(loss_c - loss_h) / abs(loss_h),
+           "loss_limit": TRAIN_LOSS_REL,
+           "grads_rel_l2": rel_l2(flat(grads_c), flat(grads_h)), "grads_limit": DISTILL_GRAD_REL,
+           "cpu_plain_vs_dense_grads_rel_l2": rel_l2(flat(grads_d), flat(grads_h)),
+           "worst_leaf": worst,
+           "worst_leaf_rel_l2": per_leaf[worst], "leaf_limit": TRAIN_LEAF_REL,
+           "launches": {k: launches[k] for k in want}, "launches_expected": want}
+    emit(row)
+    if not (row["loss_rel"] <= TRAIN_LOSS_REL and row["grads_rel_l2"] <= DISTILL_GRAD_REL
+            and per_leaf[worst] <= TRAIN_LEAF_REL):
+        fail("the distillation loss on the card disagrees with the CPU")
+    if row["launches"] != want:
+        fail(f"the distillation loss launched {row['launches']}, wanted {want}")
+    torch.cuda.empty_cache()
+
+
+def d1_drift_phase(small, dev) -> None:
+    """16, deviation D1 measured (read, not gated): phase 10's small model
+    trained D1_STEPS steps at lr D1_LR in the bf16 lane (the port's: bf16
+    activations, K1 / K8) and in an fp32 lane (the JAX trainer's: the same
+    bf16 weights with fp32 activations, through the dense attention, since
+    the kernels take bf16), from the same trainable and the same five
+    batches; every 10 steps the loss gap and the trainables' rel-L2 drift
+    (of the parameters, and of their change since the start)."""
+    import copy
+    import dataclasses
+
+    import torch
+
+    from physicedit_torch.models.dinov2 import DinoV2Config
+    from physicedit_torch.pipeline.testing import random_pipeline
+    from physicedit_torch.profile_train import SyntheticVideo
+    from physicedit_torch.train.train_step import train_step
+    from physicedit_torch.train.trainer import TrainConfig, Trainer
+
+    gen = torch.Generator(dev).manual_seed(SEED + 18)
+    dims = dataclasses.replace(small, dinov2=DinoV2Config(hidden_size=64, num_layers=1,
+                                                          num_heads=2), dino_pos_grid=20)
+    pipe = random_pipeline(dims, dev, torch.bfloat16, gen)
+    data = SyntheticVideo(n=5, width=128, height=128, frames=2, seed=SEED + 18)
+    bf16 = Trainer(pipe, data, TrainConfig(learning_rate=D1_LR, lora_rank=8, txt_len_bucket=64),
+                   device=dev)
+    batches = [bf16.preprocess(data[i]) for i in range(len(data))]
+    fp32, dit32 = copy.deepcopy(bf16.trainable), copy.deepcopy(pipe.dit).float()
+    state32 = bf16.optimizer.init(fp32)
+
+    def flat(module):
+        return torch.cat([p.detach().float().reshape(-1) for p in module.parameters()])
+
+    start = flat(fp32)
+    rows = []
+    t0 = time.perf_counter()
+    for i in range(D1_STEPS):
+        batch = batches[i % len(batches)]
+        loss_b = bf16.step(batch)["loss"]
+        loss_f = train_step(fp32, dit32, bf16.optimizer, state32,
+                            dict(batch, prompt_emb=batch["prompt_emb"].float()), bf16.t_min,
+                            bf16.t_max, use_remat=True, attn_impl="dense")["loss"].item()
+        if (i + 1) % 10 == 0:
+            pb, pf = flat(bf16.trainable), flat(fp32)
+            rows.append({"step": i + 1, "loss_bf16": loss_b, "loss_fp32": loss_f,
+                         "loss_gap_rel": abs(loss_b - loss_f) / abs(loss_f),
+                         "params_rel_l2": rel_l2(pb, pf),
+                         "change_rel_l2": rel_l2(pb - start, pf - start)})
+    emit({"card": card_name(), "phase": "d1_drift", "gated": False, "lr": D1_LR,
+          "steps": D1_STEPS, "batches": len(batches), "seconds": time.perf_counter() - t0,
+          "rows": rows})
+    del pipe, bf16, fp32, dit32, state32, batches
+    torch.cuda.empty_cache()
 
 
 def _rms(x):
@@ -3369,8 +3849,11 @@ def main() -> int:
                      "with the CPU run or skipped a kernel")
         del pipe
 
-    # 10. a small training step: kernels on the card against plain versions on the CPU
+    # 10. a small training step: kernels on the card against plain versions on the CPU;
+    # 16, on the same model: the distillation loss, and D1's drift over 50 steps
     small_training_phase(small, gen, dev)
+    distill_phase(small, dev)
+    d1_drift_phase(small, dev)
 
     # 7b. checkpoint loading at full width (depth cut): write, from_pretrained, the CLI;
     # and 15(a), the sweep's serving path on that tree (images of their own stream)
@@ -3425,9 +3908,10 @@ def main() -> int:
         return arr, row
 
     reset_counts()
-    for w, h, seed in requests:
+    for i, (w, h, seed) in enumerate(requests):
         before = counts()
-        _, row = edit(w, h, seed, True)
+        with decode_cut(pipe, 1000 if i == 0 else EDIT_DECODE_CUT):
+            _, row = edit(w, h, seed, True)
         k1 = fa.LAUNCHES["fixedmax_attention"] - before["fixedmax_attention"]
         k2 = fa.LAUNCHES["gqa_causal_attention"] - before["gqa_causal_attention"]
         # one reasoner prefill row and one prompt-encode chunk (both CFG rows)
@@ -3463,7 +3947,8 @@ def main() -> int:
         fail(f"the W4 edit is {rel:.4f} rel-L2 from the bf16 edit (limit {W4_REL_L2})")
 
     reset_counts()
-    _, row = edit(w, h, seed, True)
+    with decode_cut(pipe, EDIT_DECODE_CUT):
+        _, row = edit(w, h, seed, True)
     launches = counts()
     # an edit runs no backward, no entity bias, no K10 / K10b / K1' and no
     # prototype: every other count is 0

@@ -35,14 +35,13 @@ def _rewrite_special_tokens(adapter, prompt_emb, special_idx, timestep, t_min, t
     return out
 
 
-@torch.no_grad()
 def denoise(dit: DiT, latents, extra_img_tokens, prompt_emb, txt_mask,
             img_cos, img_sin, txt_cos, txt_sin, sigmas, sigmas_next, timesteps,
             cfg_scale: float, latent_hw: tuple, adapter=None, special_idx=None,
             t_min: float = 0.0, t_max: float = 1000.0, slim_last: bool = True,
             attn_clamp: bool = True, cfg_truncate_after: int | None = None,
             attn_bias_log2=None, inpaint_mask=None, input_latents=None, control=None,
-            lora=None, attn_impl: str = "kernels"):
+            lora=None, attn_impl: str = "kernels", grad: bool = False):
     """Run the schedule; returns the final latents [N, h, w, 16].
 
     latents [N, h, w, 16]; extra_img_tokens [1 or N, S_extra, 64] or None;
@@ -57,58 +56,60 @@ def denoise(dit: DiT, latents, extra_img_tokens, prompt_emb, txt_mask,
     latents imply.  control: a ``models.controlnet.Control`` (its ``step``
     is set here), which turns the slim last block off.  lora: live LoRA
     factors (``lora.DiTLoRA``), which turn it off too.  attn_impl: the DiT's
-    ("kernels" or "dense").
+    ("kernels" or "dense").  The loop runs under no-grad unless ``grad``
+    (``train.loss.direct_distill_loss`` differentiates through it).
     """
-    h, w = latent_hw
-    n_items = latents.shape[0]
-    reps = prompt_emb.shape[0] // n_items
-    dtype = prompt_emb.dtype
-    base = (h // 2) * (w // 2)
-    k = cfg_truncate_after
-    if k is not None and k < 0:
-        raise ValueError(f"cfg_truncate_after must be >= 0, got {k}")
+    with torch.set_grad_enabled(grad):
+        h, w = latent_hw
+        n_items = latents.shape[0]
+        reps = prompt_emb.shape[0] // n_items
+        dtype = prompt_emb.dtype
+        base = (h // 2) * (w // 2)
+        k = cfg_truncate_after
+        if k is not None and k < 0:
+            raise ValueError(f"cfg_truncate_after must be >= 0, got {k}")
 
-    slim = base if slim_last and control is None and lora is None else 0
+        slim = base if slim_last and control is None and lora is None else 0
 
-    for i in range(sigmas.shape[0]):
-        if k is not None and reps == 2 and i == k:
-            # late steps: positive rows only; their special tokens go on
-            # feeding the adapter
-            reps = 1
-            prompt_emb, txt_mask = prompt_emb[:n_items], txt_mask[:n_items]
-            if special_idx is not None:
-                special_idx = special_idx[:n_items]
-            if attn_bias_log2 is not None:
-                attn_bias_log2 = attn_bias_log2[:n_items]
+        for i in range(sigmas.shape[0]):
+            if k is not None and reps == 2 and i == k:
+                # late steps: positive rows only; their special tokens go on
+                # feeding the adapter
+                reps = 1
+                prompt_emb, txt_mask = prompt_emb[:n_items], txt_mask[:n_items]
+                if special_idx is not None:
+                    special_idx = special_idx[:n_items]
+                if attn_bias_log2 is not None:
+                    attn_bias_log2 = attn_bias_log2[:n_items]
+                if control is not None:
+                    control = dataclasses.replace(control, cond=control.cond[:n_items])
+                if txt_cos.dim() == 4:
+                    txt_cos, txt_sin = txt_cos[:n_items], txt_sin[:n_items]
+            sigma, sigma_next, timestep = sigmas[i], sigmas_next[i], timesteps[i]
+            batch = prompt_emb.shape[0]
+            if adapter is not None and special_idx is not None:
+                prompt_emb = _rewrite_special_tokens(
+                    adapter, prompt_emb, special_idx, timestep.expand(batch), t_min, t_max)
+
+            img_tokens = patchify(latents.to(dtype))
+            if extra_img_tokens is not None:
+                extra = extra_img_tokens.to(dtype).expand(n_items, -1, -1)
+                img_tokens = torch.cat([img_tokens, extra], dim=1)
+            if reps > 1:
+                img_tokens = img_tokens.repeat(reps, 1, 1)
+            t_norm = (timestep / 1000.0).expand(batch).to(dtype)
             if control is not None:
-                control = dataclasses.replace(control, cond=control.cond[:n_items])
-            if txt_cos.dim() == 4:
-                txt_cos, txt_sin = txt_cos[:n_items], txt_sin[:n_items]
-        sigma, sigma_next, timestep = sigmas[i], sigmas_next[i], timesteps[i]
-        batch = prompt_emb.shape[0]
-        if adapter is not None and special_idx is not None:
-            prompt_emb = _rewrite_special_tokens(
-                adapter, prompt_emb, special_idx, timestep.expand(batch), t_min, t_max)
-
-        img_tokens = patchify(latents.to(dtype))
-        if extra_img_tokens is not None:
-            extra = extra_img_tokens.to(dtype).expand(n_items, -1, -1)
-            img_tokens = torch.cat([img_tokens, extra], dim=1)
-        if reps > 1:
-            img_tokens = img_tokens.repeat(reps, 1, 1)
-        t_norm = (timestep / 1000.0).expand(batch).to(dtype)
-        if control is not None:
-            control = dataclasses.replace(control, step=i)
-        out = dit(img_tokens, prompt_emb, t_norm, img_cos, img_sin, txt_cos, txt_sin,
-                  txt_key_mask=txt_mask, slim_last=slim, attn_clamp=attn_clamp,
-                  attn_bias_log2=attn_bias_log2, control=control, lora=lora,
-                  attn_impl=attn_impl)
-        v = unpatchify(out[:, :base], h, w)
-        if reps == 2:
-            v_posi, v_nega = v[:n_items], v[n_items:]
-            v = v_nega + cfg_scale * (v_posi - v_nega)
-        if inpaint_mask is not None and input_latents is not None:
-            expected = (latents.float() - input_latents.float()) / sigma
-            v = expected * (1.0 - inpaint_mask) + v.float() * inpaint_mask
-        latents = (latents.float() + v.float() * (sigma_next - sigma)).to(latents.dtype)
-    return latents
+                control = dataclasses.replace(control, step=i)
+            out = dit(img_tokens, prompt_emb, t_norm, img_cos, img_sin, txt_cos, txt_sin,
+                      txt_key_mask=txt_mask, slim_last=slim, attn_clamp=attn_clamp,
+                      attn_bias_log2=attn_bias_log2, control=control, lora=lora,
+                      attn_impl=attn_impl)
+            v = unpatchify(out[:, :base], h, w)
+            if reps == 2:
+                v_posi, v_nega = v[:n_items], v[n_items:]
+                v = v_nega + cfg_scale * (v_posi - v_nega)
+            if inpaint_mask is not None and input_latents is not None:
+                expected = (latents.float() - input_latents.float()) / sigma
+                v = expected * (1.0 - inpaint_mask) + v.float() * inpaint_mask
+            latents = (latents.float() + v.float() * (sigma_next - sigma)).to(latents.dtype)
+        return latents

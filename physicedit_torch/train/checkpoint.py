@@ -1,10 +1,16 @@
-"""Checkpoint export, the save half of ``physicedit_tpu/train/checkpoint.py``.
+"""Checkpoint export and resume (``physicedit_tpu/train/checkpoint.py``).
 
 The trainable surface is written in the reference's key space: the DiT LoRA
 in peft keys without prefix, the adapters under ``pipe.*``, in a
 safetensors file beside a JSON metadata sidecar and a ``latest.json``
 pointer.  The file is written by ``io/safetensors_io.save_safetensors``,
-without the ``safetensors`` package.  Resuming is not ported yet.
+without the ``safetensors`` package.  The JAX package also saves an Orbax
+tree beside it; the port keeps the safetensors file as its only checkpoint.
+
+Resume is weights-only, as in the reference: :func:`resolve_resume` finds
+the file and its sidecar, :func:`resume_position` turns a legacy sidecar
+(one without ``sample_index``) into a start epoch and a number of batches
+to skip, rescaled when the world size changed.
 """
 
 from __future__ import annotations
@@ -98,3 +104,30 @@ def save_checkpoint(output_dir: str, trainable, global_step: int, epoch: int,
     with open(os.path.join(output_dir, "latest.json"), "w") as f:
         json.dump({"checkpoint": name + ".safetensors", **meta}, f, indent=2)
     return ckpt_path
+
+
+def resolve_resume(resume_from: str) -> tuple[str, dict]:
+    """A checkpoint file, or a directory with ``latest.json`` -> (checkpoint
+    path, metadata); a file without its ``.json`` sidecar gives ``{}``."""
+    if os.path.isdir(resume_from):
+        with open(os.path.join(resume_from, "latest.json")) as f:
+            meta = json.load(f)
+        return os.path.join(resume_from, meta["checkpoint"]), meta
+    meta_path = os.path.splitext(resume_from)[0] + ".json"
+    meta = {}
+    if os.path.exists(meta_path):
+        with open(meta_path) as f:
+            meta = json.load(f)
+    return resume_from, meta
+
+
+def resume_position(meta: dict, num_processes: int,
+                    batches_per_epoch: int) -> tuple[int, int, int]:
+    """(global_step, start_epoch, skip_batches) from sidecar metadata, the
+    step rescaled by the saved world size over ``num_processes``."""
+    step = int(meta.get("global_step", 0))
+    old_np = int(meta.get("num_processes", num_processes)) or 1
+    eff_step = step * old_np // max(num_processes, 1)
+    if batches_per_epoch <= 0:
+        return step, int(meta.get("epoch", 0)), 0
+    return step, eff_step // batches_per_epoch, eff_step % batches_per_epoch

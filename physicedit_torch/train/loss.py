@@ -1,5 +1,6 @@
-"""The PhysicEdit training loss (``physicedit_tpu/train/loss.py``):
-flow-matching MSE plus the special-token (dual adapter) loss.
+"""The PhysicEdit training losses (``physicedit_tpu/train/loss.py``):
+flow-matching MSE plus the special-token (dual adapter) loss, and the
+full-unroll distillation loss.
 
 Two load-bearing reference semantics, as in the JAX package:
 - the pseudo targets (DINO / VAE feature deltas) are computed inside the
@@ -53,7 +54,7 @@ def compute_pseudo_targets(adapters, batch: dict):
 
 
 def physic_training_loss(trainable, dit, batch: dict, t_min: float, t_max: float,
-                         use_remat: bool = False):
+                         use_remat: bool = False, attn_impl: str = "kernels"):
     """(loss, metrics) for one batch.
 
     trainable: ``train.trainer.Trainable`` (``lora`` over the frozen DiT and
@@ -61,6 +62,7 @@ def physic_training_loss(trainable, dit, batch: dict, t_min: float, t_max: float
     batch: input_latents / noise [B, h, w, 16], sigma / timestep / weight [B],
     edit_tokens [B, S_e, 64] or None, prompt_emb [B, S_t, 3584], txt_mask
     [B, S_t], special_idx [B, 64], the prior features, the RoPE tables.
+    attn_impl: the DiT's ("kernels": K1 forward, K8 backward; or "dense").
     """
     adapters = trainable.adapters
     x0 = batch["input_latents"]
@@ -86,7 +88,8 @@ def physic_training_loss(trainable, dit, batch: dict, t_min: float, t_max: float
 
     v = dit(img_tokens, prompt_emb, (batch["timestep"] / 1000.0).to(prompt_emb.dtype),
             batch["img_cos"], batch["img_sin"], batch["txt_cos"], batch["txt_sin"],
-            txt_key_mask=batch["txt_mask"], lora=trainable.lora, use_remat=use_remat)
+            txt_key_mask=batch["txt_mask"], lora=trainable.lora, use_remat=use_remat,
+            attn_impl=attn_impl)
     v = unpatchify(v[:, :s_base], h, w)
 
     # each sample's bell weight scales its own mean-square error
@@ -97,3 +100,28 @@ def physic_training_loss(trainable, dit, batch: dict, t_min: float, t_max: float
                                 t_min, t_max)
     loss = (per_sample * batch["weight"].float()).mean() + adapter
     return loss, {"mse": mse.detach(), "special_token_loss": adapter.detach()}
+
+
+def direct_distill_loss(dit, latents0, extra_tokens, prompt_emb, txt_mask, ropes, sched,
+                        input_latents, lora=None, attn_impl: str = "kernels"):
+    """The full-unroll distillation loss: the whole denoise schedule run
+    with gradients (CFG off, no adapter rewrite), its result regressed onto
+    the clean latents.  Gradients flow through every step, so every step's
+    activations are kept: use few steps.
+
+    latents0 / input_latents [1, h, w, 16]; extra_tokens [1, S_e, 64] or
+    None; prompt_emb [1, S_t, D] (the DiT's dtype); txt_mask [1, S_t];
+    ropes (img_cos, img_sin, txt_cos, txt_sin); sched a
+    ``sampling.flow_match`` schedule; lora the trained ``DiTLoRA``."""
+    from physicedit_torch.sampling.denoise import denoise
+
+    dev = latents0.device
+
+    def table(x):
+        return torch.as_tensor(x, dtype=torch.float32, device=dev)
+
+    out = denoise(dit, latents0, extra_tokens, prompt_emb, txt_mask, *ropes,
+                  table(sched.sigmas), table(sched.sigmas_next), table(sched.timesteps), 1.0,
+                  latent_hw=(latents0.shape[1], latents0.shape[2]), lora=lora,
+                  attn_impl=attn_impl, grad=True)
+    return (out.float() - input_latents.float()).square().mean()

@@ -1,6 +1,6 @@
 """The training harness (``physicedit_tpu/train/trainer.py``): per-sample
-preprocessing through the frozen encoders, the training loop and
-checkpoint export.
+preprocessing through the frozen encoders, the training loop, checkpoints,
+resume and the train-time eval.
 
 - :meth:`Trainer.preprocess` runs the frozen encoders once per sample: VAE
   target and edit latents, the VL prompt embedding with the special-token
@@ -10,8 +10,16 @@ checkpoint export.
   sample's crops, sigma and noise are bitwise the JAX package's.
 - frames are padded to ``MAX_KEY_FRAMES`` and masked out of the resampler
   keys, and prompt embeddings are padded to a bucketed length.
-- :meth:`Trainer.train` loads synchronously, steps, and saves every
-  ``save_every_n_steps`` and at each epoch's end.
+- :meth:`Trainer.train` decodes items ahead in ``loader_workers`` threads
+  (``train/prefetch.py``; preprocessing and the draws stay on this thread,
+  in index order), steps, saves every ``save_every_n_steps`` and at each
+  epoch's end, and runs :meth:`evaluate` every ``eval_every_n_steps``.
+  With ``cached_inputs`` the items are the ``.npz`` bundles of
+  :meth:`cache_preprocessed` and :meth:`_refresh_noise` draws their timestep
+  and noise anew.
+- :meth:`resume` loads a checkpoint's weights into the trainable surface
+  (in its configured dtypes; the JAX package loads them as fp32), starts a
+  fresh optimizer state, and restarts at the saved dataset position.
 
 ``quantize_frozen="w4"`` packs the pipeline's DiT to int4 in place (the JAX
 package keeps a second, packed tree: on one 80 GB card the two would not
@@ -21,15 +29,14 @@ serves the W4 lane for inference too.
 The DiT runs in the pipeline's dtype: the prompt embedding is handed to it
 in that dtype (the JAX trainer keeps it fp32 and lets ``jnp`` promote; at
 fp32 the two agree; ``tests/test_torch_train.py`` holds the bf16 loss and
-gradients against the JAX package fed the same bf16 embedding).  Not ported
-yet: ``resume``, ``evaluate`` (and so the periodic eval), ``cache_preprocessed``
-(and so training from cached batches), the loader threads, the mesh path,
-Adafactor and gradient accumulation.
+gradients against the JAX package fed the same bf16 embedding).  Not
+ported: the mesh path (multi-GPU training, M10).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
 
 import numpy as np
@@ -37,8 +44,11 @@ import torch
 from torch import nn
 
 from physicedit_torch.core.params import init_random_, materialize
+from physicedit_torch.io.convert import physic_adapters_from_state_dict
+from physicedit_torch.io.safetensors_io import load_state_dict
 from physicedit_torch.kernels.quant_matmul import DIT_OUTER_KEYS, quantize_module_int4
-from physicedit_torch.lora import DiTLoRA, init_dit_lora
+from physicedit_torch.lora import (DiTLoRA, import_dit_lora, init_dit_lora,
+                                   split_finetuned_checkpoint)
 from physicedit_torch.models import adapters as m_ad
 from physicedit_torch.ops import rope as m_rope
 from physicedit_torch.ops.patchify import patchify
@@ -46,6 +56,7 @@ from physicedit_torch.pipeline import visual_prior
 from physicedit_torch.pipeline.vl_host import bucket_pad_text
 from physicedit_torch.sampling import flow_match as fm
 from physicedit_torch.train import checkpoint as ckpt
+from physicedit_torch.train.prefetch import prefetch_samples
 from physicedit_torch.train.train_step import make_optimizer, train_step
 
 MAX_KEY_FRAMES = 6   # nn.Embedding(6, .) in the reference
@@ -63,6 +74,7 @@ class TrainConfig:
     num_epochs: int = 5
     lora_rank: int = 128
     save_every_n_steps: int = 500
+    eval_every_n_steps: int | None = None
     gradient_accumulation_steps: int = 1
     batch_size: int = 1
     height: int = 480
@@ -74,8 +86,10 @@ class TrainConfig:
     quantize_min_size: int = 1 << 16   # smaller layers stay in the working dtype
     optimizer_state_dtype: str = "float32"   # Adam moments: 'float32' | 'bfloat16'
     lora_dtype: str = "float32"
-    optimizer: str = "adamw"
+    optimizer: str = "adamw"            # 'adamw' | 'adafactor'
     adapters_dtype: str = "float32"
+    cached_inputs: bool = False         # items are cache_preprocessed bundles
+    loader_workers: int = 2             # decode threads; 0 = synchronous
 
 
 class TrainingAdapters(nn.Module):
@@ -135,7 +149,8 @@ class Trainer:
     def __init__(self, pipe, dataset, cfg: TrainConfig, logger=None, mesh=None,
                  device="cuda"):
         if mesh is not None:
-            raise NotImplementedError("multi-device training (mesh=) is not ported")
+            raise NotImplementedError("multi-GPU training (mesh=) needs the multi-GPU slice of "
+                                      "the port (M10: parallel/sharding.py), which is not ported")
         self.device = torch.device(device)
         if pipe.device != self.device:
             raise ValueError(f"the pipeline is on {pipe.device}, the trainer on {self.device}")
@@ -163,6 +178,8 @@ class Trainer:
         self.t_min, self.t_max = fm.adapter_t_range()
         self.train_sched = fm.qwen_training_schedule()
         self.global_step = 0
+        self.start_epoch = 0
+        self.skip_batches = 0       # dataset items skipped in start_epoch
         self.history: list = []     # per step: loss, mse, special_token_loss, seconds
 
     def trainable_counts(self) -> dict:
@@ -264,14 +281,135 @@ class Trainer:
                 out[k] = torch.cat([b[k] for b in batches])
         return out
 
+    def _cached_batch(self, micro: dict) -> dict:
+        """A cached bundle's arrays as a batch on the device: the prompt
+        embedding in the pipeline's dtype, masks bool, indices long, the
+        rest fp32."""
+        kinds = {"prompt_emb": self.pipe.dtype, "txt_mask": torch.bool,
+                 "mid_frame_mask": torch.bool, "special_idx": torch.long}
+        return {k: torch.as_tensor(v).to(self.device, kinds.get(k, torch.float32))
+                for k, v in micro.items()}
+
+    def _refresh_noise(self, micro: dict) -> dict:
+        """A cached bundle as a batch with its stochastic fields drawn anew
+        from ``self.rng`` in the JAX package's order (the timestep index,
+        then the noise): the cache keeps the encoders' outputs, the noising
+        differs on every visit, as on the inline path."""
+        tid = int(self.rng.integers(0, fm.NUM_TRAIN_TIMESTEPS))
+        noise = self.rng.standard_normal(tuple(np.shape(micro["input_latents"])))
+        sched = self.train_sched
+        batch = self._cached_batch(micro)
+        batch.update({"noise": self._tensor(noise.astype(np.float32)),
+                      "sigma": self._tensor([sched.sigmas[tid]]),
+                      "timestep": self._tensor([sched.timesteps[tid]]),
+                      "weight": self._tensor([sched.weights[tid]])})
+        return batch
+
     def cache_preprocessed(self, output_dir: str) -> int:
-        raise NotImplementedError("cache_preprocessed (the cached data-process mode) is not ported")
+        """Preprocess every item once and write it as ``{i:06d}.npz`` (the
+        reference's data-process mode; ``train.dataset.CachedPreprocessedDataset``
+        reads them back): the JAX package's arrays and dtypes (fp32, bool,
+        int32 special indices; the prompt embedding's values in fp32).
+        Returns the number of bundles."""
+        os.makedirs(output_dir, exist_ok=True)
+        n = 0
+        for i in range(len(self.dataset)):
+            sample = self.dataset[i]
+            if sample is None:
+                continue
+            micro = self.preprocess(sample)
+            if micro is None:
+                continue
+            np.savez_compressed(os.path.join(output_dir, f"{i:06d}.npz"),
+                                **{k: bundle_array(k, v) for k, v in micro.items()})
+            n += 1
+        print(f"[TRAIN] cached {n} preprocessed samples -> {output_dir}")
+        return n
 
+    @torch.no_grad()
     def resume(self, resume_from: str):
-        raise NotImplementedError("resume is not ported")
+        """Weights-only resume from a checkpoint file or a directory with
+        ``latest.json``: the LoRA and the adapter groups the file holds are
+        copied into the trainable surface in its dtypes, the optimizer state
+        starts afresh, and the loop restarts at the saved position (the
+        exact ``sample_index``, rolled to the next epoch at the epoch's end;
+        a legacy sidecar through ``checkpoint.resume_position``)."""
+        path, meta = ckpt.resolve_resume(resume_from)
+        lora_sd, pipe_sd = split_finetuned_checkpoint(load_state_dict(path))
+        if lora_sd:
+            lora = import_dit_lora({k.replace("pipe.dit.", ""): v for k, v in lora_sd.items()},
+                                   self.pipe.dit.cfg, torch.float32, "cpu")
+            self.trainable.lora.load_state_dict(lora.state_dict())
+        for name, loaded in physic_adapters_from_state_dict(pipe_sd, torch.float32,
+                                                            "cpu").items():
+            target = getattr(self.trainable.adapters, name)
+            if isinstance(target, torch.Tensor):
+                target.copy_(loaded)
+            else:
+                target.load_state_dict(loaded.state_dict())
+        self.opt_state = self.optimizer.init(self.trainable)
+        if "sample_index" in meta:
+            self.global_step = int(meta.get("global_step", 0))
+            self.start_epoch = int(meta.get("epoch", 0))
+            self.skip_batches = int(meta["sample_index"])
+            if self.skip_batches >= len(self.dataset):
+                self.start_epoch += 1
+                self.skip_batches = 0
+        else:
+            # a legacy sidecar counts optimizer steps of batch_size items
+            self.global_step, self.start_epoch, skip_steps = ckpt.resume_position(
+                meta, num_processes=1,
+                batches_per_epoch=max(len(self.dataset) // self.cfg.batch_size, 1))
+            self.skip_batches = skip_steps * self.cfg.batch_size
+        print(f"[RESUME] step={self.global_step} epoch={self.start_epoch} "
+              f"skip={self.skip_batches} samples")
 
+    @torch.no_grad()
     def evaluate(self, sample_idx: int = 0, seed: int = 42, num_inference_steps: int = 40):
-        raise NotImplementedError("evaluate (the train-time eval probe) is not ported")
+        """A fixed-seed edit of dataset item ``sample_idx`` through the
+        pipeline with the trainable LoRA hot-loaded (``pipe.dit_lora``) and
+        the trainable adapters in ``pipe.adapters`` (the dual one as
+        ``pipe.adapter``), all restored afterwards; saves and returns the
+        ``[edit | GT | output]`` strip as ``eval-step-{N}.jpg``.  The step's
+        gradients are freed first.  Skipped (None) with cached inputs, whose
+        items carry no prompt or image."""
+        from PIL import Image
+
+        if self.cfg.cached_inputs:
+            print("[EVAL] skipped: cached_inputs datasets carry no prompt/image samples to "
+                  "generate from")
+            return None
+        sample = self.dataset[sample_idx]
+        if sample is None:
+            return None
+        for p in self.trainable.parameters():
+            p.grad = None
+        pipe = self.pipe
+        saved = pipe.adapters, pipe.adapter, pipe.dit_lora
+        trained = dict(self.trainable.adapters.named_children())
+        trained.update(self.trainable.adapters.named_parameters(recurse=False))
+        pipe.adapters = dict(pipe.adapters, **trained)
+        pipe.adapter = trained["visual_thinking_adapter"]
+        pipe.dit_lora = self.trainable.lora
+        try:
+            out = pipe(sample["prompt"], edit_image=sample["edit_image"], seed=seed,
+                       num_inference_steps=num_inference_steps, height=self.cfg.height,
+                       width=self.cfg.width, have_text_reasoning=False,
+                       edit_image_auto_resize=False)
+        finally:
+            pipe.adapters, pipe.adapter, pipe.dit_lora = saved
+        size = (self.cfg.width, self.cfg.height)
+        strip = Image.new("RGB", (size[0] * 3, size[1]))
+        strip.paste(sample["edit_image"].resize(size), (0, 0))
+        strip.paste(sample["image"].resize(size), (size[0], 0))
+        strip.paste(out.resize(size), (size[0] * 2, 0))
+        if self.logger is not None:
+            self.logger.log_eval_image(self.global_step, strip, caption=sample["prompt"])
+        os.makedirs(self.cfg.output_path, exist_ok=True)
+        path = os.path.join(self.cfg.output_path, f"eval-step-{self.global_step}.jpg")
+        strip.save(path)
+        print(f"[EVAL] step={self.global_step} -> {path}")
+        return strip
 
     # ------------------------------------------------------------------
 
@@ -282,7 +420,8 @@ class Trainer:
         sync()
         t0 = time.perf_counter()
         metrics = train_step(self.trainable, self.pipe.dit, self.optimizer, self.opt_state,
-                             batch, self.t_min, self.t_max, use_remat=self.cfg.use_remat)
+                             batch, self.t_min, self.t_max, use_remat=self.cfg.use_remat,
+                             attn_impl=self.pipe.attn_impl)
         metrics = {k: float(v) for k, v in metrics.items()}
         sync()
         metrics["seconds"] = time.perf_counter() - t0
@@ -294,14 +433,16 @@ class Trainer:
         cfg = self.cfg
         pending = []
         skipped = 0
-        for epoch in range(cfg.num_epochs):
+        for epoch in range(self.start_epoch, cfg.num_epochs):
             usable = 0
-            for i in range(len(self.dataset)):
-                sample = self.dataset[i]
-                self._epoch_pos = i + 1
+            start = self.skip_batches if epoch == self.start_epoch else 0
+            for i, sample in prefetch_samples(self.dataset, range(start, len(self.dataset)),
+                                              num_workers=cfg.loader_workers):
+                self._epoch_pos = i + 1     # the exact resume position (save)
                 if sample is None:
                     continue
-                micro = self.preprocess(sample)
+                micro = (self._refresh_noise(sample) if cfg.cached_inputs
+                         else self.preprocess(sample))
                 if micro is None:
                     skipped += 1
                     continue
@@ -313,9 +454,13 @@ class Trainer:
                 pending = []
                 metrics = self.step(batch)
                 if self.logger is not None:
-                    self.logger.log_step(self.global_step, epoch, metrics, metrics["seconds"])
+                    self.logger.log_step(self.global_step, epoch,
+                                         {k: v for k, v in metrics.items() if k != "seconds"},
+                                         metrics["seconds"])
                 if cfg.save_every_n_steps and self.global_step % cfg.save_every_n_steps == 0:
                     self.save(epoch)
+                if cfg.eval_every_n_steps and self.global_step % cfg.eval_every_n_steps == 0:
+                    self.evaluate((i + 1) % len(self.dataset))
             if self.global_step == 0 and usable == 0:
                 raise RuntimeError(
                     f"epoch {epoch} produced no usable samples ({skipped} skipped): the "
@@ -327,7 +472,8 @@ class Trainer:
             self.save(epoch)
         if self.global_step == 0:
             raise RuntimeError(f"no training step ran: batch_size={cfg.batch_size} exceeds the "
-                               f"{len(pending)} usable samples")
+                               f"{len(pending)} usable samples over "
+                               f"{cfg.num_epochs - self.start_epoch} epoch(s)")
         if pending:
             print(f"[TRAIN] {len(pending)} usable samples left in a partial batch were not "
                   f"trained on")
@@ -338,3 +484,13 @@ class Trainer:
                                     sample_index=getattr(self, "_epoch_pos", 0))
         print(f"[ckpt] saved {path}")
         return path
+
+
+def bundle_array(key: str, value: torch.Tensor) -> np.ndarray:
+    """One field of a preprocessed batch as ``cache_preprocessed`` writes
+    it: fp32 for floats (the prompt embedding's values in the pipeline's
+    dtype, widened), int32 special indices, bool masks."""
+    value = value.detach().cpu()
+    if value.is_floating_point():
+        return value.float().numpy()
+    return value.to(torch.int32).numpy() if key == "special_idx" else value.numpy()

@@ -138,9 +138,26 @@ Phases, each printed as one JSON line, any failure exits non-zero:
      after phase 10 on its small model, ``direct_distill_loss`` through a
      4-step unroll against the CPU (exact K1 / K8) and deviation D1's drift
      over 50 steps, bf16 against fp32 activations (read, not gated).
+ 17. the multi-GPU slice (``physicedit_torch/parallel``) on one card, after
+     phase 8's serving part: (a) the ring's kernels lane over RING_RANKS
+     virtual ranks through its own hop functions at the DiT's joint
+     attention at 1024^2 with the reasoner on, the forward against one K1
+     call (K1's gates), dq / dk / dv against one K8 call (K8_REL), K1 and K8
+     n^2 launches each, timed beside them; (b) every split weight of phase
+     8's DiT and VL text model cut for tp 2 and 4 and put back bit for bit,
+     and one block's fc1 / fc2 from its tp-4 shards (fp32 partial sums)
+     within SHARD_PAIR_REL of the unsharded pair; (c) a world-1 NCCL group:
+     phase 8's pipeline through ``shard(create_mesh(1, 1))`` with
+     ``attn_impl="ring"`` edits 1024^2 (4 steps, reasoner off) within
+     PIPE_REL_L2 of the kernels route, K1 once per block and step, beside a
+     slim-off control; (d) with two GPUs or more, an NCCL world of two
+     (this script with ``--dist-worker``) runs the small model's ring, TP
+     and DP edits and a DP training step against one card; with one GPU
+     its line says it did not run.
 The line before the last lists each kernel with its launches on its main
 path, its error against the plain version, its time, the plain version's,
-its bound and the one PyTorch call that computes the same function; the
+its bound and the one PyTorch call that computes the same function (K1 and
+K8 also with their launches in phase 17(a)'s ring, ``ring_launches``); the
 last line is the run's result.  There is no CPU path: without a CUDA device
 it exits 2.
 """
@@ -149,6 +166,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import functools
 import json
 import math
@@ -3575,9 +3593,373 @@ def refiner_phase(gen) -> None:
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# 17. the multi-GPU slice (parallel/) on one card
+# ---------------------------------------------------------------------------
+
+# (a): the DiT's joint attention at 1024^2 with the reasoner on (text 1280 +
+# image 4096 + edit 4096), over RING_RANKS virtual ranks, the last
+# RING_MASKED_KEYS keys masked
+RING_SHAPE = (2, 24, 9472, 128)
+RING_RANKS = 4
+RING_MASKED_KEYS = 64
+# (b): one block's fc1 / fc2 pair from its tp-4 shards, the partial sums of
+# fc2 added in fp32, against the unsharded pair in bf16 (rel-L2): each bf16
+# partial rounds on its own, about 2^-9 relative, 1e-2 leaves 5x room
+SHARD_PAIR_REL = 1e-2
+
+
+def ring_virtual_phase(report: dict, gen, time_ms) -> dict:
+    """(a) The kernels lane of ``parallel/ring_attention.py`` for RING_RANKS
+    virtual ranks in one process, through the hop functions the
+    ``torch.distributed`` ring calls: the forward against one K1 call
+    (ATTN_MAX_ABS, ATTN_REL_L2), the backward's dq', dk and dv against one
+    K8 call on the same out and l (K8_REL), with n^2 launches of each.
+    Returns the launches."""
+    import torch
+
+    from physicedit_torch.kernels import flash_attention as fa
+    from physicedit_torch.parallel import ring_attention as ra
+
+    dev = torch.device("cuda")
+    b, n, s, d = RING_SHAPE
+
+    def rms_randn(*shape):
+        x = torch.randn(*shape, device=dev, generator=gen)
+        return (x * torch.rsqrt(x.pow(2).mean(-1, keepdim=True))).bfloat16()
+
+    q, k = rms_randn(b, n, s, d), rms_randn(b, n, s, d)
+    v = torch.randn(b, n, s, d, device=dev, generator=gen).bfloat16()
+    g = torch.randn(b, n, s, d, device=dev, generator=gen).bfloat16()
+    mask = torch.ones(b, s, dtype=torch.bool, device=dev)
+    mask[:, -RING_MASKED_KEYS:] = False
+    want, l_want = fa.fixedmax_attention(q, k, v, mask, True, return_l=True)
+    reset_counts()
+    out, l = ra.virtual_ring_fixedmax(q, k, v, mask, RING_RANKS)
+    torch.cuda.synchronize()
+    fwd_launches = counts()["fixedmax_attention"]
+    qs = fa._prescale(q).contiguous()
+    grads_want = fa.fixedmax_attention_bwd(qs, k, v, mask, g, want, l_want, True)
+    reset_counts()
+    grads = ra.virtual_ring_fixedmax_bwd(qs, k, v, mask, g, want, l_want, RING_RANKS)
+    torch.cuda.synchronize()
+    bwd_launches = counts()["fixedmax_attention_bwd"]
+    err = (out.float() - want.float()).abs().max().item()
+    rel = rel_l2(out, want)
+    l_rel = ((l - l_want).abs() / l_want).max().item()
+    g_rel = {name: ((a.float() - w.float()).abs().max() / w.float().abs().max()).item()
+             for name, a, w in zip(("dq", "dk", "dv"), grads, grads_want)}
+    row = {"phase": "ring_virtual", "shape": list(RING_SHAPE), "ranks": RING_RANKS,
+           "chunk": s // RING_RANKS, "masked_keys": RING_MASKED_KEYS,
+           "max_abs_err": err, "rel_l2": rel, "l_max_rel_err": l_rel,
+           "max_abs_limit": ATTN_MAX_ABS, "rel_l2_limit": ATTN_REL_L2,
+           "grad_max_rel_err": g_rel, "grad_limit": K8_REL,
+           "k1_launches": fwd_launches, "k8_launches": bwd_launches,
+           "launches_expected": RING_RANKS ** 2,
+           "ring_ms": time_ms(lambda: ra.virtual_ring_fixedmax(q, k, v, mask, RING_RANKS), 5),
+           "k1_ms": time_ms(lambda: fa.fixedmax_attention(q, k, v, mask, True,
+                                                          return_l=True), 5),
+           "ring_bwd_ms": time_ms(lambda: ra.virtual_ring_fixedmax_bwd(
+               qs, k, v, mask, g, want, l_want, RING_RANKS), 3),
+           "k8_ms": time_ms(lambda: fa.fixedmax_attention_bwd(qs, k, v, mask, g, want,
+                                                              l_want, True), 3),
+           "card": card_name()}
+    emit(row)
+    if err > ATTN_MAX_ABS or rel > ATTN_REL_L2 or l_rel > 1e-3:
+        fail(f"the virtual ring's forward disagrees with one K1 call: {row}")
+    if max(g_rel.values()) > K8_REL:
+        fail(f"the virtual ring's backward disagrees with one K8 call: {g_rel}")
+    if fwd_launches != RING_RANKS ** 2 or bwd_launches != RING_RANKS ** 2:
+        fail(f"the virtual ring launched K1 {fwd_launches} / K8 {bwd_launches} times, "
+             f"not {RING_RANKS ** 2}")
+    del q, k, v, g, out, want, grads, grads_want, qs
+    torch.cuda.empty_cache()
+    return {"fixedmax_attention": fwd_launches, "fixedmax_attention_bwd": bwd_launches}
+
+
+def shard_phase(pipe, gen) -> None:
+    """(b) ``parallel/sharding.py`` on phase 8's full-width weights: every
+    split weight of the DiT and of the VL text model, cut for tp 2 and 4 by
+    ``shard_tensor`` (what ``shard_params`` keeps on each rank) and put back
+    by ``unshard_tensor``, bit for bit; the groups that stay whole (D3)
+    counted.  Then the DiT's first block's image MLP from its tp-4 shards,
+    fc2's partial sums added in fp32, against the unsharded pair within
+    SHARD_PAIR_REL."""
+    import torch
+    import torch.nn.functional as F
+
+    from physicedit_torch.ops.norms import approximate_gelu
+    from physicedit_torch.parallel import sharding as shd
+
+    t0 = time.perf_counter()
+    for label, model, specs in (
+            ("dit", pipe.dit, shd.dit_param_specs(pipe.dit)),
+            ("vl_text", pipe.text, shd.qwen_vl_text_param_specs(pipe.text))):
+        params = dict(model.named_parameters())
+        for tp in (2, 4):
+            whole = shd.whole_groups(model, specs, tp)
+            n_split = n_bytes = 0
+            for name, split in specs.items():
+                if split is None or split.group in whole:
+                    continue
+                t = params[name]
+                back = shd.unshard_tensor([shd.shard_tensor(t, split, r, tp)
+                                           for r in range(tp)], split)
+                if not torch.equal(back, t):
+                    fail(f"{label} {name}: the tp-{tp} shards do not reassemble it")
+                n_split += 1
+                n_bytes += t.numel() * t.element_size()
+            emit({"phase": "shard_reassembly", "model": label, "tp": tp,
+                  "split_tensors": n_split, "split_gb": n_bytes / 1e9,
+                  "whole_groups": len(whole), "bit_for_bit": True,
+                  "seconds": time.perf_counter() - t0})
+            if n_split == 0:
+                fail(f"{label}: no weight splits at tp {tp}")
+    mlp = pipe.dit.blocks[0].img_mlp
+    x = torch.randn(1, 4096, 3072, device="cuda", generator=gen).bfloat16()
+    want = mlp["fc2"](approximate_gelu(mlp["fc1"](x)))
+    acc = torch.zeros(want.shape, dtype=torch.float32, device="cuda")
+    col, row = shd.Split(0), shd.Split(1)
+    for r in range(4):
+        h = approximate_gelu(F.linear(x, shd.shard_tensor(mlp["fc1"].weight, col, r, 4),
+                                      shd.shard_tensor(mlp["fc1"].bias, col, r, 4)))
+        acc += F.linear(h, shd.shard_tensor(mlp["fc2"].weight, row, r, 4)).float()
+    got = (acc + mlp["fc2"].bias.float()).bfloat16()
+    rel = rel_l2(got, want)
+    emit({"phase": "shard_mlp_pair", "tp": 4, "rows": 4096, "rel_l2": rel,
+          "limit": SHARD_PAIR_REL, "max_abs_err": (got.float() - want.float()).abs().max().item()})
+    if not rel <= SHARD_PAIR_REL:
+        fail(f"the tp-4 fc1 / fc2 pair is {rel} rel-L2 from the unsharded pair")
+
+
+def ring_world1_phase(pipe, edit, bf16_img, image, steps: int, n_blocks: int) -> None:
+    """(c) A real NCCL process group of one rank: phase 8's bf16 pipeline
+    through ``shard(create_mesh(1, 1))`` with ``attn_impl="ring"`` (one hop a
+    block: K1 once per block and step, the slim last block off) edits the
+    serving phase's first single edit (1024^2, reasoner off), held to that
+    edit on the kernels route within PIPE_REL_L2; the group's all-reduce and
+    all-gather checked on the card.  A control (read, not gated) is the
+    kernels route with the slim last block off too (a hot-loaded rank-1
+    LoRA whose B is 0 adds exactly 0 and turns it off): the ring against it
+    is the ring's own error, it against the slim edit the slim block's.
+    The pipeline is put back afterwards."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from physicedit_torch.lora import init_dit_lora
+    from physicedit_torch.models.dit import set_ring_context
+    from physicedit_torch.parallel import comm
+    from physicedit_torch.parallel.sharding import MODEL_AXIS, create_mesh
+
+    pipe.dit_lora = init_dit_lora(pipe.dit.cfg, 1, torch.bfloat16, "cuda")
+    try:
+        control, _ = edit(1024, 1024, SEED + 4, False, image=image)
+    finally:
+        pipe.dit_lora = None
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1),
+                                rank=0, world_size=1)
+        try:
+            x = torch.arange(8.0, device="cuda")
+            dist.all_reduce(x)
+            gathered = comm.all_gather_cat(x, 0, dist.group.WORLD)
+            mesh = create_mesh(1, 1, "cuda")
+            pipe.shard(mesh)
+            set_ring_context(mesh, MODEL_AXIS)
+            pipe.attn_impl = "ring"
+            reset_counts()
+            arr, row = edit(1024, 1024, SEED + 4, False, image=image)
+            launches = counts()
+        finally:
+            pipe.attn_impl, pipe.mesh = "kernels", None
+            set_ring_context(None)
+            dist.destroy_process_group()
+    def img_rel(got, want):
+        return float(np.linalg.norm(got - want) / np.linalg.norm(want - want.mean()))
+
+    rel = img_rel(arr, bf16_img)
+    k1 = launches["fixedmax_attention"]
+    emit({"phase": "ring_world1_edit", **row, "backend": "nccl", "world": 1,
+          "all_reduce_ok": bool(torch.equal(x, torch.arange(8.0, device="cuda"))),
+          "all_gather_ok": bool(torch.equal(gathered, x)),
+          "rel_l2_vs_kernels_route": rel, "limit": PIPE_REL_L2,
+          "rel_l2_vs_slim_off_control": img_rel(arr, control),
+          "control_rel_l2_vs_kernels_route": img_rel(control, bf16_img),
+          "k1_launches": k1, "k1_expected": steps * n_blocks, "card": card_name()})
+    if not rel <= PIPE_REL_L2:
+        fail(f"the ring edit (world 1) is {rel} rel-L2 from the kernels route's")
+    if k1 != steps * n_blocks or launches["fixedmax_attention_bias"]:
+        fail(f"the ring edit launched K1 {k1} times, not {steps * n_blocks}")
+    if not torch.equal(x, torch.arange(8.0, device="cuda")) or not torch.equal(gathered, x):
+        fail("the world-1 NCCL group's all-reduce or all-gather changed its input")
+
+
+# (d): the NCCL world's size and its time limit
+MULTI_GPU_WORLD = 2
+MULTI_GPU_TIMEOUT = 600
+
+
+def small_dims():
+    """Phase 7's small head_dim-128 model (two heads: they split over two
+    ranks), with phase 10's DINOv2 for training."""
+    from physicedit_torch.models.dinov2 import DinoV2Config
+    from physicedit_torch.models.dit import DiTConfig
+    from physicedit_torch.models.qwen_vl import QwenVLTextConfig
+    from physicedit_torch.models.qwen_vl_vision import QwenVLVisionConfig
+    from physicedit_torch.models.vae import VAEConfig
+    from physicedit_torch.pipeline.testing import PipelineDims
+
+    return PipelineDims(
+        dit=DiTConfig(num_layers=2, dim=256, num_heads=2, head_dim=128,
+                      txt_in_dim=256, patch_dim=64, time_dim=64),
+        text=QwenVLTextConfig(hidden_size=256, num_layers=2, num_heads=2, num_kv_heads=1,
+                              head_dim=128, intermediate_size=512, vocab_size=512),
+        vision=QwenVLVisionConfig(depth=2, hidden_size=64, num_heads=2,
+                                  intermediate_size=128, fullatt_block_indexes=(1,),
+                                  out_hidden_size=256),
+        vae=VAEConfig(base_dim=16), adapter_dim=256, rope_axes=(16, 56, 56),
+        edit_drop_idx=2, t2i_drop_idx=2,
+        dinov2=DinoV2Config(hidden_size=64, num_layers=1, num_heads=2), dino_pos_grid=20)
+
+
+def multi_gpu_cases(world: int | None) -> dict:
+    """(d)'s runs on the small model, each from the same seeded weights: a
+    ring edit, a tensor-parallel edit, a data-parallel ``edit_batch`` of two
+    and a data-parallel training step on a global batch of two; on one card
+    (``world`` None: the kernels route, no mesh) or on this process's rank of
+    an NCCL world (the ring and tensor parallelism over (1, world), data
+    parallelism over (world, 1))."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from physicedit_torch.models.dit import set_ring_context
+    from physicedit_torch.parallel.sharding import MODEL_AXIS, create_mesh
+    from physicedit_torch.pipeline.testing import random_pipeline
+    from physicedit_torch.profile_train import SyntheticVideo
+    from physicedit_torch.train.trainer import TrainConfig, Trainer
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    rng = np.random.default_rng(SEED + 17)
+    ims = [Image.fromarray(rng.integers(0, 255, (4, 4, 3), dtype=np.uint8)).resize(
+        (128, 128), Image.BILINEAR) for _ in range(2)]
+    kw = dict(height=128, width=128, num_inference_steps=2, have_text_reasoning=False)
+
+    def build():
+        return random_pipeline(small_dims(), dev, torch.bfloat16,
+                               torch.Generator(dev).manual_seed(SEED + 17))
+
+    out = {}
+    pipe = build()
+    if world:
+        set_ring_context(create_mesh(1, world, "cuda"), MODEL_AXIS)
+        pipe.attn_impl = "ring"
+    out["ring"] = np.asarray(pipe("tilt the cup", edit_image=ims[0], seed=11, **kw), np.float32)
+    set_ring_context(None)
+    pipe = build()
+    if world:
+        pipe.shard(create_mesh(1, world, "cuda"))
+    out["tp"] = np.asarray(pipe("tilt the cup", edit_image=ims[0], seed=11, **kw), np.float32)
+    pipe = build()
+    if world:
+        pipe.shard(create_mesh(world, 1, "cuda"))
+    out["dp"] = [np.asarray(im, np.float32) for im in pipe.edit_batch(
+        ["tilt the cup", "slide the red box"], ims, seeds=[3, 4], **kw)]
+    data = SyntheticVideo(n=2, width=128, height=128, frames=2, seed=SEED + 7)
+    trainer = Trainer(build(), data, TrainConfig(learning_rate=1e-3, lora_rank=8,
+                                                 txt_len_bucket=64, batch_size=2),
+                      mesh=create_mesh(world, 1, "cuda") if world else None, device=dev)
+    metrics = trainer.step(trainer.collate([trainer.preprocess(data[i]) for i in range(2)]))
+    out["train"] = {"loss": metrics["loss"],
+                    "grads": torch.cat([p.grad.float().reshape(-1).cpu()
+                                        for p in trainer.trainable.parameters()])}
+    return out
+
+
+def dist_worker(rank: int, world: int, folder: str) -> None:
+    """One rank of (d)'s NCCL world: ``multi_gpu_cases`` on its GPU, the
+    result saved for the parent."""
+    import torch
+    import torch.distributed as dist
+
+    torch.cuda.set_device(rank)
+    dist.init_process_group("nccl", store=dist.FileStore(os.path.join(folder, "store"), world),
+                            rank=rank, world_size=world)
+    try:
+        torch.save(multi_gpu_cases(world), os.path.join(folder, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def multi_gpu_phase() -> None:
+    """(d) With two GPUs or more: an NCCL world of MULTI_GPU_WORLD processes
+    (this script with ``--dist-worker``) runs ``multi_gpu_cases`` and each
+    rank's ring, tensor-parallel and data-parallel edits are held to one
+    card's within PIPE_REL_L2, its data-parallel training step's loss and
+    gradients within TRAIN_LOSS_REL / TRAIN_GRAD_REL.  With one GPU the
+    phase prints that it did not run, and why."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    n_gpus = torch.cuda.device_count()
+    if n_gpus < MULTI_GPU_WORLD:
+        emit({"phase": "multi_gpu", "run": False, "gpus": n_gpus,
+              "reason": f"{n_gpus} GPU: an NCCL world of {MULTI_GPU_WORLD} needs one GPU a "
+                        f"rank", "card": card_name()})
+        return
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--dist-worker",
+                                   str(r), "--dist-world", str(MULTI_GPU_WORLD),
+                                   "--dist-dir", tmp]) for r in range(MULTI_GPU_WORLD)]
+        try:
+            codes = [p.wait(timeout=MULTI_GPU_TIMEOUT) for p in procs]
+        except subprocess.TimeoutExpired:
+            codes = None
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        if codes is None or any(codes):
+            fail(f"the NCCL world of {MULTI_GPU_WORLD} failed or hung: exit codes {codes}")
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False)
+                 for r in range(MULTI_GPU_WORLD)]
+    world_s = time.perf_counter() - t0
+    ref = multi_gpu_cases(None)
+
+    def img_rel(got, want):
+        return float(np.linalg.norm(got - want) / np.linalg.norm(want - want.mean()))
+
+    for r, got in enumerate(ranks):
+        rels = {"ring": img_rel(got["ring"], ref["ring"]), "tp": img_rel(got["tp"], ref["tp"]),
+                "dp": max(img_rel(g, w) for g, w in zip(got["dp"], ref["dp"]))}
+        loss_rel = abs(got["train"]["loss"] - ref["train"]["loss"]) / abs(ref["train"]["loss"])
+        grads_rel = rel_l2(got["train"]["grads"], ref["train"]["grads"])
+        emit({"phase": "multi_gpu", "run": True, "rank": r, "world": MULTI_GPU_WORLD,
+              "gpus": n_gpus, "image_rel_l2": rels, "image_limit": PIPE_REL_L2,
+              "train_loss_rel": loss_rel, "train_grads_rel_l2": grads_rel,
+              "loss_limit": TRAIN_LOSS_REL, "grads_limit": TRAIN_GRAD_REL,
+              "world_seconds": world_s, "card": card_name()})
+        if max(rels.values()) > PIPE_REL_L2:
+            fail(f"rank {r}'s multi-GPU edits are {rels} rel-L2 from one card's")
+        if not (loss_rel <= TRAIN_LOSS_REL and grads_rel <= TRAIN_GRAD_REL):
+            fail(f"rank {r}'s data-parallel step disagrees with one card's: loss "
+                 f"{loss_rel}, gradients {grads_rel}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=4, help="denoise steps per edit")
+    # one rank of phase 17(d)'s NCCL world (the script starts them itself)
+    ap.add_argument("--dist-worker", type=int, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--dist-world", type=int, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--dist-dir", type=str, default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
 
     import torch
@@ -3587,6 +3969,9 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this run needs one GPU", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    if args.dist_worker is not None:
+        dist_worker(args.dist_worker, args.dist_world, args.dist_dir)
+        return 0
     import numpy as np
     from PIL import Image
 
@@ -3789,12 +4174,7 @@ def main() -> int:
     k3_phase(report, gen, time_ms)
     fused_quant_phase(report, gen, time_ms)
 
-    from physicedit_torch.models.dit import DiTConfig
-    from physicedit_torch.models.qwen_vl import QwenVLTextConfig
-    from physicedit_torch.models.qwen_vl_vision import QwenVLVisionConfig
-    from physicedit_torch.models.vae import VAEConfig
-    from physicedit_torch.pipeline.testing import (PipelineDims, build_random_pipeline,
-                                                   random_pipeline)
+    from physicedit_torch.pipeline.testing import build_random_pipeline, random_pipeline
 
     rng = np.random.default_rng(SEED)
 
@@ -3805,16 +4185,7 @@ def main() -> int:
 
     # 7. small pipeline: kernels on the card against plain versions on the CPU,
     # in bf16 and then quantized int4 (the fused W4 DiT path, K3-K6)
-    small = PipelineDims(
-        dit=DiTConfig(num_layers=2, dim=256, num_heads=2, head_dim=128,
-                      txt_in_dim=256, patch_dim=64, time_dim=64),
-        text=QwenVLTextConfig(hidden_size=256, num_layers=2, num_heads=2, num_kv_heads=1,
-                              head_dim=128, intermediate_size=512, vocab_size=512),
-        vision=QwenVLVisionConfig(depth=2, hidden_size=64, num_heads=2,
-                                  intermediate_size=128, fullatt_block_indexes=(1,),
-                                  out_hidden_size=256),
-        vae=VAEConfig(base_dim=16), adapter_dim=256, rope_axes=(16, 56, 56),
-        edit_drop_idx=2, t2i_drop_idx=2)
+    small = dataclasses.replace(small_dims(), dinov2=None)
     small_edit = image(128, 128)
     edits = {  # name: (kwargs, the kernels the edit must launch on the card)
         "edit": (dict(edit_image=small_edit), ("fixedmax_attention", "gqa_causal_attention")),
@@ -3928,6 +4299,15 @@ def main() -> int:
     eligen_launches = eligen_phase(pipe, edit_images[(1024, 1024)], args.steps, n_blocks,
                                    n_layers)
     bf16_img = serving_phase(pipe, edit_images, args.steps, n_blocks, edit)
+
+    # 17. the multi-GPU slice on one card: (a) the ring's kernels lane over
+    # virtual ranks, (b) the tensor-parallel splits of phase 8's weights, (c)
+    # a world-1 NCCL group's ring edit, (d) an NCCL world of two where there
+    # are two GPUs
+    ring_launches = ring_virtual_phase(report, gen, time_ms)
+    shard_phase(pipe, gen)
+    ring_world1_phase(pipe, edit, bf16_img, edit_images[(1024, 1024)], args.steps, n_blocks)
+    multi_gpu_phase()
 
     # 9. the W4 serving lane at full width, against the serving phase's first
     # single edit (1024^2, SEED + 4, reasoner off)
@@ -4047,6 +4427,8 @@ def main() -> int:
                         "ms": timing["ms"], "plain_ms": timing["plain_ms"],
                         "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"],
                         "library_ms": timing.get("library_ms")})
+        if name in ring_launches:   # phase 17(a): n^2 launches over n virtual ranks
+            kernels[-1]["ring_launches"] = ring_launches[name]
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

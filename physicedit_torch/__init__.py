@@ -21,6 +21,8 @@ Package map:
                the random-weight factory
     train/     the PhysicEdit loss, the AdamW step, the trainer and the
                checkpoint export
+    parallel/  several GPUs: the mesh and its specs, tensor parallelism,
+               ring and Ulysses attention, the process group
 """
 
 __version__ = "0.1.0"

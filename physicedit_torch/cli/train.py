@@ -1,20 +1,24 @@
 """Training from the command line (``physicedit_tpu/cli/train.py``): the
-JAX package's flags, on one card.
+JAX package's flags, on one card or on a mesh of them.
 
     python -m physicedit_torch.cli.train --dataset_base_path DATA \
         --base_model_path TREE --dinov2_path DINO.safetensors \
         [--output_path ./ckpt] [--quantize_frozen w4] [--optimizer adafactor] \
         [--gradient_accumulation_steps K] [--eval_every_n_steps N] \
         [--resume_from CKPT] [--data_process_output DIR | --cached_inputs_path DIR] \
-        [--attn_impl kernels|dense] [--device cuda|cpu]
+        [--attn_impl kernels|dense|ring] [--device cuda|cpu]
+    torchrun --nproc_per_node N -m physicedit_torch.cli.train ... \
+        --data_parallel D --model_parallel M      # N = D * M
 
 The tree is read by ``PhysicEditPipeline.from_pretrained`` (the files
 ``cli.validate.find_model_files`` finds), DINOv2 from its safetensors file
 (with the ``config.json`` beside it when there is one, else DINOv2-B's).
 ``--data_process_output`` preprocesses every sample once into ``.npz``
 bundles and exits; ``--cached_inputs_path`` trains from them.  A mesh
-(``--data_parallel`` / ``--model_parallel`` above 1) exits: it needs the
-multi-GPU slice of the port.
+(``--data_parallel`` / ``--model_parallel``, one process per GPU, as
+``cli/serving.build_mesh`` checks) trains the JAX package's way: the frozen
+DiT tensor-parallel over ``model``, the global ``--batch_size`` split over
+``data`` (``train/trainer.py``); the first process writes the files.
 """
 
 from __future__ import annotations
@@ -27,7 +31,7 @@ import os
 def build_parser() -> argparse.ArgumentParser:
     from physicedit_torch.ops.attention import IMPLS
 
-    p = argparse.ArgumentParser(description="PhysicEdit training (one GPU)")
+    p = argparse.ArgumentParser(description="PhysicEdit training (GPU)")
     p.add_argument("--dataset_base_path", type=str, required=True)
     p.add_argument("--output_path", type=str, default="./ckpt")
     p.add_argument("--base_model_path", type=str, required=True)
@@ -66,7 +70,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--adapters_dtype", default="float32", choices=("float32", "bfloat16"))
     p.add_argument("--attn_impl", type=str, default=None, choices=list(IMPLS),
                    help="kernels: the hand-written CUDA attention (K1 forward, K8 backward); "
-                        "dense: a plain softmax; default kernels where CUDA is present")
+                        "dense: a plain softmax; ring: the joint sequence split over the "
+                        "model axis; default kernels where CUDA is present")
     p.add_argument("--device", type=str, default="cuda",
                    help="cuda (default) or cpu (the kernels' plain versions)")
     return p
@@ -90,25 +95,29 @@ def load_dinov2(path: str, device):
 
 def main(argv=None):
     """Run the command; returns the ``Trainer``."""
+    from physicedit_torch.cli.serving import build_mesh
     from physicedit_torch.cli.validate import find_model_files
+    from physicedit_torch.models.dit import set_ring_context
     from physicedit_torch.ops.attention import default_impl
+    from physicedit_torch.parallel.multihost import is_main_process
+    from physicedit_torch.parallel.sharding import MODEL_AXIS
     from physicedit_torch.pipeline.edit_pipeline import PhysicEditPipeline
     from physicedit_torch.train.dataset import CachedPreprocessedDataset, PhysicTranDataset
     from physicedit_torch.train.logging_utils import TrainLogger
     from physicedit_torch.train.trainer import TrainConfig, Trainer
 
     args = build_parser().parse_args(argv)
-    if args.data_parallel * args.model_parallel > 1:
-        raise SystemExit(
-            f"--data_parallel {args.data_parallel} x --model_parallel {args.model_parallel}: "
-            "a mesh needs the multi-GPU slice of the port (M10: parallel/sharding.py), "
-            "which is not ported; train on one card")
+    attn_impl = args.attn_impl or default_impl()
+    mesh = build_mesh(args.data_parallel, args.model_parallel, args.device,
+                      need=attn_impl == "ring")
 
     tokenizer_path = args.tokenizer_path or os.path.join(args.base_model_path, "tokenizer")
     pipe = PhysicEditPipeline.from_pretrained(
         find_model_files(args.base_model_path),
         tokenizer_path=tokenizer_path if os.path.isdir(tokenizer_path) else None,
-        attn_impl=args.attn_impl or default_impl(), device=args.device)
+        attn_impl=attn_impl, device=args.device)
+    if attn_impl == "ring":
+        set_ring_context(mesh, MODEL_AXIS)
     pipe.dinov2 = load_dinov2(args.dinov2_path, args.device)
 
     if args.cached_inputs_path:
@@ -131,8 +140,9 @@ def main(argv=None):
         optimizer=args.optimizer, adapters_dtype=args.adapters_dtype,
         loader_workers=args.loader_workers)
 
-    trainer = Trainer(pipe, dataset, cfg, logger=TrainLogger(args.use_wandb),
-                      device=args.device)
+    trainer = Trainer(pipe, dataset, cfg,
+                      logger=TrainLogger(args.use_wandb) if is_main_process() else None,
+                      mesh=mesh, device=args.device)
     if args.data_process_output:
         trainer.cache_preprocessed(args.data_process_output)
         return trainer

@@ -19,6 +19,7 @@ from __future__ import annotations
 import os
 
 from physicedit_torch.cli.validate import resize_image
+from physicedit_torch.parallel.multihost import is_main_process
 
 PICA_PROMPT_COLUMNS = {
     "superficial": "superficial_prompt",
@@ -116,8 +117,9 @@ def run_pica_sweep(pipe, output_dir: str, prompt_type: str = "intermediate",
     col = PICA_PROMPT_COLUMNS.get(prompt_type, prompt_type)
 
     def on_done(out, out_path):
-        out.save(out_path)
-        print(f"[PICA] -> {out_path}", flush=True)
+        if is_main_process():       # on a mesh every process holds every image
+            out.save(out_path)
+            print(f"[PICA] -> {out_path}", flush=True)
 
     batcher = BucketBatcher(pipe, batch_size, seed, num_inference_steps,
                             pipe_kwargs={"cfg_truncate_step": cfg_truncate_step},
@@ -153,8 +155,9 @@ def run_kris_sweep(pipe, output_dir: str, start_idx: int = 0, end_idx: int | Non
     end_idx = len(ds) if end_idx is None else min(end_idx, len(ds))
 
     def on_done(out, out_path):
-        out.save(out_path)
-        print(f"[KRIS] -> {out_path}", flush=True)
+        if is_main_process():       # on a mesh every process holds every image
+            out.save(out_path)
+            print(f"[KRIS] -> {out_path}", flush=True)
 
     batcher = BucketBatcher(pipe, batch_size, seed, num_inference_steps,
                             pipe_kwargs={"cfg_truncate_step": cfg_truncate_step})

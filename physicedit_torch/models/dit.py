@@ -9,7 +9,15 @@ when an EliGen entity bias is given, through kernel K7
 (``fixedmax_attention_bias``) in every block, the slim last block included:
 the fixed-max branch of ``kernels.flash_attention.flash_attention_bnsd``.
 ``attn_impl="dense"`` takes the JAX package's ``attn_impl="xla"`` instead,
-the plain ``ops.attention.sdpa_bnsd`` with the bias.
+the plain ``ops.attention.sdpa_bnsd`` with the bias; ``attn_impl="ring"``
+splits the joint sequence over a mesh axis (:func:`set_ring_context`,
+``parallel/ring_attention.py``: K1 on every hop, the bias through the
+dense lane), the slim last block off.
+
+Under tensor parallelism (``parallel/sharding.shard_params``) a block's
+split projections are ``TPLinear``s: it runs on this rank's heads (read
+from the QKV output's width) and this rank's MLP features, the collectives
+inside the layers, and LoRA deltas through ``sharding.lora_delta_tp``.
 
 A blockwise ControlNet (``models/controlnet.py``) adds its residual to the
 base image rows after each block; the slim last block is off then, as it is
@@ -52,6 +60,39 @@ from physicedit_torch.lora import lora_delta, lora_delta_fused
 from physicedit_torch.ops.attention import sdpa_bnsd
 from physicedit_torch.ops.norms import approximate_gelu, layer_norm, rms_norm
 from physicedit_torch.ops.rope import apply_rope
+from physicedit_torch.parallel.sharding import TPLinear, lora_delta_tp
+
+
+# Sequence-parallel (ring) attention context: attn_impl="ring" splits the
+# joint sequence over this mesh axis (parallel/ring_attention.py); set it
+# once with set_ring_context before the first ring call.
+_RING_CTX = {"mesh": None, "axis": "model"}
+
+
+def set_ring_context(mesh, axis: str = "model") -> None:
+    _RING_CTX["mesh"] = mesh
+    _RING_CTX["axis"] = axis
+
+
+def ring_joint_attention(q, k, v, key_mask, bias=None, tp_group=None, impl=None):
+    """The joint attention under ``attn_impl="ring"``: full-sequence q/k/v
+    [B, N', S, D] through ``ring_attention.sequence_parallel_attention``
+    over the ring context's axis; ``tp_group``, the group the block's heads
+    are split over (tensor parallelism), trades heads for sequence when it
+    is the ring's own.  bias: [B, S, S] in natural-log units or None.
+    impl: the ring's lane (``ring_attention.default_ring_impl`` when None)."""
+    import torch.distributed as dist
+
+    from physicedit_torch.parallel.ring_attention import sequence_parallel_attention
+
+    mesh = _RING_CTX["mesh"]
+    if mesh is None:
+        raise RuntimeError("attn_impl='ring': call models.dit.set_ring_context(mesh) first")
+    group = mesh.get_group(_RING_CTX["axis"])
+    same = tp_group is not None and (dist.get_process_group_ranks(tp_group)
+                                     == dist.get_process_group_ranks(group))
+    return sequence_parallel_attention(q, k, v, key_mask, group, bias=bias, impl=impl,
+                                       heads_split=same)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -92,13 +133,17 @@ def _no_lora(y, x):
     return y
 
 
-def _with_lora(leaf, fused: bool = False):
-    """``y + delta(x)`` in y's dtype for one layer's factors, or no delta."""
+def _with_lora(leaf, fused: bool = False, lin=None):
+    """``y + delta(x)`` in y's dtype for one layer's factors, or no delta;
+    on the slice of ``lin`` when it is tensor-parallel."""
     if leaf is None:
         return _no_lora
 
     def add(y, x):
-        delta = lora_delta_fused(leaf, x) if fused else lora_delta(leaf, x)
+        if isinstance(lin, TPLinear):
+            delta = lora_delta_tp(lin, leaf, x, fused)
+        else:
+            delta = lora_delta_fused(leaf, x) if fused else lora_delta(leaf, x)
         return y + delta.to(y.dtype)
 
     return add
@@ -162,13 +207,13 @@ class DiTBlock(nn.Module):
         or None.  ``attn_bias_log2`` is the joint [B, S, S] entity bias in
         exp2 units: the attention then runs through K7, the slim block's
         reading the rows of its queries as a view.  ``attn_impl``: "kernels"
-        (K1 / K7) or "dense" (the plain softmax, the bias back in natural-log
-        units).
+        (K1 / K7), "dense" (the plain softmax, the bias back in natural-log
+        units) or "ring" (:func:`ring_joint_attention`; not with ``slim_base``).
         """
         cfg = self.cfg
         b, s_i, d = image.shape
         s_t = text.shape[1]
-        n, hd, eps = cfg.num_heads, cfg.head_dim, cfg.eps
+        hd, eps = cfg.head_dim, cfg.eps
         a = self.attn
         lora = lora or {}
         # the JAX package's use_fq: packed block weights the kernels can tile,
@@ -182,9 +227,10 @@ class DiTBlock(nn.Module):
         tx_sh1, tx_sc1, tx_g1, tx_sh2, tx_sc2, tx_g2 = txt_mod.chunk(6, -1)
 
         img_qkv = _mod_linear(a["img_qkv"], image, im_sh1, im_sc1, eps, fq,
-                              _with_lora(lora.get("img_qkv"), fused=True))
+                              _with_lora(lora.get("img_qkv"), True, a["img_qkv"]))
         txt_qkv = _mod_linear(a["txt_qkv"], text, tx_sh1, tx_sc1, eps, fq,
-                              _with_lora(lora.get("txt_qkv"), fused=True))
+                              _with_lora(lora.get("txt_qkv"), True, a["txt_qkv"]))
+        n = img_qkv.shape[-1] // (3 * hd)      # this rank's heads under tensor parallelism
         iq, ik, iv = img_qkv.view(b, s_i, 3, n, hd).permute(2, 0, 3, 1, 4)
         tq, tk, tv = txt_qkv.view(b, s_t, 3, n, hd).permute(2, 0, 3, 1, 4)
 
@@ -211,9 +257,17 @@ class DiTBlock(nn.Module):
         elif attn_impl == "dense":
             out = sdpa_bnsd(q, k, v, key_mask=joint_key_mask,
                             bias=None if rows is None else (rows / LOG2E)[:, None])
+        elif attn_impl == "ring":
+            if slim_base:
+                raise ValueError("the slim last block is a single-GPU lane: it is off under "
+                                 "the ring")
+            out = ring_joint_attention(q, k, v, joint_key_mask,
+                                       None if rows is None else rows / LOG2E,
+                                       a["img_qkv"].group if isinstance(a["img_qkv"], TPLinear)
+                                       else None)
         else:
-            raise ValueError(f"attn_impl {attn_impl!r}: the DiT takes 'kernels' or 'dense' "
-                             "('ring' comes with the multi-GPU slice)")
+            raise ValueError(f"attn_impl {attn_impl!r}: the DiT takes 'kernels', 'dense' "
+                             "or 'ring'")
 
         # K6: the heads-to-features transpose and the row quantize in one pass
         if slim_base:
@@ -225,11 +279,12 @@ class DiTBlock(nn.Module):
                                      f"{slim_base} rows")
                 img_o = w4a8_linear_q(a["to_out"], *fq_attn, image.dtype)
             else:
-                out2 = out.transpose(1, 2).reshape(b, slim_base, d)
-                img_o = _with_lora(lora.get("to_out"))(a["to_out"](out2), out2)
+                out2 = out.transpose(1, 2).reshape(b, slim_base, -1)
+                img_o = _with_lora(lora.get("to_out"), lin=a["to_out"])(a["to_out"](out2), out2)
             image = image[:, :slim_base] + im_g1[:, None, :] * img_o
-            image = image + im_g2[:, None, :] * _mlp(self.img_mlp, image, im_sh2, im_sc2,
-                                                     eps, fq, _with_lora(lora.get("img_mlp_fc2")))
+            image = image + im_g2[:, None, :] * _mlp(
+                self.img_mlp, image, im_sh2, im_sc2, eps, fq,
+                _with_lora(lora.get("img_mlp_fc2"), lin=self.img_mlp["fc2"]))
             return None, image
 
         fq_attn = None
@@ -241,16 +296,20 @@ class DiTBlock(nn.Module):
             txt_o = w4a8_linear_q(a["to_add_out"], q_all[:, :s_t], sc_all[:, :s_t],
                                   image.dtype)
         else:
-            out = out.transpose(1, 2).reshape(b, s_t + s_i, d)
+            out = out.transpose(1, 2).reshape(b, s_t + s_i, -1)
             img_attn, txt_attn = out[:, s_t:], out[:, :s_t]
-            img_o = _with_lora(lora.get("to_out"))(a["to_out"](img_attn), img_attn)
-            txt_o = _with_lora(lora.get("to_add_out"))(a["to_add_out"](txt_attn), txt_attn)
+            img_o = _with_lora(lora.get("to_out"), lin=a["to_out"])(a["to_out"](img_attn),
+                                                                    img_attn)
+            txt_o = _with_lora(lora.get("to_add_out"), lin=a["to_add_out"])(
+                a["to_add_out"](txt_attn), txt_attn)
         image = image + im_g1[:, None, :] * img_o
         text = text + tx_g1[:, None, :] * txt_o
-        image = image + im_g2[:, None, :] * _mlp(self.img_mlp, image, im_sh2, im_sc2, eps, fq,
-                                                 _with_lora(lora.get("img_mlp_fc2")))
-        text = text + tx_g2[:, None, :] * _mlp(self.txt_mlp, text, tx_sh2, tx_sc2, eps, fq,
-                                               _with_lora(lora.get("txt_mlp_fc2")))
+        image = image + im_g2[:, None, :] * _mlp(
+            self.img_mlp, image, im_sh2, im_sc2, eps, fq,
+            _with_lora(lora.get("img_mlp_fc2"), lin=self.img_mlp["fc2"]))
+        text = text + tx_g2[:, None, :] * _mlp(
+            self.txt_mlp, text, tx_sh2, tx_sc2, eps, fq,
+            _with_lora(lora.get("txt_mlp_fc2"), lin=self.txt_mlp["fc2"]))
         return text, image
 
 
@@ -284,8 +343,9 @@ class DiT(nn.Module):
         activations.  ``attn_bias_log2``: the EliGen entity bias [B, S_t +
         S_i, S_t + S_i] in exp2 units (``kernels.flash_attention.bias_log2``
         of the 0 / -1e30 bias, made once per edit).  ``control``: a
-        ``models.controlnet.Control`` at this step.  ``attn_impl``: "kernels"
-        or "dense" (``DiTBlock.forward``)."""
+        ``models.controlnet.Control`` at this step.  ``attn_impl``: "kernels",
+        "dense" or "ring" (``DiTBlock.forward``; the slim last block is off
+        under the ring)."""
         cfg = self.cfg
         s_i = img_tokens.shape[1]
         image = self.img_in(img_tokens)
@@ -300,7 +360,8 @@ class DiT(nn.Module):
             joint_key_mask = F.pad(txt_key_mask.bool(), (0, s_i), value=True)
 
         last = len(self.blocks) - 1
-        slim_last = 0 if lora is not None or control is not None else slim_last
+        slim_last = 0 if lora is not None or control is not None or attn_impl == "ring" \
+            else slim_last
         layer_lora = [None] * len(self.blocks) if lora is None else lora.layers()
         remat = use_remat and torch.is_grad_enabled()
         for i, block in enumerate(self.blocks):

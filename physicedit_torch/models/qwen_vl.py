@@ -6,7 +6,9 @@ M-RoPE with sections [16, 24, 24] over (t, h, w) positions.  Full-sequence
 attention (prefill, prompt encode) runs through kernel K2
 (``kernels/flash_attention.gqa_causal_attention``) on the card; the
 single-token decode attention is plain PyTorch, as it is XLA in the JAX
-package.  The KV cache is preallocated and written in place: bf16, or with
+package.  Under tensor parallelism (``parallel/sharding.shard_params``) a
+layer runs this rank's query and KV heads, read from its projections'
+widths, and the KV cache holds those heads.  The KV cache is preallocated and written in place: bf16, or with
 ``kv_int8`` int8 with one bf16 scale per (position, KV head).
 
 The quantized lane (``PhysicEditPipeline.quantize_``) adds packed-int4
@@ -119,6 +121,8 @@ class TextLayer(nn.Module):
             q, k, v = self.qkv(h).split([n * d, kvh * d, kvh * d], dim=-1)
         else:
             q, k, v = self.q(h), self.k(h), self.v(h)
+            # this rank's heads under tensor parallelism (parallel/sharding.py)
+            n, kvh = q.shape[-1] // d, k.shape[-1] // d
         q = q.reshape(b, s, n, d)
         k = k.reshape(b, s, kvh, d)
         v = v.reshape(b, s, kvh, d).contiguous()
@@ -266,12 +270,13 @@ class QwenVLText(nn.Module):
         cos, sin = mrope_cos_sin(position_ids, cfg)
         key_mask = attn_mask.bool()
         bias = causal_bias(key_mask)
-        shape = (cfg.num_layers, b, max_total_len, cfg.num_kv_heads, cfg.head_dim)
-        kbuf = torch.zeros(shape, dtype=inputs_embeds.dtype, device=inputs_embeds.device)
-        vbuf = torch.zeros_like(kbuf)
         x = inputs_embeds
         for i, layer in enumerate(self.layers):
             x, k, v = layer(x, cos, sin, bias, key_mask)
+            if i == 0:      # k's heads: this rank's under tensor parallelism
+                shape = (cfg.num_layers, b, max_total_len, k.shape[2], cfg.head_dim)
+                kbuf = torch.zeros(shape, dtype=inputs_embeds.dtype, device=inputs_embeds.device)
+                vbuf = torch.zeros_like(kbuf)
             kbuf[i, :, :s] = k
             vbuf[i, :, :s] = v
         hidden = self._final(x)

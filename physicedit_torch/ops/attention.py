@@ -13,7 +13,10 @@ package's ``impl`` in the port's own words:
   torch ops;
 - ``"kernels"`` (JAX ``"pallas"``): ``kernels.flash_attention.flash_attention``,
   the hand-written CUDA kernels (their plain versions for CPU tensors);
-- ``"ring"`` (sequence-parallel) raises until the multi-GPU slice.
+- ``"ring"``: the sequence split over the axis of the DiT's ring context
+  (``models.dit.set_ring_context``), through
+  ``parallel/ring_attention.sequence_parallel_attention`` (K1 on every hop
+  on the card; a bias takes the dense lane).
 
 :func:`default_impl` gives ``"kernels"`` where CUDA is present, else
 ``"dense"``.
@@ -24,7 +27,7 @@ from __future__ import annotations
 import torch
 
 NEG_INF = -1e30
-IMPLS = ("dense", "kernels")
+IMPLS = ("dense", "kernels", "ring")
 
 
 def sdpa_bnsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -60,7 +63,9 @@ def attention(q, k, v, key_mask=None, bias=None, impl: str = "dense",
     ``"fixedmax"`` assumes bounded logits (the DiT RMS-norms q and k), where
     the clamp of 100 (exp2 units) flattens the softmax of larger ones;
     callers with unnormalised q and k must pass ``"online"``, the running-max
-    kernel K10."""
+    kernel K10.  ``impl="ring"`` takes the full sequence on every rank of
+    the ring's axis and returns it whole; its ``"online"`` variant is the
+    ring's dense lane (a running max)."""
     if impl == "dense":
         return sdpa_xla(q, k, v, key_mask=key_mask, bias=bias)
     if impl == "kernels":
@@ -68,8 +73,14 @@ def attention(q, k, v, key_mask=None, bias=None, impl: str = "dense",
 
         return flash_attention(q, k, v, key_mask=key_mask, bias=bias, variant=variant)
     if impl == "ring":
-        raise NotImplementedError("attn_impl='ring' (sequence-parallel attention) is not "
-                                  "ported: it comes with the multi-GPU slice")
+        from physicedit_torch.models.dit import ring_joint_attention
+
+        if bias is not None and bias.shape[1] != 1:
+            raise ValueError("impl='ring' takes a head-shared bias [B, 1, S_q, S_k]")
+        out = ring_joint_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                                   key_mask, None if bias is None else bias[:, 0],
+                                   impl="dense" if variant == "online" else None)
+        return out.transpose(1, 2)
     raise ValueError(f"unknown attention impl {impl!r}; known: {IMPLS}")
 
 

@@ -23,13 +23,17 @@ counts that set the stages' shapes.
 
 :meth:`PhysicEditPipeline.quantize_` turns a loaded pipeline into the JAX
 package's ``quantize="int4"`` (W4A8) or ``quantize="int8"`` (W8A8) serving
-lane, in place.
+lane, in place.  :meth:`PhysicEditPipeline.shard` spreads it over a
+mesh of GPUs (``parallel/sharding.py``, one process per GPU): the DiT and
+the VL text model tensor-parallel over ``model``, the serving batch of
+``edit_batch`` / ``edit_batch_mixed`` over ``data``.
 :meth:`PhysicEditPipeline.from_pretrained` builds a pipeline from checkpoint
 files in the reference's torch layout (``io/convert.py``), identified by the
 hash of their keys, with an optional finetuned PhysicEdit export or LoRA file
 merged into the DiT; ``load_lora`` / ``clear_lora`` merge or hot-load a LoRA
 afterwards.  ``attn_impl`` names the DiT's attention: ``"kernels"`` (K1 /
-K7, the JAX package's ``"pallas"``) or ``"dense"`` (its ``"xla"``).
+K7, the JAX package's ``"pallas"``), ``"dense"`` (its ``"xla"``) or
+``"ring"`` (sequence-parallel, ``models.dit.set_ring_context``).
 """
 
 from __future__ import annotations
@@ -38,12 +42,14 @@ import contextlib
 import json
 import os
 import time
+import warnings
 
 import numpy as np
 import torch
 
 from physicedit_torch.kernels.flash_attention import LOG2E
-from physicedit_torch.kernels.quant_matmul import DIT_OUTER_KEYS, quantize_module_int4
+from physicedit_torch.kernels.quant_matmul import (DIT_OUTER_KEYS, W4Linear,
+                                                   quantize_module_int4)
 from physicedit_torch import lora as tlora
 from physicedit_torch.io import convert as C
 from physicedit_torch.io.safetensors_io import (EXTENSION_LOADERS, detect_model_name,
@@ -52,12 +58,14 @@ from physicedit_torch.models import vae as m_vae
 from physicedit_torch.models.controlnet import (Control, controlnet_step_scales,
                                                 process_conditioning)
 from physicedit_torch.models.dit import DiT, attn_clamp_needed
-from physicedit_torch.models.qwen_vl import (QwenVLText, fuse_decode_projections,
+from physicedit_torch.models.qwen_vl import (Int8Embedding, QwenVLText, fuse_decode_projections,
                                              quantize_embedding_int8)
 from physicedit_torch.models.qwen_vl_vision import QwenVLVision
 from physicedit_torch.ops import rope as m_rope
-from physicedit_torch.ops.quant import quantize_module_int8
+from physicedit_torch.ops.quant import Int8Linear, quantize_module_int8
 from physicedit_torch.ops.patchify import patchify
+from physicedit_torch.parallel import comm
+from physicedit_torch.parallel import sharding as shd
 from physicedit_torch.pipeline import eligen as EL
 from physicedit_torch.pipeline import prompt as P
 from physicedit_torch.pipeline import vl_host
@@ -83,7 +91,8 @@ class PhysicEditPipeline:
         self.adapters = dict(adapters or {})
         self.adapter = adapter if adapter is not None else self.adapters.get(
             "visual_thinking_adapter")
-        self.attn_impl = attn_impl      # "kernels" or "dense" (models/dit.py)
+        self.attn_impl = attn_impl      # "kernels", "dense" or "ring" (models/dit.py)
+        self.mesh = None                # a DeviceMesh after shard()
         self.dit_lora = None            # hot-loaded LoRA factors (load_lora)
         self.dinov2 = dinov2            # the training prior's DINOv2 (train/)
         self.controlnet = controlnet    # models/controlnet.BlockwiseControlNet or None
@@ -258,6 +267,10 @@ class PhysicEditPipeline:
         the activations int8 per row at run time; the ViT, the KV cache, the
         token table, the adapter and the VAE stay as they are (a model the
         pipeline was loaded without is skipped, as in the JAX package)."""
+        if self.mesh is not None:
+            raise ValueError("quantize_ after shard(): quantized residency and mesh sharding "
+                             "are alternative memory strategies - quantize an unsharded "
+                             "pipeline")
         if mode == "int8":
             for model in (self.dit, self.text):
                 if model is not None:
@@ -270,6 +283,58 @@ class PhysicEditPipeline:
         self.kv_int8 = True
         quantize_module_int4(self.vision)
         return self
+
+    @torch.no_grad()
+    def shard(self, mesh) -> "PhysicEditPipeline":
+        """Spread the pipeline over a mesh (the JAX package's ``shard``): the
+        DiT and the VL text model tensor-parallel over ``model``
+        (``parallel/sharding.py``: each process keeps its slice of the split
+        weights), everything else replicated, as is a hot-loaded LoRA and the
+        adapters (every process already holds its own copy).  ``edit_batch``
+        and ``edit_batch_mixed`` then split their items over ``data``.
+        Quantized weights raise: the two are alternative memory strategies."""
+        def quantized(model):
+            return model is not None and any(
+                isinstance(m, (W4Linear, Int8Linear, Int8Embedding)) for m in model.modules())
+
+        if quantized(self.dit) or quantized(self.text):
+            raise ValueError(
+                "shard() needs unquantized bf16 weights: quantized residency "
+                "(quantize='int8'/'int4') and mesh sharding are alternative memory "
+                "strategies - reload with quantize=None to tensor-parallel over a mesh")
+        shd.shard_params(self.dit, shd.dit_param_specs(self.dit), mesh)
+        if self.text is not None:
+            shd.shard_params(self.text, shd.qwen_vl_text_param_specs(self.text), mesh)
+        self.mesh = mesh
+        return self
+
+    def _data_split(self, n: int, warn: bool):
+        """(this process's items, the data group) when the mesh's ``data``
+        axis divides the n items; None when there is no such axis, or, with
+        a warning when ``warn``, when it does not divide n (every process
+        then runs every item, as the JAX package runs without its DP
+        placement)."""
+        mesh = self.mesh
+        if mesh is None:
+            return None
+        n_data = mesh.size(mesh.mesh_dim_names.index(shd.DATA_AXIS))
+        if n_data == 1:
+            return None
+        if n % n_data:
+            if warn:
+                warnings.warn(f"{n} items do not divide the data axis ({n_data}); running "
+                              f"WITHOUT data-parallel placement - pad the batch to a multiple "
+                              f"of {n_data}")
+            return None
+        per, c = n // n_data, mesh.get_local_rank(shd.DATA_AXIS)
+        return list(range(c * per, (c + 1) * per)), mesh.get_group(shd.DATA_AXIS)
+
+    def _gather_images(self, images: list, group) -> list:
+        """The data group's images (one shape) in rank order, on every rank."""
+        from PIL import Image
+
+        arr = torch.as_tensor(np.stack([np.asarray(im) for im in images]), device=self.device)
+        return [Image.fromarray(a) for a in comm.all_gather_cat(arr, 0, group).cpu().numpy()]
 
     @contextlib.contextmanager
     def _timed(self, name: str):
@@ -738,7 +803,10 @@ class PhysicEditPipeline:
                    edit_image_auto_resize: bool = False) -> list:
         """Edit N same-resolution images in one denoise: the CFG batch
         carries N positives and N negatives (2N DiT rows).  Item i uses
-        ``seeds[i]`` (default i) for its noise.  Returns N PIL images."""
+        ``seeds[i]`` (default i) for its noise.  Returns N PIL images.  On a
+        mesh (:meth:`shard`) each rank of the ``data`` axis denoises its
+        N / n_data items after the shared conditioning, and every rank
+        returns all N images in order."""
         n = len(prompts)
         if n < 1 or len(edit_images) != n:
             raise ValueError(f"edit_batch: {n} prompts for {len(edit_images)} images")
@@ -755,14 +823,25 @@ class PhysicEditPipeline:
         if len(shapes) != 1:
             raise ValueError(f"edit_batch requires one resolution bucket, got {shapes}")
         (eh, ew), = shapes
+        use_cfg = cfg_scale != 1.0
         prompt_emb, txt_mask, specials = self._serving_conditioning(
-            prompts, edit_images, negative_prompt, cfg_scale != 1.0, have_text_reasoning)
+            prompts, edit_images, negative_prompt, use_cfg, have_text_reasoning)
         ropes = m_rope.build_rope_tables([(1, lat_h // 2, lat_w // 2), (1, eh // 2, ew // 2)],
                                          txt_mask.shape[1], axes_dim=self.rope_axes)
-        latents = self._run_denoise(noise, torch.cat([patchify(lat) for lat in lats]),
-                                    prompt_emb, txt_mask, specials, ropes, sched, cfg_scale,
-                                    (lat_h, lat_w), cfg_truncate_step)
-        return self.decode_images(latents)
+        split = self._data_split(n, warn=True)
+        if split is None:
+            latents = self._run_denoise(noise, torch.cat([patchify(lat) for lat in lats]),
+                                        prompt_emb, txt_mask, specials, ropes, sched, cfg_scale,
+                                        (lat_h, lat_w), cfg_truncate_step)
+            return self.decode_images(latents)
+        # data parallel: this process denoises its items (the CFG rows of
+        # each), and the images come back in order from the whole data axis
+        idxs, group = split
+        rows = idxs + [n + i for i in idxs] if use_cfg else idxs
+        latents = self._run_denoise(noise[idxs], torch.cat([patchify(lats[i]) for i in idxs]),
+                                    prompt_emb[rows], txt_mask[rows], [specials[i] for i in rows],
+                                    ropes, sched, cfg_scale, (lat_h, lat_w), cfg_truncate_step)
+        return self._gather_images(self.decode_images(latents), group)
 
     def edit_batch_mixed(self, prompts: list, edit_images: list, negative_prompt: str = "",
                          cfg_scale: float = 4.0, cfg_truncate_step: int | None = None,
@@ -775,7 +854,8 @@ class PhysicEditPipeline:
         grouped by (output latent, edit latent) shape and each group
         denoises at its own size.  ``heights[i]`` / ``widths[i]`` default to
         image i's size; item i uses ``seeds[i]`` (default i).  Returns N PIL
-        images in input order."""
+        images in input order.  On a mesh a shape group whose size divides
+        the ``data`` axis is split over it, as in :meth:`edit_batch`."""
         n = len(prompts)
         if n < 1 or len(edit_images) != n:
             raise ValueError(f"edit_batch_mixed: {n} prompts for {len(edit_images)} images")
@@ -799,18 +879,24 @@ class PhysicEditPipeline:
             groups.setdefault((heights[i] // 8, widths[i] // 8, *lat.shape[1:3]), []).append(i)
         results: list = [None] * n
         for (lat_h, lat_w, eh, ew), idxs in groups.items():
+            # data parallel per shape group, when its size divides the data axis
+            split = self._data_split(len(idxs), warn=False)
+            mine = idxs if split is None else [idxs[j] for j in split[0]]
             sched = fm.build_schedule(num_inference_steps, fm.QWEN_IMAGE_CONFIG,
                                       dynamic_shift_len=(lat_h // 2) * (lat_w // 2))
             noise = torch.cat([self.generate_noise((1, lat_h, lat_w, 16), seeds[i])
-                               for i in idxs])
-            rows = idxs + [n + i for i in idxs] if use_cfg else idxs
+                               for i in mine])
+            rows = mine + [n + i for i in mine] if use_cfg else mine
             ropes = m_rope.build_rope_tables([(1, lat_h // 2, lat_w // 2), (1, eh // 2, ew // 2)],
                                              txt_mask.shape[1], axes_dim=self.rope_axes)
             latents = self._run_denoise(
-                noise, torch.cat([patchify(lats[i]) for i in idxs]), prompt_emb[rows],
+                noise, torch.cat([patchify(lats[i]) for i in mine]), prompt_emb[rows],
                 txt_mask[rows], [specials[i] for i in rows], ropes, sched, cfg_scale,
                 (lat_h, lat_w), cfg_truncate_step)
-            for img, i in zip(self.decode_images(latents), idxs):
+            images = self.decode_images(latents)
+            if split is not None:
+                images = self._gather_images(images, split[1])
+            for img, i in zip(images, idxs):
                 results[i] = img
         return results
 

@@ -55,9 +55,10 @@ def denoise(dit: DiT, latents, extra_img_tokens, prompt_emb, txt_mask,
     [1, h, w, 16]: outside the mask the velocity is the one the clean
     latents imply.  control: a ``models.controlnet.Control`` (its ``step``
     is set here), which turns the slim last block off.  lora: live LoRA
-    factors (``lora.DiTLoRA``), which turn it off too.  attn_impl: the DiT's
-    ("kernels" or "dense").  The loop runs under no-grad unless ``grad``
-    (``train.loss.direct_distill_loss`` differentiates through it).
+    factors (``lora.DiTLoRA``), which turn it off too, as does the ring.
+    attn_impl: the DiT's ("kernels", "dense" or "ring").  The loop runs
+    under no-grad unless ``grad`` (``train.loss.direct_distill_loss``
+    differentiates through it).
     """
     with torch.set_grad_enabled(grad):
         h, w = latent_hw
@@ -69,7 +70,8 @@ def denoise(dit: DiT, latents, extra_img_tokens, prompt_emb, txt_mask,
         if k is not None and k < 0:
             raise ValueError(f"cfg_truncate_after must be >= 0, got {k}")
 
-        slim = base if slim_last and control is None and lora is None else 0
+        slim = base if (slim_last and control is None and lora is None
+                        and attn_impl != "ring") else 0
 
         for i in range(sigmas.shape[0]):
             if k is not None and reps == 2 and i == k:

@@ -277,16 +277,35 @@ def make_optimizer(lr: float = 1e-5, weight_decay: float = 1e-2,
     return opt
 
 
+def _mean_over(tensors, group) -> None:
+    """All-reduce-average ``tensors`` in place over a process group."""
+    import torch.distributed as dist
+
+    n = dist.get_world_size(group)
+    for t in tensors:
+        dist.all_reduce(t, group=group)
+        t.div_(n)
+
+
 def train_step(trainable: torch.nn.Module, dit, optimizer, opt_state,
                batch: dict, t_min: float, t_max: float, use_remat: bool = True,
-               attn_impl: str = "kernels") -> dict:
+               attn_impl: str = "kernels", grad_group=None) -> dict:
     """Loss, backward, update (in place); returns the step's metrics as 0-dim
-    tensors: loss, mse, special_token_loss."""
+    tensors: loss, mse, special_token_loss.  ``grad_group``: the data
+    axis's process group, over which the gradients and the metrics are
+    averaged before the update (each process's batch is its rows of the
+    global batch, of equal size, and the loss is a mean over rows)."""
     for p in trainable.parameters():
         p.grad = None
     loss, metrics = physic_training_loss(trainable, dit, batch, t_min, t_max,
                                          use_remat=use_remat, attn_impl=attn_impl)
     loss.backward()
-    optimizer.step(trainable, opt_state)
     metrics["loss"] = loss.detach()
+    if grad_group is not None:
+        for p in trainable.parameters():
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        _mean_over([p.grad for p in trainable.parameters()] + list(metrics.values()),
+                   grad_group)
+    optimizer.step(trainable, opt_state)
     return metrics

@@ -29,8 +29,18 @@ serves the W4 lane for inference too.
 The DiT runs in the pipeline's dtype: the prompt embedding is handed to it
 in that dtype (the JAX trainer keeps it fp32 and lets ``jnp`` promote; at
 fp32 the two agree; ``tests/test_torch_train.py`` holds the bf16 loss and
-gradients against the JAX package fed the same bf16 embedding).  Not
-ported: the mesh path (multi-GPU training, M10).
+gradients against the JAX package fed the same bf16 embedding).
+
+With a ``mesh`` (``parallel/sharding.create_mesh``, one process per GPU)
+the frozen DiT is tensor-parallel over ``model`` (or, packed W4,
+replicated: W4 with a model axis above one raises, as in the JAX package),
+the trainable surface and the optimizer state are replicated (every process
+builds them alike from ``cfg.seed``), each step's rows go by the ``data``
+axis (``multihost.host_local_batch_slice``) and the gradients and metrics
+are all-reduce-averaged over it, so the update is the JAX package's over
+the global batch.  Every process reads and preprocesses every item (the
+draws stay in lockstep); only the first writes checkpoints, bundles and
+eval strips.
 """
 
 from __future__ import annotations
@@ -52,6 +62,8 @@ from physicedit_torch.lora import (DiTLoRA, import_dit_lora, init_dit_lora,
 from physicedit_torch.models import adapters as m_ad
 from physicedit_torch.ops import rope as m_rope
 from physicedit_torch.ops.patchify import patchify
+from physicedit_torch.parallel import sharding as shd
+from physicedit_torch.parallel.multihost import host_local_batch_slice, is_main_process
 from physicedit_torch.pipeline import visual_prior
 from physicedit_torch.pipeline.vl_host import bucket_pad_text
 from physicedit_torch.sampling import flow_match as fm
@@ -148,9 +160,6 @@ def init_trainable(pipe, cfg: TrainConfig, device) -> Trainable:
 class Trainer:
     def __init__(self, pipe, dataset, cfg: TrainConfig, logger=None, mesh=None,
                  device="cuda"):
-        if mesh is not None:
-            raise NotImplementedError("multi-GPU training (mesh=) needs the multi-GPU slice of "
-                                      "the port (M10: parallel/sharding.py), which is not ported")
         self.device = torch.device(device)
         if pipe.device != self.device:
             raise ValueError(f"the pipeline is on {pipe.device}, the trainer on {self.device}")
@@ -160,13 +169,21 @@ class Trainer:
         self.dataset = dataset
         self.cfg = cfg
         self.logger = logger
-        # pack the frozen DiT first: its bf16 weights go before the trainable
-        # surface and the optimizer state are allocated
+        self.mesh = mesh
+        self.is_main = is_main_process()
+        # pack (or split) the frozen DiT first: its bf16 weights go before the
+        # trainable surface and the optimizer state are allocated
         if cfg.quantize_frozen == "w4":
+            if mesh is not None and mesh.size(mesh.mesh_dim_names.index(shd.MODEL_AXIS)) != 1:
+                raise ValueError("quantize_frozen='w4' is the single-GPU / data-parallel "
+                                 "residency plan; tensor-parallel meshes use bf16 sharding "
+                                 "(pick one)")
             quantize_module_int4(pipe.dit, min_size=cfg.quantize_min_size,
                                  skip_top=DIT_OUTER_KEYS)
         elif cfg.quantize_frozen != "none":
             raise ValueError(f"unknown quantize_frozen: {cfg.quantize_frozen}")
+        elif mesh is not None:
+            shd.shard_params(pipe.dit, shd.dit_param_specs(pipe.dit), mesh)
         self.optimizer = make_optimizer(
             cfg.learning_rate, cfg.weight_decay, cfg.gradient_accumulation_steps,
             state_dtype=(None if cfg.optimizer_state_dtype == "float32"
@@ -320,8 +337,9 @@ class Trainer:
             micro = self.preprocess(sample)
             if micro is None:
                 continue
-            np.savez_compressed(os.path.join(output_dir, f"{i:06d}.npz"),
-                                **{k: bundle_array(k, v) for k, v in micro.items()})
+            if self.is_main:
+                np.savez_compressed(os.path.join(output_dir, f"{i:06d}.npz"),
+                                    **{k: bundle_array(k, v) for k, v in micro.items()})
             n += 1
         print(f"[TRAIN] cached {n} preprocessed samples -> {output_dir}")
         return n
@@ -405,23 +423,26 @@ class Trainer:
         strip.paste(out.resize(size), (size[0] * 2, 0))
         if self.logger is not None:
             self.logger.log_eval_image(self.global_step, strip, caption=sample["prompt"])
-        os.makedirs(self.cfg.output_path, exist_ok=True)
         path = os.path.join(self.cfg.output_path, f"eval-step-{self.global_step}.jpg")
-        strip.save(path)
-        print(f"[EVAL] step={self.global_step} -> {path}")
+        if self.is_main:
+            os.makedirs(self.cfg.output_path, exist_ok=True)
+            strip.save(path)
+            print(f"[EVAL] step={self.global_step} -> {path}")
         return strip
 
     # ------------------------------------------------------------------
 
     def step(self, batch: dict) -> dict:
-        """One optimizer step on ``batch``; returns its metrics as floats
-        with the step's wall time (ended by a device synchronise)."""
+        """One optimizer step on ``batch`` (the global batch; on a mesh this
+        process takes its rows); returns its metrics as floats with the
+        step's wall time (ended by a device synchronise)."""
         sync = torch.cuda.synchronize if self.device.type == "cuda" else (lambda: None)
         sync()
         t0 = time.perf_counter()
         metrics = train_step(self.trainable, self.pipe.dit, self.optimizer, self.opt_state,
-                             batch, self.t_min, self.t_max, use_remat=self.cfg.use_remat,
-                             attn_impl=self.pipe.attn_impl)
+                             local_rows(batch, self.mesh), self.t_min, self.t_max,
+                             use_remat=self.cfg.use_remat, attn_impl=self.pipe.attn_impl,
+                             grad_group=data_group(self.mesh))
         metrics = {k: float(v) for k, v in metrics.items()}
         sync()
         metrics["seconds"] = time.perf_counter() - t0
@@ -479,11 +500,37 @@ class Trainer:
                   f"trained on")
 
     def save(self, epoch: int) -> str:
+        """Write a checkpoint (the first process only, on a mesh); returns
+        its path."""
+        if not self.is_main:
+            return os.path.join(self.cfg.output_path, f"step-{self.global_step}.safetensors")
         path = ckpt.save_checkpoint(self.cfg.output_path, self.trainable, self.global_step,
                                     epoch, batches_per_epoch=len(self.dataset),
                                     sample_index=getattr(self, "_epoch_pos", 0))
         print(f"[ckpt] saved {path}")
         return path
+
+
+def data_group(mesh):
+    """The mesh's ``data`` group when that axis spans more than one process,
+    else None."""
+    if mesh is None or mesh.size(mesh.mesh_dim_names.index(shd.DATA_AXIS)) == 1:
+        return None
+    return mesh.get_group(shd.DATA_AXIS)
+
+
+def local_rows(batch: dict, mesh) -> dict:
+    """This process's rows of a global batch on a mesh whose ``data`` axis
+    spans processes (the fields whose leading dim is the batch, the RoPE
+    tables excepted: the JAX trainer's ``_place_batch``); else the batch."""
+    if data_group(mesh) is None:
+        return batch
+    b = int(batch["input_latents"].shape[0])
+    start, per = host_local_batch_slice(b, mesh)
+    return {k: v[start:start + per]
+            if v.dim() >= 1 and v.shape[0] == b
+            and k not in ("img_cos", "img_sin", "txt_cos", "txt_sin") else v
+            for k, v in batch.items()}
 
 
 def bundle_array(key: str, value: torch.Tensor) -> np.ndarray:

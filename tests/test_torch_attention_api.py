@@ -276,10 +276,16 @@ def test_flash_attention_dense_rule_matches_jax(case, interpret, monkeypatch):
     np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
 
 
-def test_attention_impl_names():
+def test_attention_impl_names(monkeypatch):
+    """The impl names; "ring" runs over the DiT's ring context and asks for
+    one first (tests/test_torch_parallel.py runs it on four ranks)."""
+    from physicedit_torch.models import dit as t_dit
+
     q, k, v = _t(*_bsnd(40, 1, 8, 1, 128))
     assert t_attn.default_impl() == ("kernels" if torch.cuda.is_available() else "dense")
-    with pytest.raises(NotImplementedError, match="ring"):
+    assert t_attn.IMPLS == ("dense", "kernels", "ring")
+    monkeypatch.setitem(t_dit._RING_CTX, "mesh", None)
+    with pytest.raises(RuntimeError, match="set_ring_context"):
         t_attn.attention(q, k, v, impl="ring")
     with pytest.raises(ValueError, match="unknown attention impl"):
         t_attn.attention(q, k, v, impl="xla")

@@ -258,10 +258,12 @@ def test_serving_args_reach_the_sweep(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("flags", [["--data_parallel", "2"], ["--model_parallel", "4"]])
 def test_mesh_flags_raise(tmp_path, flags):
-    """A mesh needs the multi-GPU slice (M10), which is not ported."""
+    """A mesh needs one process per device: in a single process (no
+    torchrun) the flags exit before anything is loaded, naming the
+    processes the mesh needs."""
     from physicedit_torch.cli import serving
 
-    with pytest.raises(SystemExit, match="M10"):
+    with pytest.raises(SystemExit, match="processes"):
         serving.build_pipeline(_serving_parser(tmp_path).parse_args(flags))
 
 

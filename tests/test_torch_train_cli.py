@@ -478,15 +478,28 @@ def test_evaluate_matches_jax_and_restores_the_pipeline(tiny_pipes, tmp_path):
     assert tt.evaluate(0) is None
 
 
+class _TensorParallelMesh:
+    """The shape of a (1, 2) mesh, all the trainer reads before it refuses W4."""
+
+    mesh_dim_names = ("data", "model")
+
+    @staticmethod
+    def size(dim):
+        return (1, 2)[dim]
+
+
 def test_mesh_and_its_flags_raise(tiny_pipes, tmp_path):
-    """The mesh path is M10's: the trainer raises, and the CLI exits naming
-    M10 before it loads anything."""
+    """A packed W4 frozen DiT with a model axis above one raises, as in the
+    JAX package (the mesh path itself: tests/test_torch_parallel_*.py); the
+    CLI's mesh flags in a single process (no torchrun) exit before it loads
+    anything, naming the processes the mesh needs."""
     _, tpipe = tiny_pipes
-    with pytest.raises(NotImplementedError, match="M10"):
-        t_trainer.Trainer(tpipe, SyntheticDataset(), t_trainer.TrainConfig(**_train_cfg()),
-                          mesh=object(), device="cpu")
+    with pytest.raises(ValueError, match="tensor-parallel"):
+        t_trainer.Trainer(tpipe, SyntheticDataset(),
+                          t_trainer.TrainConfig(**_train_cfg(quantize_frozen="w4")),
+                          mesh=_TensorParallelMesh(), device="cpu")
     for flags in (["--data_parallel", "2"], ["--model_parallel", "2"]):
-        with pytest.raises(SystemExit, match="M10"):
+        with pytest.raises(SystemExit, match="processes"):
             t_cli.main(["--dataset_base_path", str(tmp_path), "--base_model_path",
                         str(tmp_path / "none"), "--dinov2_path", "none", *flags])
 

@@ -154,6 +154,26 @@ Phases, each printed as one JSON line, any failure exits non-zero:
      (this script with ``--dist-worker``) runs the small model's ring, TP
      and DP edits and a DP training step against one card; with one GPU
      its line says it did not run.
+ 18. the video path (``physicedit_torch/extensions``, ``models/vae3d.py``,
+     ``data/video.py``), after phase 15, with every earlier pipeline dropped:
+     (a) the video VAE at base_dim 16 in fp32 on the card against the CPU
+     (encode and decode of a 1x5x64x64 clip), then at Qwen-Image's widths in
+     bf16 on a 17-frame 480x832 clip (times, peak memory; its first frame
+     against the image VAE on the last taps, a 5-frame prefix against the
+     clip's first latents); (b) ESRGAN at its published widths against the
+     CPU at 64x64 (rel-L2, uint8 levels), then ``upscale`` of a 1024^2 image
+     to 4096^2, whole and through ``tiled_forward`` (tile 256, stride 192);
+     (c) RIFE's IFNet at c 90 against the CPU on one 480x832 frame pair, then
+     ``RIFEInterpolater`` over the clip (17 -> 33 frames); (d) FastBlend's
+     ``_remap`` / ``_patch_error`` at 480x832 against the CPU, ``smooth_video``
+     on a 5-frame 64x96 clip against the CPU (the share of pixels within a
+     uint8 level), then on the clip (Fast, the defaults) with one
+     ``estimate_nnf`` timed and profiled (its kernels, the device's busy
+     share); (e) ``SequencialProcessor`` FastBlend -> RIFE -> Contrast over
+     the clip's first CHAIN_FRAMES frames (a depth cut); (f) 17 PNG frames
+     at 512x896 through ``save_frames`` and ``VideoData`` at 480x832, each
+     ``crop_and_resize``'s bit for bit (mp4 only where imageio is); (g) no
+     hand-written kernel launched in the phase.
 The line before the last lists each kernel with its launches on its main
 path, its error against the plain version, its time, the plain version's,
 its bound and the one PyTorch call that computes the same function (K1 and
@@ -3953,6 +3973,345 @@ def multi_gpu_phase() -> None:
                  f"{loss_rel}, gradients {grads_rel}")
 
 
+# ---------------------------------------------------------------------------
+# 18. the video path
+# ---------------------------------------------------------------------------
+
+# the phase's clip: PhysicTran's 480x832 frame size (phase 16's), 17 frames
+VIDEO_FRAMES, VIDEO_HW = 17, (480, 832)
+# the chain (FastBlend -> RIFE -> Contrast) takes the clip's first
+# CHAIN_FRAMES frames: a depth cut for time (smooth_video alone runs the
+# whole clip), the frame size kept
+CHAIN_FRAMES = 9
+# the card against the CPU on the same weights and inputs, about 10x the
+# readings of an H100 80GB HBM3 at 700.00 W (in brackets)
+VIDEO_VAE_REL = 2e-5       # small video VAE, fp32, TF32 off, rel-L2 (4.6e-7 / 1.7e-6)
+VIDEO_FRAME_REL = 3e-2     # bf16: a one-frame video encode against the image VAE's (2.9e-3)
+VIDEO_CAUSAL_REL = 2e-4    # bf16: a 5-frame prefix against the 17-frame encode (1.8e-5)
+ESRGAN_REL = 1e-5          # RRDBNet, fp32, rel-L2 (1.1e-6); uint8 within one level
+RIFE_REL = 2e-6            # IFNet's merged frame, fp32, rel-L2 (1.9e-7)
+# _remap / _patch_error on integer [0, 255] images, as frames are: every sum
+# is exact in fp32, so the card equals the CPU (max |err| 0.0)
+FASTBLEND_ABS = 0.0
+FASTBLEND_SHARE = 0.99     # smooth_video's pixels within one uint8 level of the CPU's (1.0)
+
+
+def _timed(fn):
+    """(result, seconds, peak GB) of one call on the card."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, torch.cuda.max_memory_allocated() / 1e9
+
+
+def _to_card(module, dev):
+    import copy
+
+    return copy.deepcopy(module).to(dev)
+
+
+def video_vae_part(dev, gen, clip) -> None:
+    """18(a): the small video VAE against the CPU, then the full-width one."""
+    import numpy as np
+    import torch
+
+    from physicedit_torch.core.params import init_random_, materialize
+    from physicedit_torch.io import convert
+    from physicedit_torch.models import vae as image_vae_mod
+    from physicedit_torch.models import vae3d
+
+    cpu_gen = torch.Generator().manual_seed(SEED + 18)
+    small = init_random_(materialize(vae3d.VideoVAE(vae3d.VAEConfig(base_dim=16)), "cpu"),
+                         cpu_gen)
+    x = torch.from_numpy(np.random.default_rng(SEED + 18).uniform(
+        -1, 1, (1, 5, 64, 64, 3)).astype(np.float32))
+    z_cpu = vae3d.encode(small, x)
+    card = _to_card(small, dev)
+    z_card = vae3d.encode(card, x.to(dev))
+    d_cpu = vae3d.decode(small, z_cpu)
+    d_card = vae3d.decode(card, z_cpu.to(dev))
+    rels = {"encode": rel_l2(z_card.cpu(), z_cpu), "decode": rel_l2(d_card.cpu(), d_cpu)}
+    emit({"phase": "video_vae_small_vs_cpu", "base_dim": 16, "clip": [1, 5, 64, 64],
+          "dtype": "float32", "rel_l2": rels, "limit": VIDEO_VAE_REL})
+    if not max(rels.values()) <= VIDEO_VAE_REL:
+        fail(f"the small video VAE on the card disagrees with the CPU: {rels}")
+    del small, card
+
+    vae = init_random_(materialize(vae3d.VideoVAE(vae3d.QWEN_VAE_CONFIG, torch.bfloat16), dev),
+                       gen)
+    x = torch.from_numpy(clip).to(dev).to(torch.bfloat16)[None] / 127.5 - 1.0
+    z, enc_s, enc_gb = _timed(lambda: vae3d.encode(vae, x))
+    video, dec_s, dec_gb = _timed(lambda: vae3d.decode(vae, z))
+    t, h, w = clip.shape[:3]
+    if tuple(z.shape) != (1, t, h // 8, w // 8, 16) or tuple(video.shape) != (1, t, h, w, 3):
+        fail(f"video VAE shapes {tuple(z.shape)} / {tuple(video.shape)}")
+    if not (torch.isfinite(z).all() and torch.isfinite(video).all()):
+        fail("the full-width video VAE gave non-finite values")
+    del video
+    # the clip's first frame alone against the image VAE on the last taps
+    image_vae = convert.vae_from_state_dict(convert.vae_to_state_dict(vae), torch.bfloat16, dev)
+    z0 = vae3d.encode(vae, x[:, :1])[:, 0]
+    frame_rel = rel_l2(z0, image_vae_mod.encode(image_vae, x[:, 0]))
+    # causality: a 5-frame prefix gives the first 5 latent frames
+    causal_rel = rel_l2(vae3d.encode(vae, x[:, :5]), z[:, :5])
+    emit({"phase": "video_vae_full", "config": "QWEN_VAE_CONFIG", "dtype": "bfloat16",
+          "clip": [1, t, h, w], "latents": list(z.shape), "encode_s": enc_s,
+          "encode_peak_gb": enc_gb, "decode_s": dec_s, "decode_peak_gb": dec_gb,
+          "first_frame_vs_image_vae_rel_l2": frame_rel, "frame_limit": VIDEO_FRAME_REL,
+          "prefix5_vs_full_rel_l2": causal_rel, "causal_limit": VIDEO_CAUSAL_REL,
+          "card": card_name()})
+    if not frame_rel <= VIDEO_FRAME_REL:
+        fail(f"a one-frame video encode is {frame_rel} rel-L2 from the image VAE's")
+    if not causal_rel <= VIDEO_CAUSAL_REL:
+        fail(f"the 5-frame prefix's latents are {causal_rel} rel-L2 from the clip's")
+
+
+def esrgan_part(dev, image) -> None:
+    """18(b): ESRGAN at its published widths: the card against the CPU at
+    64x64, then a 1024^2 image whole and tiled."""
+    import numpy as np
+    import torch
+
+    from physicedit_torch.extensions import esrgan, tiler
+
+    net = esrgan.init_esrgan(torch.Generator().manual_seed(SEED + 19), device="cpu")
+    small = image.resize((64, 64))
+    x = torch.from_numpy(np.asarray(small, np.float32)[None] / 255.0)
+    want = esrgan.rrdbnet_forward(net, x)
+    want_u8 = np.asarray(esrgan.upscale(net, small), np.int16)
+    card = _to_card(net, dev)
+    del net
+    rel = rel_l2(esrgan.rrdbnet_forward(card, x.to(dev)).cpu(), want)
+    levels = int(np.abs(np.asarray(esrgan.upscale(card, small), np.int16) - want_u8).max())
+    emit({"phase": "esrgan_vs_cpu", "num_feat": card.conv_first.out_channels,
+          "num_block": len(card.body), "num_grow_ch": card.body[0].rdb1.conv1.out_channels,
+          "input": [64, 64], "rel_l2": rel, "limit": ESRGAN_REL, "uint8_max_levels": levels})
+    if not rel <= ESRGAN_REL or levels > 1:
+        fail(f"ESRGAN on the card disagrees with the CPU: rel-L2 {rel}, {levels} levels")
+    out, s, gb = _timed(lambda: esrgan.upscale(card, image))
+    arr = torch.from_numpy(np.asarray(image, np.float32)[None] / 255.0).to(dev)
+    tiled, tiled_s, tiled_gb = _timed(lambda: tiler.tiled_forward(
+        lambda t: esrgan.rrdbnet_forward(card, t), arr, 256, 192, scales=(1, 4, 4)))
+    emit({"phase": "esrgan_upscale", "input": list(image.size), "output": list(out.size),
+          "upscale_s": s, "upscale_peak_gb": gb, "tiled": {"tile": 256, "stride": 192},
+          "tiled_s": tiled_s, "tiled_peak_gb": tiled_gb,
+          "tiled_vs_whole_max_levels": int(np.abs(
+              np.asarray(out, np.int16)
+              - (tiled[0] * 255.0).clamp(0, 255).to(torch.uint8).cpu().numpy()).max()),
+          "card": card_name()})
+    w, h = image.size
+    if out.size != (4 * w, 4 * h) or tuple(tiled.shape) != (1, 4 * h, 4 * w, 3) \
+            or not torch.isfinite(tiled).all():
+        fail(f"ESRGAN's 4x upscale of {image.size} has the wrong size or non-finite values")
+
+
+def rife_part(dev, frames):
+    """18(c): IFNet at c 90, the card against the CPU on one frame pair, then
+    the interpolater over the clip.  Returns the card's IFNet."""
+    import numpy as np
+    import torch
+
+    from physicedit_torch.extensions import rife
+
+    net = rife.init_ifnet(torch.Generator().manual_seed(SEED + 20), c=90, device="cpu")
+    pair = [torch.from_numpy(np.asarray(f, np.float32)[None, :, :, [2, 1, 0]] / 255.0)
+            for f in frames[:2]]
+    want = rife.ifnet_forward(net, *pair)[2]
+    card = _to_card(net, dev)
+    rel = rel_l2(rife.ifnet_forward(card, *(p.to(dev) for p in pair))[2].cpu(), want)
+    emit({"phase": "rife_vs_cpu", "c": 90, "pair": list(pair[0].shape), "rel_l2": rel,
+          "limit": RIFE_REL})
+    if not rel <= RIFE_REL:
+        fail(f"IFNet on the card is {rel} rel-L2 from the CPU")
+    out, s, gb = _timed(lambda: rife.RIFEInterpolater(card).interpolate(frames))
+    emit({"phase": "rife_interpolate", "frames_in": len(frames), "frames_out": len(out),
+          "size": list(out[0].size), "seconds": s, "peak_gb": gb, "card": card_name()})
+    if len(out) != 2 * len(frames) - 1 or out[0].size != frames[0].size:
+        fail(f"RIFE made {len(out)} frames of {out[0].size} from {len(frames)}")
+    return card
+
+
+def fastblend_part(dev, clip, small_clip) -> None:
+    """18(d): FastBlend's primitives on the card against the CPU at the
+    clip's size, smooth_video on a small clip against the CPU, then
+    smooth_video (Fast, the defaults) on the clip, and one estimate_nnf
+    timed and profiled (its kernels and the device's busy share)."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from physicedit_torch.extensions import fastblend as fb
+
+    rng = np.random.default_rng(SEED + 21)
+    h, w = clip.shape[1:3]
+    patch, pad = 13, 6
+    # integer-valued [0, 255] images, as frames are: every sum is exact in fp32
+    src, tgt = (np.pad(rng.integers(0, 256, (2, h, w, 3)).astype(np.float32),
+                       ((0, 0), (pad, pad), (pad, pad), (0, 0))) for _ in range(2))
+    nnf = np.stack([rng.integers(0, h, (2, h, w)), rng.integers(0, w, (2, h, w))], -1)
+    cpu = [torch.from_numpy(a) for a in (src, tgt, nnf)]
+    card = [a.to(dev) for a in cpu]
+    errs = {}
+    for name, fn in (("remap", lambda s, t, n: fb._remap(s, n, patch, pad)),
+                     ("patch_error", lambda s, t, n: fb._patch_error(s, n, t, patch, pad))):
+        errs[name] = (fn(*card).cpu() - fn(*cpu)).abs().max().item()
+    emit({"phase": "fastblend_primitives_vs_cpu", "shape": [2, h, w, 3], "patch": patch,
+          "max_abs_err": errs, "limit": FASTBLEND_ABS})
+    if not max(errs.values()) <= FASTBLEND_ABS:
+        fail(f"FastBlend's primitives on the card disagree with the CPU: {errs}")
+    del card, cpu
+
+    small = list(small_clip)
+    style = [np.clip(f.astype(np.float32) + rng.normal(0, 12, f.shape), 0, 255).astype(np.uint8)
+             for f in small]
+    want = np.stack(fb.smooth_video(small, style, device="cpu"))
+    got = np.stack(fb.smooth_video(small, style, device=dev))
+    share = float((np.abs(got.astype(np.int16) - want.astype(np.int16)) <= 1).mean())
+    emit({"phase": "fastblend_smooth_vs_cpu", "mode": "Fast", "frames": list(want.shape),
+          "share_within_1_level": share, "limit": FASTBLEND_SHARE})
+    if not share >= FASTBLEND_SHARE:
+        fail(f"smooth_video on the card: only {share} of pixels within a level of the CPU's")
+
+    frames = list(clip)
+    style = [np.clip(f.astype(np.float32) + rng.normal(0, 12, f.shape), 0, 255).astype(np.uint8)
+             for f in frames]
+    out, s, gb = _timed(lambda: fb.smooth_video(frames, style, device=dev))
+    # one estimate_nnf of smooth_video's batch (8 pairs) at the clip's size:
+    # its wall time, then its kernels and their device time under the profiler
+    engine = fb._engine(torch.zeros(1, h, w, 3), dev, fb._default_config())
+    batch = torch.from_numpy(np.stack([frames[i % len(frames)] for i in range(8)])
+                             .astype(np.float32)).to(dev)
+    _, wall, _ = _timed(lambda: engine.estimate_nnf(batch, batch.roll(1, 0), batch))
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        engine.estimate_nnf(batch, batch.roll(1, 0), batch)
+        torch.cuda.synchronize()
+    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.time_range.elapsed_us() for e in events) / 1e6 if events else None
+    emit({"phase": "fastblend_smooth", "mode": "Fast", "frames": len(out),
+          "size": list(out[0].shape), "seconds": s, "peak_gb": gb,
+          "estimate_nnf_batch8": {"wall_s": wall, "device_kernels": len(events),
+                                  "device_busy_s": busy,
+                                  "busy_share": None if busy is None else busy / wall},
+          "card": card_name()})
+    if len(out) != len(frames) or out[0].shape != (h, w, 3):
+        fail("smooth_video returned the wrong frames")
+
+
+def chain_part(dev, frames, rife_net, clip_frames: int) -> None:
+    """18(e): ``SequencialProcessor`` FastBlend -> RIFE -> Contrast over the
+    clip's first CHAIN_FRAMES frames, the clip itself the motion guide."""
+    from physicedit_torch.extensions.processors import SequencialProcessor
+
+    chain = SequencialProcessor.from_configs(
+        [{"processor_type": "FastBlend", "config": {}},
+         {"processor_type": "RIFE", "config": {"batch_size": 4}},
+         {"processor_type": "Contrast", "config": {"rate": 1.2}}],
+        models={"rife": rife_net}, device=dev)
+    counts_seen = []
+
+    def watch(proc):
+        def call(frames_in, **kw):
+            out = proc(frames_in, **kw)
+            counts_seen.append((type(proc).__name__, len(frames_in), len(out)))
+            return out
+        return call
+
+    chain.processors = [watch(p) for p in chain.processors]
+    out, s, gb = _timed(lambda: chain(frames, original_frames=frames))
+    emit({"phase": "video_chain", "depth_cut": f"{len(frames)} of {clip_frames} frames",
+          "processors": [c[0] for c in counts_seen],
+          "frames_in_out": [c[1:] for c in counts_seen], "size": list(out[0].size),
+          "seconds": s, "peak_gb": gb, "card": card_name()})
+    if [c[0] for c in counts_seen] != ["FastBlendSmoother", "RIFESmoother", "ContrastEditor"] \
+            or len(out) != len(frames) or out[0].size != frames[0].size:
+        fail(f"the processor chain ran {counts_seen}")
+
+
+def video_io_part(clip_io) -> None:
+    """18(f): 512x896 PNG frames written by ``save_frames``, read back by
+    ``VideoData`` at 480x832: each frame ``crop_and_resize`` of the written
+    array bit for bit; mp4 through imageio where the machine has it."""
+    import importlib.util
+    import shutil
+    import tempfile
+
+    import numpy as np
+    from PIL import Image
+
+    from physicedit_torch.data import video
+
+    folder = tempfile.mkdtemp(prefix="physicedit_video_")
+    try:
+        frames = [Image.fromarray(f) for f in clip_io]
+        video.save_frames(frames, folder)
+        h, w = VIDEO_HW
+        with video.VideoData(image_folder=folder, height=h, width=w) as data:
+            n = len(data)
+            equal = all(np.array_equal(np.asarray(data[i]),
+                                       np.asarray(video.crop_and_resize(frames[i], h, w)))
+                        for i in range(n))
+        has_imageio = importlib.util.find_spec("imageio") is not None
+        # imageio writes mp4 through its ffmpeg or pyav plugin
+        mp4 = has_imageio and any(importlib.util.find_spec(m) is not None
+                                  for m in ("imageio_ffmpeg", "av"))
+        row = {"phase": "video_io", "written": [len(frames), *clip_io.shape[1:3]],
+               "read": [n, h, w], "bit_equal": equal, "imageio": has_imageio,
+               "imageio_mp4": mp4}
+        if mp4:
+            path = f"{folder}/clip.mp4"
+            video.save_video(frames, path, fps=16)
+            with video.VideoData(video_file=path, height=h, width=w) as data:
+                row["mp4_frames"] = len(data)
+        emit(row)
+        if n != len(frames) or not equal:
+            fail("the frames read back through VideoData differ from crop_and_resize's")
+    finally:
+        shutil.rmtree(folder, ignore_errors=True)
+
+
+def video_phase(dev) -> None:
+    """18. the video path at full width: (a) the video VAE, (b) ESRGAN,
+    (c) RIFE, (d) FastBlend, (e) the processor chain, (f) video IO, and (g)
+    no hand-written kernel launched by any of it."""
+    import gc
+
+    import torch
+    from PIL import Image
+
+    from physicedit_torch.train.synthetic import video_frames
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    reset_counts()
+    h, w = VIDEO_HW
+    clip = video_frames(0, VIDEO_FRAMES, w, h, SEED)
+    frames = [Image.fromarray(f) for f in clip]
+    gen = torch.Generator(dev).manual_seed(SEED + 18)
+    video_vae_part(dev, gen, clip)
+    gc.collect()
+    torch.cuda.empty_cache()
+    esrgan_part(dev, Image.fromarray(video_frames(1, 1, 1024, 1024, SEED)[0]))
+    gc.collect()
+    torch.cuda.empty_cache()
+    rife_net = rife_part(dev, frames)
+    fastblend_part(dev, clip, video_frames(2, 5, 96, 64, SEED))
+    chain_part(dev, frames[:CHAIN_FRAMES], rife_net, len(frames))
+    del rife_net
+    video_io_part(video_frames(3, VIDEO_FRAMES, 896, 512, SEED))
+    launches = counts()
+    emit({"phase": "video_kernels", "launches": launches,
+          "seconds": time.perf_counter() - t_phase})
+    if any(launches.values()):
+        fail(f"the video path launched a hand-written kernel: {launches}")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=4, help="denoise steps per edit")
@@ -4406,6 +4765,9 @@ def main() -> int:
     # single edit; 15(c). the three prompt refiners at their published widths
     w8a8_phase(full_gen_state, bf16_img, edit_images[(1024, 1024)], args.steps, dev)
     refiner_phase(gen)
+
+    # 18. the video path at full width, with every earlier pipeline dropped
+    video_phase(dev)
 
     # each kernel's launches on its own path: K1 and K2 in the bf16 edits,
     # K3-K6 in the W4 edit, K8 and K9 in the training lanes, K7 in the

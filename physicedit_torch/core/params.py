@@ -50,9 +50,11 @@ def init_random_(module: nn.Module, generator: torch.Generator) -> nn.Module:
     in the JAX package: weights and biases uniform in +-1/sqrt(fan_in) for
     every ``nn.Linear`` and ``nn.Conv2d``, and every :class:`Leaf` gain set
     to one (a LayerNorm's ``bias`` to zero).  Parameters that are neither
-    (embedding tables) are left to the caller."""
+    (embedding tables) are left to the caller.  Convolutions of every kind
+    (``nn.Conv3d``, ``nn.ConvTranspose2d``) take the same rule, their fan-in
+    that of torch's default init."""
     for m in module.modules():
-        if isinstance(m, (nn.Linear, nn.Conv2d)):
+        if isinstance(m, (nn.Linear, nn.Conv2d, nn.Conv3d, nn.ConvTranspose2d)):
             fan_in = m.weight[0].numel()
             bound = 1.0 / math.sqrt(fan_in)
             m.weight.uniform_(-bound, bound, generator=generator)
@@ -116,9 +118,13 @@ def load_linear_(lin: nn.Module, p: dict) -> None:
 
 
 @torch.no_grad()
-def load_conv_(conv: nn.Conv2d, p: dict) -> None:
-    """Copy a JAX HWIO conv leaf into an OIHW ``nn.Conv2d``."""
-    w = np.asarray(p["w"], np.float32).transpose(3, 2, 0, 1)
+def load_conv_(conv: nn.Module, p: dict) -> None:
+    """Copy a JAX conv leaf into a torch conv: HWIO into an OIHW
+    ``nn.Conv2d``, DHWIO into an OIDHW ``nn.Conv3d``, and the HWIO kernel
+    that JAX applies with ``transpose_kernel=True`` (``[kH, kW, C_out,
+    C_in]``) into an ``nn.ConvTranspose2d``'s ``[C_in, C_out, kH, kW]``."""
+    w = np.asarray(p["w"], np.float32)
+    w = w.transpose((4, 3, 0, 1, 2) if w.ndim == 5 else (3, 2, 0, 1))
     if w.shape != tuple(conv.weight.shape):
         raise ValueError(f"conv leaf {w.shape} does not fit {tuple(conv.weight.shape)}")
     conv.weight.copy_(_tensor(w, conv.weight))

@@ -12,6 +12,7 @@ how the reference tensors become the parameter:
   projections of the DiT and of DINOv2);
 - ``("tap", kt)``: a causal Conv3d ``[O, I, kt, kh, kw]`` in image mode, of
   which only the last temporal tap meets a single frame: ``w[:, :, -1]``;
+  into a 5-D parameter (the video VAE's ``CausalConv3d``) the whole kernel;
 - ``("reshape", shape)``: the same values in another shape (the VAE's
   ``[C, 1, 1(, 1)]`` norm gains, the ViT's Conv3d patch embedding).
 
@@ -48,6 +49,7 @@ from physicedit_torch.models.qwen_vl import QWEN25_VL_7B_TEXT, QwenVLText, QwenV
 from physicedit_torch.models.qwen_vl_vision import (QWEN25_VL_VISION, QwenVLVision,
                                                     QwenVLVisionConfig)
 from physicedit_torch.models.vae import QWEN_VAE_CONFIG, VAE, VAEConfig
+from physicedit_torch.models.vae3d import VideoVAE
 
 COPY = ("copy",)
 CAT = ("cat",)
@@ -62,7 +64,7 @@ def _from_reference(kind, tensors: list, shape) -> torch.Tensor:
         return torch.cat(tensors, dim=0)
     (t,) = tensors
     if kind[0] == "tap":
-        return t[:, :, -1] if t.dim() == 5 else t
+        return t[:, :, -1] if t.dim() == 5 and len(shape) == 4 else t
     if kind[0] == "reshape":
         return t.reshape(shape)
     return t
@@ -71,6 +73,8 @@ def _from_reference(kind, tensors: list, shape) -> torch.Tensor:
 def _to_reference(kind, p: torch.Tensor, n_keys: int) -> list:
     if kind[0] == "cat":
         return list(p.chunk(n_keys, dim=0))
+    if kind[0] == "tap" and p.dim() == 5:
+        return [p]
     if kind[0] == "tap":
         kt = kind[1]
         w = torch.zeros(p.shape[:2] + (kt,) + p.shape[2:], dtype=p.dtype, device=p.device)
@@ -300,6 +304,15 @@ def vae_from_state_dict(sd: dict, dtype=torch.bfloat16, device="cuda") -> VAE:
 
 def vae_to_state_dict(vae: VAE) -> dict:
     return module_state_dict(vae, vae_key_map(vae.cfg), vae_extra_keys(vae.cfg))
+
+
+def vae3d_from_state_dict(sd: dict, dtype=torch.bfloat16, device="cuda") -> VideoVAE:
+    """The video-mode VAE (``models/vae3d.py``) from the same file: the same
+    key map, the causal convs keeping all ``kt`` temporal taps (JAX
+    ``vae_video_from_torch``); the ``time_conv`` keys are read by nothing."""
+    cfg = vae_config_from_state_dict(sd)
+    vae = materialize(VideoVAE(cfg, dtype), device)
+    return load_module_(vae, sd, vae_key_map(cfg)).eval()
 
 
 # ---------------------------------------------------------------------------

@@ -9,9 +9,14 @@ children after the tree's keys, so one walk loads any model:
   lane; it takes the ``nn.Linear``'s place),
 - ``{"w_q": [in, out], "w_scale", "b"}`` -> ``Int8Linear`` (the W8A8 lane,
   ``ops/quant.py``; likewise),
-- ``{"w": HWIO, "b"}`` -> ``nn.Conv2d`` (to OIHW),
-- stacked layer trees (leaves ``[L, ...]`` under ``blocks`` / ``layers``)
-  -> ``nn.ModuleList`` (unstacked),
+- ``{"w": HWIO, "b"}`` -> ``nn.Conv2d`` (to OIHW), ``{"w": DHWIO, "b"}`` ->
+  ``nn.Conv3d`` (to OIDHW), and the HWIO kernel JAX applies with
+  ``transpose_kernel=True`` -> ``nn.ConvTranspose2d`` (``[C_in, C_out, kH,
+  kW]``); any other key of a conv leaf (RIFE's PReLU slope ``a``) -> the
+  conv module's parameter of that name,
+- a list, or a stacked tree (leaves ``[L, ...]``, as the DiT's ``blocks``,
+  the text model's ``layers`` or ESRGAN's ``body``), under any
+  ``nn.ModuleList`` -> its modules (unstacked),
 - any other array -> the parameter of that name.
 
 Every parameter and buffer of the module must be covered by the tree.  The
@@ -62,37 +67,36 @@ def _index(tree, i):
 @torch.no_grad()
 def load_tree_(module: nn.Module, tree: dict) -> int:
     """Copy ``tree`` into ``module`` by name; returns the parameters set."""
-    n = 0
-    for key, val in tree.items():
-        target = getattr(module, key)
-        if isinstance(target, nn.ModuleList):
-            subs = ([_index(val, i) for i in range(len(target))]
-                    if isinstance(val, dict) else list(val))
-            if len(subs) != len(target):
-                raise ValueError(f"{key}: {len(subs)} entries for {len(target)} modules")
-            n += sum(load_tree_(m, t) for m, t in zip(target, subs))
-        elif isinstance(target, (nn.Linear, W4Linear, Int8Linear)):
-            quantized = W4Linear if "w4" in val else Int8Linear if "w_q" in val else None
-            if quantized is not None and isinstance(target, nn.Linear):
-                target = quantized(target.in_features, target.out_features,
-                                   bias=target.bias is not None, dtype=target.weight.dtype,
-                                   device=target.weight.device)
-                setattr(module, key, target)
-            load_linear_(target, val)
-            n += 1 + (not isinstance(target, nn.Linear)) + (target.bias is not None)
-        elif isinstance(target, nn.Conv2d):
-            load_conv_(target, val)
-            n += 2
-        elif isinstance(target, torch.Tensor):      # a parameter or a buffer
-            arr = np.asarray(val)
-            arr = arr.astype(np.int8 if target.dtype == torch.int8 else np.float32)
-            if arr.shape != tuple(target.shape):
-                raise ValueError(f"{key}: {arr.shape} != {tuple(target.shape)}")
-            target.copy_(torch.from_numpy(arr).to(target.device, target.dtype))
-            n += 1
-        else:
-            n += load_tree_(target, val)
-    return n
+    return sum(_load(module, key, getattr(module, key), val) for key, val in tree.items())
+
+
+def _load(parent: nn.Module, key: str, target, val) -> int:
+    if isinstance(target, nn.ModuleList):
+        subs = ([_index(val, i) for i in range(len(target))]
+                if isinstance(val, dict) else list(val))
+        if len(subs) != len(target):
+            raise ValueError(f"{key}: {len(subs)} entries for {len(target)} modules")
+        return sum(_load(target, str(i), m, t) for i, (m, t) in enumerate(zip(target, subs)))
+    if isinstance(target, (nn.Linear, W4Linear, Int8Linear)):
+        quantized = W4Linear if "w4" in val else Int8Linear if "w_q" in val else None
+        if quantized is not None and isinstance(target, nn.Linear):
+            target = quantized(target.in_features, target.out_features,
+                               bias=target.bias is not None, dtype=target.weight.dtype,
+                               device=target.weight.device)
+            setattr(parent, key, target)
+        load_linear_(target, val)
+        return 1 + (not isinstance(target, nn.Linear)) + (target.bias is not None)
+    if isinstance(target, (nn.Conv2d, nn.Conv3d, nn.ConvTranspose2d)):
+        load_conv_(target, val)
+        return 2 + load_tree_(target, {k: v for k, v in val.items() if k not in ("w", "b")})
+    if isinstance(target, torch.Tensor):      # a parameter or a buffer
+        arr = np.asarray(val)
+        arr = arr.astype(np.int8 if target.dtype == torch.int8 else np.float32)
+        if arr.shape != tuple(target.shape):
+            raise ValueError(f"{key}: {arr.shape} != {tuple(target.shape)}")
+        target.copy_(torch.from_numpy(arr).to(target.device, target.dtype))
+        return 1
+    return load_tree_(target, val)
 
 
 def _carry(module: nn.Module, tree: dict, device, prepare=None) -> nn.Module:
@@ -113,6 +117,13 @@ def dit_from_jax(params: dict, cfg, dtype=torch.float32, device="cuda") -> DiT:
 
 def vae_from_jax(params: dict, cfg, dtype=torch.float32, device="cuda") -> VAE:
     return _carry(VAE(config_from_jax(cfg, VAEConfig), dtype), params, device)
+
+
+def vae3d_from_jax(params: dict, cfg, dtype=torch.float32, device="cuda"):
+    """A JAX ``vae_video_from_torch`` tree -> ``models.vae3d.VideoVAE``."""
+    from physicedit_torch.models.vae3d import VideoVAE
+
+    return _carry(VideoVAE(config_from_jax(cfg, VAEConfig), dtype), params, device)
 
 
 def text_from_jax(params: dict, cfg, dtype=torch.float32, device="cuda") -> QwenVLText:
@@ -195,6 +206,27 @@ def marian_from_jax(params: dict, cfg, dtype=torch.float32, device="cuda"):
     from physicedit_torch.models.marian import Marian, MarianConfig
 
     return _carry(Marian(config_from_jax(cfg, MarianConfig), dtype), params, device)
+
+
+def esrgan_from_jax(params: dict, device="cuda"):
+    """A JAX ``esrgan_from_torch`` / ``init_esrgan_params`` tree (``body``
+    stacked) -> ``extensions.esrgan.RRDBNet`` in fp32."""
+    from physicedit_torch.extensions.esrgan import RRDBNet
+
+    first, body = params["conv_first"]["w"], params["body"]["rdb1"]["conv1"]["w"]
+    net = RRDBNet(np.shape(first)[2], np.shape(params["conv_last"]["w"])[3],
+                  np.shape(first)[3], np.shape(body)[0], np.shape(body)[4])
+    return _carry(net, params, device)
+
+
+def ifnet_from_jax(params: dict, device="cuda"):
+    """A JAX ``ifnet_from_torch`` / ``init_ifnet_params`` tree ->
+    ``extensions.rife.IFNet`` in fp32."""
+    from physicedit_torch.extensions.rife import IFNet
+
+    conv0 = params["block0"]["conv0"]
+    return _carry(IFNet(np.shape(conv0[1]["w"])[3], np.shape(conv0[0]["w"])[2]), params,
+                  device)
 
 
 def to_jax_tree(module: nn.Module, grads: bool = False) -> dict:

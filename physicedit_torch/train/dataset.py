@@ -27,18 +27,10 @@ from pathlib import Path
 
 import numpy as np
 
+from physicedit_torch.data.video import import_imageio
 
 VIDEO_EXTS = {".mp4", ".avi", ".mov", ".wmv", ".mkv", ".flv", ".webm"}
 IMAGE_EXTS = {".jpg", ".jpeg", ".png", ".webp", ".bmp"}
-
-
-def import_imageio(path: str):
-    """The imageio module, or an ImportError that names the video."""
-    try:
-        import imageio
-    except ImportError as e:
-        raise ImportError(f"decoding {path} needs imageio, which is not installed") from e
-    return imageio
 
 
 def crop_and_resize(image, target_height: int, target_width: int):

@@ -170,6 +170,30 @@ def test_hash_and_detection_match_jax(family):
     assert set(tst.EXTENSION_LOADERS) == set(jst.EXTENSION_LOADERS)
 
 
+@pytest.mark.parametrize("name", ["rife", "esrgan"])
+def test_extension_loaders_are_the_ports(name, tmp_path):
+    """EXTENSION_LOADERS names the port's loaders: each resolves by import to
+    a callable of physicedit_torch that loads a reference-layout file which
+    detect_model_name names ``name``."""
+    import importlib
+
+    from tests.test_torch_extensions import esrgan_state_dict, ifnet_state_dict
+
+    target = tst.EXTENSION_LOADERS[name]
+    assert target.startswith("physicedit_torch.")
+    module, attr = target.rsplit(".", 1)
+    loader = getattr(importlib.import_module(module), attr)
+    assert callable(loader)
+    sd = ifnet_state_dict(c=16) if name == "rife" else esrgan_state_dict()
+    path = str(tmp_path / f"{name}.safetensors")
+    tst.save_safetensors(sd, path)
+    assert tst.detect_model_name(tst.load_state_dict(path)) == name
+    net = loader(path, device="cpu")
+    assert isinstance(net, torch.nn.Module)
+    assert sum(p.numel() for p in net.parameters()) == sum(
+        v.size for k, v in sd.items() if "block_tea" not in k)
+
+
 def test_tree_families_are_detected(tree):
     for path, name in zip(tree["paths"], ("qwen_image_dit", "qwen_image_text_encoder",
                                           "qwen_image_vae")):

@@ -303,7 +303,14 @@ def test_port_sources_import_no_jax():
             "physicedit_torch/tools/proto_prefill_blocks.py",
             "physicedit_torch/tools/proto_w4_unpack.py", "physicedit_torch/tools/proto_w4_gemv.py",
             "physicedit_torch/tools/proto_attn_int8qk.py",
-            "physicedit_torch/tools/proto_ew_rate.py"} <= rel
+            "physicedit_torch/tools/proto_ew_rate.py",
+            # the video path
+            "physicedit_torch/sampling/ddim.py", "physicedit_torch/sampling/continuous_ode.py",
+            "physicedit_torch/data/video.py", "physicedit_torch/models/vae3d.py",
+            "physicedit_torch/extensions/__init__.py", "physicedit_torch/extensions/tiler.py",
+            "physicedit_torch/extensions/esrgan.py", "physicedit_torch/extensions/rife.py",
+            "physicedit_torch/extensions/fastblend.py",
+            "physicedit_torch/extensions/processors.py"} <= rel
     bad = []
     for path in files:
         for node in ast.walk(ast.parse(open(path).read(), path)):

@@ -174,11 +174,37 @@ Phases, each printed as one JSON line, any failure exits non-zero:
      at 512x896 through ``save_frames`` and ``VideoData`` at 480x832, each
      ``crop_and_resize``'s bit for bit (mp4 only where imageio is); (g) no
      hand-written kernel launched in the phase.
+ 19. the quality scorers and Nexus-Gen (``models/openclip.py``, ``blip.py``,
+     ``nexus_gen.py``, ``nexus_gen_projector.py``, ``qwenvl_embedder.py``,
+     ``extensions/quality_metric.py``, ``clip_bpe.py``), after phase 18, with
+     every earlier model dropped: (a) at small widths against the same
+     weights on the CPU: Nexus-Gen's target embeddings and the embedder on a
+     head_dim-128 decoder in bf16 (K2 in each layer) against fp32, an fp32
+     decoder on the card raising in K2, and the merger, the adapter, BLIP's
+     ImageReward and OpenCLIP in fp32; (b) Nexus-Gen at Qwen2.5-VL-7B's
+     widths (28 layers, random bf16) with its 32-block ViT: a reference image
+     at 384^2 area through the ViT, ``target_embeddings`` over ids built by
+     hand (exactly 28 K2 launches, each held against K2's plain version on
+     its own inputs; K2's route against the plain route on the card), then
+     the merger with the reference embeddings and the adapter; (c) the
+     embedder on the same decoder (the 640 buffer, its mask count, 28 K2
+     launches held as in (b), K2's route against the plain route, deviation
+     D5: the bf16 route against fp32 activations on the plain route); every
+     rel-L2 limit of (a)-(c) read again with a wrong K2 (causal mask dropped,
+     a KV tile skipped), which must land above it; (d) ImageReward (BLIP
+     ViT-L/16 + BERT-base) through ``ImageRewardScore`` and HPSv2 (ViT-H/14) through
+     ``load_preference_model`` on safetensors files written here (random
+     fp32) with the port's BPE over a written merge list of CLIP's size: two
+     images each, finite, a batch of two equal to the single calls; the
+     ``transformers`` CLIP lane where that package is installed; (e)
+     ``EXTENSION_LOADERS["nexus_gen_llm"]`` loading a small written file onto
+     the card bit for bit.
 The line before the last lists each kernel with its launches on its main
 path, its error against the plain version, its time, the plain version's,
 its bound and the one PyTorch call that computes the same function (K1 and
-K8 also with their launches in phase 17(a)'s ring, ``ring_launches``); the
-last line is the run's result.  There is no CPU path: without a CUDA device
+K8 also with their launches in phase 17(a)'s ring, ``ring_launches``; K2's
+launches include phase 19's full-width Nexus-Gen and embedder forwards,
+``nexus_gen_launches``); the last line is the run's result.  There is no CPU path: without a CUDA device
 it exits 2.
 """
 
@@ -4312,6 +4338,639 @@ def video_phase(dev) -> None:
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# 19. the quality scorers and Nexus-Gen
+# ---------------------------------------------------------------------------
+
+# 19(a): the card against the CPU on the same weights at small widths, rel-L2,
+# about 10x the readings of an H100 80GB HBM3 at 700.00 W (in brackets)
+NEXUS_SMALL_REL = 8e-2     # Nexus-Gen / the embedder: bf16 with K2 on the card, fp32 on the
+                           # CPU (8.2e-3 / 7.1e-3)
+SCORER_SMALL_REL = 5e-6    # BLIP, OpenCLIP, the merger, the adapter: fp32, TF32 off (4.7e-7)
+# 19(b) and (c): K2's route against the plain route on the card, the same bf16
+# weights and inputs through 28 random layers (Nexus-Gen 1.2e-2, the embedder 1.1e-2)
+NEXUS_ROUTE_REL = 0.12
+EMBED_ROUTE_REL = 0.12
+# 19(c): D5, the embedder's bf16 K2 route against fp32 activations on the plain
+# route (1.06e-2)
+D5_REL = 0.1
+# Each rel-L2 limit above is also read with a wrong K2 in K2's place, which
+# must land above it: its causal mask dropped, or query rows past the first
+# 128-key tile blind to that tile (0.60-1.08 on the H100).
+WRONG_K2 = ("causal_dropped", "first_tile_skipped")
+# 19(d): a batch of two images against the single calls (the JAX tests' 1e-5)
+SCORER_BATCH_ABS = 1e-5
+# 19(c): the embedder's tokens past its 217-token prefix, under the 640
+# buffer, so the buffer keeps a zero tail
+EMBED_TEXT_TOKENS = 500
+SCORER_PROMPT = "a glass falls off the table and shatters"
+
+
+def nexus_small_cfg():
+    """A Nexus-Gen / embedder decoder that K2 takes: head_dim 128, M-RoPE
+    sections (16, 24, 24), 2 / 1 heads, a vocabulary past the image ids."""
+    from physicedit_torch.models.qwen_vl import QwenVLTextConfig
+
+    return QwenVLTextConfig(num_layers=2, hidden_size=256, num_heads=2, num_kv_heads=1,
+                            head_dim=128, intermediate_size=512, vocab_size=151700)
+
+
+def nexus_ids(rng, n_in: int):
+    """[1, S] ids built by hand, as the JAX package's test does: text, the
+    reference image's pad run, text, the 81-token target run, text."""
+    import numpy as np
+
+    from physicedit_torch.models import nexus_gen as NG
+
+    def text(n):
+        return list(rng.integers(0, 151643, n))
+
+    ids = text(20) + [NG.VISION_START_ID] + [NG.IMAGE_TOKEN_ID] * n_in + [NG.VISION_END_ID]
+    ids += text(10) + [NG.VISION_START_ID] + [NG.IMAGE_TOKEN_ID] * NG.NUM_IMG_TOKENS
+    return np.asarray([ids + [NG.VISION_END_ID] + text(2)], np.int64)
+
+
+def embed_ids(rng, n_in: int, n_text: int):
+    """[1, 217 + n_text] ids for the embedder: text, an image run, text."""
+    import numpy as np
+
+    from physicedit_torch.models import qwenvl_embedder as E
+
+    head = list(rng.integers(0, 151643, 30)) + [E.VISION_START_ID]
+    head += [E.IMAGE_TOKEN_ID] * n_in + [E.VISION_END_ID]
+    tail = list(rng.integers(0, 151643, E.PREFIX_TOKEN_OFFSET + n_text - len(head)))
+    return np.asarray([head + tail], np.int64)
+
+
+@contextlib.contextmanager
+def k2_replaced(attn):
+    """The VL text model's prefill attention through ``attn`` (K2's
+    signature) inside the block."""
+    from physicedit_torch.kernels import flash_attention as fa
+    from physicedit_torch.models import qwen_vl
+
+    qwen_vl.gqa_causal_attention = attn
+    try:
+        yield
+    finally:
+        qwen_vl.gqa_causal_attention = fa.gqa_causal_attention
+
+
+def plain_k2():
+    """K2's plain version in K2's place: the same inputs, no launch."""
+    from physicedit_torch.kernels import flash_attention as fa
+
+    return k2_replaced(fa.gqa_causal_attention_reference)
+
+
+def wrong_k2(kind: str):
+    """A wrong K2 in K2's place, for the control readings: K2's plain version
+    with the causal mask dropped, or with each query row past the first
+    128-key tile blind to that tile (a kernel that skips a KV tile)."""
+    import torch
+
+    from physicedit_torch.ops.attention import NEG_INF, causal_bias, gqa_attention
+
+    def attn(q, k, v, key_mask):
+        if kind == "causal_dropped":
+            bias = torch.where(key_mask, 0.0, NEG_INF)[:, None, None].float()
+        else:
+            bias = causal_bias(key_mask)
+            bias[:, :, 128:, :128] = NEG_INF
+        return gqa_attention(q, k, v, bias)
+
+    return k2_replaced(attn)
+
+
+def control_readings(run, want, limit: float, what: str) -> dict:
+    """rel-L2 of ``run()`` from ``want`` with each wrong K2 in K2's place;
+    every reading must land above ``limit``, or the limit would pass it."""
+    readings = {}
+    for kind in WRONG_K2:
+        with wrong_k2(kind):
+            readings[kind] = rel_l2(run().to(want.device), want)
+    if not min(readings.values()) > limit:
+        fail(f"{what}: a wrong K2 reads {readings}, not above the limit {limit}")
+    return readings
+
+
+def k2_recorded():
+    """K2 in its own place, each call's inputs and output kept: (the
+    context, the list of calls)."""
+    from physicedit_torch.kernels import flash_attention as fa
+
+    calls = []
+
+    def attn(q, k, v, key_mask):
+        out = fa.gqa_causal_attention(q, k, v, key_mask)
+        calls.append((q, k, v, key_mask, out))
+        return out
+
+    return k2_replaced(attn), calls
+
+
+def check_k2_calls(path: str, calls) -> None:
+    """Every K2 call of a forward against K2's plain version on the same
+    inputs, under phase 4's limits."""
+    from physicedit_torch.kernels import flash_attention as fa
+
+    worst_abs = worst_rel = 0.0
+    n_bad = 0
+    for q, k, v, key_mask, out in calls:
+        ref = fa.gqa_causal_attention_reference(q, k, v, key_mask).float()
+        err = (out.float() - ref).abs()
+        worst_abs = max(worst_abs, err.max().item())
+        n_bad += int((err > ATOL + RTOL * ref.abs()).sum().item())
+        worst_rel = max(worst_rel, rel_l2(out, ref))
+    emit({"phase": "k2_on_path", "path": path, "calls": len(calls),
+          "q": list(calls[0][0].shape), "kv": list(calls[0][1].shape),
+          "worst_max_abs_err": worst_abs, "n_out_of_tol": n_bad, "atol": ATOL, "rtol": RTOL,
+          "worst_rel_l2": worst_rel, "rel_l2_limit": ATTN_REL_L2})
+    if n_bad or worst_rel > ATTN_REL_L2:
+        fail(f"K2 on the {path} path: {n_bad} elements out of tolerance, worst layer rel-L2 "
+             f"{worst_rel} against its plain version")
+
+
+def smooth_image(rng, w: int, h: int):
+    """A smooth random picture: low-resolution noise, upsampled."""
+    import numpy as np
+    from PIL import Image
+
+    small = rng.integers(0, 256, (h // 32, w // 32, 3), dtype=np.uint8)
+    return Image.fromarray(small).resize((w, h), Image.BILINEAR)
+
+
+def nexus_small_part(dev) -> None:
+    """19(a), Nexus-Gen and the embedder: the small decoder in bf16 on the
+    card (K2 in each layer) against its weights in fp32 on the CPU; an fp32
+    decoder on the card must raise in K2."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from physicedit_torch.core.params import materialize
+    from physicedit_torch.models import nexus_gen as NG
+    from physicedit_torch.models import qwenvl_embedder as E
+
+    cfg = nexus_small_cfg()
+    gen = torch.Generator(dev).manual_seed(SEED + 22)
+    card = NG.init_nexus_gen_(materialize(NG.NexusGen(cfg, torch.bfloat16), dev), gen)
+    cpu = _cpu_twin(lambda dtype: NG.NexusGen(cfg, dtype), card)
+    rng = np.random.default_rng(SEED + 22)
+    # 64 reference rows put the target run across key 128 (K2's first tile)
+    vis = torch.from_numpy((rng.normal(size=(64, cfg.hidden_size)) * 0.5).astype(np.float32))
+    grids = [(1, 16, 16), (1, 18, 18)]
+    ids = nexus_ids(rng, 64)
+    e_ids = embed_ids(rng, 64, 100)
+    runs = {
+        "nexus_gen_target_embeddings": lambda m: NG.target_embeddings(m, ids, vis, grids),
+        "qwenvl_embedder": lambda m: E.embed(m.text, e_ids, vis, grids[:1])[0],
+    }
+    for name, run in runs.items():
+        want = run(cpu)
+        reset_counts()
+        got = run(card)
+        k2 = counts()["gqa_causal_attention"]
+        rel = rel_l2(got.float().cpu(), want)
+        controls = control_readings(lambda: run(card), want, NEXUS_SMALL_REL, name)
+        emit({"phase": "nexus_small_vs_cpu", "model": name, "config": dataclasses.asdict(cfg),
+              "card_dtype": "bfloat16", "cpu_dtype": "float32", "shape": list(got.shape),
+              "rel_l2": rel, "limit": NEXUS_SMALL_REL, "wrong_k2_rel_l2": controls,
+              "k2_launches": k2})
+        if not rel <= NEXUS_SMALL_REL or k2 != cfg.num_layers:
+            fail(f"{name} on the card: rel-L2 {rel} against the CPU, K2 launched {k2} times")
+    card32 = copy.deepcopy(cpu).to(dev)
+    try:
+        E.embed(card32.text, e_ids, vis, grids[:1])
+    except ValueError as exc:
+        emit({"phase": "nexus_small_fp32_on_card", "raised": str(exc)[:120]})
+        if "gqa_causal_attention" not in str(exc) or "the kernel takes bf16" not in str(exc):
+            fail(f"an fp32 decoder on the card raised, but not K2's dtype check: {exc}")
+    else:
+        fail("an fp32 decoder on the card did not raise in K2")
+
+
+def scorers_small_part(dev) -> None:
+    """19(a), the merger, the adapter, BLIP and OpenCLIP at small widths:
+    fp32 on the card (TF32 off) against the same weights on the CPU."""
+    import numpy as np
+    import torch
+
+    from physicedit_torch.core.params import init_random_, materialize
+    from physicedit_torch.models import blip, openclip
+    from physicedit_torch.models import nexus_gen_projector as P
+    from physicedit_torch.models.qwen_vl import QwenVLTextConfig
+
+    gen = torch.Generator().manual_seed(SEED + 23)
+    rng = np.random.default_rng(SEED + 23)
+
+    def randn(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+
+    mcfg = QwenVLTextConfig(hidden_size=256, num_heads=2, num_kv_heads=1, head_dim=128,
+                            intermediate_size=512, vocab_size=64)
+    ir = blip.ImageReward(
+        blip.BlipViTConfig(image_size=64, width=128, depth=2, num_heads=2),
+        blip.BlipTextConfig(vocab_size=1000, hidden_size=128, num_layers=2, num_heads=2,
+                            intermediate_size=256, max_position=64, encoder_width=128),
+        (128, 64, 32, 16, 8, 1))
+    clip = openclip.OpenClip(
+        openclip.OpenClipTowerConfig(width=128, layers=2, heads=2, patch_size=16, image_size=64,
+                                     output_dim=64),
+        openclip.OpenClipTowerConfig(width=128, layers=2, heads=2, output_dim=64), 1000)
+    ids = torch.from_numpy(rng.integers(1, 998, (2, 35)))
+    ids[:, 20] = 999                     # OpenCLIP pools at the largest id
+    mask = torch.ones(2, 35, dtype=torch.long)
+    mask[1, 12:] = 0
+    pixels = randn(2, 64, 64, 3)
+    ref = randn(1, 16, 256)
+    emb = randn(1, 81, 256)
+    cases = {
+        "merger": (init_random_(materialize(P.NexusGenImageEmbeddingMerger(mcfg, 1, 64, 2),
+                                            "cpu"), gen),
+                   lambda m, d: P.merger_forward(m, emb.to(d), (1, 18, 18), ref.to(d), (1, 8, 8))),
+        "adapter": (P.init_adapter_(materialize(P.NexusGenAdapter(256, 64), "cpu"), gen),
+                    lambda m, d: P.adapter_forward(m, emb[0].to(d))),
+        "imagereward": (blip.init_imagereward_(materialize(ir, "cpu"), gen),
+                        lambda m, d: blip.imagereward_score(m, pixels.to(d), ids.to(d),
+                                                            mask.to(d))),
+        "openclip": (openclip.init_openclip_(materialize(clip, "cpu"), gen),
+                     lambda m, d: torch.cat([
+                         openclip.clip_image_features(m.visual, pixels.to(d)),
+                         openclip.clip_text_features(m.text, ids.to(d)),
+                         openclip.clip_similarity(m, pixels.to(d), ids.to(d))[:, None]], 1)),
+    }
+    for name, (module, run) in cases.items():
+        want = run(module, "cpu")
+        got = run(_to_card(module, dev), dev)
+        rel = rel_l2(got.cpu(), want)
+        emit({"phase": "scorers_small_vs_cpu", "model": name, "dtype": "float32",
+              "shape": list(got.shape), "rel_l2": rel, "limit": SCORER_SMALL_REL})
+        if not rel <= SCORER_SMALL_REL:
+            fail(f"the small {name} on the card is {rel} rel-L2 from the CPU")
+
+
+def fp32_embed(text, ids, feats, grids):
+    """D5's reference: the embedder as the JAX package computes it, fp32
+    activations over the same bf16 weights (read exactly in fp32), the plain
+    attention; on the card."""
+    import torch
+
+    from physicedit_torch.core.params import materialize
+    from physicedit_torch.models import qwenvl_embedder as E
+    from physicedit_torch.models.qwen_vl import QwenVLText
+
+    text32 = materialize(QwenVLText(text.cfg, torch.float32), text.norm.scale.device)
+    text32.load_state_dict(text.state_dict())
+    with plain_k2():
+        out = E.embed(text32.eval(), ids, feats, grids)
+    del text32
+    return out
+
+
+def nexus_full_part(dev) -> int:
+    """19(b) and (c): Nexus-Gen at Qwen2.5-VL-7B's widths (28 layers, random
+    bf16) with its 32-block ViT, the merger and the adapter; then the
+    embedder on the same decoder.  Returns K2's launches."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from physicedit_torch.core.params import init_random_, materialize
+    from physicedit_torch.models import nexus_gen as NG
+    from physicedit_torch.models import nexus_gen_projector as P
+    from physicedit_torch.models import qwenvl_embedder as E
+    from physicedit_torch.models.qwen_vl import QWEN25_VL_7B_TEXT
+    from physicedit_torch.models.qwen_vl_vision import QWEN25_VL_VISION, QwenVLVision
+    from physicedit_torch.pipeline import vl_host
+
+    gen = torch.Generator(dev).manual_seed(SEED + 24)
+    rng = np.random.default_rng(SEED + 24)
+    n_layers = QWEN25_VL_7B_TEXT.num_layers
+    t0 = time.perf_counter()
+    model = NG.init_nexus_gen_(materialize(NG.NexusGen(QWEN25_VL_7B_TEXT, torch.bfloat16), dev),
+                               gen)
+    vision = init_random_(materialize(QwenVLVision(QWEN25_VL_VISION, torch.bfloat16), dev), gen)
+    merger = init_random_(materialize(P.NexusGenImageEmbeddingMerger(), dev), gen)
+    adapter = P.init_adapter_(materialize(P.NexusGenAdapter(), dev), gen)
+    torch.cuda.synchronize()
+    init_s, resident = time.perf_counter() - t0, torch.cuda.memory_allocated() / 1e9
+
+    ref = vl_host.resize_vl_image(smooth_image(rng, 640, 480))
+    flat, grids = vl_host.images_to_patches([ref])
+    feats, vit_s, _ = _timed(lambda: vision(torch.from_numpy(flat).to(dev, torch.bfloat16),
+                                            grids))
+    ids = nexus_ids(rng, feats.shape[0])
+    all_grids = grids + [(1, 18, 18)]
+    def nexus():
+        return NG.target_embeddings(model, ids, feats, all_grids)
+
+    reset_counts()
+    emb, nexus_s, nexus_gb = _timed(nexus)
+    k2_nexus = counts()["gqa_causal_attention"]
+    with plain_k2():
+        plain, plain_s, _ = _timed(nexus)
+    k2_plain = counts()["gqa_causal_attention"] - k2_nexus
+    _, nexus_again_s, _ = _timed(nexus)
+    # the same forward again, each K2 call kept for the comparison (not
+    # counted: the counts were read above)
+    recording, calls = k2_recorded()
+    with recording:
+        nexus()
+    check_k2_calls("nexus_gen", calls)
+    del calls
+    route_rel = rel_l2(emb, plain)
+    route_controls = control_readings(nexus, plain, NEXUS_ROUTE_REL, "Nexus-Gen's route")
+    merged, merger_s, merger_gb = _timed(lambda: P.merger_forward(
+        merger, emb[None], all_grids[1], feats[None], grids[0]))
+    cond, adapter_s, _ = _timed(lambda: P.adapter_forward(adapter, emb))
+    n_in = feats.shape[0]
+    emit({"phase": "nexus_gen_full", "config": "QWEN25_VL_7B_TEXT", "vision": "QWEN25_VL_VISION",
+          "dtype": "bfloat16", "init_s": init_s, "resident_gb": resident,
+          "reference_image": list(ref.size), "vit_grid": list(grids[0]), "vit_tokens": n_in,
+          "vit_s": vit_s, "sequence": int(ids.shape[1]), "target_embeddings": list(emb.shape),
+          "target_s": nexus_s, "target_again_s": nexus_again_s, "target_peak_gb": nexus_gb,
+          "k2_launches": k2_nexus,
+          "k2_expected": n_layers, "plain_route_s": plain_s, "plain_route_k2": k2_plain,
+          "k2_vs_plain_rel_l2": route_rel, "limit": NEXUS_ROUTE_REL,
+          "wrong_k2_vs_plain_rel_l2": route_controls,
+          "merger": {"out": list(merged.shape), "dtype": str(merged.dtype), "s": merger_s,
+                     "peak_gb": merger_gb},
+          "adapter": {"out": list(cond.shape), "s": adapter_s}, "card": card_name()})
+    if tuple(emb.shape) != (81, 3584) or not torch.isfinite(emb).all():
+        fail(f"Nexus-Gen's target embeddings are {tuple(emb.shape)} or not finite")
+    if k2_nexus != n_layers or k2_plain != 0 or not route_rel <= NEXUS_ROUTE_REL:
+        fail(f"Nexus-Gen: K2 {k2_nexus} (plain route {k2_plain}), K2 against the plain "
+             f"route {route_rel}")
+    if tuple(merged.shape) != (1, 81 + n_in, 4096) or tuple(cond.shape) != (81, 4096) \
+            or not (torch.isfinite(merged).all() and torch.isfinite(cond).all()):
+        fail(f"the merger / adapter gave {tuple(merged.shape)} / {tuple(cond.shape)}")
+    del plain, merged, cond, merger, adapter, vision
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    e_ids = embed_ids(rng, n_in, EMBED_TEXT_TOKENS)
+
+    def embed():
+        return E.embed(model.text, e_ids, feats, grids)
+
+    reset_counts()
+    (e_emb, e_mask), embed_s, embed_gb = _timed(embed)
+    k2_embed = counts()["gqa_causal_attention"]
+    _, embed_again_s, _ = _timed(embed)
+    recording, calls = k2_recorded()
+    with recording:
+        embed()
+    check_k2_calls("qwenvl_embedder", calls)
+    del calls
+    n = int(e_mask.sum())
+    with plain_k2():
+        e_plain = embed()[0][:, :n]
+    e_route_rel = rel_l2(e_emb[:, :n], e_plain)
+    want32 = fp32_embed(model.text, e_ids, feats, grids)[0][:, :n]
+    d5 = rel_l2(e_emb[:, :n], want32)
+    wrong = {}
+    for kind in WRONG_K2:
+        with wrong_k2(kind):
+            wrong[kind] = embed()[0][:, :n]
+    e_route_controls = {kind: rel_l2(w, e_plain) for kind, w in wrong.items()}
+    d5_controls = {kind: rel_l2(w, want32) for kind, w in wrong.items()}
+    del wrong
+    emit({"phase": "qwenvl_embedder_full", "dtype": "bfloat16", "sequence": int(e_ids.shape[1]),
+          "buffer": list(e_emb.shape), "mask_count": n, "mask_expected": EMBED_TEXT_TOKENS,
+          "tail_zero": bool((e_emb[:, n:] == 0).all()), "embed_s": embed_s,
+          "embed_again_s": embed_again_s,
+          "embed_peak_gb": embed_gb, "k2_launches": k2_embed, "k2_expected": n_layers,
+          "k2_vs_plain_rel_l2": e_route_rel, "route_limit": EMBED_ROUTE_REL,
+          "wrong_k2_vs_plain_rel_l2": e_route_controls,
+          "d5_bf16_vs_fp32_plain_rel_l2": d5, "d5_limit": D5_REL,
+          "wrong_k2_vs_fp32_plain_rel_l2": d5_controls, "card": card_name()})
+    if tuple(e_emb.shape) != (1, E.MAX_LENGTH, 3584) or n != EMBED_TEXT_TOKENS \
+            or not (e_emb[:, n:] == 0).all() or not torch.isfinite(e_emb).all():
+        fail(f"the embedder's buffer is {tuple(e_emb.shape)} with {n} live rows")
+    if k2_embed != n_layers:
+        fail(f"the embedder launched K2 {k2_embed} times, not {n_layers}")
+    if not (e_route_rel <= EMBED_ROUTE_REL and d5 <= D5_REL):
+        fail(f"the embedder: K2 against the plain route {e_route_rel}, D5 {d5}")
+    if not (min(e_route_controls.values()) > EMBED_ROUTE_REL
+            and min(d5_controls.values()) > D5_REL):
+        fail(f"the embedder: a wrong K2 reads {e_route_controls} from the plain route and "
+             f"{d5_controls} from fp32, not above the limits")
+    del model, want32, e_emb, e_plain
+    gc.collect()
+    torch.cuda.empty_cache()
+    return k2_nexus + k2_embed
+
+
+def bert_stub_tokenizer(vocab_size: int):
+    """A bert-style tokenizer stand-in (no tokenizer files on the machine):
+    [CLS] hashed word ids [SEP], padded to max_length with its mask."""
+    import zlib
+
+    def tokenize(text, padding=None, truncation=None, max_length=35):
+        words = [103 + zlib.crc32(w.encode()) % (vocab_size - 103) for w in text.split()]
+        ids = [101] + words[:max_length - 2] + [102]
+        n = len(ids)
+        return {"input_ids": ids + [0] * (max_length - n),
+                "attention_mask": [1] * n + [0] * (max_length - n)}
+
+    return tokenize
+
+
+def write_merges(path: str, n: int) -> None:
+    """A gzip'd merge list of ``n`` distinct merges of byte symbols (CLIP's
+    full vocabulary at n = 49152 - 256 - 2)."""
+    import gzip
+
+    from physicedit_torch.extensions.clip_bpe import _bytes_to_unicode
+
+    chars = list(_bytes_to_unicode().values())
+    rows = [f"{a} {b}" for a in chars for b in chars][:n]
+    with gzip.open(path, "wt", encoding="utf-8") as f:
+        f.write("#version: 0.2\n" + "\n".join(rows) + "\n")
+
+
+def _score_row(name, scorer, images, **extra):
+    pair, s, gb = _timed(lambda: scorer.score(images, SCORER_PROMPT))
+    _, again_s, _ = _timed(lambda: scorer.score(images, SCORER_PROMPT))
+    singles = [scorer.score(im, SCORER_PROMPT) for im in images]
+    err = max(abs(a - b) for a, b in zip(pair, singles))
+    row = {"phase": "scorer_full", "scorer": name, "dtype": "float32", "scores": pair,
+           "batch_vs_single_max_abs": err, "limit": SCORER_BATCH_ABS, "score_pair_s": s,
+           "score_pair_again_s": again_s,
+           "peak_gb": gb, **extra, "card": card_name()}
+    emit(row)
+    if not all(math.isfinite(x) for x in pair) or not err <= SCORER_BATCH_ABS:
+        fail(f"{name}: scores {pair}, batch against single {err}")
+
+
+def scorers_full_part(dev, folder: str) -> None:
+    """19(d): ImageReward (BLIP ViT-L/16 + BERT-base) through
+    ``ImageRewardScore`` and HPSv2 (ViT-H/14) through
+    ``load_preference_model``, each on a safetensors file written here with
+    random fp32 weights (HPSv2 with a gzip'd merge list of CLIP's size, the
+    port's own BPE); and the ``transformers`` lane where it is installed."""
+    import gc
+    import importlib.util
+
+    import numpy as np
+    import torch
+
+    from physicedit_torch.core.params import materialize
+    from physicedit_torch.extensions import quality_metric as qm
+    from physicedit_torch.io.safetensors_io import save_safetensors
+    from physicedit_torch.models import blip, openclip
+
+    gen = torch.Generator(dev).manual_seed(SEED + 25)
+    rng = np.random.default_rng(SEED + 25)
+    images = [smooth_image(rng, 640, 480), smooth_image(rng, 512, 768)]
+
+    ir = blip.init_imagereward_(materialize(blip.ImageReward(), dev), gen)
+    n_params = sum(p.numel() for p in ir.parameters())
+    tokenizer = bert_stub_tokenizer(ir.text.cfg.vocab_size)
+    path = os.path.join(folder, "ImageReward.safetensors")
+    save_safetensors(blip.imagereward_state_dict(ir), path)
+    del ir
+    scorer, load_s, _ = _timed(lambda: qm.ImageRewardScore(path, tokenizer=tokenizer,
+                                                            device=dev))
+    _score_row("ImageReward", scorer, images, params=n_params, load_s=load_s,
+               vit=dataclasses.asdict(scorer.vit_cfg), text=dataclasses.asdict(scorer.txt_cfg))
+    del scorer
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    clip = openclip.init_openclip_(materialize(openclip.OpenClip(), dev), gen)
+    n_params = sum(p.numel() for p in clip.parameters())
+    paths = {"hpsv2": os.path.join(folder, "HPS_v2_compressed.safetensors"),
+             "open_clip_bpe": os.path.join(folder, "bpe_simple_vocab_16e6.txt.gz")}
+    save_safetensors(openclip.openclip_state_dict(clip), paths["hpsv2"])
+    del clip
+    write_merges(paths["open_clip_bpe"], 49152 - 256 - 2)
+    scorer, load_s, _ = _timed(lambda: qm.load_preference_model("HPSv2", device=dev, path=paths))
+    tokens = scorer.tokenizer.tokenize([SCORER_PROMPT], scorer.text_cfg.context_length)
+    _score_row("HPSv2", scorer, images, params=n_params, load_s=load_s,
+               vision=dataclasses.asdict(scorer.vision_cfg), text=dataclasses.asdict(scorer.text_cfg),
+               bpe_vocab=len(scorer.tokenizer.encoder), prompt_tokens=int((tokens > 0).sum()),
+               regex_loaded="regex" in sys.modules)
+    if len(scorer.tokenizer.encoder) != 49408 or tokens[0, 0] != 49406:
+        fail("the port's BPE over the written merge list is not CLIP's vocabulary")
+    del scorer
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    ran = importlib.util.find_spec("transformers") is not None
+    row = {"phase": "scorer_transformers_lane", "transformers": ran, "ran": ran}
+    if ran:
+        row.update(transformers_clip_lane(dev, folder, images))
+    emit(row)
+
+
+def transformers_clip_lane(dev, folder: str, images) -> dict:
+    """``load_preference_model("CLIP")`` on a tiny HF CLIP folder written
+    here: finite scores on the card."""
+    import json
+
+    import torch
+    import transformers
+
+    from physicedit_torch.extensions import quality_metric as qm
+    from physicedit_torch.extensions.clip_bpe import ClipBpeTokenizer
+
+    path = os.path.join(folder, "hf_clip")
+    os.makedirs(path, exist_ok=True)
+    merges = os.path.join(path, "bpe.txt.gz")
+    write_merges(merges, 64)
+    tok = ClipBpeTokenizer(merges)
+    with open(os.path.join(path, "vocab.json"), "w") as f:
+        json.dump(tok.encoder, f)
+    with open(os.path.join(path, "merges.txt"), "w", encoding="utf-8") as f:
+        f.write("#version: 0.2\n" + "\n".join(" ".join(m) for m in tok.bpe_ranks) + "\n")
+    torch.manual_seed(SEED)
+    cfg = transformers.CLIPConfig(
+        text_config=dict(vocab_size=len(tok.encoder), hidden_size=64, intermediate_size=128,
+                         num_hidden_layers=2, num_attention_heads=2, max_position_embeddings=77,
+                         eos_token_id=tok.eot, bos_token_id=tok.sot, pad_token_id=tok.eot),
+        vision_config=dict(hidden_size=64, intermediate_size=128, num_hidden_layers=2,
+                           num_attention_heads=2, image_size=32, patch_size=8))
+    transformers.CLIPModel(cfg).save_pretrained(path)
+    transformers.CLIPProcessor(
+        image_processor=transformers.CLIPImageProcessor(
+            size={"shortest_edge": 32}, crop_size={"height": 32, "width": 32}),
+        tokenizer=transformers.CLIPTokenizer(os.path.join(path, "vocab.json"),
+                                             os.path.join(path, "merges.txt"))
+    ).save_pretrained(path)
+    scores = qm.load_preference_model("CLIP", device=dev, path={"clip": path}).score(
+        images, SCORER_PROMPT)
+    if not all(math.isfinite(s) for s in scores):
+        fail(f"the transformers CLIP lane gave {scores}")
+    return {"clip_scores": scores}
+
+
+def nexus_loader_part(dev, folder: str) -> None:
+    """19(e): ``EXTENSION_LOADERS["nexus_gen_llm"]`` resolved by import loads a
+    small written Nexus-Gen file onto the card, every tensor bit for bit."""
+    import importlib
+
+    import torch
+
+    from physicedit_torch.core.params import init_random_, materialize
+    from physicedit_torch.io.safetensors_io import EXTENSION_LOADERS, save_safetensors
+    from physicedit_torch.models import nexus_gen as NG
+    from physicedit_torch.models.qwen_vl_vision import TINY_VISION, QwenVLVision
+
+    gen = torch.Generator(dev).manual_seed(SEED + 26)
+    cfg = nexus_small_cfg()
+    model = NG.init_nexus_gen_(materialize(NG.NexusGen(cfg, torch.bfloat16), dev), gen)
+    vision = init_random_(materialize(QwenVLVision(TINY_VISION, torch.bfloat16), dev), gen)
+    written = NG.nexus_gen_state_dict(model, vision)
+    path = os.path.join(folder, "nexus_gen.safetensors")
+    save_safetensors(written, path)
+    target = EXTENSION_LOADERS["nexus_gen_llm"]
+    module, attr = target.rsplit(".", 1)
+    loaded, loaded_vision = getattr(importlib.import_module(module), attr)(
+        path, device=dev, text_cfg=cfg, vision_cfg=TINY_VISION)
+    back = NG.nexus_gen_state_dict(loaded, loaded_vision)
+    equal = set(back) == set(written) and all(torch.equal(back[k], written[k]) for k in written)
+    on_card = all(p.is_cuda for m in (loaded, loaded_vision) for p in m.parameters())
+    emit({"phase": "nexus_gen_loader", "loader": target, "tensors": len(written),
+          "bit_equal": equal, "on_card": on_card})
+    if not target.startswith("physicedit_torch.") or not equal or not on_card:
+        fail(f"EXTENSION_LOADERS['nexus_gen_llm'] ({target}) did not load the written file")
+
+
+def scorers_nexus_phase(dev) -> int:
+    """19. the quality scorers and Nexus-Gen, every earlier model dropped:
+    (a) at small widths against the CPU, (b) Nexus-Gen at full width, (c) the
+    embedder at full width, (d) the scorers at their published widths, (e)
+    the loader.  Returns K2's launches in (b) and (c), which (f) adds to
+    K2's count on the kernels line."""
+    import gc
+    import shutil
+    import tempfile
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    nexus_small_part(dev)
+    scorers_small_part(dev)
+    k2 = nexus_full_part(dev)
+    folder = tempfile.mkdtemp(prefix="physicedit_scorers_")
+    try:
+        scorers_full_part(dev, folder)
+        nexus_loader_part(dev, folder)
+    finally:
+        shutil.rmtree(folder, ignore_errors=True)
+    emit({"phase": "scorers_nexus", "k2_launches_full_width": k2,
+          "seconds": time.perf_counter() - t_phase})
+    gc.collect()
+    torch.cuda.empty_cache()
+    return k2
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=4, help="denoise steps per edit")
@@ -4768,6 +5427,8 @@ def main() -> int:
 
     # 18. the video path at full width, with every earlier pipeline dropped
     video_phase(dev)
+    # 19. the quality scorers and Nexus-Gen (K2 in each decoder layer)
+    nexus_k2 = scorers_nexus_phase(dev)
 
     # each kernel's launches on its own path: K1 and K2 in the bf16 edits,
     # K3-K6 in the W4 edit, K8 and K9 in the training lanes, K7 in the
@@ -4778,6 +5439,8 @@ def main() -> int:
                      **{k: train_launches[k] for k in ("fixedmax_attention_bwd", "w4_bwd_dx")},
                      "fixedmax_attention_bias": eligen_launches["fixedmax_attention_bias"],
                      **attention_launches, **proto_launches, **int8_launches}
+    # 19(f): K2 also carries Nexus-Gen's and the embedder's full-width forwards
+    path_launches["gqa_causal_attention"] += nexus_k2
     if min(path_launches[name] for name, *_ in KERNEL_ROWS) == 0:
         fail(f"a kernel was not launched on its path: {path_launches}")
     kernels = []
@@ -4791,6 +5454,8 @@ def main() -> int:
                         "library_ms": timing.get("library_ms")})
         if name in ring_launches:   # phase 17(a): n^2 launches over n virtual ranks
             kernels[-1]["ring_launches"] = ring_launches[name]
+        if name == "gqa_causal_attention":
+            kernels[-1]["nexus_gen_launches"] = nexus_k2
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

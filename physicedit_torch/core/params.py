@@ -128,4 +128,5 @@ def load_conv_(conv: nn.Module, p: dict) -> None:
     if w.shape != tuple(conv.weight.shape):
         raise ValueError(f"conv leaf {w.shape} does not fit {tuple(conv.weight.shape)}")
     conv.weight.copy_(_tensor(w, conv.weight))
-    conv.bias.copy_(_tensor(p["b"], conv.bias))
+    if conv.bias is not None:
+        conv.bias.copy_(_tensor(p["b"], conv.bias))

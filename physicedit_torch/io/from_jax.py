@@ -9,7 +9,8 @@ children after the tree's keys, so one walk loads any model:
   lane; it takes the ``nn.Linear``'s place),
 - ``{"w_q": [in, out], "w_scale", "b"}`` -> ``Int8Linear`` (the W8A8 lane,
   ``ops/quant.py``; likewise),
-- ``{"w": HWIO, "b"}`` -> ``nn.Conv2d`` (to OIHW), ``{"w": DHWIO, "b"}`` ->
+- ``{"w": HWIO, "b"}`` (``b`` absent for a bias-free conv) -> ``nn.Conv2d``
+  (to OIHW), ``{"w": DHWIO, "b"}`` ->
   ``nn.Conv3d`` (to OIDHW), and the HWIO kernel JAX applies with
   ``transpose_kernel=True`` -> ``nn.ConvTranspose2d`` (``[C_in, C_out, kH,
   kW]``); any other key of a conv leaf (RIFE's PReLU slope ``a``) -> the
@@ -26,7 +27,9 @@ quantized lane.  The configs are rebuilt from the JAX config dataclasses by
 field name.
 
 The training surface comes across the same way (the LoRA tree, the
-adapters, DINOv2), as do the prompt refiners' BLOOM and Marian, and
+adapters, DINOv2), as do the prompt refiners' BLOOM and Marian, the quality
+scorers' OpenCLIP and ImageReward towers, and Nexus-Gen with its merger and
+adapter, and
 :func:`to_jax_tree` walks back: a module's parameters, or their gradients,
 as a JAX-layout tree, for the tests.
 """
@@ -88,7 +91,8 @@ def _load(parent: nn.Module, key: str, target, val) -> int:
         return 1 + (not isinstance(target, nn.Linear)) + (target.bias is not None)
     if isinstance(target, (nn.Conv2d, nn.Conv3d, nn.ConvTranspose2d)):
         load_conv_(target, val)
-        return 2 + load_tree_(target, {k: v for k, v in val.items() if k not in ("w", "b")})
+        return 1 + (target.bias is not None) + load_tree_(
+            target, {k: v for k, v in val.items() if k not in ("w", "b")})
     if isinstance(target, torch.Tensor):      # a parameter or a buffer
         arr = np.asarray(val)
         arr = arr.astype(np.int8 if target.dtype == torch.int8 else np.float32)
@@ -227,6 +231,66 @@ def ifnet_from_jax(params: dict, device="cuda"):
     conv0 = params["block0"]["conv0"]
     return _carry(IFNet(np.shape(conv0[1]["w"])[3], np.shape(conv0[0]["w"])[2]), params,
                   device)
+
+
+def openclip_from_jax(params: dict, vision_cfg, text_cfg, dtype=torch.float32,
+                      device="cuda"):
+    """A JAX ``openclip_from_state_dict`` tree and its two configs ->
+    ``models.openclip.OpenClip`` (the widths the JAX configs leave to the
+    shapes read from the tree)."""
+    from physicedit_torch.models.openclip import OpenClip, OpenClipTowerConfig
+
+    v, t = params["visual"], params["text"]
+
+    def cfg(jcfg, tower, proj, **kw):
+        return dataclasses.replace(
+            config_from_jax(jcfg, OpenClipTowerConfig), output_dim=np.shape(tower[proj])[1],
+            mlp_ratio=np.shape(tower["blocks"]["c_fc"]["w"])[-1] // jcfg.width, **kw)
+
+    n_pos = np.shape(v["positional_embedding"])[0]
+    vcfg = cfg(vision_cfg, v, "proj",
+               image_size=int(round((n_pos - 1) ** 0.5)) * vision_cfg.patch_size)
+    tcfg = cfg(text_cfg, t, "text_projection")
+    tree = {"visual": {**v, "conv1": {"w": v["conv1"]}}, "text": t}
+    return _carry(OpenClip(vcfg, tcfg, np.shape(t["token_embedding"])[0], dtype), tree, device)
+
+
+def imagereward_from_jax(params: dict, vit_cfg, txt_cfg, dtype=torch.float32, device="cuda"):
+    """A JAX ``imagereward_from_state_dict`` tree -> ``models.blip.ImageReward``."""
+    from physicedit_torch.models.blip import BlipTextConfig, BlipViTConfig, ImageReward
+
+    dims = [np.shape(params["mlp"][0]["w"])[0]] + [np.shape(p["w"])[1] for p in params["mlp"]]
+    return _carry(ImageReward(config_from_jax(vit_cfg, BlipViTConfig),
+                              config_from_jax(txt_cfg, BlipTextConfig), tuple(dims), dtype),
+                  params, device)
+
+
+def nexus_gen_from_jax(params: dict, cfg, dtype=torch.float32, device="cuda"):
+    """A JAX ``init_nexus_params`` / ``nexus_llm_from_torch`` tree ->
+    ``models.nexus_gen.NexusGen``."""
+    from physicedit_torch.models.nexus_gen import NexusGen
+
+    return _carry(NexusGen(config_from_jax(cfg, QwenVLTextConfig), dtype), params, device)
+
+
+def merger_from_jax(params: dict, cfg, dtype=torch.float32, device="cuda"):
+    """A JAX ``init_merger_params`` / ``merger_from_torch`` tree and its JAX
+    text config -> ``models.nexus_gen_projector.NexusGenImageEmbeddingMerger``."""
+    from physicedit_torch.models.nexus_gen_projector import NexusGenImageEmbeddingMerger
+
+    mid, out = np.shape(params["proj"]["fc2"]["w"])
+    return _carry(NexusGenImageEmbeddingMerger(config_from_jax(cfg, QwenVLTextConfig),
+                                               len(params["layers"]), out, mid // out, dtype),
+                  params, device)
+
+
+def adapter_from_jax(params: dict, dtype=torch.float32, device="cuda"):
+    """A JAX ``init_adapter_params`` / ``adapter_from_torch`` tree ->
+    ``models.nexus_gen_projector.NexusGenAdapter``."""
+    from physicedit_torch.models.nexus_gen_projector import NexusGenAdapter
+
+    d_in, d_out = np.shape(params["fc1"]["w"])
+    return _carry(NexusGenAdapter(d_in, d_out, dtype), params, device)
 
 
 def to_jax_tree(module: nn.Module, grads: bool = False) -> dict:

@@ -160,12 +160,11 @@ KNOWN_HASHES = {
     "6b7116078c4170bfbeaedc8fe71f6649": "esrgan",
 }
 
-# Detectable, but not parts of the pipeline: their loaders (Nexus-Gen's is
-# the JAX package's; it is not ported to this package yet).
+# Detectable, but not parts of the pipeline: the dotted paths of their loaders
 EXTENSION_LOADERS = {
     "rife": "physicedit_torch.extensions.rife.load_rife",
     "esrgan": "physicedit_torch.extensions.esrgan.load_esrgan",
-    "nexus_gen_llm": "physicedit_tpu.models.nexus_gen.load_nexus_gen",
+    "nexus_gen_llm": "physicedit_torch.models.nexus_gen.load_nexus_gen",
 }
 
 

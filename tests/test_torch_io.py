@@ -170,11 +170,32 @@ def test_hash_and_detection_match_jax(family):
     assert set(tst.EXTENSION_LOADERS) == set(jst.EXTENSION_LOADERS)
 
 
-@pytest.mark.parametrize("name", ["rife", "esrgan"])
+def _tiny_nexus_gen_file(path):
+    """A tiny Nexus-Gen checkpoint in the raw key layout (``model.*``,
+    ``visual.*``, ``lm_head``, ``vision_head``, ``image_prefill_embeds``),
+    written by the port; returns the configs it needs."""
+    from physicedit_torch.core.params import init_random_, materialize
+    from physicedit_torch.models import nexus_gen as NG
+    from physicedit_torch.models.qwen_vl import TINY_TEXT
+    from physicedit_torch.models.qwen_vl_vision import TINY_VISION, QwenVLVision
+
+    gen = torch.Generator().manual_seed(3)
+    model = NG.init_nexus_gen_(materialize(NG.NexusGen(TINY_TEXT), "cpu"), gen)
+    vision = init_random_(materialize(QwenVLVision(TINY_VISION), "cpu"), gen)
+    sd = NG.nexus_gen_state_dict(model, vision)
+    tst.save_safetensors(sd, path)
+    return sd, {"text_cfg": TINY_TEXT, "vision_cfg": TINY_VISION}
+
+
+@pytest.mark.parametrize("name", ["rife", "esrgan", "nexus_gen_llm"])
 def test_extension_loaders_are_the_ports(name, tmp_path):
     """EXTENSION_LOADERS names the port's loaders: each resolves by import to
-    a callable of physicedit_torch that loads a reference-layout file which
-    detect_model_name names ``name``."""
+    a callable of physicedit_torch that loads a reference-layout file.  The
+    RIFE and ESRGAN files are ones detect_model_name names ``name``.  A tiny
+    Nexus-Gen file it cannot name: the hash of ``nexus_gen_llm`` matches only
+    the published key shapes, and the ``visual.blocks.`` heuristic names such
+    a file ``qwen_image_text_encoder``; so the loader is called on it
+    directly, as the JAX package's test calls its converter."""
     import importlib
 
     from tests.test_torch_extensions import esrgan_state_dict, ifnet_state_dict
@@ -184,8 +205,16 @@ def test_extension_loaders_are_the_ports(name, tmp_path):
     module, attr = target.rsplit(".", 1)
     loader = getattr(importlib.import_module(module), attr)
     assert callable(loader)
-    sd = ifnet_state_dict(c=16) if name == "rife" else esrgan_state_dict()
     path = str(tmp_path / f"{name}.safetensors")
+    if name == "nexus_gen_llm":
+        sd, cfgs = _tiny_nexus_gen_file(path)
+        assert tst.detect_model_name(tst.load_state_dict(path)) == "qwen_image_text_encoder"
+        nexus, vision = loader(path, dtype=torch.float32, device="cpu", **cfgs)
+        assert sum(p.numel() for m in (nexus, vision) for p in m.parameters()) == sum(
+            v.numel() for v in sd.values())
+        assert torch.equal(nexus.vision_head.weight, sd["vision_head.weight"])
+        return
+    sd = ifnet_state_dict(c=16) if name == "rife" else esrgan_state_dict()
     tst.save_safetensors(sd, path)
     assert tst.detect_model_name(tst.load_state_dict(path)) == name
     net = loader(path, device="cpu")

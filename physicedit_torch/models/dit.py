@@ -37,6 +37,14 @@ unfused path and the slim last block is off; ``use_remat`` recomputes each
 block in the backward (``torch.utils.checkpoint``, the JAX package's
 ``jax.checkpoint`` per block).
 
+Under ``torch.profiler`` (``core/trace.py``) the forward is the span
+``pe.dit``, each block call ``pe.dit.block``, and a block's five segments
+``pe.block.mod`` (the modulation linears), ``pe.block.qkv`` (modulated norm,
+QKV, q/k RMSNorm and RoPE), ``pe.block.attn`` (the joint concat and the
+attention), ``pe.block.out`` (heads to features or K6, the output linears,
+the first gated residuals) and ``pe.block.mlp`` (both MLPs and their gated
+residuals).
+
 Module attribute names follow the JAX parameter tree, so ``io/from_jax.py``
 can carry weights across by name.
 """
@@ -52,6 +60,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from physicedit_torch.core.params import Leaf, linear
+from physicedit_torch.core.trace import span
 from physicedit_torch.kernels.flash_attention import (CLAMP, LOG2E, fixedmax_attention,
                                                       fixedmax_attention_bias)
 from physicedit_torch.kernels.fused_quant import gelu_quant, ln_mod_quant, transpose_quant
@@ -221,95 +230,105 @@ class DiTBlock(nn.Module):
         fq = (not lora and isinstance(a["img_qkv"], W4Linear)
               and (a["img_qkv"].in_features // 2) % 128 == 0)
 
-        img_mod = _with_lora(lora.get("img_mod"))(self.img_mod(temb_silu), temb_silu)
-        txt_mod = _with_lora(lora.get("txt_mod"))(self.txt_mod(temb_silu), temb_silu)
-        im_sh1, im_sc1, im_g1, im_sh2, im_sc2, im_g2 = img_mod.chunk(6, -1)
-        tx_sh1, tx_sc1, tx_g1, tx_sh2, tx_sc2, tx_g2 = txt_mod.chunk(6, -1)
+        with span("pe.block.mod"):
+            img_mod = _with_lora(lora.get("img_mod"))(self.img_mod(temb_silu), temb_silu)
+            txt_mod = _with_lora(lora.get("txt_mod"))(self.txt_mod(temb_silu), temb_silu)
+            im_sh1, im_sc1, im_g1, im_sh2, im_sc2, im_g2 = img_mod.chunk(6, -1)
+            tx_sh1, tx_sc1, tx_g1, tx_sh2, tx_sc2, tx_g2 = txt_mod.chunk(6, -1)
 
-        img_qkv = _mod_linear(a["img_qkv"], image, im_sh1, im_sc1, eps, fq,
-                              _with_lora(lora.get("img_qkv"), True, a["img_qkv"]))
-        txt_qkv = _mod_linear(a["txt_qkv"], text, tx_sh1, tx_sc1, eps, fq,
-                              _with_lora(lora.get("txt_qkv"), True, a["txt_qkv"]))
-        n = img_qkv.shape[-1] // (3 * hd)      # this rank's heads under tensor parallelism
-        iq, ik, iv = img_qkv.view(b, s_i, 3, n, hd).permute(2, 0, 3, 1, 4)
-        tq, tk, tv = txt_qkv.view(b, s_t, 3, n, hd).permute(2, 0, 3, 1, 4)
+        with span("pe.block.qkv"):
+            img_qkv = _mod_linear(a["img_qkv"], image, im_sh1, im_sc1, eps, fq,
+                                  _with_lora(lora.get("img_qkv"), True, a["img_qkv"]))
+            txt_qkv = _mod_linear(a["txt_qkv"], text, tx_sh1, tx_sc1, eps, fq,
+                                  _with_lora(lora.get("txt_qkv"), True, a["txt_qkv"]))
+            n = img_qkv.shape[-1] // (3 * hd)      # this rank's heads under tensor parallelism
+            iq, ik, iv = img_qkv.view(b, s_i, 3, n, hd).permute(2, 0, 3, 1, 4)
+            tq, tk, tv = txt_qkv.view(b, s_t, 3, n, hd).permute(2, 0, 3, 1, 4)
 
-        iq = apply_rope(rms_norm(iq, a["norm_q"].scale, eps), img_cos, img_sin)
-        ik = apply_rope(rms_norm(ik, a["norm_k"].scale, eps), img_cos, img_sin)
-        tq = apply_rope(rms_norm(tq, a["norm_added_q"].scale, eps), txt_cos, txt_sin)
-        tk = apply_rope(rms_norm(tk, a["norm_added_k"].scale, eps), txt_cos, txt_sin)
+            iq = apply_rope(rms_norm(iq, a["norm_q"].scale, eps), img_cos, img_sin)
+            ik = apply_rope(rms_norm(ik, a["norm_k"].scale, eps), img_cos, img_sin)
+            tq = apply_rope(rms_norm(tq, a["norm_added_q"].scale, eps), txt_cos, txt_sin)
+            tk = apply_rope(rms_norm(tk, a["norm_added_k"].scale, eps), txt_cos, txt_sin)
 
-        # text prefix, image suffix on the joint axis; [B, N, S, D] contiguous
-        if slim_base:
-            q = iq[:, :, :slim_base].contiguous()
-        else:
-            q = torch.cat([tq, iq], dim=2)
-        k = torch.cat([tk, ik], dim=2)
-        v = torch.cat([tv, iv], dim=2)
-        rows = attn_bias_log2
-        if rows is not None and slim_base:
-            rows = rows[:, s_t:s_t + slim_base]
-        if attn_impl == "kernels":
-            if rows is None:
-                out = fixedmax_attention(q, k, v, key_mask=joint_key_mask, clamp=attn_clamp)
-            else:
-                out = fixedmax_attention_bias(q, k, v, rows, key_mask=joint_key_mask)
-        elif attn_impl == "dense":
-            out = sdpa_bnsd(q, k, v, key_mask=joint_key_mask,
-                            bias=None if rows is None else (rows / LOG2E)[:, None])
-        elif attn_impl == "ring":
+        with span("pe.block.attn"):
+            # text prefix, image suffix on the joint axis; [B, N, S, D] contiguous
             if slim_base:
-                raise ValueError("the slim last block is a single-GPU lane: it is off under "
-                                 "the ring")
-            out = ring_joint_attention(q, k, v, joint_key_mask,
-                                       None if rows is None else rows / LOG2E,
-                                       a["img_qkv"].group if isinstance(a["img_qkv"], TPLinear)
-                                       else None)
-        else:
-            raise ValueError(f"attn_impl {attn_impl!r}: the DiT takes 'kernels', 'dense' "
-                             "or 'ring'")
+                q = iq[:, :, :slim_base].contiguous()
+            else:
+                q = torch.cat([tq, iq], dim=2)
+            k = torch.cat([tk, ik], dim=2)
+            v = torch.cat([tv, iv], dim=2)
+            rows = attn_bias_log2
+            if rows is not None and slim_base:
+                rows = rows[:, s_t:s_t + slim_base]
+            if attn_impl == "kernels":
+                if rows is None:
+                    out = fixedmax_attention(q, k, v, key_mask=joint_key_mask,
+                                             clamp=attn_clamp)
+                else:
+                    out = fixedmax_attention_bias(q, k, v, rows, key_mask=joint_key_mask)
+            elif attn_impl == "dense":
+                out = sdpa_bnsd(q, k, v, key_mask=joint_key_mask,
+                                bias=None if rows is None else (rows / LOG2E)[:, None])
+            elif attn_impl == "ring":
+                if slim_base:
+                    raise ValueError("the slim last block is a single-GPU lane: it is off "
+                                     "under the ring")
+                out = ring_joint_attention(q, k, v, joint_key_mask,
+                                           None if rows is None else rows / LOG2E,
+                                           a["img_qkv"].group
+                                           if isinstance(a["img_qkv"], TPLinear) else None)
+            else:
+                raise ValueError(f"attn_impl {attn_impl!r}: the DiT takes 'kernels', 'dense' "
+                                 "or 'ring'")
 
         # K6: the heads-to-features transpose and the row quantize in one pass
         if slim_base:
-            if fq and isinstance(a["to_out"], W4Linear):
+            with span("pe.block.out"):
+                if fq and isinstance(a["to_out"], W4Linear):
+                    fq_attn = transpose_quant(out)
+                    if fq_attn is None:
+                        # the JAX package has no unfused path here either
+                        raise ValueError(f"transpose_quant cannot tile the slim last block's "
+                                         f"{slim_base} rows")
+                    img_o = w4a8_linear_q(a["to_out"], *fq_attn, image.dtype)
+                else:
+                    out2 = out.transpose(1, 2).reshape(b, slim_base, -1)
+                    img_o = _with_lora(lora.get("to_out"), lin=a["to_out"])(a["to_out"](out2),
+                                                                            out2)
+                image = image[:, :slim_base] + im_g1[:, None, :] * img_o
+            with span("pe.block.mlp"):
+                image = image + im_g2[:, None, :] * _mlp(
+                    self.img_mlp, image, im_sh2, im_sc2, eps, fq,
+                    _with_lora(lora.get("img_mlp_fc2"), lin=self.img_mlp["fc2"]))
+            return None, image
+
+        with span("pe.block.out"):
+            fq_attn = None
+            if (fq and isinstance(a["to_out"], W4Linear)
+                    and isinstance(a["to_add_out"], W4Linear)):
                 fq_attn = transpose_quant(out)
-                if fq_attn is None:
-                    # the JAX package has no unfused path here either
-                    raise ValueError(f"transpose_quant cannot tile the slim last block's "
-                                     f"{slim_base} rows")
-                img_o = w4a8_linear_q(a["to_out"], *fq_attn, image.dtype)
+            if fq_attn is not None:
+                q_all, sc_all = fq_attn
+                img_o = w4a8_linear_q(a["to_out"], q_all[:, s_t:], sc_all[:, s_t:], image.dtype)
+                txt_o = w4a8_linear_q(a["to_add_out"], q_all[:, :s_t], sc_all[:, :s_t],
+                                      image.dtype)
             else:
-                out2 = out.transpose(1, 2).reshape(b, slim_base, -1)
-                img_o = _with_lora(lora.get("to_out"), lin=a["to_out"])(a["to_out"](out2), out2)
-            image = image[:, :slim_base] + im_g1[:, None, :] * img_o
+                out = out.transpose(1, 2).reshape(b, s_t + s_i, -1)
+                img_attn, txt_attn = out[:, s_t:], out[:, :s_t]
+                img_o = _with_lora(lora.get("to_out"), lin=a["to_out"])(a["to_out"](img_attn),
+                                                                        img_attn)
+                txt_o = _with_lora(lora.get("to_add_out"), lin=a["to_add_out"])(
+                    a["to_add_out"](txt_attn), txt_attn)
+            image = image + im_g1[:, None, :] * img_o
+            text = text + tx_g1[:, None, :] * txt_o
+        with span("pe.block.mlp"):
             image = image + im_g2[:, None, :] * _mlp(
                 self.img_mlp, image, im_sh2, im_sc2, eps, fq,
                 _with_lora(lora.get("img_mlp_fc2"), lin=self.img_mlp["fc2"]))
-            return None, image
-
-        fq_attn = None
-        if fq and isinstance(a["to_out"], W4Linear) and isinstance(a["to_add_out"], W4Linear):
-            fq_attn = transpose_quant(out)
-        if fq_attn is not None:
-            q_all, sc_all = fq_attn
-            img_o = w4a8_linear_q(a["to_out"], q_all[:, s_t:], sc_all[:, s_t:], image.dtype)
-            txt_o = w4a8_linear_q(a["to_add_out"], q_all[:, :s_t], sc_all[:, :s_t],
-                                  image.dtype)
-        else:
-            out = out.transpose(1, 2).reshape(b, s_t + s_i, -1)
-            img_attn, txt_attn = out[:, s_t:], out[:, :s_t]
-            img_o = _with_lora(lora.get("to_out"), lin=a["to_out"])(a["to_out"](img_attn),
-                                                                    img_attn)
-            txt_o = _with_lora(lora.get("to_add_out"), lin=a["to_add_out"])(
-                a["to_add_out"](txt_attn), txt_attn)
-        image = image + im_g1[:, None, :] * img_o
-        text = text + tx_g1[:, None, :] * txt_o
-        image = image + im_g2[:, None, :] * _mlp(
-            self.img_mlp, image, im_sh2, im_sc2, eps, fq,
-            _with_lora(lora.get("img_mlp_fc2"), lin=self.img_mlp["fc2"]))
-        text = text + tx_g2[:, None, :] * _mlp(
-            self.txt_mlp, text, tx_sh2, tx_sc2, eps, fq,
-            _with_lora(lora.get("txt_mlp_fc2"), lin=self.txt_mlp["fc2"]))
+            text = text + tx_g2[:, None, :] * _mlp(
+                self.txt_mlp, text, tx_sh2, tx_sc2, eps, fq,
+                _with_lora(lora.get("txt_mlp_fc2"), lin=self.txt_mlp["fc2"]))
         return text, image
 
 
@@ -346,40 +365,43 @@ class DiT(nn.Module):
         ``models.controlnet.Control`` at this step.  ``attn_impl``: "kernels",
         "dense" or "ring" (``DiTBlock.forward``; the slim last block is off
         under the ring)."""
-        cfg = self.cfg
-        s_i = img_tokens.shape[1]
-        image = self.img_in(img_tokens)
-        text = self.txt_in(rms_norm(txt_tokens, self.txt_norm.scale, cfg.eps))
+        with span("pe.dit"):
+            cfg = self.cfg
+            s_i = img_tokens.shape[1]
+            image = self.img_in(img_tokens)
+            text = self.txt_in(rms_norm(txt_tokens, self.txt_norm.scale, cfg.eps))
 
-        temb = timestep_embedding(timestep, cfg.time_dim, img_tokens.dtype)
-        temb = self.time_embed["linear_2"](F.silu(self.time_embed["linear_1"](temb)))
-        temb_silu = F.silu(temb)
+            temb = timestep_embedding(timestep, cfg.time_dim, img_tokens.dtype)
+            temb = self.time_embed["linear_2"](F.silu(self.time_embed["linear_1"](temb)))
+            temb_silu = F.silu(temb)
 
-        joint_key_mask = None
-        if txt_key_mask is not None:
-            joint_key_mask = F.pad(txt_key_mask.bool(), (0, s_i), value=True)
+            joint_key_mask = None
+            if txt_key_mask is not None:
+                joint_key_mask = F.pad(txt_key_mask.bool(), (0, s_i), value=True)
 
-        last = len(self.blocks) - 1
-        slim_last = 0 if lora is not None or control is not None or attn_impl == "ring" \
-            else slim_last
-        layer_lora = [None] * len(self.blocks) if lora is None else lora.layers()
-        remat = use_remat and torch.is_grad_enabled()
-        for i, block in enumerate(self.blocks):
-            def run(image, text, block=block, i=i):
-                text, image = block(image, text, temb_silu, img_cos, img_sin, txt_cos, txt_sin,
-                                    joint_key_mask, slim_base=slim_last if i == last else 0,
-                                    attn_clamp=attn_clamp, lora=layer_lora[i],
-                                    attn_bias_log2=attn_bias_log2, attn_impl=attn_impl)
-                if control is not None:
-                    image = control.add_residual(i, image)
-                return text, image
+            last = len(self.blocks) - 1
+            slim_last = 0 if lora is not None or control is not None or attn_impl == "ring" \
+                else slim_last
+            layer_lora = [None] * len(self.blocks) if lora is None else lora.layers()
+            remat = use_remat and torch.is_grad_enabled()
+            for i, block in enumerate(self.blocks):
+                def run(image, text, block=block, i=i):
+                    with span("pe.dit.block"):
+                        text, image = block(image, text, temb_silu, img_cos, img_sin, txt_cos,
+                                            txt_sin, joint_key_mask,
+                                            slim_base=slim_last if i == last else 0,
+                                            attn_clamp=attn_clamp, lora=layer_lora[i],
+                                            attn_bias_log2=attn_bias_log2, attn_impl=attn_impl)
+                        if control is not None:
+                            image = control.add_residual(i, image)
+                        return text, image
 
-            text, image = (checkpoint(run, image, text, use_reentrant=False) if remat
-                           else run(image, text))
+                text, image = (checkpoint(run, image, text, use_reentrant=False) if remat
+                               else run(image, text))
 
-        scale, shift = self.norm_out["linear"](temb_silu).chunk(2, -1)
-        image = layer_norm(image, eps=1e-6) * (1.0 + scale[:, None, :]) + shift[:, None, :]
-        return self.proj_out(image)
+            scale, shift = self.norm_out["linear"](temb_silu).chunk(2, -1)
+            image = layer_norm(image, eps=1e-6) * (1.0 + scale[:, None, :]) + shift[:, None, :]
+            return self.proj_out(image)
 
 
 def attn_clamp_needed(dit: DiT) -> bool:

@@ -19,7 +19,8 @@ lives in this package's copies of the JAX package's ``pipeline/prompt.py``,
 
 Each call leaves its stage times, on the host clock around work that ends in
 a device synchronise, in ``self.timings`` (milliseconds), beside the token
-counts that set the stages' shapes.
+counts that set the stages' shapes; under ``torch.profiler`` each stage is
+also the span ``pe.stage.<name>`` (``core/trace.py``).
 
 :meth:`PhysicEditPipeline.quantize_` turns a loaded pipeline into the JAX
 package's ``quantize="int4"`` (W4A8) or ``quantize="int8"`` (W8A8) serving
@@ -51,6 +52,7 @@ from physicedit_torch.kernels.flash_attention import LOG2E
 from physicedit_torch.kernels.quant_matmul import (DIT_OUTER_KEYS, W4Linear,
                                                    quantize_module_int4)
 from physicedit_torch import lora as tlora
+from physicedit_torch.core.trace import span
 from physicedit_torch.io import convert as C
 from physicedit_torch.io.safetensors_io import (EXTENSION_LOADERS, detect_model_name,
                                                 load_state_dict)
@@ -341,7 +343,8 @@ class PhysicEditPipeline:
         sync = torch.cuda.synchronize if self.device.type == "cuda" else (lambda: None)
         sync()
         t0 = time.perf_counter()
-        yield
+        with span(f"pe.stage.{name}"):
+            yield
         sync()
         self.timings[name] = self.timings.get(name, 0.0) + (time.perf_counter() - t0) * 1e3
 

@@ -7,6 +7,8 @@ as a Python step loop.
   mutates ``prompt_emb`` in place).
 - The Euler update runs in fp32; the schedule comes from
   ``sampling/flow_match.py``.
+- Under ``torch.profiler`` each step is the span ``pe.denoise.step`` and
+  its rewrite ``pe.denoise.adapter`` (``core/trace.py``).
 - Options of ``__call__``'s other paths: an EliGen entity bias with a text
   RoPE table per CFG row, inpaint blending against the clean latents, and
   the blockwise ControlNet residual.  Under ``cfg_truncate_after`` each is
@@ -19,6 +21,7 @@ import dataclasses
 
 import torch
 
+from physicedit_torch.core.trace import span
 from physicedit_torch.models.adapters import dual_adapter_forward
 from physicedit_torch.models.dit import DiT
 from physicedit_torch.ops.patchify import patchify, unpatchify
@@ -27,12 +30,13 @@ from physicedit_torch.ops.patchify import patchify, unpatchify
 def _rewrite_special_tokens(adapter, prompt_emb, special_idx, timestep, t_min, t_max):
     """Gather the special-token rows, run the adapter, scatter them back
     into a copy.  special_idx: [B, 64] positions into the text axis."""
-    rows = torch.arange(prompt_emb.shape[0], device=prompt_emb.device)[:, None]
-    mixed, _, _ = dual_adapter_forward(adapter, prompt_emb[rows, special_idx],
-                                       timestep, t_min, t_max)
-    out = prompt_emb.clone()
-    out[rows, special_idx] = mixed.to(prompt_emb.dtype)
-    return out
+    with span("pe.denoise.adapter"):
+        rows = torch.arange(prompt_emb.shape[0], device=prompt_emb.device)[:, None]
+        mixed, _, _ = dual_adapter_forward(adapter, prompt_emb[rows, special_idx],
+                                           timestep, t_min, t_max)
+        out = prompt_emb.clone()
+        out[rows, special_idx] = mixed.to(prompt_emb.dtype)
+        return out
 
 
 def denoise(dit: DiT, latents, extra_img_tokens, prompt_emb, txt_mask,
@@ -74,44 +78,45 @@ def denoise(dit: DiT, latents, extra_img_tokens, prompt_emb, txt_mask,
                         and attn_impl != "ring") else 0
 
         for i in range(sigmas.shape[0]):
-            if k is not None and reps == 2 and i == k:
-                # late steps: positive rows only; their special tokens go on
-                # feeding the adapter
-                reps = 1
-                prompt_emb, txt_mask = prompt_emb[:n_items], txt_mask[:n_items]
-                if special_idx is not None:
-                    special_idx = special_idx[:n_items]
-                if attn_bias_log2 is not None:
-                    attn_bias_log2 = attn_bias_log2[:n_items]
-                if control is not None:
-                    control = dataclasses.replace(control, cond=control.cond[:n_items])
-                if txt_cos.dim() == 4:
-                    txt_cos, txt_sin = txt_cos[:n_items], txt_sin[:n_items]
-            sigma, sigma_next, timestep = sigmas[i], sigmas_next[i], timesteps[i]
-            batch = prompt_emb.shape[0]
-            if adapter is not None and special_idx is not None:
-                prompt_emb = _rewrite_special_tokens(
-                    adapter, prompt_emb, special_idx, timestep.expand(batch), t_min, t_max)
+            with span("pe.denoise.step"):
+                if k is not None and reps == 2 and i == k:
+                    # late steps: positive rows only; their special tokens go on
+                    # feeding the adapter
+                    reps = 1
+                    prompt_emb, txt_mask = prompt_emb[:n_items], txt_mask[:n_items]
+                    if special_idx is not None:
+                        special_idx = special_idx[:n_items]
+                    if attn_bias_log2 is not None:
+                        attn_bias_log2 = attn_bias_log2[:n_items]
+                    if control is not None:
+                        control = dataclasses.replace(control, cond=control.cond[:n_items])
+                    if txt_cos.dim() == 4:
+                        txt_cos, txt_sin = txt_cos[:n_items], txt_sin[:n_items]
+                sigma, sigma_next, timestep = sigmas[i], sigmas_next[i], timesteps[i]
+                batch = prompt_emb.shape[0]
+                if adapter is not None and special_idx is not None:
+                    prompt_emb = _rewrite_special_tokens(
+                        adapter, prompt_emb, special_idx, timestep.expand(batch), t_min, t_max)
 
-            img_tokens = patchify(latents.to(dtype))
-            if extra_img_tokens is not None:
-                extra = extra_img_tokens.to(dtype).expand(n_items, -1, -1)
-                img_tokens = torch.cat([img_tokens, extra], dim=1)
-            if reps > 1:
-                img_tokens = img_tokens.repeat(reps, 1, 1)
-            t_norm = (timestep / 1000.0).expand(batch).to(dtype)
-            if control is not None:
-                control = dataclasses.replace(control, step=i)
-            out = dit(img_tokens, prompt_emb, t_norm, img_cos, img_sin, txt_cos, txt_sin,
-                      txt_key_mask=txt_mask, slim_last=slim, attn_clamp=attn_clamp,
-                      attn_bias_log2=attn_bias_log2, control=control, lora=lora,
-                      attn_impl=attn_impl)
-            v = unpatchify(out[:, :base], h, w)
-            if reps == 2:
-                v_posi, v_nega = v[:n_items], v[n_items:]
-                v = v_nega + cfg_scale * (v_posi - v_nega)
-            if inpaint_mask is not None and input_latents is not None:
-                expected = (latents.float() - input_latents.float()) / sigma
-                v = expected * (1.0 - inpaint_mask) + v.float() * inpaint_mask
-            latents = (latents.float() + v.float() * (sigma_next - sigma)).to(latents.dtype)
+                img_tokens = patchify(latents.to(dtype))
+                if extra_img_tokens is not None:
+                    extra = extra_img_tokens.to(dtype).expand(n_items, -1, -1)
+                    img_tokens = torch.cat([img_tokens, extra], dim=1)
+                if reps > 1:
+                    img_tokens = img_tokens.repeat(reps, 1, 1)
+                t_norm = (timestep / 1000.0).expand(batch).to(dtype)
+                if control is not None:
+                    control = dataclasses.replace(control, step=i)
+                out = dit(img_tokens, prompt_emb, t_norm, img_cos, img_sin, txt_cos, txt_sin,
+                          txt_key_mask=txt_mask, slim_last=slim, attn_clamp=attn_clamp,
+                          attn_bias_log2=attn_bias_log2, control=control, lora=lora,
+                          attn_impl=attn_impl)
+                v = unpatchify(out[:, :base], h, w)
+                if reps == 2:
+                    v_posi, v_nega = v[:n_items], v[n_items:]
+                    v = v_nega + cfg_scale * (v_posi - v_nega)
+                if inpaint_mask is not None and input_latents is not None:
+                    expected = (latents.float() - input_latents.float()) / sigma
+                    v = expected * (1.0 - inpaint_mask) + v.float() * inpaint_mask
+                latents = (latents.float() + v.float() * (sigma_next - sigma)).to(latents.dtype)
         return latents

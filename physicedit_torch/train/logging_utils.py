@@ -1,14 +1,10 @@
-"""Training logs and timings (``physicedit_tpu/train/logging_utils.py``):
-per-step scalars to wandb when it is installed and asked for, tagged stdout
-lines otherwise; named wall-clock stages; a ``torch.profiler`` trace in
-place of the JAX package's ``jax.profiler`` one.
+"""Training logs (``physicedit_tpu/train/logging_utils.py``): per-step
+scalars to wandb when it is installed and asked for, tagged stdout lines
+otherwise.  Timing inside the program is ``torch.profiler`` over the spans
+of ``core/trace.py``.
 """
 
 from __future__ import annotations
-
-import contextlib
-import os
-import time
 
 
 class TrainLogger:
@@ -46,43 +42,3 @@ class TrainLogger:
     def finish(self):
         if self.wandb is not None:
             self.wandb.finish()
-
-
-@contextlib.contextmanager
-def profile_trace(log_dir: str | None):
-    """Trace the block with ``torch.profiler`` (host, and the card when
-    there is one) and write ``<log_dir>/trace.json`` (Chrome trace format);
-    yields the profiler, or None when ``log_dir`` is None."""
-    if log_dir is None:
-        yield None
-        return
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    activities = [ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        activities.append(ProfilerActivity.CUDA)
-    os.makedirs(log_dir, exist_ok=True)
-    with profile(activities=activities) as prof:
-        yield prof
-    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
-
-
-class StepTimer:
-    """Wall-clock timing of named stages; ``summary()`` gives each mean."""
-
-    def __init__(self):
-        self.totals = {}
-        self.counts = {}
-
-    @contextlib.contextmanager
-    def stage(self, name: str):
-        t0 = time.perf_counter()
-        yield
-        dt = time.perf_counter() - t0
-        self.totals[name] = self.totals.get(name, 0.0) + dt
-        self.counts[name] = self.counts.get(name, 0) + 1
-
-    def summary(self) -> str:
-        return " | ".join(f"{k}: {self.totals[k] / max(self.counts[k], 1) * 1e3:.1f}ms"
-                          for k in self.totals)

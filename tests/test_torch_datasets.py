@@ -542,19 +542,3 @@ def test_train_logger_prints_window_means(capsys):
     out = capsys.readouterr().out
     assert "wandb not installed" in out
     assert "[TRAIN] step=2 epoch=0 loss=2.0000 step_time_s=1.0000" in out
-
-
-def test_step_timer_and_profile_trace(tmp_path):
-    import torch
-
-    timer = TL.StepTimer()
-    for _ in range(2):
-        with timer.stage("decode"):
-            time.sleep(0.002)
-    assert timer.counts == {"decode": 2} and timer.summary().startswith("decode: ")
-    with TL.profile_trace(None) as prof:
-        assert prof is None
-    with TL.profile_trace(str(tmp_path / "trace")) as prof:
-        torch.ones(8).sum()
-    trace = json.load(open(tmp_path / "trace" / "trace.json"))
-    assert trace["traceEvents"] and os.path.getsize(tmp_path / "trace" / "trace.json") > 0

@@ -33,7 +33,15 @@ Phases, each printed as one JSON line, any failure exits non-zero:
      and torch._int_mm (the JAX package's route at M >= 8192),
      torch._int_mm alone on weights unpacked beforehand and T10's
      proto_w4_i32 (the same product on T12's loop);
-  6. K4-K6 (fused activation quantize) against their plain versions;
+  6. K4-K6 (fused activation quantize) against their plain versions; then
+     the q / k RMSNorm + RoPE kernel (``kernels/qk_norm_rope.py``) against
+     the eager path it replaces, at the edit cells' block (B2 N24, text 640,
+     image 8192, the text keys' gain 4), its slim last block and a small odd
+     shape with per-row text tables: v bit for bit, q and k head rows bit
+     for bit, but a few that equal the eager row with its bf16 rsqrt one
+     ulp away (the sum's order; QK_ROWS_APART_MAX), timed
+     (CUDA events, a CUDA graph, the profiler) beside the eager path, with
+     its bound and ptxas's report (a spill fails the run);
   7. a small head_dim-128 pipeline on the card (kernels) against the same
      weights on the CPU (plain versions), in bf16 and then quantized int4,
      each with a plain edit and an EliGen edit (K7, with K3-K6 in int4);
@@ -232,7 +240,24 @@ W4_REL_L2 = 0.05     # full-width W4 edit against the same edit in bf16
 KERNEL_SOURCES = ("fixedmax_attention", "gqa_causal_attention", "w4a8_matmul", "fused_quant",
                   "fixedmax_attention_bwd", "w4_bwd_dx", "fixedmax_attention_bias",
                   "online_attention", "proto_fixedmax_attention", "proto_int8_matmul",
-                  "proto_int8qk_attention", "proto_ew_scale")
+                  "proto_int8qk_attention", "proto_ew_scale", "qk_norm_rope")
+# qk_norm_rope against the eager path: its q and k head rows may differ only
+# by the order of the 128 squares' sum, which can move a row's bf16 rsqrt by
+# one ulp (1-2 of the 423,936 q or k rows at the cells' block on an H100,
+# none at the small shapes; such a row lies 3 bf16 ulps of a rotated pair's
+# magnitude off, 387 of an element that nearly cancels).  So at most this
+# share of the rows may differ (42 rows at the cells' block, none at the
+# small shapes), and each of them must be the eager row recomputed with its
+# bf16 rsqrt one ulp up or down, bit for bit
+QK_ROWS_APART_MAX = 1e-4
+# its cases: batch, heads, text rows, image grid (two images of h x w
+# tokens), slim_base, per-row text tables (EliGen's)
+QK_CASES = {
+    "cells_block": (2, 24, 640, (64, 64), 0, False),
+    "cells_slim_block": (2, 24, 640, (64, 64), 4096, False),
+    "small_odd": (3, 5, 37, (3, 5), 0, True),
+    "small_odd_slim": (3, 5, 37, (3, 5), 7, True),
+}
 # small training step, bf16 card vs bf16 CPU through 2 blocks, about 10x the
 # readings on an H100 (loss 4.6e-5, all gradients 5.1e-5, worst leaf 2.8e-3)
 TRAIN_LOSS_REL = 5e-4  # the loss
@@ -298,6 +323,9 @@ KERNEL_ROWS = [
      "physicedit_tpu/kernels/fused_quant.py:67", None),
     ("transpose_quant", "physicedit_torch/csrc/fused_quant.cu",
      "physicedit_tpu/kernels/fused_quant.py:119", None),
+    # XLA fused the JAX package's q / k RMSNorm + RoPE: no Pallas kernel
+    ("qk_norm_rope", "physicedit_torch/csrc/qk_norm_rope.cu",
+     "none (physicedit_tpu/models/dit.py:228-236, rms_norm + apply_rope left to XLA)", None),
     ("fixedmax_attention_bwd", "physicedit_torch/csrc/fixedmax_attention_bwd.cu",
      "physicedit_tpu/kernels/flash_attention.py:330", None),
     ("w4_bwd_dx", "physicedit_torch/csrc/w4_bwd_dx.cu",
@@ -357,6 +385,7 @@ KERNEL_LOOPS = {
                     "tma_wgmma"),
     **dict.fromkeys(("ln_mod_quant", "gelu_quant"), "bulk_copy_rows"),
     "transpose_quant": "row_block", "w4a8_matmul_gemv": "dp4a_gemv",
+    "qk_norm_rope": "warp_rows",
     "proto_int8qk_quant": "warp_rows", "proto_w4_gemv_and": "tma_mma_gemv",
     "proto_ew_scale_bf16": "elementwise",
     "proto_ew_scale_fp32": "elementwise",
@@ -419,10 +448,10 @@ def rel_l2(got, want) -> float:
 
 
 def _counter_modules():
-    from physicedit_torch.kernels import flash_attention, fused_quant, quant_matmul
+    from physicedit_torch.kernels import flash_attention, fused_quant, qk_norm_rope, quant_matmul
     from physicedit_torch.tools import _proto_int8
 
-    return flash_attention, quant_matmul, fused_quant, _proto_int8
+    return flash_attention, quant_matmul, fused_quant, qk_norm_rope, _proto_int8
 
 
 def reset_counts() -> None:
@@ -717,12 +746,148 @@ def fused_quant_phase(report: dict, gen, time_ms) -> None:
     torch.cuda.empty_cache()
 
 
+def qk_norm_rope_inputs(case: str, dev, gen):
+    """The arguments of ``qk_norm_rope`` (and its eager plain version) for
+    a ``QK_CASES`` case, and its slim_base: QKV outputs N(0, 4) in bf16; the
+    cells' gains (one, the text keys' 4, as ``pebench`` sets them) at the
+    cells' shape, gains drawn around one otherwise (the text keys' 4); the
+    RoPE tables of two h x w images and the text."""
+    import torch
+
+    from physicedit_torch.ops.rope import build_rope_tables
+
+    b, n, s_t, (h, w), slim_base, per_row = QK_CASES[case]
+    d = 128
+
+    def randn(*shape, scale=1.0):
+        return (scale * torch.randn(*shape, device=dev, generator=gen)).bfloat16()
+
+    img_qkv, txt_qkv = randn(b, 2 * h * w, 3 * n * d, scale=2.0), randn(b, s_t, 3 * n * d,
+                                                                        scale=2.0)
+    if case.startswith("cells"):
+        gains = [torch.ones(d, device=dev, dtype=torch.bfloat16) for _ in range(4)]
+    else:
+        gains = [(1.0 + randn(d, scale=0.3).float()).bfloat16() for _ in range(4)]
+    gains[3] = torch.full((d,), 4.0, device=dev, dtype=torch.bfloat16)
+    tables = [torch.from_numpy(t).to(dev) for t in build_rope_tables([(1, h, w), (1, h, w)], s_t)]
+    if per_row:   # one text table per batch row, each shifted by its row's index
+        tables[2:] = [torch.stack([t.roll(r, 0) for r in range(b)])[:, None] for t in tables[2:]]
+    return (img_qkv, txt_qkv, tuple(gains), *tables), slim_base
+
+
+def eager_head_row(args, which: int, b: int, h: int, row: int, slim_base: int, shift: int):
+    """The eager path's head row (b, h, row) of q (``which`` 0) or k (1)
+    for ``qk_norm_rope_inputs``' ``args``, its bf16 rsqrt moved by ``shift``
+    ulps: ``ops/norms.rms_norm``'s and ``ops/rope.apply_rope``'s ops on
+    that one row."""
+    import torch
+
+    from physicedit_torch.ops.rope import apply_rope
+
+    img_qkv, txt_qkv, gains, img_cos, img_sin, txt_cos, txt_sin = args
+    s_t, d = txt_qkv.shape[1], gains[0].shape[-1]
+    n = img_qkv.shape[-1] // (3 * d)
+    text = row < s_t and not (which == 0 and slim_base)
+    s = row if text or (slim_base and which == 0) else row - s_t
+    qkv, cos, sin = (txt_qkv, txt_cos, txt_sin) if text else (img_qkv, img_cos, img_sin)
+    x = qkv[b, s, (which * n + h) * d:(which * n + h + 1) * d]
+    var = x.float().square().mean(-1, keepdim=True)
+    r = torch.rsqrt(var + 1e-6).to(x.dtype)
+    r = (r.view(torch.int16) + shift).view(x.dtype)
+    y = (x * r).to(x.dtype) * gains[2 * text + which]
+    tab = (lambda t: t[b if t.shape[0] > 1 else 0, 0, s] if t.dim() == 4 else t[s])
+    return apply_rope(y.view(1, 1, 1, d), tab(cos).view(1, -1), tab(sin).view(1, -1)).view(d)
+
+
+def head_rows_agreement(got, want, args, which: int, slim_base: int) -> dict:
+    """q (``which`` 0) or k (1) from ``qk_norm_rope`` against the eager
+    path: the head rows (the last dim) that differ, and their share; whether
+    they are at most QK_ROWS_APART_MAX of the rows and each equals the eager
+    row with its bf16 rsqrt one ulp up or down (``rows_explained``); and the largest difference in bf16 ulps of
+    the eager pair's magnitude |(y0, y1)| and of the eager element (read)."""
+    import torch
+
+    equal = (got == want).all(-1)
+    apart = (~equal).nonzero().tolist()
+    # one row at a time: only the few a sum's order can move
+    explained = len(apart) <= QK_ROWS_APART_MAX * equal.numel() and all(
+        any(torch.equal(got[b, h, row], eager_head_row(args, which, b, h, row, slim_base, shift))
+            for shift in (-1, 1)) for b, h, row in apart)
+    pair = want.float().unflatten(-1, (-1, 2)).norm(dim=-1, keepdim=True)
+    _, e = torch.frexp(pair.expand(*pair.shape[:-1], 2).flatten(-2))
+    ulp = torch.ldexp(torch.ones_like(e, dtype=torch.float32), e - 8)
+    return {"rows_apart": len(apart), "rows_apart_share": len(apart) / equal.numel(),
+            "rows_explained": explained,
+            "max_pair_ulps": ((got.float() - want.float()).abs() / ulp).max().item(),
+            "max_bf16_ulps": bf16_ulps(got, want)}
+
+
+def qk_norm_rope_phase(report: dict, gen, time_ms) -> None:
+    """6(b). The q / k RMSNorm + RoPE kernel against the eager path it
+    replaces (``qk_norm_rope_reference``) on the card, each ``QK_CASES``
+    case: v bit for bit, q and k head rows bit for bit but a few whose bf16
+    rsqrt the sum's order moves by an ulp (QK_ROWS_APART_MAX,
+    ``head_rows_agreement``), a second call and a CUDA graph's bit for
+    bit.  The cells' block is timed (CUDA events, a CUDA graph, the
+    profiler; its inputs, 325 MB, pass the L2) beside the eager path, with
+    its bound (bytes) and ptxas's report; a spill fails the run."""
+    import torch
+
+    from physicedit_torch.kernels import _build
+    from physicedit_torch.kernels import qk_norm_rope as qkr
+    from physicedit_torch.tools import _bench
+
+    dev = torch.device("cuda")
+    ptxas = ptxas_report(f"{_build.library_path('qk_norm_rope')}.log", "qk_norm_rope_kernel")
+    ptxas = ptxas.get((), {})
+    if "registers" not in ptxas or ptxas.get("spill_store_bytes") or ptxas.get("spill_load_bytes"):
+        fail(f"qk_norm_rope_kernel: ptxas reports spills or no entry: {ptxas}")
+    for case in QK_CASES:
+        args, slim_base = qk_norm_rope_inputs(case, dev, gen)
+        kernel = lambda: qkr.qk_norm_rope(*args, 1e-6, slim_base)  # noqa: E731
+        eager = lambda: qkr.qk_norm_rope_reference(*args, 1e-6, slim_base)  # noqa: E731
+        before = qkr.LAUNCHES["qk_norm_rope"]
+        got, want = kernel(), eager()
+        again = kernel()
+        torch.cuda.synchronize()
+        row = {"phase": "qk_norm_rope", "case": case, "shape": list(QK_CASES[case][:4]),
+               "slim_base": slim_base, "launches": qkr.LAUNCHES["qk_norm_rope"] - before,
+               "v_equal": torch.equal(got[2], want[2]),
+               "q": head_rows_agreement(got[0], want[0], args, 0, slim_base),
+               "k": head_rows_agreement(got[1], want[1], args, 1, slim_base),
+               "repeat_bits_equal": all(map(torch.equal, got, again)),
+               "graph_bits_equal": graph_equals_eager(
+                   lambda: torch.cat([t.view(-1) for t in kernel()]))}
+        if case == "cells_block":
+            nbytes = sum(t.numel() * t.element_size() for t in (*args[:2], *args[2], *args[3:]))
+            nbytes += sum(t.numel() * t.element_size() for t in got)
+            row.update({"ms": time_ms(kernel, 20), "graph_ms": _bench.graph_ms(kernel),
+                        "device_ms": device_ms(kernel, 20, "qk_norm_rope_kernel"),
+                        "plain_ms": time_ms(eager, 5), "plain_graph_ms": _bench.graph_ms(eager, 3),
+                        "library_ms": None, "bytes": nbytes, "ptxas": ptxas})
+            row.update(bound(0, nbytes, PEAK_FP32))
+            row["bound_share"] = row["bound_ms"] / row["ms"]
+            row["bound_share_graph"] = row["bound_ms"] / row["graph_ms"]
+            row["gb_per_s_graph"] = nbytes / row["graph_ms"] / 1e6
+            report["qk_norm_rope"] = row
+        report.setdefault("qk_norm_rope_err", []).append(
+            max(row["q"]["max_pair_ulps"], row["k"]["max_pair_ulps"]))
+        emit(row)
+        if (row["launches"] != 2 or not row["v_equal"] or not row["repeat_bits_equal"]
+                or not row["graph_bits_equal"]
+                or not (row["q"]["rows_explained"] and row["k"]["rows_explained"])):
+            fail(f"qk_norm_rope {case} disagrees with the eager path")
+        del args, got, want, again
+    torch.cuda.empty_cache()
+
+
 def w4_launch_counts(tm: dict, steps: int, n_blocks: int, n_layers: int,
                      vit_depth: int) -> dict:
     """The launches of K1-K6 that one W4 edit's structure implies (CFG 4,
     reasoner on, kv_int8).  Per CFG step and full block: four K4 (the QKV
-    and fc1 inputs of both streams), two K5 (fc2), one K6; the slim last
-    block three K4, one K5, one K6.  K3 runs every kernel-sized W4 linear:
+    and fc1 inputs of both streams), two K5 (fc2), one K6, one
+    ``qk_norm_rope``; the slim last block three K4, one K5, one K6, one
+    ``qk_norm_rope``.  K3 runs every kernel-sized W4 linear:
     in the DiT per full block the two modulations (M = 2) and qkv, out, fc1
     and fc2 of both streams, in the slim block the two modulations, both
     QKV and the image stream's out, fc1 and fc2; in the VL text model qkv,
@@ -739,7 +904,8 @@ def w4_launch_counts(tm: dict, steps: int, n_blocks: int, n_layers: int,
             "w4a8_matmul": steps * ((n_blocks - 1) * full + slim) + text + vit,
             "ln_mod_quant": steps * (4 * (n_blocks - 1) + 3),
             "gelu_quant": steps * (2 * (n_blocks - 1) + 1),
-            "transpose_quant": steps * n_blocks}
+            "transpose_quant": steps * n_blocks,
+            "qk_norm_rope": steps * n_blocks}
 
 
 def w8a8_int_mm_per_step(dit) -> int:
@@ -1086,10 +1252,11 @@ def train_launch_counts(n_blocks: int, quantized: bool) -> dict:
     input carries a gradient (the modulations' input, the timestep
     embedding, does not), but for three in the last block: its text-stream
     output is unused, so to_add_out, fc1 and fc2 of that stream get no
-    gradient."""
+    gradient.  ``qk_norm_rope`` has no backward: with grad on, the blocks
+    take the eager q / k norm and RoPE."""
     return {"fixedmax_attention": 2 * n_blocks, "fixedmax_attention_bwd": n_blocks,
             "w4a8_matmul": 20 * n_blocks if quantized else 0,
-            "w4_bwd_dx": 8 * n_blocks - 3 if quantized else 0}
+            "w4_bwd_dx": 8 * n_blocks - 3 if quantized else 0, "qk_norm_rope": 0}
 
 
 def train_regime_counts(n_blocks: int, quantized: bool) -> dict:
@@ -5188,9 +5355,10 @@ def main() -> int:
     del q, k, v, out, ref
     torch.cuda.empty_cache()
 
-    # 5. K3 at the W4 lane's shapes; 6. K4-K6
+    # 5. K3 at the W4 lane's shapes; 6. K4-K6, and the q / k RMSNorm + RoPE
     k3_phase(report, gen, time_ms)
     fused_quant_phase(report, gen, time_ms)
+    qk_norm_rope_phase(report, gen, time_ms)
 
     from physicedit_torch.pipeline.testing import build_random_pipeline, random_pipeline
 
@@ -5227,8 +5395,9 @@ def main() -> int:
         for name, (kw, used) in edits.items():
             want = np.asarray(pipe("tilt the cup", **kw, **common), np.float32)
             rel = float(np.linalg.norm(got[name] - want) / np.linalg.norm(want - want.mean()))
-            used = used + (("w4a8_matmul", "ln_mod_quant", "gelu_quant", "transpose_quant")
-                           if quantize else ())
+            used = used + ("qk_norm_rope",) + (
+                ("w4a8_matmul", "ln_mod_quant", "gelu_quant", "transpose_quant")
+                if quantize else ())
             emit({"phase": "small_pipeline_vs_cpu", "quantize": quantize, "path": name,
                   "rel_l2": rel, "limit": PIPE_REL_L2,
                   "max_abs_levels": float(np.abs(got[name] - want).max()),
@@ -5303,14 +5472,16 @@ def main() -> int:
             _, row = edit(w, h, seed, True)
         k1 = fa.LAUNCHES["fixedmax_attention"] - before["fixedmax_attention"]
         k2 = fa.LAUNCHES["gqa_causal_attention"] - before["gqa_causal_attention"]
+        qk = counts()["qk_norm_rope"] - before["qk_norm_rope"]
         # one reasoner prefill row and one prompt-encode chunk (both CFG rows)
         k2_want = n_layers * (1 + 1)
         row.update({"k1_launches": k1, "k1_expected": args.steps * n_blocks,
-                    "k2_launches": k2, "k2_expected": k2_want})
+                    "k2_launches": k2, "k2_expected": k2_want,
+                    "qk_norm_rope_launches": qk})
         emit({"phase": "edit", **row})
-        if k1 != args.steps * n_blocks or k2 != k2_want:
-            fail(f"launch counts K1 {k1} / K2 {k2} differ from the expected "
-                 f"{args.steps * n_blocks} / {k2_want}")
+        if k1 != args.steps * n_blocks or k2 != k2_want or qk != args.steps * n_blocks:
+            fail(f"launch counts K1 {k1} / K2 {k2} / qk_norm_rope {qk} differ from the "
+                 f"expected {args.steps * n_blocks} / {k2_want} / {args.steps * n_blocks}")
     main_launches = {name: fa.LAUNCHES[name] for name in fa.LAUNCHES}
 
     # 8b. EliGen at full width (K7); 8c. batched serving

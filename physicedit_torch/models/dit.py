@@ -40,10 +40,16 @@ block in the backward (``torch.utils.checkpoint``, the JAX package's
 Under ``torch.profiler`` (``core/trace.py``) the forward is the span
 ``pe.dit``, each block call ``pe.dit.block``, and a block's five segments
 ``pe.block.mod`` (the modulation linears), ``pe.block.qkv`` (modulated norm,
-QKV, q/k RMSNorm and RoPE), ``pe.block.attn`` (the joint concat and the
+QKV, q/k RMSNorm and RoPE into the joint q, k, v), ``pe.block.attn`` (the
 attention), ``pe.block.out`` (heads to features or K6, the output linears,
 the first gated residuals) and ``pe.block.mlp`` (both MLPs and their gated
 residuals).
+
+With grad off a block writes its joint q, k and v through
+``kernels/qk_norm_rope.qk_norm_rope`` (one CUDA kernel for both streams on
+the card, which takes bf16 at head_dim 128 and refuses the rest; its plain
+version on the CPU); with grad on, through that plain version's eager ops
+(``qk_norm_rope_reference``), which autograd differentiates.
 
 Module attribute names follow the JAX parameter tree, so ``io/from_jax.py``
 can carry weights across by name.
@@ -64,11 +70,11 @@ from physicedit_torch.core.trace import span
 from physicedit_torch.kernels.flash_attention import (CLAMP, LOG2E, fixedmax_attention,
                                                       fixedmax_attention_bias)
 from physicedit_torch.kernels.fused_quant import gelu_quant, ln_mod_quant, transpose_quant
+from physicedit_torch.kernels.qk_norm_rope import qk_norm_rope, qk_norm_rope_reference
 from physicedit_torch.kernels.quant_matmul import W4Linear, w4a8_linear_q
 from physicedit_torch.lora import lora_delta, lora_delta_fused
 from physicedit_torch.ops.attention import sdpa_bnsd
 from physicedit_torch.ops.norms import approximate_gelu, layer_norm, rms_norm
-from physicedit_torch.ops.rope import apply_rope
 from physicedit_torch.parallel.sharding import TPLinear, lora_delta_tp
 
 
@@ -222,7 +228,7 @@ class DiTBlock(nn.Module):
         cfg = self.cfg
         b, s_i, d = image.shape
         s_t = text.shape[1]
-        hd, eps = cfg.head_dim, cfg.eps
+        eps = cfg.eps
         a = self.attn
         lora = lora or {}
         # the JAX package's use_fq: packed block weights the kernels can tile,
@@ -241,23 +247,15 @@ class DiTBlock(nn.Module):
                                   _with_lora(lora.get("img_qkv"), True, a["img_qkv"]))
             txt_qkv = _mod_linear(a["txt_qkv"], text, tx_sh1, tx_sc1, eps, fq,
                                   _with_lora(lora.get("txt_qkv"), True, a["txt_qkv"]))
-            n = img_qkv.shape[-1] // (3 * hd)      # this rank's heads under tensor parallelism
-            iq, ik, iv = img_qkv.view(b, s_i, 3, n, hd).permute(2, 0, 3, 1, 4)
-            tq, tk, tv = txt_qkv.view(b, s_t, 3, n, hd).permute(2, 0, 3, 1, 4)
-
-            iq = apply_rope(rms_norm(iq, a["norm_q"].scale, eps), img_cos, img_sin)
-            ik = apply_rope(rms_norm(ik, a["norm_k"].scale, eps), img_cos, img_sin)
-            tq = apply_rope(rms_norm(tq, a["norm_added_q"].scale, eps), txt_cos, txt_sin)
-            tk = apply_rope(rms_norm(tk, a["norm_added_k"].scale, eps), txt_cos, txt_sin)
+            # text prefix, image suffix on the joint axis; [B, N, S, D] contiguous
+            gains = (a["norm_q"].scale, a["norm_k"].scale, a["norm_added_q"].scale,
+                     a["norm_added_k"].scale)
+            # the kernel has no backward: with grad on, its plain version's eager ops
+            joint = qk_norm_rope_reference if torch.is_grad_enabled() else qk_norm_rope
+            q, k, v = joint(img_qkv, txt_qkv, gains, img_cos, img_sin, txt_cos, txt_sin, eps,
+                            slim_base)
 
         with span("pe.block.attn"):
-            # text prefix, image suffix on the joint axis; [B, N, S, D] contiguous
-            if slim_base:
-                q = iq[:, :, :slim_base].contiguous()
-            else:
-                q = torch.cat([tq, iq], dim=2)
-            k = torch.cat([tk, ik], dim=2)
-            v = torch.cat([tv, iv], dim=2)
             rows = attn_bias_log2
             if rows is not None and slim_base:
                 rows = rows[:, s_t:s_t + slim_base]

@@ -1,5 +1,6 @@
-"""Port kernels K1-K10b, the attention prototypes and the int8, W4 and
-elementwise-rate probes on an NVIDIA GPU against their plain versions.
+"""Port kernels K1-K10b, the q / k RMSNorm + RoPE kernel, the attention
+prototypes and the int8, W4 and elementwise-rate probes on an NVIDIA GPU
+against their plain versions.
 
 Every test here needs a card and nvcc and skips without one.  The file
 imports no JAX, so it also runs where JAX is not installed:
@@ -14,6 +15,7 @@ import torch
 
 from physicedit_torch.kernels import flash_attention as tfa
 from physicedit_torch.kernels import fused_quant as tfq
+from physicedit_torch.kernels import qk_norm_rope as tqk
 from physicedit_torch.kernels import quant_matmul as tqm
 from physicedit_torch.tools import _bench as tbench
 from physicedit_torch.tools import _proto_attention as tpa
@@ -1592,3 +1594,103 @@ def test_w8a8_refuses_widths_int_mm_cannot_take(cuda):
     lin = tq8.Int8Linear.from_linear(torch.nn.Linear(36, 64)).to(cuda)
     with pytest.raises(ValueError, match="multiples of 8"):
         lin(torch.randn(20, 36, device=cuda))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["cells_block", "cells_slim_block", "small_odd",
+                                  "small_odd_slim"])
+def test_qk_norm_rope_kernel_matches_the_eager_path_on_cuda(cuda, case):
+    """The q / k RMSNorm + RoPE kernel against the eager ops it replaces
+    (its plain version, ``qk_norm_rope_reference``) at the edit cells' block
+    (B2 N24, text 640, image 8192, the text keys' gain 4), its slim last
+    block and a small odd shape with per-row text tables: v bit for bit; q
+    and k head rows bit for bit, but at most QK_ROWS_APART_MAX of them that
+    equal the eager row with its bf16 rsqrt one ulp up or down: the order of
+    the 128 squares' sum may move it (chip_smoke.py's gates)."""
+    from chip_smoke import head_rows_agreement, qk_norm_rope_inputs
+
+    args, slim_base = qk_norm_rope_inputs(case, cuda, torch.Generator(cuda).manual_seed(7))
+    before = tqk.LAUNCHES["qk_norm_rope"]
+    q, k, v = tqk.qk_norm_rope(*args, 1e-6, slim_base)
+    assert tqk.LAUNCHES["qk_norm_rope"] == before + 1
+    q_ref, k_ref, v_ref = tqk.qk_norm_rope_reference(*args, 1e-6, slim_base)
+    assert q.shape == q_ref.shape and k.shape == k_ref.shape and q.is_contiguous()
+    assert torch.equal(v, v_ref)
+    for which, got, want in ((0, q, q_ref), (1, k, k_ref)):
+        agree = head_rows_agreement(got, want, args, which, slim_base)
+        assert agree["rows_explained"], agree
+    assert all(map(torch.equal, (q, k, v), tqk.qk_norm_rope(*args, 1e-6, slim_base)))
+
+
+def _tiny_dit_on(device):
+    from physicedit_torch.core.params import init_random_, materialize
+    from physicedit_torch.models import dit as t_dit
+
+    cfg = t_dit.DiTConfig(num_layers=2, dim=256, num_heads=2, head_dim=128, txt_in_dim=96,
+                          patch_dim=64, time_dim=64)
+    dit = init_random_(materialize(t_dit.DiT(cfg, torch.bfloat16), device),
+                       torch.Generator(device).manual_seed(0)).eval()
+    with torch.no_grad():
+        dit.blocks[0].attn["norm_added_k"].scale.fill_(4.0)
+    return dit
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("slim", [0, 16])
+def test_qk_norm_rope_launches_once_a_block_without_grad_on_cuda(cuda, slim):
+    """A 2-block bf16 DiT on the card launches the kernel once a block with
+    grad off and never with grad on (the eager ops, which autograd
+    differentiates); the two forwards agree within bf16 rounding."""
+    from physicedit_torch.ops.rope import build_rope_tables
+
+    dit = _tiny_dit_on(cuda)
+    g = torch.Generator(cuda).manual_seed(1)
+    img = torch.randn(2, 32, 64, device=cuda, generator=g).bfloat16()
+    txt = torch.randn(2, 24, 96, device=cuda, generator=g).bfloat16()
+    t = torch.tensor([0.7, 0.7], device=cuda).bfloat16()
+    mask = torch.ones(2, 24, dtype=torch.bool, device=cuda)
+    mask[1, 16:] = False
+    ropes = [torch.from_numpy(r).to(cuda)
+             for r in build_rope_tables([(1, 4, 4), (1, 4, 4)], 24)]
+
+    def forward():
+        return dit(img, txt, t, *ropes, txt_key_mask=mask, slim_last=slim, attn_clamp=True)
+
+    tqk.reset_launch_counts()
+    with torch.no_grad():
+        fused = forward()
+    assert tqk.LAUNCHES["qk_norm_rope"] == 2
+    with torch.enable_grad():
+        eager = forward()
+    assert tqk.LAUNCHES["qk_norm_rope"] == 2
+    rel = ((fused.float() - eager.float()).norm() / eager.float().norm()).item()
+    assert fused.shape == eager.shape and rel < 1e-2
+
+
+@pytest.mark.cuda
+def test_qk_norm_rope_raises_on_unsupported_inputs(cuda):
+    """fp32, head_dim 64 and a CPU table beside CUDA inputs are refused; no
+    eager path stands in, neither when the wrapper is called nor when a DiT
+    forward without grad reaches it (fp32 in the dense lane, which K1 does
+    not refuse first)."""
+    from chip_smoke import qk_norm_rope_inputs
+    from physicedit_torch.ops.rope import build_rope_tables
+
+    (img, txt, gains, *tables), _ = qk_norm_rope_inputs(
+        "small_odd", cuda, torch.Generator(cuda).manual_seed(0))
+    with pytest.raises(ValueError, match="bfloat16"):
+        tqk.qk_norm_rope(img.float(), txt.float(), tuple(x.float() for x in gains), *tables)
+    with pytest.raises(ValueError, match="head_dim 64"):
+        tqk.qk_norm_rope(img[..., :15 * 64], txt[..., :15 * 64],
+                         tuple(x[:64] for x in gains), *tables)
+    with pytest.raises(ValueError, match="text cos"):
+        tqk.qk_norm_rope(img, txt, gains, *tables[:2], tables[2].cpu(), tables[3])
+
+    dit = _tiny_dit_on(cuda).float()
+    ropes = [torch.from_numpy(r).to(cuda) for r in build_rope_tables([(1, 4, 4)], 8)]
+    inputs = (torch.randn(1, 16, 64, device=cuda), torch.randn(1, 8, 96, device=cuda),
+              torch.tensor([0.7], device=cuda))
+    before = tqk.LAUNCHES["qk_norm_rope"]
+    with torch.no_grad(), pytest.raises(ValueError, match="bfloat16"):
+        dit(*inputs, *ropes, attn_impl="dense")
+    assert tqk.LAUNCHES["qk_norm_rope"] == before

@@ -600,7 +600,7 @@ def test_w4_edit_launch_structure(monkeypatch):
     from physicedit_torch.models import dit as t_dit
 
     calls = dict.fromkeys(["fixedmax_attention", "w4a8_matmul", "ln_mod_quant",
-                           "gelu_quant", "transpose_quant"], 0)
+                           "gelu_quant", "transpose_quant", "qk_norm_rope"], 0)
 
     def count(module, attr, name):
         real = getattr(module, attr)
@@ -612,6 +612,7 @@ def test_w4_edit_launch_structure(monkeypatch):
         monkeypatch.setattr(module, attr, spy)
 
     count(t_dit, "fixedmax_attention", "fixedmax_attention")
+    count(t_dit, "qk_norm_rope", "qk_norm_rope")
     count(tqm, "w4a8_matmul", "w4a8_matmul")
     for name in ("ln_mod_quant", "gelu_quant", "transpose_quant"):
         count(tfq, f"_{name}", name)

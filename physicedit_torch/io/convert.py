@@ -25,11 +25,12 @@ LayerNorm); the writer fills them with zeros (ones for a LayerNorm weight)
 so a written tree has the published key set.
 
 Key spaces: the DiT as ``transformer_blocks.{i}.*`` (the reference's
-``qwen_image_dit.py``), the VAE as diffusers' Qwen-Image VAE, the text
-encoder as HF Qwen2.5-VL (``model.*`` / ``visual.*`` in the file, remapped
-to ``model.language_model.*`` / ``model.visual.*`` as the reference does at
-load), DINOv2 as HF ``Dinov2WithRegistersModel``, the adapters as the
-reference's ``pipe.*`` modules.  The configs are inferred from the tensors'
+``qwen_image_dit.py``), the FLUX DiT as diffusers' ``FluxTransformer2DModel``,
+the VAE as diffusers' Qwen-Image VAE, the text encoder as HF Qwen2.5-VL
+(``model.*`` / ``visual.*`` in the file, remapped to ``model.language_model.*``
+/ ``model.visual.*`` as the reference does at load), DINOv2 as HF
+``Dinov2WithRegistersModel``, the adapters as the reference's ``pipe.*``
+modules.  The configs are inferred from the tensors'
 shapes and the ``config.json`` files beside them.
 """
 
@@ -45,6 +46,7 @@ from physicedit_torch.core.params import materialize
 from physicedit_torch.models.adapters import DualAdapter, PerceiverResampler, visual_thinking_head
 from physicedit_torch.models.dinov2 import DINOV2_BASE, DinoV2, DinoV2Config
 from physicedit_torch.models.dit import QWEN_IMAGE_CONFIG, DiT, DiTConfig
+from physicedit_torch.models.flux import FLUX_KONTEXT_CONFIG, FluxConfig, FluxDiT
 from physicedit_torch.models.qwen_vl import QWEN25_VL_7B_TEXT, QwenVLText, QwenVLTextConfig
 from physicedit_torch.models.qwen_vl_vision import (QWEN25_VL_VISION, QwenVLVision,
                                                     QwenVLVisionConfig)
@@ -198,6 +200,77 @@ def dit_from_state_dict(sd: dict, dtype=torch.bfloat16, device="cuda") -> DiT:
 
 def dit_to_state_dict(dit: DiT) -> dict:
     return module_state_dict(dit, dit_key_map(dit.cfg.num_layers))
+
+
+# ---------------------------------------------------------------------------
+# FLUX DiT (diffusers' FluxTransformer2DModel: transformer_blocks.{i}.*,
+# single_transformer_blocks.{i}.*)
+# ---------------------------------------------------------------------------
+
+def flux_key_map(num_layers: int, num_single_layers: int) -> list:
+    """The port's ``models.flux.FluxDiT`` from diffusers' key space.  The
+    QKV projections are fused (``to_q``, ``to_k``, ``to_v`` and the text
+    stream's ``add_*_proj``, in that order); ``norm_out.linear`` keeps
+    diffusers' scale-then-shift order, which the port reads as is (the
+    original BFL file's ``final_layer.adaLN_modulation.1`` is shift first,
+    and its converter swaps the halves)."""
+    rows: list = []
+    _lin(rows, "x_embedder", "x_embedder")
+    _lin(rows, "context_embedder", "context_embedder")
+    for port, ref in (("time_embed", "timestep_embedder"), ("guidance_embed", "guidance_embedder"),
+                      ("pooled_embed", "text_embedder")):
+        for n in ("linear_1", "linear_2"):
+            _lin(rows, f"{port}.{n}", f"time_text_embed.{ref}.{n}")
+    _lin(rows, "norm_out.linear", "norm_out.linear")
+    _lin(rows, "proj_out", "proj_out")
+    for i in range(num_layers):
+        p, r = f"blocks.{i}", f"transformer_blocks.{i}"
+        _lin(rows, f"{p}.img_mod", f"{r}.norm1.linear")
+        _lin(rows, f"{p}.txt_mod", f"{r}.norm1_context.linear")
+        _lin_cat(rows, f"{p}.attn.img_qkv", (f"{r}.attn.to_q", f"{r}.attn.to_k", f"{r}.attn.to_v"))
+        _lin_cat(rows, f"{p}.attn.txt_qkv", (f"{r}.attn.add_q_proj", f"{r}.attn.add_k_proj",
+                                             f"{r}.attn.add_v_proj"))
+        for n in ("norm_q", "norm_k", "norm_added_q", "norm_added_k"):
+            rows.append((f"{p}.attn.{n}.scale", (f"{r}.attn.{n}.weight",), COPY))
+        _lin(rows, f"{p}.attn.to_out", f"{r}.attn.to_out.0")
+        _lin(rows, f"{p}.attn.to_add_out", f"{r}.attn.to_add_out")
+        for s, ff in (("img", "ff"), ("txt", "ff_context")):
+            _lin(rows, f"{p}.{s}_mlp.fc1", f"{r}.{ff}.net.0.proj")
+            _lin(rows, f"{p}.{s}_mlp.fc2", f"{r}.{ff}.net.2")
+    for i in range(num_single_layers):
+        p, r = f"single_blocks.{i}", f"single_transformer_blocks.{i}"
+        _lin(rows, f"{p}.mod", f"{r}.norm.linear")
+        _lin_cat(rows, f"{p}.attn.qkv", (f"{r}.attn.to_q", f"{r}.attn.to_k", f"{r}.attn.to_v"))
+        for n in ("norm_q", "norm_k"):
+            rows.append((f"{p}.attn.{n}.scale", (f"{r}.attn.{n}.weight",), COPY))
+        _lin(rows, f"{p}.proj_mlp", f"{r}.proj_mlp")
+        _lin(rows, f"{p}.proj_out", f"{r}.proj_out")
+    return rows
+
+
+def flux_config_from_state_dict(sd: dict) -> FluxConfig:
+    """The FLUX DiT's config from its tensors' shapes (FLUX_KONTEXT_CONFIG on
+    the published checkpoint)."""
+    head_dim = int(sd["transformer_blocks.0.attn.norm_q.weight"].shape[0])
+    dim, patch_dim = (int(x) for x in sd["x_embedder.weight"].shape)
+    return dataclasses.replace(
+        FLUX_KONTEXT_CONFIG, num_layers=_layer_count(sd, "transformer_blocks."),
+        num_single_layers=_layer_count(sd, "single_transformer_blocks."), dim=dim,
+        num_heads=dim // head_dim, head_dim=head_dim,
+        txt_in_dim=int(sd["context_embedder.weight"].shape[1]),
+        pooled_dim=int(sd["time_text_embed.text_embedder.linear_1.weight"].shape[1]),
+        patch_dim=patch_dim,
+        time_dim=int(sd["time_text_embed.timestep_embedder.linear_1.weight"].shape[1]))
+
+
+def flux_from_state_dict(sd: dict, dtype=torch.bfloat16, device="cuda") -> FluxDiT:
+    cfg = flux_config_from_state_dict(sd)
+    dit = materialize(FluxDiT(cfg, dtype), device)
+    return load_module_(dit, sd, flux_key_map(cfg.num_layers, cfg.num_single_layers)).eval()
+
+
+def flux_to_state_dict(dit: FluxDiT) -> dict:
+    return module_state_dict(dit, flux_key_map(dit.cfg.num_layers, dit.cfg.num_single_layers))
 
 
 # ---------------------------------------------------------------------------

@@ -18,6 +18,12 @@ since the kernel has no backward.  For a CUDA tensor the wrapper launches
 the kernel or raises (fp32, head_dim other than 128, a table elsewhere,
 misaligned or strided operands); it never falls back.  ``LAUNCHES`` counts
 the launches, one per block.
+
+:func:`qk_norm_rope_joint` serves the FLUX DiT's single-stream blocks
+(``models/flux.py``), whose one QKV projection ``[B, S_t + S_i, 3 N D]``
+covers the joint sequence under one gain pair: its text rows and its image
+rows go in as the two streams, views of the one tensor (at B > 1 their
+batch stride is the joint length's), with no copy, through the same launch.
 """
 from __future__ import annotations
 
@@ -152,3 +158,15 @@ def qk_norm_rope(img_qkv, txt_qkv, gains, img_cos, img_sin, txt_cos, txt_sin,
                                       txt_sin, eps, slim_base)
     return _qk_norm_rope_cuda(img_qkv, txt_qkv, gains, img_cos, img_sin, txt_cos, txt_sin,
                               eps, slim_base)
+
+
+def qk_norm_rope_joint(qkv, s_t: int, gains, img_cos, img_sin, txt_cos, txt_sin,
+                       eps: float = 1e-6, slim_base: int = 0, plain: bool = False):
+    """q, k, v of a single-stream block: qkv [B, S_t + S_i, 3 N D], the text
+    rows first; gains the (q, k) RMSNorm scales [D], shared by both parts;
+    the tables as :func:`qk_norm_rope`'s.  The two parts are views of
+    ``qkv`` handed to :func:`qk_norm_rope` (or, with ``plain``, to
+    :func:`qk_norm_rope_reference`) as its two streams."""
+    fn = qk_norm_rope_reference if plain else qk_norm_rope
+    return fn(qkv[:, s_t:], qkv[:, :s_t], tuple(gains) * 2, img_cos, img_sin, txt_cos, txt_sin,
+              eps, slim_base)

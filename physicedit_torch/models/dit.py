@@ -175,23 +175,30 @@ def _mod_linear(lin, x, shift, scale, eps, fused: bool, add_lora=_no_lora):
     return add_lora(lin(xn), xn)
 
 
-def _mlp(p: nn.ModuleDict, x, shift, scale, eps, fused: bool, add_lora=_no_lora):
-    """``fc2(gelu(fc1(modulate(x))))`` with fc2's LoRA delta; on the fused
-    path K5 makes fc2's int8 input."""
+def _mlp(p: nn.ModuleDict, x, shift, scale, eps, fused: bool, add_lora=_no_lora,
+         act=approximate_gelu):
+    """``fc2(act(fc1(modulate(x))))`` with fc2's LoRA delta; on the fused
+    path K5 makes fc2's int8 input (K5 computes ``approximate_gelu``)."""
     h = _mod_linear(p["fc1"], x, shift, scale, eps, fused)
-    if fused and isinstance(p["fc2"], W4Linear):
+    if fused and act is approximate_gelu and isinstance(p["fc2"], W4Linear):
         gq = gelu_quant(h)
         if gq is not None:
             return w4a8_linear_q(p["fc2"], *gq, x.dtype)
-    h = approximate_gelu(h)
+    h = act(h)
     return add_lora(p["fc2"](h), h)
 
 
 class DiTBlock(nn.Module):
-    def __init__(self, cfg: DiTConfig, dtype=None):
+    """One dual-stream block.  ``act`` is the MLPs' activation: Qwen-Image's
+    ``approximate_gelu`` (``x * sigmoid(1.702 x)``), or FLUX's tanh GELU
+    (``models/flux.py``, whose double-stream blocks are this block); ``cfg``
+    needs ``dim``, ``head_dim``, ``mlp_dim`` and ``eps``."""
+
+    def __init__(self, cfg: DiTConfig, dtype=None, act=approximate_gelu):
         super().__init__()
         d, hd = cfg.dim, cfg.head_dim
         self.cfg = cfg
+        self.act = act
         self.img_mod = linear(d, 6 * d, dtype=dtype)
         self.txt_mod = linear(d, 6 * d, dtype=dtype)
         self.attn = nn.ModuleDict({
@@ -298,7 +305,7 @@ class DiTBlock(nn.Module):
             with span("pe.block.mlp"):
                 image = image + im_g2[:, None, :] * _mlp(
                     self.img_mlp, image, im_sh2, im_sc2, eps, fq,
-                    _with_lora(lora.get("img_mlp_fc2"), lin=self.img_mlp["fc2"]))
+                    _with_lora(lora.get("img_mlp_fc2"), lin=self.img_mlp["fc2"]), self.act)
             return None, image
 
         with span("pe.block.out"):
@@ -323,10 +330,10 @@ class DiTBlock(nn.Module):
         with span("pe.block.mlp"):
             image = image + im_g2[:, None, :] * _mlp(
                 self.img_mlp, image, im_sh2, im_sc2, eps, fq,
-                _with_lora(lora.get("img_mlp_fc2"), lin=self.img_mlp["fc2"]))
+                _with_lora(lora.get("img_mlp_fc2"), lin=self.img_mlp["fc2"]), self.act)
             text = text + tx_g2[:, None, :] * _mlp(
                 self.txt_mlp, text, tx_sh2, tx_sc2, eps, fq,
-                _with_lora(lora.get("txt_mlp_fc2"), lin=self.txt_mlp["fc2"]))
+                _with_lora(lora.get("txt_mlp_fc2"), lin=self.txt_mlp["fc2"]), self.act)
         return text, image
 
 
@@ -402,18 +409,22 @@ class DiT(nn.Module):
             return self.proj_out(image)
 
 
-def attn_clamp_needed(dit: DiT) -> bool:
+def attn_clamp_needed(dit: nn.Module) -> bool:
     """Decide at load whether K1 needs its overflow clamp.
 
     With per-head RMS-normed q/k scaled by gammas, |q.k| / sqrt(d) <=
     sqrt(d) * |gamma_q|_inf * |gamma_k|_inf (RoPE preserves norms).  When
     that bound in exp2 units sits well below CLAMP the clamp is inert.
+    The gains are every block's ``attn.norm_*q`` / ``attn.norm_*k``: the
+    dual-stream ``blocks`` and, in the FLUX DiT, its ``single_blocks``.
     """
-    def gmax(name):
-        return max(float(blk.attn[name].scale.detach().float().abs().max())
-                   for blk in dit.blocks)
+    blocks = list(dit.blocks) + list(getattr(dit, "single_blocks", ()))
+
+    def gmax(kind):
+        return max(float(leaf.scale.detach().float().abs().max())
+                   for blk in blocks for name, leaf in blk.attn.items()
+                   if name.startswith("norm_") and name.endswith(kind))
 
     d = dit.cfg.head_dim
-    bound = (d ** 0.5) * max(gmax("norm_q"), gmax("norm_added_q")) \
-        * max(gmax("norm_k"), gmax("norm_added_k")) * LOG2E
+    bound = (d ** 0.5) * gmax("q") * gmax("k") * LOG2E
     return bound >= CLAMP / 2

@@ -38,6 +38,12 @@ def approximate_gelu(x: torch.Tensor) -> torch.Tensor:
     return x * torch.sigmoid(1.702 * x)
 
 
+def tanh_gelu(x: torch.Tensor) -> torch.Tensor:
+    """GELU in its tanh form, the FLUX DiT's MLP activation (one kernel,
+    fp32 inside, one rounding to x's dtype)."""
+    return torch.nn.functional.gelu(x, approximate="tanh")
+
+
 def l2_normalize_channel(x: torch.Tensor, dim: int,
                          eps: float = 1e-12) -> torch.Tensor:
     """``F.normalize`` with the norm taken in fp32 (the VAE channel norm)."""

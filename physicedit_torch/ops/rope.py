@@ -1,9 +1,11 @@
 """3D rotary position embeddings for the Qwen-Image DiT
-(``physicedit_tpu/ops/rope.py``).
+(``physicedit_tpu/ops/rope.py``) and the FLUX DiT.
 
 The cos/sin tables are built once per request on the host in NumPy, exactly
 as the JAX package builds them; :func:`apply_rope` rotates adjacent pairs
-of the head dim in fp32 on the device.
+of the head dim in fp32 on the device.  :func:`flux_rope_tables` gives
+FLUX.1 Kontext's position ids (diffusers' ``FluxKontextPipeline``) on the
+same axes and rotation.
 """
 
 from __future__ import annotations
@@ -78,6 +80,23 @@ def build_rope_tables(img_shapes: list[tuple[int, int, int]], txt_seq_len: int,
                            axes_dim)
     img_cos, img_sin = _cos_sin(img_ang)
     txt_cos, txt_sin = _cos_sin(txt_ang)
+    return img_cos, img_sin, txt_cos, txt_sin
+
+
+def flux_rope_tables(img_shapes: list[tuple[int, int, int]], txt_seq_len: int,
+                     axes_dim: tuple = AXES_DIM):
+    """(img_cos, img_sin, txt_cos, txt_sin) of the FLUX DiT, each float32
+    [S, sum(axes)//2]: text ids are all zero (the identity rotation); image
+    ``i`` of ``img_shapes`` (the target 0, Kontext's context image 1) takes
+    the ids (i, row, column), rows and columns counted from 0, not centred."""
+    vid = []
+    for idx, (frame, height, width) in enumerate(img_shapes):
+        ff, hh, ww = np.meshgrid(np.arange(idx, idx + frame), np.arange(height),
+                                 np.arange(width), indexing="ij")
+        vid.append(np.concatenate([_rope_angles(a.ravel(), d) for a, d in
+                                   zip((ff, hh, ww), axes_dim)], axis=1))
+    img_cos, img_sin = _cos_sin(np.concatenate(vid, axis=0))
+    txt_cos, txt_sin = _cos_sin(_axis_angles(np.zeros(txt_seq_len), axes_dim))
     return img_cos, img_sin, txt_cos, txt_sin
 
 

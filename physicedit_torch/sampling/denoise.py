@@ -13,6 +13,10 @@ as a Python step loop.
   RoPE table per CFG row, inpaint blending against the clean latents, and
   the blockwise ControlNet residual.  Under ``cfg_truncate_after`` each is
   cut to the positive rows with the prompts.
+- The FLUX.1 Kontext edit (``pipeline/kontext_pipeline.py``) runs the same
+  loop with one row a step (guidance distilled into the DiT, no CFG, no
+  adapter), its context image as the extra tokens and its guidance and
+  pooled text vector as ``dit_inputs``.
 """
 
 from __future__ import annotations
@@ -45,7 +49,8 @@ def denoise(dit: DiT, latents, extra_img_tokens, prompt_emb, txt_mask,
             t_min: float = 0.0, t_max: float = 1000.0, slim_last: bool = True,
             attn_clamp: bool = True, cfg_truncate_after: int | None = None,
             attn_bias_log2=None, inpaint_mask=None, input_latents=None, control=None,
-            lora=None, attn_impl: str = "kernels", grad: bool = False):
+            lora=None, attn_impl: str = "kernels", grad: bool = False,
+            dit_inputs: dict | None = None):
     """Run the schedule; returns the final latents [N, h, w, 16].
 
     latents [N, h, w, 16]; extra_img_tokens [1 or N, S_extra, 64] or None;
@@ -62,7 +67,8 @@ def denoise(dit: DiT, latents, extra_img_tokens, prompt_emb, txt_mask,
     factors (``lora.DiTLoRA``), which turn it off too, as does the ring.
     attn_impl: the DiT's ("kernels", "dense" or "ring").  The loop runs
     under no-grad unless ``grad`` (``train.loss.direct_distill_loss``
-    differentiates through it).
+    differentiates through it).  dit_inputs: further keyword inputs of every
+    DiT call (``models.flux.FluxDiT``'s ``guidance`` and ``pooled``).
     """
     with torch.set_grad_enabled(grad):
         h, w = latent_hw
@@ -110,7 +116,7 @@ def denoise(dit: DiT, latents, extra_img_tokens, prompt_emb, txt_mask,
                 out = dit(img_tokens, prompt_emb, t_norm, img_cos, img_sin, txt_cos, txt_sin,
                           txt_key_mask=txt_mask, slim_last=slim, attn_clamp=attn_clamp,
                           attn_bias_log2=attn_bias_log2, control=control, lora=lora,
-                          attn_impl=attn_impl)
+                          attn_impl=attn_impl, **(dit_inputs or {}))
                 v = unpatchify(out[:, :base], h, w)
                 if reps == 2:
                     v_posi, v_nega = v[:n_items], v[n_items:]

@@ -178,6 +178,25 @@ def qwen_inference_schedule(num_inference_steps: int, height: int, width: int,
     )
 
 
+def flux_schedule(num_inference_steps: int, image_seq_len: int) -> FlowMatchSchedule:
+    """FLUX.1's schedule (diffusers' ``FluxKontextPipeline`` over
+    ``FlowMatchEulerDiscreteScheduler`` with dynamic shifting): sigmas
+    ``linspace(1, 1/N, N)``, the exponential shift with ``mu`` from the
+    target's token count (0.5 at 256 tokens to 1.15 at 4,096), no terminal
+    shift; timesteps ``1000 * sigma``; the Euler step's next sigma 0 past
+    the end.  Worked out in float64 and stored as float32 (diffusers shifts
+    float32 sigmas)."""
+    sigmas = np.linspace(1.0, 1.0 / num_inference_steps, num_inference_steps,
+                         dtype=np.float64)
+    mu = calculate_shift(image_seq_len, base_seq_len=256, max_seq_len=4096, base_shift=0.5,
+                         max_shift=1.15)
+    sigmas = math.exp(mu) / (math.exp(mu) + (1.0 / sigmas - 1.0))
+    return FlowMatchSchedule(
+        sigmas=sigmas.astype(np.float32),
+        timesteps=(sigmas * NUM_TRAIN_TIMESTEPS).astype(np.float32),
+        sigmas_next=np.concatenate([sigmas[1:], [0.0]]).astype(np.float32))
+
+
 def qwen_training_schedule() -> FlowMatchSchedule:
     """The 1000-step training schedule (trainers/utils.py:861)."""
     return build_schedule(NUM_TRAIN_TIMESTEPS, QWEN_IMAGE_CONFIG, training=True)

@@ -41,17 +41,25 @@ Phases, each printed as one JSON line, any failure exits non-zero:
      for bit, but a few that equal the eager row with its bf16 rsqrt one
      ulp away (the sum's order; QK_ROWS_APART_MAX), timed
      (CUDA events, a CUDA graph, the profiler) beside the eager path, with
-     its bound and ptxas's report (a spill fails the run);
+     its bound and ptxas's report (a spill fails the run); then the bf16
+     modulated LayerNorm kernel (``kernels/ln_mod.py``), both forms, against
+     its plain versions at the image stream, the text stream, a Kontext
+     single block, the slim block's row-strided view and a small width: x'
+     bit for bit, y bit for bit but for a few elements whose LayerNorm value
+     the statistics' order moves by a bf16 ulp (LN_APART_MAX), timed the
+     same way beside its plain version, with its bound and ptxas's report
+     of every instantiation (a spill fails the run);
   7. a small head_dim-128 pipeline on the card (kernels) against the same
      weights on the CPU (plain versions), in bf16 and then quantized int4,
      each with a plain edit and an EliGen edit (K7, with K3-K6 in int4);
   8. the full-width pipeline (Qwen-Image-Edit-2509 widths, random bf16
      weights): three edits through ``PhysicEditPipeline.__call__`` with the
      reasoner on and CFG 4 (the first decoding the full 1000 tokens, the
-     others EDIT_DECODE_CUT), with stage times, kernel launch counts and
-     peak memory; then two EliGen edits at 1024^2 (two entities, CFG 4,
-     reasoner off; full CFG and ``cfg_truncate_step``) with exact K7 / K1 /
-     K2 launch counts; then batched serving: ``edit_batch`` of two edits
+     others EDIT_DECODE_CUT), with stage times, kernel launch counts (K1,
+     K2, the q/k kernel and both ln_mod forms exact) and peak memory; then
+     two EliGen edits at 1024^2 (two entities, CFG 4, reasoner off; full
+     CFG and ``cfg_truncate_step``) with exact K7 / K1 / K2 launch counts;
+     then batched serving: ``edit_batch`` of two edits
      against the single edits, ``edit_batch_mixed`` over two sizes, and the
      reasoner's decode at N = 1 and N = 2 rows;
   9. the W4 serving lane at full width: ``quantize_("int4")`` in place, the
@@ -240,7 +248,7 @@ W4_REL_L2 = 0.05     # full-width W4 edit against the same edit in bf16
 KERNEL_SOURCES = ("fixedmax_attention", "gqa_causal_attention", "w4a8_matmul", "fused_quant",
                   "fixedmax_attention_bwd", "w4_bwd_dx", "fixedmax_attention_bias",
                   "online_attention", "proto_fixedmax_attention", "proto_int8_matmul",
-                  "proto_int8qk_attention", "proto_ew_scale", "qk_norm_rope")
+                  "proto_int8qk_attention", "proto_ew_scale", "qk_norm_rope", "ln_mod")
 # qk_norm_rope against the eager path: its q and k head rows may differ only
 # by the order of the 128 squares' sum, which can move a row's bf16 rsqrt by
 # one ulp (1-2 of the 423,936 q or k rows at the cells' block on an H100,
@@ -257,6 +265,22 @@ QK_CASES = {
     "cells_slim_block": (2, 24, 640, (64, 64), 4096, False),
     "small_odd": (3, 5, 37, (3, 5), 0, True),
     "small_odd_slim": (3, 5, 37, (3, 5), 7, True),
+}
+# ln_mod / residual_ln_mod against their plain versions: x' bit for bit; y
+# bit for bit but where the order of the statistics' sums moves a LayerNorm
+# value across a bf16 rounding edge.  Such an element must be the plain
+# version's affine of its LayerNorm value one bf16 ulp up or down, bit for
+# bit, and at most this share of the elements may be so
+LN_APART_MAX = 1e-3
+# its cases: batch, rows, width, and the rows of the tensor x is the first
+# rows of (the slim last block's view; 0: x is whole); the first three are
+# timed: the image stream, the text stream, a Kontext single block
+LN_CASES = {
+    "image_2x8192x3072": (2, 8192, 3072, 0),
+    "text_2x640x3072": (2, 640, 3072, 0),
+    "single_1x8704x3072": (1, 8704, 3072, 0),
+    "slim_view_2x4096_of_8192x3072": (2, 4096, 3072, 8192),
+    "small_3x37x256": (3, 37, 256, 0),
 }
 # small training step, bf16 card vs bf16 CPU through 2 blocks, about 10x the
 # readings on an H100 (loss 4.6e-5, all gradients 5.1e-5, worst leaf 2.8e-3)
@@ -326,6 +350,12 @@ KERNEL_ROWS = [
     # XLA fused the JAX package's q / k RMSNorm + RoPE: no Pallas kernel
     ("qk_norm_rope", "physicedit_torch/csrc/qk_norm_rope.cu",
      "none (physicedit_tpu/models/dit.py:228-236, rms_norm + apply_rope left to XLA)", None),
+    # XLA fused the JAX package's modulated LayerNorm and gated residuals too
+    ("ln_mod", "physicedit_torch/csrc/ln_mod.cu",
+     "none (physicedit_tpu/models/dit.py:143-144 _modulate, left to XLA)", None),
+    ("residual_ln_mod", "physicedit_torch/csrc/ln_mod.cu",
+     "none (physicedit_tpu/models/dit.py:337-338 gated residual + _modulate, left to XLA)",
+     None),
     ("fixedmax_attention_bwd", "physicedit_torch/csrc/fixedmax_attention_bwd.cu",
      "physicedit_tpu/kernels/flash_attention.py:330", None),
     ("w4_bwd_dx", "physicedit_torch/csrc/w4_bwd_dx.cu",
@@ -385,7 +415,7 @@ KERNEL_LOOPS = {
                     "tma_wgmma"),
     **dict.fromkeys(("ln_mod_quant", "gelu_quant"), "bulk_copy_rows"),
     "transpose_quant": "row_block", "w4a8_matmul_gemv": "dp4a_gemv",
-    "qk_norm_rope": "warp_rows",
+    "qk_norm_rope": "warp_rows", "ln_mod": "warp_rows", "residual_ln_mod": "warp_rows",
     "proto_int8qk_quant": "warp_rows", "proto_w4_gemv_and": "tma_mma_gemv",
     "proto_ew_scale_bf16": "elementwise",
     "proto_ew_scale_fp32": "elementwise",
@@ -448,10 +478,11 @@ def rel_l2(got, want) -> float:
 
 
 def _counter_modules():
-    from physicedit_torch.kernels import flash_attention, fused_quant, qk_norm_rope, quant_matmul
+    from physicedit_torch.kernels import (flash_attention, fused_quant, ln_mod, qk_norm_rope,
+                                          quant_matmul)
     from physicedit_torch.tools import _proto_int8
 
-    return flash_attention, quant_matmul, fused_quant, qk_norm_rope, _proto_int8
+    return flash_attention, quant_matmul, fused_quant, qk_norm_rope, ln_mod, _proto_int8
 
 
 def reset_counts() -> None:
@@ -881,13 +912,156 @@ def qk_norm_rope_phase(report: dict, gen, time_ms) -> None:
     torch.cuda.empty_cache()
 
 
+def ln_mod_inputs(case: str, dev, gen):
+    """x, o and (shift, scale, gate) of ``residual_ln_mod`` for an
+    ``LN_CASES`` case: x N(0, 4) with a mean of N(0, 0.25) a row, in bf16
+    (the first rows of a longer tensor for the slim view); o N(0, 1);
+    shift, scale and gate ``chunk`` views of a [B, 6 D] modulation output,
+    N(0, 0.25), as the block takes them."""
+    import torch
+
+    b, s, d, whole = LN_CASES[case]
+    rows = whole or s
+    x = (2.0 * torch.randn(b, rows, d, device=dev, generator=gen)
+         + 0.5 * torch.randn(b, rows, 1, device=dev, generator=gen)).bfloat16()[:, :s]
+    o = torch.randn(b, s, d, device=dev, generator=gen).bfloat16()
+    mod = (0.5 * torch.randn(b, 6 * d, device=dev, generator=gen)).bfloat16()
+    shift1, scale1, gate1, shift2, scale2, gate2 = mod.chunk(6, -1)
+    return x, o, (shift2, scale2, gate1)
+
+
+def ln_mod_agreement(y, x, shift, scale, eps: float = 1e-6) -> dict:
+    """y from the kernel against the plain version of ``ln_mod`` on x: the
+    elements that differ and their share; whether each equals the plain
+    version's affine of its LayerNorm value one bf16 ulp up or down
+    (``elements_explained``), at most LN_APART_MAX of them; and the largest
+    difference in bf16 ulps of the plain version's element (read)."""
+    import torch
+
+    from physicedit_torch.ops.norms import layer_norm
+
+    ln = layer_norm(x, eps=eps)
+    bits = ln.view(torch.int16)
+
+    def affine(t):
+        return t * (1.0 + scale[:, None, :]) + shift[:, None, :]
+
+    want = affine(ln)
+    apart = y != want
+    n_apart = int(apart.sum().item())
+    unexplained = int((apart & (y != affine((bits + 1).view(torch.bfloat16)))
+                       & (y != affine((bits - 1).view(torch.bfloat16)))).sum().item())
+    return {"elements_apart": n_apart, "apart_share": n_apart / y.numel(),
+            "elements_unexplained": unexplained,
+            "elements_explained": unexplained == 0 and n_apart <= LN_APART_MAX * y.numel(),
+            "max_bf16_ulps": bf16_ulps(y, want)}
+
+
+def ln_mod_phase(report: dict, gen, time_ms) -> None:
+    """6(c). The bf16 modulated LayerNorm kernel in both forms against its
+    plain versions (the eager ops it replaces) on the card, each
+    ``LN_CASES`` case: x' bit for bit, y bit for bit but for elements whose
+    LayerNorm value the statistics' order moves by a bf16 ulp
+    (LN_APART_MAX, ``ln_mod_agreement``), a second call and a CUDA graph's
+    bit for bit.  The image stream, the text stream and a Kontext single
+    block are timed (CUDA events, a CUDA graph, the profiler; the inputs
+    rotated past the L2) beside the plain version, with the bound (bytes)
+    and ptxas's report of the width's instantiation; a spill fails the run."""
+    import torch
+
+    from physicedit_torch.kernels import _build
+    from physicedit_torch.kernels import ln_mod as lm
+    from physicedit_torch.tools import _bench
+    from physicedit_torch.tools._proto_int8 import rotated
+
+    dev = torch.device("cuda")
+    ptxas = ptxas_report(f"{_build.library_path('ln_mod')}.log", "ln_mod_kernel")
+    if len(ptxas) != 24 or any("registers" not in e or e.get("spill_store_bytes")
+                               or e.get("spill_load_bytes") for e in ptxas.values()):
+        fail(f"ln_mod_kernel: ptxas reports spills or misses an instantiation: {ptxas}")
+    for case, (b, s, d, _) in LN_CASES.items():
+        x, o, (shift, scale, gate) = ln_mod_inputs(case, dev, gen)
+        for name in ("ln_mod", "residual_ln_mod"):
+            residual = name == "residual_ln_mod"
+            if residual:
+                def call(xo):
+                    return lm.residual_ln_mod(xo[0], xo[1], gate, shift, scale, 1e-6)
+
+                def plain(xo):
+                    return lm.residual_ln_mod_reference(xo[0], xo[1], gate, shift, scale, 1e-6)
+            else:
+                def call(xo):
+                    return lm.ln_mod(xo[0], shift, scale, 1e-6)
+
+                def plain(xo):
+                    return lm.ln_mod_reference(xo[0], shift, scale, 1e-6)
+
+            def kernel(xo):   # the outputs as one tensor
+                return torch.cat([t.view(-1) for t in call(xo)]) if residual else call(xo)
+
+            before = lm.LAUNCHES[name]
+            got = call((x, o))
+            launches = lm.LAUNCHES[name] - before
+            x_out, y = got if residual else (None, got)
+            want_x = plain((x, o))[0] if residual else x
+            torch.cuda.synchronize()
+            row = {"phase": "ln_mod", "kernel": name, "case": case, "shape": [b, s, d],
+                   "x_strides": list(x.stride()), "launches": launches,
+                   "x_out_equal": torch.equal(x_out, want_x) if residual else None,
+                   "y": ln_mod_agreement(y, want_x, shift, scale),
+                   "repeat_bits_equal": torch.equal(kernel((x, o)), kernel((x, o))),
+                   "graph_bits_equal": graph_equals_eager(lambda: kernel((x, o))),
+                   "ptxas": ptxas[(d // lm.CHUNK, int(residual))]}
+            if LN_CASES[case][3] == 0 and d == 3072:
+                pair = (x.numel() + o.numel()) * 2
+                copies = [(x, o)] + [(x.clone(), o.clone())
+                                     for _ in range(max(0, -(-(100 << 20) // pair) - 1))]
+                timed = rotated(call, copies)
+                # x read and y written; o read and x' written too in the residual form
+                nbytes = (x.numel() * 2 * (4 if residual else 2)
+                          + (shift.numel() + scale.numel() + (gate.numel() if residual else 0))
+                          * 2)
+                row.update({"ms": time_ms(timed, 20), "graph_ms": _bench.graph_ms(timed),
+                            "device_ms": device_ms(timed, 20, "ln_mod_kernel"),
+                            "plain_ms": time_ms(lambda: plain((x, o)), 5),
+                            "plain_graph_ms": _bench.graph_ms(lambda: plain((x, o)), 3),
+                            "library_ms": None, "bytes": nbytes, "input_copies": len(copies)})
+                row.update(bound(0, nbytes, PEAK_FP32))
+                row["bound_share"] = row["bound_ms"] / row["ms"]
+                row["bound_share_graph"] = row["bound_ms"] / row["graph_ms"]
+                row["gb_per_s_graph"] = nbytes / row["graph_ms"] / 1e6
+                if name not in report:
+                    report[name] = row
+                del copies, timed
+            report.setdefault(f"{name}_err", []).append(row["y"]["max_bf16_ulps"])
+            emit(row)
+            if (launches != 1 or row["x_out_equal"] is False or not row["repeat_bits_equal"]
+                    or not row["graph_bits_equal"] or not row["y"]["elements_explained"]):
+                fail(f"{name} {case} disagrees with its plain version")
+            del got, x_out, y, want_x
+        del x, o, shift, scale, gate
+    torch.cuda.empty_cache()
+
+
+def ln_mod_launch_counts(steps: int, n_blocks: int) -> dict:
+    """The launches of ``ln_mod`` and ``residual_ln_mod`` that one bf16
+    edit's structure implies (the CFG rows one batch, the slim last block
+    on).  Per step and full block: ``ln_mod`` for both streams' QKV inputs,
+    ``residual_ln_mod`` for both streams' first gated residual and MLP
+    input; the slim last block two ``ln_mod`` and one ``residual_ln_mod``
+    (its text stream has no MLP); the final layer one ``ln_mod``."""
+    return {"ln_mod": steps * (2 * n_blocks + 1), "residual_ln_mod": steps * (2 * n_blocks - 1)}
+
+
 def w4_launch_counts(tm: dict, steps: int, n_blocks: int, n_layers: int,
                      vit_depth: int) -> dict:
     """The launches of K1-K6 that one W4 edit's structure implies (CFG 4,
     reasoner on, kv_int8).  Per CFG step and full block: four K4 (the QKV
     and fc1 inputs of both streams), two K5 (fc2), one K6, one
     ``qk_norm_rope``; the slim last block three K4, one K5, one K6, one
-    ``qk_norm_rope``.  K3 runs every kernel-sized W4 linear:
+    ``qk_norm_rope``; the final layer's modulated LayerNorm one ``ln_mod``
+    (the fused path keeps its gated residuals eager: no
+    ``residual_ln_mod``).  K3 runs every kernel-sized W4 linear:
     in the DiT per full block the two modulations (M = 2) and qkv, out, fc1
     and fc2 of both streams, in the slim block the two modulations, both
     QKV and the image stream's out, fc1 and fc2; in the VL text model qkv,
@@ -905,7 +1079,7 @@ def w4_launch_counts(tm: dict, steps: int, n_blocks: int, n_layers: int,
             "ln_mod_quant": steps * (4 * (n_blocks - 1) + 3),
             "gelu_quant": steps * (2 * (n_blocks - 1) + 1),
             "transpose_quant": steps * n_blocks,
-            "qk_norm_rope": steps * n_blocks}
+            "qk_norm_rope": steps * n_blocks, "ln_mod": steps, "residual_ln_mod": 0}
 
 
 def w8a8_int_mm_per_step(dit) -> int:
@@ -1252,11 +1426,12 @@ def train_launch_counts(n_blocks: int, quantized: bool) -> dict:
     input carries a gradient (the modulations' input, the timestep
     embedding, does not), but for three in the last block: its text-stream
     output is unused, so to_add_out, fc1 and fc2 of that stream get no
-    gradient.  ``qk_norm_rope`` has no backward: with grad on, the blocks
-    take the eager q / k norm and RoPE."""
+    gradient.  ``qk_norm_rope``, ``ln_mod`` and ``residual_ln_mod`` have no
+    backward: with grad on, the blocks take their eager plain versions."""
     return {"fixedmax_attention": 2 * n_blocks, "fixedmax_attention_bwd": n_blocks,
             "w4a8_matmul": 20 * n_blocks if quantized else 0,
-            "w4_bwd_dx": 8 * n_blocks - 3 if quantized else 0, "qk_norm_rope": 0}
+            "w4_bwd_dx": 8 * n_blocks - 3 if quantized else 0, "qk_norm_rope": 0,
+            "ln_mod": 0, "residual_ln_mod": 0}
 
 
 def train_regime_counts(n_blocks: int, quantized: bool) -> dict:
@@ -5359,6 +5534,7 @@ def main() -> int:
     k3_phase(report, gen, time_ms)
     fused_quant_phase(report, gen, time_ms)
     qk_norm_rope_phase(report, gen, time_ms)
+    ln_mod_phase(report, gen, time_ms)
 
     from physicedit_torch.pipeline.testing import build_random_pipeline, random_pipeline
 
@@ -5473,16 +5649,22 @@ def main() -> int:
         k1 = fa.LAUNCHES["fixedmax_attention"] - before["fixedmax_attention"]
         k2 = fa.LAUNCHES["gqa_causal_attention"] - before["gqa_causal_attention"]
         qk = counts()["qk_norm_rope"] - before["qk_norm_rope"]
+        ln = {k: counts()[k] - before[k] for k in ("ln_mod", "residual_ln_mod")}
+        ln_want = ln_mod_launch_counts(args.steps, n_blocks)
         # one reasoner prefill row and one prompt-encode chunk (both CFG rows)
         k2_want = n_layers * (1 + 1)
         row.update({"k1_launches": k1, "k1_expected": args.steps * n_blocks,
                     "k2_launches": k2, "k2_expected": k2_want,
-                    "qk_norm_rope_launches": qk})
+                    "qk_norm_rope_launches": qk, "ln_mod_launches": ln,
+                    "ln_mod_expected": ln_want})
         emit({"phase": "edit", **row})
-        if k1 != args.steps * n_blocks or k2 != k2_want or qk != args.steps * n_blocks:
-            fail(f"launch counts K1 {k1} / K2 {k2} / qk_norm_rope {qk} differ from the "
-                 f"expected {args.steps * n_blocks} / {k2_want} / {args.steps * n_blocks}")
-    main_launches = {name: fa.LAUNCHES[name] for name in fa.LAUNCHES}
+        if (k1 != args.steps * n_blocks or k2 != k2_want or qk != args.steps * n_blocks
+                or ln != ln_want):
+            fail(f"launch counts K1 {k1} / K2 {k2} / qk_norm_rope {qk} / {ln} differ from the "
+                 f"expected {args.steps * n_blocks} / {k2_want} / {args.steps * n_blocks} / "
+                 f"{ln_want}")
+    main_launches = {**{name: fa.LAUNCHES[name] for name in fa.LAUNCHES},
+                     **{name: counts()[name] for name in ("ln_mod", "residual_ln_mod")}}
 
     # 8b. EliGen at full width (K7); 8c. batched serving
     eligen_launches = eligen_phase(pipe, edit_images[(1024, 1024)], args.steps, n_blocks,
@@ -5606,7 +5788,8 @@ def main() -> int:
     # full-CFG EliGen edit, the prototypes and the probes in their tools
     path_launches = {**w4_launches,
                      **{k: main_launches[k] for k in ("fixedmax_attention",
-                                                      "gqa_causal_attention")},
+                                                      "gqa_causal_attention", "ln_mod",
+                                                      "residual_ln_mod")},
                      **{k: train_launches[k] for k in ("fixedmax_attention_bwd", "w4_bwd_dx")},
                      "fixedmax_attention_bias": eligen_launches["fixedmax_attention_bias"],
                      **attention_launches, **proto_launches, **int8_launches}

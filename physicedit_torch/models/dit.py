@@ -42,14 +42,20 @@ Under ``torch.profiler`` (``core/trace.py``) the forward is the span
 ``pe.block.mod`` (the modulation linears), ``pe.block.qkv`` (modulated norm,
 QKV, q/k RMSNorm and RoPE into the joint q, k, v), ``pe.block.attn`` (the
 attention), ``pe.block.out`` (heads to features or K6, the output linears,
-the first gated residuals) and ``pe.block.mlp`` (both MLPs and their gated
-residuals).
+the first gated residuals on the fused W4 path or with grad on) and
+``pe.block.mlp`` (else the first gated residuals with the MLPs' modulated
+LayerNorms; both MLPs and their gated residuals).
 
 With grad off a block writes its joint q, k and v through
 ``kernels/qk_norm_rope.qk_norm_rope`` (one CUDA kernel for both streams on
 the card, which takes bf16 at head_dim 128 and refuses the rest; its plain
 version on the CPU); with grad on, through that plain version's eager ops
-(``qk_norm_rope_reference``), which autograd differentiates.
+(``qk_norm_rope_reference``), which autograd differentiates.  Likewise every
+modulated LayerNorm (:func:`_modulate`) goes through
+``kernels/ln_mod.ln_mod`` with grad off, and off the fused W4 path a block's
+first gated residual and the modulated LayerNorm of its MLP are one
+``kernels/ln_mod.residual_ln_mod`` at the start of ``pe.block.mlp``; with
+grad on, their plain versions' eager ops.
 
 Module attribute names follow the JAX parameter tree, so ``io/from_jax.py``
 can carry weights across by name.
@@ -70,11 +76,12 @@ from physicedit_torch.core.trace import span
 from physicedit_torch.kernels.flash_attention import (CLAMP, LOG2E, fixedmax_attention,
                                                       fixedmax_attention_bias)
 from physicedit_torch.kernels.fused_quant import gelu_quant, ln_mod_quant, transpose_quant
+from physicedit_torch.kernels.ln_mod import ln_mod, ln_mod_reference, residual_ln_mod
 from physicedit_torch.kernels.qk_norm_rope import qk_norm_rope, qk_norm_rope_reference
 from physicedit_torch.kernels.quant_matmul import W4Linear, w4a8_linear_q
 from physicedit_torch.lora import lora_delta, lora_delta_fused
 from physicedit_torch.ops.attention import sdpa_bnsd
-from physicedit_torch.ops.norms import approximate_gelu, layer_norm, rms_norm
+from physicedit_torch.ops.norms import approximate_gelu, rms_norm
 from physicedit_torch.parallel.sharding import TPLinear, lora_delta_tp
 
 
@@ -141,7 +148,9 @@ def timestep_embedding(t: torch.Tensor, dim: int, dtype) -> torch.Tensor:
 
 
 def _modulate(x, shift, scale, eps):
-    return layer_norm(x, eps=eps) * (1.0 + scale[:, None, :]) + shift[:, None, :]
+    """``LN(x) * (1 + scale) + shift``: the kernel has no backward, so with
+    grad on its plain version's eager ops."""
+    return (ln_mod_reference if torch.is_grad_enabled() else ln_mod)(x, shift, scale, eps)
 
 
 def _no_lora(y, x):
@@ -186,6 +195,18 @@ def _mlp(p: nn.ModuleDict, x, shift, scale, eps, fused: bool, add_lora=_no_lora,
             return w4a8_linear_q(p["fc2"], *gq, x.dtype)
     h = act(h)
     return add_lora(p["fc2"](h), h)
+
+
+def _residual_mlp(p: nn.ModuleDict, x, o, gate1, gate2, shift, scale, eps,
+                  add_lora=_no_lora, act=approximate_gelu):
+    """``x' + gate2 * fc2(act(fc1(modulate(x'))))`` for the first gated
+    residual ``x' = x + gate1 * o``, which ``residual_ln_mod`` computes with
+    the modulated LayerNorm in one kernel.  Each intermediate is let go as
+    the next is made, as in :func:`_mlp`."""
+    x, h = residual_ln_mod(x, o, gate1, shift, scale, eps)
+    h = p["fc1"](h)
+    h = act(h)
+    return x + gate2[:, None, :] * add_lora(p["fc2"](h), h)
 
 
 class DiTBlock(nn.Module):
@@ -242,6 +263,9 @@ class DiTBlock(nn.Module):
         # and no LoRA
         fq = (not lora and isinstance(a["img_qkv"], W4Linear)
               and (a["img_qkv"].in_features // 2) % 128 == 0)
+        # off the fused path and with grad off, the first gated residual rides
+        # the MLP's modulated LayerNorm (kernels/ln_mod.residual_ln_mod)
+        fused_residual = not fq and not torch.is_grad_enabled()
 
         with span("pe.block.mod"):
             img_mod = _with_lora(lora.get("img_mod"))(self.img_mod(temb_silu), temb_silu)
@@ -301,11 +325,16 @@ class DiTBlock(nn.Module):
                     out2 = out.transpose(1, 2).reshape(b, slim_base, -1)
                     img_o = _with_lora(lora.get("to_out"), lin=a["to_out"])(a["to_out"](out2),
                                                                             out2)
-                image = image[:, :slim_base] + im_g1[:, None, :] * img_o
+                if not fused_residual:
+                    image = image[:, :slim_base] + im_g1[:, None, :] * img_o
             with span("pe.block.mlp"):
-                image = image + im_g2[:, None, :] * _mlp(
-                    self.img_mlp, image, im_sh2, im_sc2, eps, fq,
-                    _with_lora(lora.get("img_mlp_fc2"), lin=self.img_mlp["fc2"]), self.act)
+                img_fc2_lora = _with_lora(lora.get("img_mlp_fc2"), lin=self.img_mlp["fc2"])
+                if fused_residual:
+                    image = _residual_mlp(self.img_mlp, image[:, :slim_base], img_o, im_g1,
+                                          im_g2, im_sh2, im_sc2, eps, img_fc2_lora, self.act)
+                else:
+                    image = image + im_g2[:, None, :] * _mlp(
+                        self.img_mlp, image, im_sh2, im_sc2, eps, fq, img_fc2_lora, self.act)
             return None, image
 
         with span("pe.block.out"):
@@ -325,15 +354,22 @@ class DiTBlock(nn.Module):
                                                                         img_attn)
                 txt_o = _with_lora(lora.get("to_add_out"), lin=a["to_add_out"])(
                     a["to_add_out"](txt_attn), txt_attn)
-            image = image + im_g1[:, None, :] * img_o
-            text = text + tx_g1[:, None, :] * txt_o
+            if not fused_residual:
+                image = image + im_g1[:, None, :] * img_o
+                text = text + tx_g1[:, None, :] * txt_o
         with span("pe.block.mlp"):
-            image = image + im_g2[:, None, :] * _mlp(
-                self.img_mlp, image, im_sh2, im_sc2, eps, fq,
-                _with_lora(lora.get("img_mlp_fc2"), lin=self.img_mlp["fc2"]), self.act)
-            text = text + tx_g2[:, None, :] * _mlp(
-                self.txt_mlp, text, tx_sh2, tx_sc2, eps, fq,
-                _with_lora(lora.get("txt_mlp_fc2"), lin=self.txt_mlp["fc2"]), self.act)
+            img_fc2_lora = _with_lora(lora.get("img_mlp_fc2"), lin=self.img_mlp["fc2"])
+            txt_fc2_lora = _with_lora(lora.get("txt_mlp_fc2"), lin=self.txt_mlp["fc2"])
+            if fused_residual:
+                image = _residual_mlp(self.img_mlp, image, img_o, im_g1, im_g2, im_sh2, im_sc2,
+                                      eps, img_fc2_lora, self.act)
+                text = _residual_mlp(self.txt_mlp, text, txt_o, tx_g1, tx_g2, tx_sh2, tx_sc2,
+                                     eps, txt_fc2_lora, self.act)
+            else:
+                image = image + im_g2[:, None, :] * _mlp(
+                    self.img_mlp, image, im_sh2, im_sc2, eps, fq, img_fc2_lora, self.act)
+                text = text + tx_g2[:, None, :] * _mlp(
+                    self.txt_mlp, text, tx_sh2, tx_sc2, eps, fq, txt_fc2_lora, self.act)
         return text, image
 
 
@@ -405,8 +441,7 @@ class DiT(nn.Module):
                                else run(image, text))
 
             scale, shift = self.norm_out["linear"](temb_silu).chunk(2, -1)
-            image = layer_norm(image, eps=1e-6) * (1.0 + scale[:, None, :]) + shift[:, None, :]
-            return self.proj_out(image)
+            return self.proj_out(_modulate(image, shift, scale, 1e-6))
 
 
 def attn_clamp_needed(dit: nn.Module) -> bool:

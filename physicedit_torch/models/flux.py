@@ -15,7 +15,8 @@ blocks, then 38 single-stream blocks over the joint sequence.
   residuals.  The text input has no RMSNorm (Qwen-Image's ``txt_norm``).
 - A single-stream block (:class:`FluxSingleBlock`): ``x = cat(txt, img)``;
   ``shift, scale, gate`` from one modulation; ``h = LN(x) * (1 + scale) +
-  shift``; q, k, v from one QKV projection of ``h`` with one q/k gain pair
+  shift`` (``models.dit._modulate``: ``kernels/ln_mod.ln_mod`` with grad
+  off); q, k, v from one QKV projection of ``h`` with one q/k gain pair
   and RoPE over the joint sequence (``kernels/qk_norm_rope.qk_norm_rope_joint``
   with grad off); the attention (K1); ``m = gelu_tanh(proj_mlp(h))`` beside
   it; ``x = x + gate * proj_out(cat(attn, m))``.  The last one runs slim:
@@ -51,7 +52,7 @@ from physicedit_torch.core.trace import span
 from physicedit_torch.kernels.flash_attention import fixedmax_attention
 from physicedit_torch.kernels.qk_norm_rope import qk_norm_rope_joint
 from physicedit_torch.models.dit import DiTBlock, _modulate, timestep_embedding
-from physicedit_torch.ops.norms import layer_norm, tanh_gelu
+from physicedit_torch.ops.norms import tanh_gelu
 
 
 @dataclasses.dataclass(frozen=True)
@@ -182,5 +183,4 @@ class FluxDiT(nn.Module):
                 x = x[:, s_t:]
 
             scale, shift = self.norm_out["linear"](temb_silu).chunk(2, -1)
-            x = layer_norm(x, eps=1e-6) * (1.0 + scale[:, None, :]) + shift[:, None, :]
-            return self.proj_out(x)
+            return self.proj_out(_modulate(x, shift, scale, 1e-6))

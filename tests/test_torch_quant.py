@@ -600,7 +600,8 @@ def test_w4_edit_launch_structure(monkeypatch):
     from physicedit_torch.models import dit as t_dit
 
     calls = dict.fromkeys(["fixedmax_attention", "w4a8_matmul", "ln_mod_quant",
-                           "gelu_quant", "transpose_quant", "qk_norm_rope"], 0)
+                           "gelu_quant", "transpose_quant", "qk_norm_rope", "ln_mod",
+                           "residual_ln_mod"], 0)
 
     def count(module, attr, name):
         real = getattr(module, attr)
@@ -613,6 +614,8 @@ def test_w4_edit_launch_structure(monkeypatch):
 
     count(t_dit, "fixedmax_attention", "fixedmax_attention")
     count(t_dit, "qk_norm_rope", "qk_norm_rope")
+    count(t_dit, "ln_mod", "ln_mod")
+    count(t_dit, "residual_ln_mod", "residual_ln_mod")
     count(tqm, "w4a8_matmul", "w4a8_matmul")
     for name in ("ln_mod_quant", "gelu_quant", "transpose_quant"):
         count(tfq, f"_{name}", name)

@@ -808,7 +808,7 @@ def test_train_launch_structure(monkeypatch, quantize):
     from physicedit_torch.models import dit as t_dit
 
     calls = dict.fromkeys(["fixedmax_attention", "fixedmax_attention_bwd", "w4a8_matmul",
-                           "w4_bwd_dx", "qk_norm_rope"], 0)
+                           "w4_bwd_dx", "qk_norm_rope", "ln_mod", "residual_ln_mod"], 0)
 
     def count(module, attr):
         real = getattr(module, attr)
@@ -821,6 +821,8 @@ def test_train_launch_structure(monkeypatch, quantize):
 
     count(t_dit, "fixedmax_attention")
     count(t_dit, "qk_norm_rope")
+    count(t_dit, "ln_mod")
+    count(t_dit, "residual_ln_mod")
     count(tfa, "fixedmax_attention_bwd")
     count(tqm, "w4a8_matmul")
     count(tqm, "w4_bwd_dx")

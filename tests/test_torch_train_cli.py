@@ -228,7 +228,7 @@ def test_train_launch_structure_adafactor_and_accumulation(monkeypatch, optimize
     from physicedit_torch.models import dit as t_dit
 
     calls = dict.fromkeys(["fixedmax_attention", "fixedmax_attention_bwd", "w4a8_matmul",
-                           "w4_bwd_dx", "qk_norm_rope"], 0)
+                           "w4_bwd_dx", "qk_norm_rope", "ln_mod", "residual_ln_mod"], 0)
 
     def spy(module, attr):
         real = getattr(module, attr)
@@ -241,6 +241,8 @@ def test_train_launch_structure_adafactor_and_accumulation(monkeypatch, optimize
 
     spy(t_dit, "fixedmax_attention")
     spy(t_dit, "qk_norm_rope")
+    spy(t_dit, "ln_mod")
+    spy(t_dit, "residual_ln_mod")
     spy(tfa, "fixedmax_attention_bwd")
     trainable = trainable_from_jax(_jax_trainable(TRAIN_DIT, 32), TRAIN_DIT, device="cpu")
     opt = t_ts.make_optimizer(1e-3, name=optimizer, gradient_accumulation_steps=accum)

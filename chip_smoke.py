@@ -1427,7 +1427,7 @@ def train_launch_counts(n_blocks: int, quantized: bool) -> dict:
     embedding, does not), but for three in the last block: its text-stream
     output is unused, so to_add_out, fc1 and fc2 of that stream get no
     gradient.  ``qk_norm_rope``, ``ln_mod`` and ``residual_ln_mod`` have no
-    backward: with grad on, the blocks take their eager plain versions."""
+    backward: with grad on, their wrappers run the eager plain versions."""
     return {"fixedmax_attention": 2 * n_blocks, "fixedmax_attention_bwd": n_blocks,
             "w4a8_matmul": 20 * n_blocks if quantized else 0,
             "w4_bwd_dx": 8 * n_blocks - 3 if quantized else 0, "qk_norm_rope": 0,
@@ -5533,8 +5533,9 @@ def main() -> int:
     # 5. K3 at the W4 lane's shapes; 6. K4-K6, and the q / k RMSNorm + RoPE
     k3_phase(report, gen, time_ms)
     fused_quant_phase(report, gen, time_ms)
-    qk_norm_rope_phase(report, gen, time_ms)
-    ln_mod_phase(report, gen, time_ms)
+    with torch.no_grad():   # the two kernels serve calls made with grad off
+        qk_norm_rope_phase(report, gen, time_ms)
+        ln_mod_phase(report, gen, time_ms)
 
     from physicedit_torch.pipeline.testing import build_random_pipeline, random_pipeline
 

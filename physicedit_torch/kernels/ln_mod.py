@@ -12,11 +12,12 @@ The kernel keeps the eager ops' roundings (``ops/norms.layer_norm``, its
 result cast to x's dtype before the affine, then the affine's bf16 ops);
 only the order of the statistics' sums differs.  Those eager ops are the
 plain versions, :func:`ln_mod_reference` and
-:func:`residual_ln_mod_reference`: the wrappers run them on CPU tensors, and
-the DiT calls them itself with grad on, since the kernel has no backward.
-For a CUDA tensor a wrapper launches the kernel or raises (not bf16, a
-width that is not a multiple of 256 up to 3072, misaligned or strided
-operands); it never falls back.  ``LAUNCHES`` counts the launches.
+:func:`residual_ln_mod_reference`.  The kernel has no backward, so it serves
+calls made with grad off: a wrapper runs its plain version, which autograd
+differentiates, with grad on and on CPU tensors.  Otherwise it launches the
+kernel or raises (not bf16, a width that is not a multiple of 256 up to
+3072, misaligned or strided operands); it never falls back.  ``LAUNCHES``
+counts the launches.
 """
 from __future__ import annotations
 
@@ -93,8 +94,10 @@ _RESIDUAL_ARGTYPES = ([ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c
 
 def ln_mod(x, shift, scale, eps: float = 1e-6):
     """``LN(x) * (1 + scale) + shift`` of x [B, S, D] (its rows may be
-    strided) with shift and scale [B, D]; returns a contiguous [B, S, D]."""
-    if x.device.type == "cpu":
+    strided) with shift and scale [B, D]; returns a contiguous [B, S, D].
+    The kernel has no backward, so it serves calls made with grad off; with
+    grad on, or on CPU tensors, the plain version."""
+    if x.device.type == "cpu" or torch.is_grad_enabled():
         return ln_mod_reference(x, shift, scale, eps)
     b, s, d = _check("ln_mod", x, {"shift": shift, "scale": scale})
     y = x.new_empty((b, s, d))
@@ -109,8 +112,10 @@ def residual_ln_mod(x, o, gate, shift, scale, eps: float = 1e-6):
     """The gated residual ``x' = x + gate * o`` and the modulated LayerNorm
     of x' (read as rounded to x's dtype): x [B, S, D] (its rows may be
     strided), o [B, S, D] contiguous, gate, shift and scale [B, D].
-    Returns (x', y), both contiguous [B, S, D]."""
-    if x.device.type == "cpu":
+    Returns (x', y), both contiguous [B, S, D].  The kernel has no
+    backward, so it serves calls made with grad off; with grad on, or on
+    CPU tensors, the plain version."""
+    if x.device.type == "cpu" or torch.is_grad_enabled():
         return residual_ln_mod_reference(x, o, gate, shift, scale, eps)
     b, s, d = _check("residual_ln_mod", x, {"gate": gate, "shift": shift, "scale": scale})
     if o.shape != x.shape or not o.is_contiguous():

@@ -12,12 +12,12 @@ image rows only.
 
 The kernel keeps the eager path's roundings (``ops/norms.rms_norm``, then
 ``ops/rope.apply_rope``); only the order of the 128 squares' sum differs.
-Those eager ops are the plain version, :func:`qk_norm_rope_reference`: the
-wrapper runs it on CPU tensors, and ``DiTBlock`` calls it with grad on,
-since the kernel has no backward.  For a CUDA tensor the wrapper launches
-the kernel or raises (fp32, head_dim other than 128, a table elsewhere,
-misaligned or strided operands); it never falls back.  ``LAUNCHES`` counts
-the launches, one per block.
+Those eager ops are the plain version, :func:`qk_norm_rope_reference`.  The
+kernel has no backward, so it serves calls made with grad off: the wrapper
+runs the plain version, which autograd differentiates, with grad on and on
+CPU tensors.  Otherwise it launches the kernel or raises (fp32, head_dim
+other than 128, a table elsewhere, misaligned or strided operands); it never
+falls back.  ``LAUNCHES`` counts the launches, one per block.
 
 :func:`qk_norm_rope_joint` serves the FLUX DiT's single-stream blocks
 (``models/flux.py``), whose one QKV projection ``[B, S_t + S_i, 3 N D]``
@@ -152,8 +152,10 @@ def qk_norm_rope(img_qkv, txt_qkv, gains, img_cos, img_sin, txt_cos, txt_sin,
     [D]; each stream's cos / sin [S, D / 2], or [B or 1, 1, S, D / 2] for a
     table per batch row.  Returns q [B, N, S_t + S_i, D] (or [B, N,
     slim_base, D], the first image rows, when ``slim_base > 0``), k and v
-    [B, N, S_t + S_i, D], contiguous."""
-    if img_qkv.device.type == "cpu":
+    [B, N, S_t + S_i, D], contiguous.  The kernel has no backward, so it
+    serves calls made with grad off; with grad on, or on CPU tensors, the
+    plain version."""
+    if img_qkv.device.type == "cpu" or torch.is_grad_enabled():
         return qk_norm_rope_reference(img_qkv, txt_qkv, gains, img_cos, img_sin, txt_cos,
                                       txt_sin, eps, slim_base)
     return _qk_norm_rope_cuda(img_qkv, txt_qkv, gains, img_cos, img_sin, txt_cos, txt_sin,
@@ -161,12 +163,10 @@ def qk_norm_rope(img_qkv, txt_qkv, gains, img_cos, img_sin, txt_cos, txt_sin,
 
 
 def qk_norm_rope_joint(qkv, s_t: int, gains, img_cos, img_sin, txt_cos, txt_sin,
-                       eps: float = 1e-6, slim_base: int = 0, plain: bool = False):
+                       eps: float = 1e-6, slim_base: int = 0):
     """q, k, v of a single-stream block: qkv [B, S_t + S_i, 3 N D], the text
     rows first; gains the (q, k) RMSNorm scales [D], shared by both parts;
     the tables as :func:`qk_norm_rope`'s.  The two parts are views of
-    ``qkv`` handed to :func:`qk_norm_rope` (or, with ``plain``, to
-    :func:`qk_norm_rope_reference`) as its two streams."""
-    fn = qk_norm_rope_reference if plain else qk_norm_rope
-    return fn(qkv[:, s_t:], qkv[:, :s_t], tuple(gains) * 2, img_cos, img_sin, txt_cos, txt_sin,
-              eps, slim_base)
+    ``qkv`` handed to :func:`qk_norm_rope` as its two streams."""
+    return qk_norm_rope(qkv[:, s_t:], qkv[:, :s_t], tuple(gains) * 2, img_cos, img_sin,
+                        txt_cos, txt_sin, eps, slim_base)

@@ -41,21 +41,20 @@ Under ``torch.profiler`` (``core/trace.py``) the forward is the span
 ``pe.dit``, each block call ``pe.dit.block``, and a block's five segments
 ``pe.block.mod`` (the modulation linears), ``pe.block.qkv`` (modulated norm,
 QKV, q/k RMSNorm and RoPE into the joint q, k, v), ``pe.block.attn`` (the
-attention), ``pe.block.out`` (heads to features or K6, the output linears,
-the first gated residuals on the fused W4 path or with grad on) and
-``pe.block.mlp`` (else the first gated residuals with the MLPs' modulated
-LayerNorms; both MLPs and their gated residuals).
+attention), ``pe.block.out`` (heads to features or K6, the output linears)
+and ``pe.block.mlp`` (each stream's tail: the first gated residual, the
+MLP's modulated LayerNorm, the MLP and its gated residual).
 
-With grad off a block writes its joint q, k and v through
+A block writes its joint q, k and v through
 ``kernels/qk_norm_rope.qk_norm_rope`` (one CUDA kernel for both streams on
-the card, which takes bf16 at head_dim 128 and refuses the rest; its plain
-version on the CPU); with grad on, through that plain version's eager ops
-(``qk_norm_rope_reference``), which autograd differentiates.  Likewise every
-modulated LayerNorm (:func:`_modulate`) goes through
-``kernels/ln_mod.ln_mod`` with grad off, and off the fused W4 path a block's
-first gated residual and the modulated LayerNorm of its MLP are one
-``kernels/ln_mod.residual_ln_mod`` at the start of ``pe.block.mlp``; with
-grad on, their plain versions' eager ops.
+the card, which takes bf16 at head_dim 128 and refuses the rest), its
+modulated LayerNorms through ``kernels/ln_mod.ln_mod``, and, off the fused
+W4 path, a stream's first gated residual with the MLP's modulated LayerNorm
+through ``kernels/ln_mod.residual_ln_mod``.  These kernels have no backward:
+with grad on, as on the CPU, the wrappers run their plain versions, which
+autograd differentiates.  A stream's tail (:func:`_residual_mlp`) is one
+function for both streams and both block shapes: the slim last block runs
+the image stream's over its first ``slim_base`` rows and none for the text.
 
 Module attribute names follow the JAX parameter tree, so ``io/from_jax.py``
 can carry weights across by name.
@@ -76,8 +75,8 @@ from physicedit_torch.core.trace import span
 from physicedit_torch.kernels.flash_attention import (CLAMP, LOG2E, fixedmax_attention,
                                                       fixedmax_attention_bias)
 from physicedit_torch.kernels.fused_quant import gelu_quant, ln_mod_quant, transpose_quant
-from physicedit_torch.kernels.ln_mod import ln_mod, ln_mod_reference, residual_ln_mod
-from physicedit_torch.kernels.qk_norm_rope import qk_norm_rope, qk_norm_rope_reference
+from physicedit_torch.kernels.ln_mod import ln_mod, residual_ln_mod
+from physicedit_torch.kernels.qk_norm_rope import qk_norm_rope
 from physicedit_torch.kernels.quant_matmul import W4Linear, w4a8_linear_q
 from physicedit_torch.lora import lora_delta, lora_delta_fused
 from physicedit_torch.ops.attention import sdpa_bnsd
@@ -147,12 +146,6 @@ def timestep_embedding(t: torch.Tensor, dim: int, dtype) -> torch.Tensor:
     return torch.cat([torch.cos(ang), torch.sin(ang)], dim=-1).to(dtype)
 
 
-def _modulate(x, shift, scale, eps):
-    """``LN(x) * (1 + scale) + shift``: the kernel has no backward, so with
-    grad on its plain version's eager ops."""
-    return (ln_mod_reference if torch.is_grad_enabled() else ln_mod)(x, shift, scale, eps)
-
-
 def _no_lora(y, x):
     return y
 
@@ -180,31 +173,30 @@ def _mod_linear(lin, x, shift, scale, eps, fused: bool, add_lora=_no_lora):
         fq = ln_mod_quant(x, shift, scale, eps)
         if fq is not None:
             return w4a8_linear_q(lin, *fq, x.dtype)
-    xn = _modulate(x, shift, scale, eps)
+    xn = ln_mod(x, shift, scale, eps)
     return add_lora(lin(xn), xn)
 
 
-def _mlp(p: nn.ModuleDict, x, shift, scale, eps, fused: bool, add_lora=_no_lora,
-         act=approximate_gelu):
-    """``fc2(act(fc1(modulate(x))))`` with fc2's LoRA delta; on the fused
-    path K5 makes fc2's int8 input (K5 computes ``approximate_gelu``)."""
-    h = _mod_linear(p["fc1"], x, shift, scale, eps, fused)
-    if fused and act is approximate_gelu and isinstance(p["fc2"], W4Linear):
-        gq = gelu_quant(h)
-        if gq is not None:
-            return w4a8_linear_q(p["fc2"], *gq, x.dtype)
-    h = act(h)
-    return add_lora(p["fc2"](h), h)
-
-
-def _residual_mlp(p: nn.ModuleDict, x, o, gate1, gate2, shift, scale, eps,
+def _residual_mlp(p: nn.ModuleDict, x, o, gate1, gate2, shift, scale, eps, fused: bool,
                   add_lora=_no_lora, act=approximate_gelu):
-    """``x' + gate2 * fc2(act(fc1(modulate(x'))))`` for the first gated
-    residual ``x' = x + gate1 * o``, which ``residual_ln_mod`` computes with
-    the modulated LayerNorm in one kernel.  Each intermediate is let go as
-    the next is made, as in :func:`_mlp`."""
-    x, h = residual_ln_mod(x, o, gate1, shift, scale, eps)
-    h = p["fc1"](h)
+    """A stream's tail: ``x' + gate2 * fc2(act(fc1(modulate(x'))))`` for the
+    first gated residual ``x' = x + gate1 * o``, with fc2's LoRA delta.  On
+    the fused path x' is eager, K4 makes fc1's int8 input and K5 fc2's (K5
+    computes ``approximate_gelu``); otherwise ``residual_ln_mod`` computes
+    x' with the modulated LayerNorm in one kernel.  Each intermediate is let
+    go as the next is made."""
+    if fused:
+        x = x + gate1[:, None, :] * o
+        h = _mod_linear(p["fc1"], x, shift, scale, eps, fused)
+        if act is approximate_gelu and isinstance(p["fc2"], W4Linear):
+            gq = gelu_quant(h)
+            if gq is not None:
+                y = w4a8_linear_q(p["fc2"], *gq, x.dtype)
+                del h, gq   # let them go before the residual is made
+                return x + gate2[:, None, :] * y
+    else:
+        x, h = residual_ln_mod(x, o, gate1, shift, scale, eps)
+        h = p["fc1"](h)
     h = act(h)
     return x + gate2[:, None, :] * add_lora(p["fc2"](h), h)
 
@@ -254,8 +246,7 @@ class DiTBlock(nn.Module):
         units) or "ring" (:func:`ring_joint_attention`; not with ``slim_base``).
         """
         cfg = self.cfg
-        b, s_i, d = image.shape
-        s_t = text.shape[1]
+        b, s_t = image.shape[0], text.shape[1]
         eps = cfg.eps
         a = self.attn
         lora = lora or {}
@@ -263,9 +254,6 @@ class DiTBlock(nn.Module):
         # and no LoRA
         fq = (not lora and isinstance(a["img_qkv"], W4Linear)
               and (a["img_qkv"].in_features // 2) % 128 == 0)
-        # off the fused path and with grad off, the first gated residual rides
-        # the MLP's modulated LayerNorm (kernels/ln_mod.residual_ln_mod)
-        fused_residual = not fq and not torch.is_grad_enabled()
 
         with span("pe.block.mod"):
             img_mod = _with_lora(lora.get("img_mod"))(self.img_mod(temb_silu), temb_silu)
@@ -281,10 +269,8 @@ class DiTBlock(nn.Module):
             # text prefix, image suffix on the joint axis; [B, N, S, D] contiguous
             gains = (a["norm_q"].scale, a["norm_k"].scale, a["norm_added_q"].scale,
                      a["norm_added_k"].scale)
-            # the kernel has no backward: with grad on, its plain version's eager ops
-            joint = qk_norm_rope_reference if torch.is_grad_enabled() else qk_norm_rope
-            q, k, v = joint(img_qkv, txt_qkv, gains, img_cos, img_sin, txt_cos, txt_sin, eps,
-                            slim_base)
+            q, k, v = qk_norm_rope(img_qkv, txt_qkv, gains, img_cos, img_sin, txt_cos, txt_sin,
+                                   eps, slim_base)
 
         with span("pe.block.attn"):
             rows = attn_bias_log2
@@ -311,65 +297,40 @@ class DiTBlock(nn.Module):
                 raise ValueError(f"attn_impl {attn_impl!r}: the DiT takes 'kernels', 'dense' "
                                  "or 'ring'")
 
-        # K6: the heads-to-features transpose and the row quantize in one pass
-        if slim_base:
-            with span("pe.block.out"):
-                if fq and isinstance(a["to_out"], W4Linear):
-                    fq_attn = transpose_quant(out)
-                    if fq_attn is None:
-                        # the JAX package has no unfused path here either
-                        raise ValueError(f"transpose_quant cannot tile the slim last block's "
-                                         f"{slim_base} rows")
-                    img_o = w4a8_linear_q(a["to_out"], *fq_attn, image.dtype)
-                else:
-                    out2 = out.transpose(1, 2).reshape(b, slim_base, -1)
-                    img_o = _with_lora(lora.get("to_out"), lin=a["to_out"])(a["to_out"](out2),
-                                                                            out2)
-                if not fused_residual:
-                    image = image[:, :slim_base] + im_g1[:, None, :] * img_o
-            with span("pe.block.mlp"):
-                img_fc2_lora = _with_lora(lora.get("img_mlp_fc2"), lin=self.img_mlp["fc2"])
-                if fused_residual:
-                    image = _residual_mlp(self.img_mlp, image[:, :slim_base], img_o, im_g1,
-                                          im_g2, im_sh2, im_sc2, eps, img_fc2_lora, self.act)
-                else:
-                    image = image + im_g2[:, None, :] * _mlp(
-                        self.img_mlp, image, im_sh2, im_sc2, eps, fq, img_fc2_lora, self.act)
-            return None, image
-
         with span("pe.block.out"):
+            # out's rows: the text stream's [:t], then the image stream's.  The
+            # slim block queried only its first slim_base image rows, and its
+            # text stream ends at the attention
+            t = 0 if slim_base else s_t
+            image = image[:, :slim_base] if slim_base else image
+            lins = [a["to_out"]] if slim_base else [a["to_out"], a["to_add_out"]]
             fq_attn = None
-            if (fq and isinstance(a["to_out"], W4Linear)
-                    and isinstance(a["to_add_out"], W4Linear)):
+            if fq and all(isinstance(lin, W4Linear) for lin in lins):
+                # K6: the heads-to-features transpose and the row quantize in one pass
                 fq_attn = transpose_quant(out)
-            if fq_attn is not None:
-                q_all, sc_all = fq_attn
-                img_o = w4a8_linear_q(a["to_out"], q_all[:, s_t:], sc_all[:, s_t:], image.dtype)
-                txt_o = w4a8_linear_q(a["to_add_out"], q_all[:, :s_t], sc_all[:, :s_t],
-                                      image.dtype)
-            else:
-                out = out.transpose(1, 2).reshape(b, s_t + s_i, -1)
-                img_attn, txt_attn = out[:, s_t:], out[:, :s_t]
-                img_o = _with_lora(lora.get("to_out"), lin=a["to_out"])(a["to_out"](img_attn),
-                                                                        img_attn)
-                txt_o = _with_lora(lora.get("to_add_out"), lin=a["to_add_out"])(
-                    a["to_add_out"](txt_attn), txt_attn)
-            if not fused_residual:
-                image = image + im_g1[:, None, :] * img_o
-                text = text + tx_g1[:, None, :] * txt_o
+                if fq_attn is None and slim_base:
+                    # the JAX package has no unfused path here either
+                    raise ValueError(f"transpose_quant cannot tile the slim last block's "
+                                     f"{slim_base} rows")
+            if fq_attn is None:
+                out = out.transpose(1, 2).reshape(b, t + image.shape[1], -1)
+
+            def project(lin, part, leaf):
+                if fq_attn is not None:
+                    return w4a8_linear_q(lin, fq_attn[0][:, part], fq_attn[1][:, part],
+                                         image.dtype)
+                return _with_lora(leaf, lin=lin)(lin(out[:, part]), out[:, part])
+
+            img_o = project(a["to_out"], slice(t, None), lora.get("to_out"))
+            if not slim_base:
+                txt_o = project(a["to_add_out"], slice(0, t), lora.get("to_add_out"))
         with span("pe.block.mlp"):
             img_fc2_lora = _with_lora(lora.get("img_mlp_fc2"), lin=self.img_mlp["fc2"])
-            txt_fc2_lora = _with_lora(lora.get("txt_mlp_fc2"), lin=self.txt_mlp["fc2"])
-            if fused_residual:
-                image = _residual_mlp(self.img_mlp, image, img_o, im_g1, im_g2, im_sh2, im_sc2,
-                                      eps, img_fc2_lora, self.act)
-                text = _residual_mlp(self.txt_mlp, text, txt_o, tx_g1, tx_g2, tx_sh2, tx_sc2,
-                                     eps, txt_fc2_lora, self.act)
-            else:
-                image = image + im_g2[:, None, :] * _mlp(
-                    self.img_mlp, image, im_sh2, im_sc2, eps, fq, img_fc2_lora, self.act)
-                text = text + tx_g2[:, None, :] * _mlp(
-                    self.txt_mlp, text, tx_sh2, tx_sc2, eps, fq, txt_fc2_lora, self.act)
+            image = _residual_mlp(self.img_mlp, image, img_o, im_g1, im_g2, im_sh2, im_sc2, eps,
+                                  fq, img_fc2_lora, self.act)
+            text = None if slim_base else _residual_mlp(
+                self.txt_mlp, text, txt_o, tx_g1, tx_g2, tx_sh2, tx_sc2, eps, fq,
+                _with_lora(lora.get("txt_mlp_fc2"), lin=self.txt_mlp["fc2"]), self.act)
         return text, image
 
 
@@ -441,7 +402,7 @@ class DiT(nn.Module):
                                else run(image, text))
 
             scale, shift = self.norm_out["linear"](temb_silu).chunk(2, -1)
-            return self.proj_out(_modulate(image, shift, scale, 1e-6))
+            return self.proj_out(ln_mod(image, shift, scale, 1e-6))
 
 
 def attn_clamp_needed(dit: nn.Module) -> bool:

@@ -15,13 +15,12 @@ blocks, then 38 single-stream blocks over the joint sequence.
   residuals.  The text input has no RMSNorm (Qwen-Image's ``txt_norm``).
 - A single-stream block (:class:`FluxSingleBlock`): ``x = cat(txt, img)``;
   ``shift, scale, gate`` from one modulation; ``h = LN(x) * (1 + scale) +
-  shift`` (``models.dit._modulate``: ``kernels/ln_mod.ln_mod`` with grad
-  off); q, k, v from one QKV projection of ``h`` with one q/k gain pair
-  and RoPE over the joint sequence (``kernels/qk_norm_rope.qk_norm_rope_joint``
-  with grad off); the attention (K1); ``m = gelu_tanh(proj_mlp(h))`` beside
-  it; ``x = x + gate * proj_out(cat(attn, m))``.  The last one runs slim:
-  only the first ``slim_last`` image rows (the target's) are queried and
-  carried on.
+  shift`` (``kernels/ln_mod.ln_mod``); q, k, v from one QKV projection of
+  ``h`` with one q/k gain pair and RoPE over the joint sequence
+  (``kernels/qk_norm_rope.qk_norm_rope_joint``); the attention (K1);
+  ``m = gelu_tanh(proj_mlp(h))`` beside it; ``x = x + gate *
+  proj_out(cat(attn, m))``.  The last one runs slim: only the first
+  ``slim_last`` image rows (the target's) are queried and carried on.
 - The final layer: ``scale, shift`` (diffusers' order) from
   ``norm_out.linear``, then ``proj_out`` over the target rows.
 
@@ -33,6 +32,9 @@ modulated LayerNorm, the QKV projection and the q/k kernel),
 ``pe.single.attn``, ``pe.single.mlp`` (``proj_mlp`` and the GELU) and
 ``pe.single.out`` (heads to features, the concatenation, ``proj_out`` and
 the gated residual).
+
+The q/k and ``ln_mod`` kernels have no backward: with grad on, as on the
+CPU, their wrappers run the plain versions, which autograd differentiates.
 
 ``io/convert.flux_key_map`` maps diffusers' state-dict keys onto these
 modules.  No LoRA, EliGen, ControlNet, dense, ring or W4 lane, and no text
@@ -50,8 +52,9 @@ from torch import nn
 from physicedit_torch.core.params import Leaf, linear
 from physicedit_torch.core.trace import span
 from physicedit_torch.kernels.flash_attention import fixedmax_attention
+from physicedit_torch.kernels.ln_mod import ln_mod
 from physicedit_torch.kernels.qk_norm_rope import qk_norm_rope_joint
-from physicedit_torch.models.dit import DiTBlock, _modulate, timestep_embedding
+from physicedit_torch.models.dit import DiTBlock, timestep_embedding
 from physicedit_torch.ops.norms import tanh_gelu
 
 
@@ -107,11 +110,10 @@ class FluxSingleBlock(nn.Module):
         with span("pe.single.mod"):
             shift, scale, gate = self.mod(temb_silu).chunk(3, -1)
         with span("pe.single.qkv"):
-            h = _modulate(x, shift, scale, self.cfg.eps)
-            # the kernel has no backward: with grad on, its plain version's eager ops
+            h = ln_mod(x, shift, scale, self.cfg.eps)
             q, k, v = qk_norm_rope_joint(a["qkv"](h), s_t, (a["norm_q"].scale, a["norm_k"].scale),
                                          img_cos, img_sin, txt_cos, txt_sin, self.cfg.eps,
-                                         slim_base, plain=torch.is_grad_enabled())
+                                         slim_base)
         with span("pe.single.attn"):
             out = fixedmax_attention(q, k, v, clamp=attn_clamp)
         if slim_base:
@@ -183,4 +185,4 @@ class FluxDiT(nn.Module):
                 x = x[:, s_t:]
 
             scale, shift = self.norm_out["linear"](temb_silu).chunk(2, -1)
-            return self.proj_out(_modulate(x, shift, scale, 1e-6))
+            return self.proj_out(ln_mod(x, shift, scale, 1e-6))

@@ -63,8 +63,8 @@ def denoise(dit: DiT, latents, extra_img_tokens, prompt_emb, txt_mask,
     inpaint_mask [1, h, w, 1] in [0, 1] (1 = repaint) with input_latents
     [1, h, w, 16]: outside the mask the velocity is the one the clean
     latents imply.  control: a ``models.controlnet.Control`` (its ``step``
-    is set here), which turns the slim last block off.  lora: live LoRA
-    factors (``lora.DiTLoRA``), which turn it off too, as does the ring.
+    is set here).  lora: live LoRA factors (``lora.DiTLoRA``).  With either,
+    and under the ring, ``DiT.forward`` runs its last block full.
     attn_impl: the DiT's ("kernels", "dense" or "ring").  The loop runs
     under no-grad unless ``grad`` (``train.loss.direct_distill_loss``
     differentiates through it).  dit_inputs: further keyword inputs of every
@@ -79,9 +79,6 @@ def denoise(dit: DiT, latents, extra_img_tokens, prompt_emb, txt_mask,
         k = cfg_truncate_after
         if k is not None and k < 0:
             raise ValueError(f"cfg_truncate_after must be >= 0, got {k}")
-
-        slim = base if (slim_last and control is None and lora is None
-                        and attn_impl != "ring") else 0
 
         for i in range(sigmas.shape[0]):
             with span("pe.denoise.step"):
@@ -114,9 +111,10 @@ def denoise(dit: DiT, latents, extra_img_tokens, prompt_emb, txt_mask,
                 if control is not None:
                     control = dataclasses.replace(control, step=i)
                 out = dit(img_tokens, prompt_emb, t_norm, img_cos, img_sin, txt_cos, txt_sin,
-                          txt_key_mask=txt_mask, slim_last=slim, attn_clamp=attn_clamp,
-                          attn_bias_log2=attn_bias_log2, control=control, lora=lora,
-                          attn_impl=attn_impl, **(dit_inputs or {}))
+                          txt_key_mask=txt_mask, slim_last=base if slim_last else 0,
+                          attn_clamp=attn_clamp, attn_bias_log2=attn_bias_log2,
+                          control=control, lora=lora, attn_impl=attn_impl,
+                          **(dit_inputs or {}))
                 v = unpatchify(out[:, :base], h, w)
                 if reps == 2:
                     v_posi, v_nega = v[:n_items], v[n_items:]

@@ -1606,12 +1606,15 @@ def test_qk_norm_rope_kernel_matches_the_eager_path_on_cuda(cuda, case):
     block and a small odd shape with per-row text tables: v bit for bit; q
     and k head rows bit for bit, but at most QK_ROWS_APART_MAX of them that
     equal the eager row with its bf16 rsqrt one ulp up or down: the order of
-    the 128 squares' sum may move it (chip_smoke.py's gates)."""
+    the 128 squares' sum may move it (chip_smoke.py's gates).  With grad on
+    the wrapper launches nothing and gives the plain version's bits and
+    gradients."""
     from chip_smoke import head_rows_agreement, qk_norm_rope_inputs
 
     args, slim_base = qk_norm_rope_inputs(case, cuda, torch.Generator(cuda).manual_seed(7))
     before = tqk.LAUNCHES["qk_norm_rope"]
-    q, k, v = tqk.qk_norm_rope(*args, 1e-6, slim_base)
+    with torch.no_grad():
+        q, k, v = tqk.qk_norm_rope(*args, 1e-6, slim_base)
     assert tqk.LAUNCHES["qk_norm_rope"] == before + 1
     q_ref, k_ref, v_ref = tqk.qk_norm_rope_reference(*args, 1e-6, slim_base)
     assert q.shape == q_ref.shape and k.shape == k_ref.shape and q.is_contiguous()
@@ -1619,7 +1622,24 @@ def test_qk_norm_rope_kernel_matches_the_eager_path_on_cuda(cuda, case):
     for which, got, want in ((0, q, q_ref), (1, k, k_ref)):
         agree = head_rows_agreement(got, want, args, which, slim_base)
         assert agree["rows_explained"], agree
-    assert all(map(torch.equal, (q, k, v), tqk.qk_norm_rope(*args, 1e-6, slim_base)))
+    with torch.no_grad():
+        assert all(map(torch.equal, (q, k, v), tqk.qk_norm_rope(*args, 1e-6, slim_base)))
+
+    img, txt, gains, *tables = args
+    mine, plain = ([t.detach().clone().requires_grad_() for t in (img, txt, *gains)]
+                   for _ in range(2))
+    with torch.enable_grad():
+        got = tqk.qk_norm_rope(mine[0], mine[1], tuple(mine[2:]), *tables, 1e-6, slim_base)
+        want = tqk.qk_norm_rope_reference(plain[0], plain[1], tuple(plain[2:]), *tables, 1e-6,
+                                          slim_base)
+        cot = [torch.randn(t.shape, device=cuda, generator=torch.Generator(cuda).manual_seed(8))
+               .bfloat16() for t in want]
+        # the slim block's q holds no text row: the text q gain gets no gradient
+        grads = [torch.autograd.grad(out, leaves, cot, allow_unused=True)
+                 for out, leaves in ((got, mine), (want, plain))]
+    assert tqk.LAUNCHES["qk_norm_rope"] == before + 2
+    assert all(map(torch.equal, got, want))
+    assert all(a is b is None or torch.equal(a, b) for a, b in zip(*grads))
 
 
 def _tiny_dit_on(device):
@@ -1678,13 +1698,14 @@ def test_qk_norm_rope_raises_on_unsupported_inputs(cuda):
 
     (img, txt, gains, *tables), _ = qk_norm_rope_inputs(
         "small_odd", cuda, torch.Generator(cuda).manual_seed(0))
-    with pytest.raises(ValueError, match="bfloat16"):
-        tqk.qk_norm_rope(img.float(), txt.float(), tuple(x.float() for x in gains), *tables)
-    with pytest.raises(ValueError, match="head_dim 64"):
-        tqk.qk_norm_rope(img[..., :15 * 64], txt[..., :15 * 64],
-                         tuple(x[:64] for x in gains), *tables)
-    with pytest.raises(ValueError, match="text cos"):
-        tqk.qk_norm_rope(img, txt, gains, *tables[:2], tables[2].cpu(), tables[3])
+    with torch.no_grad():
+        with pytest.raises(ValueError, match="bfloat16"):
+            tqk.qk_norm_rope(img.float(), txt.float(), tuple(x.float() for x in gains), *tables)
+        with pytest.raises(ValueError, match="head_dim 64"):
+            tqk.qk_norm_rope(img[..., :15 * 64], txt[..., :15 * 64],
+                             tuple(x[:64] for x in gains), *tables)
+        with pytest.raises(ValueError, match="text cos"):
+            tqk.qk_norm_rope(img, txt, gains, *tables[:2], tables[2].cpu(), tables[3])
 
     dit = _tiny_dit_on(cuda).float()
     ropes = [torch.from_numpy(r).to(cuda) for r in build_rope_tables([(1, 4, 4)], 8)]

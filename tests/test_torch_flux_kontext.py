@@ -324,9 +324,10 @@ JOINT_CASES = {"cell_block": (1, 24, 512, (64, 64), 0),
 def test_joint_qkv_mode_matches_its_plain_version_on_cuda(cuda, case):
     """The q / k kernel on a single-stream block's one QKV tensor (its text
     and image rows as the two streams' views, strided at batch 2, no copy):
-    one launch; v bit for bit; q and k rows bit for bit but at most
-    QK_ROWS_APART_MAX of them, each the eager row with its bf16 rsqrt one
-    ulp away (``chip_smoke.head_rows_agreement``, the two-stream gates)."""
+    one launch with grad off; v bit for bit; q and k rows bit for bit but at
+    most QK_ROWS_APART_MAX of them, each the eager row with its bf16 rsqrt
+    one ulp away (``chip_smoke.head_rows_agreement``, the two-stream gates).
+    With grad on no launch, and the plain version's bits and gradients."""
     from chip_smoke import head_rows_agreement
 
     b, n, s_t, (h, w), slim = JOINT_CASES[case]
@@ -338,14 +339,28 @@ def test_joint_qkv_mode_matches_its_plain_version_on_cuda(cuda, case):
     tables = [torch.from_numpy(t).to(cuda)
               for t in flux_rope_tables([(1, h, w), (1, h, w)], s_t)]
     before = tqk.LAUNCHES["qk_norm_rope"]
-    got = tqk.qk_norm_rope_joint(qkv, s_t, gains, *tables, 1e-6, slim)
+    with torch.no_grad():
+        got = tqk.qk_norm_rope_joint(qkv, s_t, gains, *tables, 1e-6, slim)
     assert tqk.LAUNCHES["qk_norm_rope"] == before + 1
-    want = tqk.qk_norm_rope_joint(qkv, s_t, gains, *tables, 1e-6, slim, plain=True)
-    assert torch.equal(got[2], want[2])
     args = (qkv[:, s_t:], qkv[:, :s_t], gains * 2, *tables)
+    want = tqk.qk_norm_rope_reference(*args, 1e-6, slim)
+    assert torch.equal(got[2], want[2])
     for which in (0, 1):
         agree = head_rows_agreement(got[which], want[which], args, which, slim)
         assert agree["rows_explained"], agree
+
+    # with grad on: no launch, the plain version's bits and gradients
+    mine, plain = ([t.detach().clone().requires_grad_() for t in (qkv, *gains)]
+                   for _ in range(2))
+    with torch.enable_grad():
+        got = tqk.qk_norm_rope_joint(mine[0], s_t, mine[1:], *tables, 1e-6, slim)
+        want = tqk.qk_norm_rope_reference(plain[0][:, s_t:], plain[0][:, :s_t],
+                                          tuple(plain[1:]) * 2, *tables, 1e-6, slim)
+        cot = [torch.randn(t.shape, device=cuda, generator=g).bfloat16() for t in want]
+        grads = [torch.autograd.grad(out, leaves, cot) for out, leaves in ((got, mine),
+                                                                            (want, plain))]
+    assert tqk.LAUNCHES["qk_norm_rope"] == before + 1
+    assert all(map(torch.equal, got, want)) and all(map(torch.equal, *grads))
 
 
 @pytest.mark.cuda

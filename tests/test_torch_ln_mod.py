@@ -1,15 +1,16 @@
 """``kernels/ln_mod``: the bf16 modulated LayerNorm and the gated residual
 in front of it.
 
-On the CPU: the plain versions (what the wrappers run on CPU tensors, and
-the DiT with grad on) against today's eager formulas, written out here; the
-DiT block, the FLUX single block and both DiTs, grad on and grad off, against
-a copy of today's ``_modulate`` and gated residuals, bit for bit, with the
-wrappers' calls counted and no launch; and the calls one bf16 edit makes,
-as ``chip_smoke.py`` demands them.  On the card (skipped without one): the
-kernel against its plain versions, the launches of a grad-off forward, none
-under grad nor on the W4 fused path, and the inputs it refuses.  The file
-imports no JAX:
+On the CPU: the plain versions (what the wrappers run on CPU tensors and
+with grad on) against today's eager formulas, written out here; the DiT
+block, the FLUX single block and both DiTs, grad on and grad off, against
+the same forward with those formulas in place of the wrappers, bit for bit,
+with the wrappers' calls counted and no launch; and the calls one bf16 edit
+makes, as ``chip_smoke.py`` demands them.  On the card (skipped without
+one): the kernel against its plain versions, and with grad on the plain
+versions' bits and gradients with no launch; the launches of a grad-off
+forward, none under grad nor on the W4 fused path, and the inputs it
+refuses.  The file imports no JAX:
 
     python -m pytest --noconftest tests/test_torch_ln_mod.py -q
 """
@@ -38,7 +39,7 @@ def cuda():
 
 
 def old_modulate(x, shift, scale, eps):
-    """Today's ``models.dit._modulate`` with ``ops.norms.layer_norm``
+    """The modulated LayerNorm in eager ops, ``ops.norms.layer_norm``
     written out: fp32 mean and population variance, the result cast to x's
     dtype before the affine."""
     xf = x.float()
@@ -49,8 +50,14 @@ def old_modulate(x, shift, scale, eps):
 
 
 def old_residual(x, o, gate):
-    """Today's first gated residual of a block."""
+    """A block's first gated residual in eager ops."""
     return x + gate[:, None, :] * o
+
+
+def old_residual_ln_mod(x, o, gate, shift, scale, eps):
+    """The first gated residual, then ``old_modulate`` of its result."""
+    x = old_residual(x, o, gate)
+    return x, old_modulate(x, shift, scale, eps)
 
 
 def _operands(b, s, d, whole, dtype, device="cpu", seed=0):
@@ -179,15 +186,19 @@ FORWARDS = {
 }
 
 
+# the wrappers as the models import them
+WRAPPERS = ((t_dit, "ln_mod"), (t_dit, "residual_ln_mod"), (t_flux, "ln_mod"))
+
+
 def _spy(monkeypatch, calls):
-    for name in ("ln_mod", "residual_ln_mod"):
-        real = getattr(t_dit, name)
+    for module, name in WRAPPERS:
+        real = getattr(module, name)
 
         def counted(*a, real=real, name=name):
             calls[name] += 1
             return real(*a)
 
-        monkeypatch.setattr(t_dit, name, counted)
+        monkeypatch.setattr(module, name, counted)
 
 
 @pytest.mark.parametrize("grad", [False, True], ids=["grad_off", "grad_on"])
@@ -195,16 +206,16 @@ def _spy(monkeypatch, calls):
 @pytest.mark.parametrize("model", list(FORWARDS))
 def test_forwards_equal_todays_code(model, dtype, grad, monkeypatch):
     """A block or a DiT forward on the CPU, grad on or off, gives the bits of
-    the same forward through a copy of today's ``_modulate`` and gated
-    residuals.  With grad off it reaches the wrappers (their plain versions
-    here) as often as the card would launch the kernels; with grad on never;
-    no launch is counted either way."""
+    the same forward with the eager formulas (``old_modulate``, and the
+    gated residual followed by it) in place of the wrappers.  Either way it
+    reaches the wrappers (their plain versions here) as often as the card
+    would launch the kernels with grad off, and no launch is counted."""
     build, want_calls = FORWARDS[model]
     forward = build(dtype, "cpu")
     with monkeypatch.context() as m:
-        for module in (t_dit, t_flux):
-            m.setattr(module, "_modulate", old_modulate)
-        m.setattr(t_dit, "residual_ln_mod", None)   # today's code has none
+        for module, name in WRAPPERS:
+            m.setattr(module, name,
+                      old_residual_ln_mod if name == "residual_ln_mod" else old_modulate)
         with torch.enable_grad():
             want = forward()
     calls = dict.fromkeys(("ln_mod", "residual_ln_mod"), 0)
@@ -212,7 +223,7 @@ def test_forwards_equal_todays_code(model, dtype, grad, monkeypatch):
     before = dict(lm.LAUNCHES)
     with torch.set_grad_enabled(grad):
         got = forward()
-    assert tuple(calls.values()) == ((0, 0) if grad else want_calls)
+    assert tuple(calls.values()) == want_calls
     assert lm.LAUNCHES == before
     assert got.dtype == dtype and torch.equal(got, want)
 
@@ -248,23 +259,41 @@ def test_kernel_matches_the_plain_versions_on_cuda(cuda, case):
     statistics' order moves a LayerNorm value across a bf16 rounding edge,
     each such element the plain version's affine of that value one bf16 ulp
     up or down, at most LN_APART_MAX of them (``ln_mod_agreement``); one
-    launch a call, and a second call bit for bit."""
+    launch a call with grad off, and a second call bit for bit.  With grad
+    on no launch, and the plain versions' bits and gradients."""
     from chip_smoke import ln_mod_agreement, ln_mod_inputs
 
     x, o, (shift, scale, gate) = ln_mod_inputs(case, cuda, torch.Generator(cuda).manual_seed(5))
     before = dict(lm.LAUNCHES)
-    y = lm.ln_mod(x, shift, scale, EPS)
-    x_out, y_res = lm.residual_ln_mod(x, o, gate, shift, scale, EPS)
-    assert lm.LAUNCHES == {"ln_mod": before["ln_mod"] + 1,
-                           "residual_ln_mod": before["residual_ln_mod"] + 1}
+    with torch.no_grad():
+        y = lm.ln_mod(x, shift, scale, EPS)
+        x_out, y_res = lm.residual_ln_mod(x, o, gate, shift, scale, EPS)
+    launched = {"ln_mod": before["ln_mod"] + 1, "residual_ln_mod": before["residual_ln_mod"] + 1}
+    assert lm.LAUNCHES == launched
     want_x, _ = lm.residual_ln_mod_reference(x, o, gate, shift, scale, EPS)
     assert y.shape == x.shape and y.is_contiguous() and torch.equal(x_out, want_x)
     for got, ln_in in ((y, x), (y_res, want_x)):
         agree = ln_mod_agreement(got, ln_in, shift, scale)
         assert agree["elements_explained"], agree
-    assert torch.equal(y, lm.ln_mod(x, shift, scale, EPS))
-    assert all(map(torch.equal, (x_out, y_res), lm.residual_ln_mod(x, o, gate, shift, scale,
-                                                                    EPS)))
+    with torch.no_grad():
+        assert torch.equal(y, lm.ln_mod(x, shift, scale, EPS))
+        assert all(map(torch.equal, (x_out, y_res), lm.residual_ln_mod(x, o, gate, shift, scale,
+                                                                        EPS)))
+    launched = {name: n + 1 for name, n in launched.items()}
+
+    g = torch.Generator(cuda).manual_seed(6)
+    for fn, plain in ((lm.ln_mod, lm.ln_mod_reference),
+                      (lm.residual_ln_mod, lm.residual_ln_mod_reference)):
+        operands = (x, shift, scale) if fn is lm.ln_mod else (x, o, gate, shift, scale)
+        mine, ref = ([t.detach().clone().requires_grad_() for t in operands] for _ in range(2))
+        with torch.enable_grad():
+            got, want = fn(*mine, EPS), plain(*ref, EPS)
+            got, want = ((t,) if fn is lm.ln_mod else t for t in (got, want))
+            cot = [torch.randn(t.shape, device=cuda, generator=g).bfloat16() for t in want]
+            grads = [torch.autograd.grad(out, leaves, cot) for out, leaves in ((got, mine),
+                                                                                (want, ref))]
+        assert all(map(torch.equal, got, want)) and all(map(torch.equal, *grads))
+    assert lm.LAUNCHES == launched
 
 
 @pytest.mark.cuda
@@ -315,15 +344,16 @@ def test_ln_mod_raises_on_unsupported_inputs(cuda):
     shift beside CUDA inputs are refused; no eager path stands in."""
     x, o, shift, scale, gate = _operands(2, 24, 512, 0, torch.bfloat16, cuda)
     before = dict(lm.LAUNCHES)
-    with pytest.raises(ValueError, match="bfloat16"):
-        lm.ln_mod(x.float(), shift.float(), scale.float())
-    with pytest.raises(ValueError, match="bfloat16"):
-        lm.residual_ln_mod(x.float(), o.float(), gate.float(), shift.float(), scale.float())
-    with pytest.raises(ValueError, match="width 384"):
-        lm.ln_mod(x[..., :384], shift[:, :384], scale[:, :384])
-    wide = torch.zeros(2, 4, 3328, device=cuda, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="width 3328"):
-        lm.ln_mod(wide, wide[:, 0], wide[:, 0])
-    with pytest.raises(ValueError, match="shift"):
-        lm.ln_mod(x, shift.cpu(), scale)
+    with torch.no_grad():
+        with pytest.raises(ValueError, match="bfloat16"):
+            lm.ln_mod(x.float(), shift.float(), scale.float())
+        with pytest.raises(ValueError, match="bfloat16"):
+            lm.residual_ln_mod(x.float(), o.float(), gate.float(), shift.float(), scale.float())
+        with pytest.raises(ValueError, match="width 384"):
+            lm.ln_mod(x[..., :384], shift[:, :384], scale[:, :384])
+        wide = torch.zeros(2, 4, 3328, device=cuda, dtype=torch.bfloat16)
+        with pytest.raises(ValueError, match="width 3328"):
+            lm.ln_mod(wide, wide[:, 0], wide[:, 0])
+        with pytest.raises(ValueError, match="shift"):
+            lm.ln_mod(x, shift.cpu(), scale)
     assert lm.LAUNCHES == before

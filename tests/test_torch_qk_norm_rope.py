@@ -1,8 +1,8 @@
 """``kernels/qk_norm_rope``'s plain version on the CPU: against the JAX
 block's q / k RMSNorm, RoPE and text-first concatenate on the same inputs,
-where each stream's rows land, and the DiT, whose blocks call the wrapper
-with grad off and the plain version with grad on.  The CUDA kernel is held
-to the plain version on the card (``tests/test_torch_cuda.py``)."""
+where each stream's rows land, and the DiT, whose blocks call the wrapper,
+which runs the plain version with grad on.  The CUDA kernel is held to the
+plain version on the card (``tests/test_torch_cuda.py``)."""
 
 import jax
 import jax.numpy as jnp
@@ -136,9 +136,9 @@ def _tiny_dit(dtype, seed=0):
 @pytest.mark.parametrize("slim", [0, 16])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
 def test_dit_forward_without_grad_equals_the_eager_forward(dtype, slim, per_row, monkeypatch):
-    """The DiT with grad off (every block through ``qk_norm_rope``) gives the
-    bits of the same forward with grad on (every block through the eager
-    ops), the slim last block included."""
+    """The DiT with grad off gives the bits of the same forward with grad on
+    (the wrapper's plain version, the eager ops), the slim last block
+    included; every block calls ``qk_norm_rope`` under both."""
     dit = _tiny_dit(dtype)
     rng = np.random.default_rng(1)
     b, s_t, h, w = 2, 24, 4, 4
@@ -162,6 +162,6 @@ def test_dit_forward_without_grad_equals_the_eager_forward(dtype, slim, per_row,
     assert len(calls) == 2
     with torch.enable_grad():
         eager = forward()
-    assert len(calls) == 2
+    assert len(calls) == 4
     assert fused.shape == (b, slim or 2 * h * w, 64)
     assert torch.equal(fused, eager)

@@ -222,19 +222,23 @@ def test_trainer_counts_calls_under_accumulation(tiny_pipes):
 def test_train_launch_structure_adafactor_and_accumulation(monkeypatch, optimizer, accum):
     """The launches chip_smoke.py demands of a training step hold for the
     Adafactor step and for a step that only accumulates: the optimizer
-    launches no attention kernel."""
+    launches no attention kernel.  The q/k and ``ln_mod`` wrappers' calls
+    count as those made with grad off: their kernels have no backward."""
     import chip_smoke
     from physicedit_torch.kernels import flash_attention as tfa
     from physicedit_torch.models import dit as t_dit
 
     calls = dict.fromkeys(["fixedmax_attention", "fixedmax_attention_bwd", "w4a8_matmul",
                            "w4_bwd_dx", "qk_norm_rope", "ln_mod", "residual_ln_mod"], 0)
+    no_backward = ("qk_norm_rope", "ln_mod", "residual_ln_mod")
 
     def spy(module, attr):
         real = getattr(module, attr)
 
         def counted(*a, **k):
-            calls[attr] += 1
+            # with grad on these wrappers run their plain versions and launch nothing
+            if attr not in no_backward or not torch.is_grad_enabled():
+                calls[attr] += 1
             return real(*a, **k)
 
         monkeypatch.setattr(module, attr, counted)
